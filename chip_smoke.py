@@ -6,20 +6,41 @@
 Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
-  1. environment   card name and power limit, build time of the kernels
+  1. environment   card name and power limit; the three CUDA sources are
+                   built together, one nvcc each
   2. kernels       each kernel against its plain PyTorch version on the
-                   card, for configs 1 (Whitted), 2, 4 and 6 at 320x240,
-                   2 spp, 6 bounces, and at the main path's 800x600: there
+                   card, with kernel, plain and bound times:
+                   frame_kernel for configs 1 (Whitted), 2, 4 and 6 at
+                   320x240, 2 spp, 6 bounces, and at 800x600: there
                    checked at 2 spp, then timed and checked again (looser,
-                   TIMED_*) at the main path's spp (phase 3); kernel and
-                   plain times, and the kernel's bound
-  3. main path     Renderer at 800x600 with autofocus: config 1 1 spp
-                   Whitted, configs 2 and 6 64 spp, config 4 16 spp, all
-                   6 bounces; one warm-up frame and 2 timed frames each;
-                   every launch counter is zeroed just before this phase
-                   and must have moved by its end
-  4. goldens       configs 1, 2, 4, 6 at 160x120x4, seed 1234, against
+                   TIMED_*) at the main path's spp;
+                   brute_kernel (a 12x12 OBJ grid) and traverse_kernel
+                   (the 64,800-triangle terrain) on the 800x600 primary
+                   rays of the terrain camera and as many random rays, one
+                   in seven switched off;
+                   block_kernel on config 6's rays of one sample at 800x600
+  3. main paths    every launch counter is zeroed just before each and
+                   read just after.
+                   Frame path: Renderer at 800x600 with autofocus, config
+                   1 1 spp Whitted, configs 2, 4 and 6 16 spp, 6 bounces,
+                   one warm-up frame and 2 timed frames each.
+                   Per-bounce route: the terrain (bench.py's height
+                   function at n = 181, a metal and a glass sphere on it)
+                   through Renderer at 800x600, 8 spp, 6 bounces, one
+                   warm-up and 2 timed frames in path mode and one Whitted
+                   frame (traverse_kernel); a 12x12 grid loaded from an OBJ
+                   file through Renderer with fused="off" (brute_kernel)
+                   and through render_rays with fused="on" (block_kernel)
+  4. routes        the terrain on the card through the kernels against the
+                   plain route (pallas="off") at 320x240x2; the OBJ grid at
+                   160x120x4: block path, per-bounce route and frame kernel
+                   against each other (RMSE < 0.05)
+  5. goldens       configs 1, 2, 4, 6 at 160x120x4, seed 1234, against
                    tests/goldens/config{n}.png (RMSE < 0.05)
+
+With `--profile` it also traces one terrain frame of the per-bounce route
+with torch.profiler and records the card's busy share and the kernels
+that took most of it (phase `profile`).
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
@@ -29,11 +50,13 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W_CMP, H_CMP, SPP_CMP, BOUNCES = 320, 240, 2, 6
-MAIN = {1: (1, False), 2: (64, True), 4: (16, True), 6: (64, True)}
+MAIN = {1: (1, False), 2: (16, True), 4: (16, True), 6: (16, True)}
+TERRAIN_N, TERRAIN_SPP, TERRAIN_LEAF = 181, 8, 4
 GOLDEN = (160, 120, 4, 1234)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores
@@ -48,10 +71,21 @@ PEAK_F32 = 67e12
 # implicit march, bisection and gradient, shading, the sky) is not
 # counted, so the bound is a floor.
 OPS_QUERY, OPS_TRI, OPS_ELL, OPS_IMP, OPS_ROT = 7, 47, 47, 41, 30
-# Timed-spp parity (64 spp in cells 2 and 6): bit equality decays with
+# The forest kernels (csrc/forest_kernel.cu), counted from the source: a
+# box test is 6 subtractions, 6 products and 11 min/max; a dividing
+# triangle test 2 cross products (18), 4 dot products (20), the edge
+# vector (3), the reciprocal, 3 products by it and u + v.
+OPS_BOX, OPS_TRI_DIV = 23, 46
+# Timed-spp parity (16 spp in cells 2, 4 and 6): bit equality decays with
 # spp, one diverged pixel's later samples all differ, so the limits bound
 # the share of diverged pixels and the per-sample mean's error.
 TIMED_STATE_EQ, TIMED_FRAC_OFF, TIMED_MEAN_ABS = 0.95, 0.05, 5e-3
+
+
+# the tables the frame and block kernels read, and the forest kernels
+BRUTE_TABLES = ("tris", "attr", "uvt", "materials", "ell_tab", "imp_tab",
+                "ell_flags", "imp_info", "atlas", "slots", "mat_maps", "sky")
+FOREST_TABLES = ("nodes_f", "nodes_i", "wf_tris", "roots")
 
 
 class CheckFailed(RuntimeError):
@@ -76,6 +110,37 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def profile_route(torch, Renderer, RenderConfig, scene, info, cam, card,
+                  log):
+    """One 800x600 frame of the per-bounce route under torch.profiler:
+    how busy the card is and which kernels take its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = RenderConfig(width=800, height=600, samples_per_frame=TERRAIN_SPP,
+                       max_bounces=BOUNCES, auto_focus=True)
+    r = Renderer(scene, info, cfg, cam_pos=cam[0], cam_rot=cam[1], seed=2,
+                 device="cuda")
+    r.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    emit({"phase": "profile", "scene": "terrain", "spp": TERRAIN_SPP,
+          "wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
+          "device_kernels": int(sum(e.count for e in kernels)),
+          "top": [{"name": e.key[:80], "count": int(e.count),
+                   "ms": e.device_time_total / 1e3} for e in top],
+          "card": card}, log)
+
+
 def main() -> int:
     import torch
 
@@ -86,11 +151,15 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from pathtracer0_tpu_torch import RenderConfig, Renderer, scenes
+    from pathtracer0_tpu_torch import RenderConfig, Renderer, Scene, scenes
+    from pathtracer0_tpu_torch.core import camera
+    from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.core import rng as vrng
-    from pathtracer0_tpu_torch.kernels import build, frame
+    from pathtracer0_tpu_torch.kernels import build, frame, fused, wavefront
+    from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
-                                                       render_frame)
+                                                       render_frame,
+                                                       render_rays)
     from pathtracer0_tpu_torch.utils import image as img_util
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,9 +172,10 @@ def main() -> int:
 
     # ---- 1. environment + build --------------------------------------------
     t0 = time.perf_counter()
-    build.load()
-    ptxas = [ln.strip() for ln in build.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    build.build_all()
+    ptxas = {lib: [ln.strip() for ln in text.splitlines()
+                   if "registers" in ln or "spill" in ln]
+             for lib, text in build.ptxas_log.items()}
     emit({"phase": "environment", "card": card, "device": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas},
@@ -122,21 +192,28 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    def bound(sc, info, n_pix, queries):
-        """Least time for the frame: bytes (state in, state + radiance out,
-        the scene tables once) over the memory rate, or the float
-        operations every query surely does over the float32 rate,
-        whichever is larger."""
-        nbytes = n_pix * (8 + 8 + 12) + sum(
-            t.numel() * t.element_size() for t in vars(sc).values())
+    def table_bytes(sc, names):
+        return sum(getattr(sc, k).numel() * getattr(sc, k).element_size()
+                   for k in names)
+
+    def least(nbytes, ops, **more):
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+        return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "bytes": nbytes, "ops_lower_bound": ops, **more}
+
+    def bound(sc, info, n_rays, queries, ray_bytes=8 + 8 + 12):
+        """Least time for the frame or block kernel: bytes (per pixel
+        state in, state + radiance out; the block kernel also reads its
+        rays and alive mask; the scene tables once) over the memory rate,
+        or the float operations every query surely does over the float32
+        rate, whichever is larger."""
+        nbytes = n_rays * ray_bytes + table_bytes(sc, BRUTE_TABLES)
         n_rot = sum(info.ell_rotated) + sum(info.imp_rotated)
         ops = queries * (OPS_QUERY + OPS_TRI * info.num_tris
                          + OPS_ELL * info.num_ellipsoids
                          + OPS_IMP * info.num_implicits + OPS_ROT * n_rot)
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
-        return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                "bytes": nbytes, "ops_lower_bound": ops}
+        return least(nbytes, ops)
 
     # ---- 2. kernel vs plain version ---------------------------------------
     def compare(n, width, height, spp, spp_time):
@@ -220,8 +297,250 @@ def main() -> int:
     full = {n: compare(n, 800, 600, min(spp, SPP_CMP), spp)
             for n, (spp, _) in MAIN.items()}
 
-    # ---- 3. main path at full size -----------------------------------------
-    frame.trace_frame.launches = 0
+    # the slice's scenes: the terrain and the OBJ grid
+    def terrain_scene():
+        """bench.py's height function at n = TERRAIN_N as one mesh, a metal
+        and a glass sphere on it."""
+        n = TERRAIN_N
+        ext = 50.0 * (n / 708.0)
+        xs = np.linspace(-ext, ext, n)
+        X, Z = np.meshgrid(xs, xs)
+        Y = (np.sin(X * 0.35) * np.cos(Z * 0.28) * 1.8
+             + np.sin(X * 0.09 + 1.3) * 4.0
+             + np.random.RandomState(0).rand(n, n) * 0.15)
+        P = np.stack([X, Y, Z], axis=-1)
+        a, b, c, d = (P[:-1, :-1].reshape(-1, 3), P[1:, :-1].reshape(-1, 3),
+                      P[:-1, 1:].reshape(-1, 3), P[1:, 1:].reshape(-1, 3))
+        sc = Scene()
+        sc.set_constant_sky((0.5, 0.6, 0.9))
+        sc.add_material("terrain")
+        sc.set_last_mtl("Kd", (0.45, 0.52, 0.38))
+        sc.set_last_mtl("Pr", 1.0)
+        sc.add_material("metal")
+        sc.set_last_mtl("Pm", 1.0)
+        sc.set_last_mtl("Pr", 0.05)
+        sc.set_last_mtl("Ks", (0.9, 0.85, 0.7))
+        sc.set_last_mtl("Kd", (0.9, 0.85, 0.7))
+        sc.add_material("glass")
+        sc.set_last_mtl("Tr", 0.92)
+        sc.set_last_mtl("Ni", 1.5)
+        sc.set_last_mtl("illum", 7)
+        sc.set_last_mtl("Tf", (0.05, 0.22, 0.25))
+        sc.set_last_mtl("Density", 0.8)
+        sc.add_mesh(np.concatenate([a, d]), np.concatenate([b, b]),
+                    np.concatenate([c, c]), 0)
+        sc.add_sphere((-2.5, 7.0, -4.0), 1.5, m=1)
+        sc.add_sphere((2.5, 7.0, -5.0), 1.5, m=2)
+        t0 = time.perf_counter()
+        out = sc.build(config=RenderConfig(max_tris_in_leaf=TERRAIN_LEAF))
+        return (*out, time.perf_counter() - t0)
+
+    terrain_cam = ((0.0, 14.0, -50.0 * (TERRAIN_N / 708.0) * 1.16),
+                   (0.25, 0.0, 0.0))
+
+    def grid_scene(tmp):
+        """A 12x12 jittered triangle grid written to an OBJ file and
+        loaded through Scene.add_object."""
+        rng = np.random.RandomState(0)
+        lines, faces = ["o grid"], []
+        for i in range(12):
+            for k in range(12):
+                bx, bz, by = i * 0.7, k * 0.7, rng.rand() * 1.5
+                for v in ((bx, by, bz), (bx + 0.6, by + rng.randn() * 0.3, bz),
+                          (bx, by + rng.randn() * 0.3, bz + 0.6)):
+                    lines.append("v %.5f %.5f %.5f" % v)
+                n = 3 * len(faces)
+                faces.append(f"f {n + 1} {n + 2} {n + 3}")
+        path = os.path.join(tmp, "grid.obj")
+        with open(path, "w") as f:
+            f.write("\n".join(lines + faces) + "\n")
+        sc = Scene()
+        sc.set_constant_sky((0.5, 0.6, 0.9))
+        sc.add_material("grid")
+        sc.set_last_mtl("Kd", (0.6, 0.55, 0.4))
+        sc.set_last_mtl("Pr", 0.9)
+        sc.add_material("glass")
+        sc.set_last_mtl("Tr", 0.92)
+        sc.set_last_mtl("Ni", 1.5)
+        sc.set_last_mtl("illum", 7)
+        sc.add_object(path, material=0)
+        sc.add_sphere((4.2, 2.4, 3.0), 0.9, m=1)
+        return sc.build(config=RenderConfig(max_tris_in_leaf=TERRAIN_LEAF))
+
+    grid_cam = ((4.2, 3.2, -1.5), (0.55, 0.0, 0.0))
+    terrain, terrain_info, terrain_build_s = terrain_scene()
+    with tempfile.TemporaryDirectory() as tmp:
+        grid, grid_info = grid_scene(tmp)
+    emit({"phase": "scenes", "terrain_tris": terrain_info.num_tris,
+          "terrain_leaves": terrain_info.num_leaves,
+          "terrain_depth": terrain_info.forest_depth,
+          "terrain_build_s": terrain_build_s,
+          "grid_tris": grid_info.num_tris,
+          "grid_leaves": grid_info.num_leaves}, log)
+    check(terrain_info.num_tris == 2 * (TERRAIN_N - 1) ** 2
+          and not wavefront.use_brute(terrain_info),
+          "the terrain must go to traverse_kernel")
+    check(wavefront.use_brute(grid_info) and fused.eligible(grid_info),
+          "the OBJ grid must go to brute_kernel and block_kernel")
+
+    def sample_rays(cam, rot, width, height, seed=4321):
+        """One sample's rays of a camera, as the renderer makes them."""
+        cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in (cam, rot))
+        state = vrng.seed(torch.arange(width * height, device=dev), seed)
+        o, d, state = frame._raygen(
+            cam, vm.rotation_matrix(rot), torch.tensor(20.0, device=dev),
+            state, width, height, cam_size=1.5, focal_length=1.0, blur=0.001)
+        return [c.contiguous() for c in o], [c.contiguous() for c in d], state
+
+    def compare_forest(kernel, sc, info, cam, rot):
+        """A forest kernel against its plain version: the camera's primary
+        rays at 800x600 and as many random rays from above the scene, one
+        in seven switched off."""
+        o, d, _ = sample_rays(cam, rot, 800, 600)
+        n = o[0].shape[0]
+        g = torch.Generator(device="cpu").manual_seed(7)
+        root_boxes = sc.nodes_f[sc.roots.to(torch.int64)].cpu()
+        lo, hi = root_boxes[:, 0:3].amin(0), root_boxes[:, 3:6].amax(0)
+        ro = lo + (hi - lo) * torch.rand(n, 3, generator=g) \
+            + torch.tensor([0.0, 3.0, 0.0])
+        # from above the scene, mostly downwards
+        rd = torch.randn(n, 3, generator=g) + torch.tensor([0.0, -1.0, 0.0])
+        rd = rd / rd.norm(dim=1, keepdim=True)
+        o = tuple(torch.cat([o[i], ro[:, i].to(dev)]) for i in range(3))
+        d = tuple(torch.cat([d[i], rd[:, i].to(dev)]) for i in range(3))
+        t_init = torch.where(torch.arange(2 * n, device=dev) % 7 == 0,
+                             0.0, 1e30)
+        live = t_init > 0.0
+        before = wavefront.launches[kernel]
+        out_k = wavefront.trace_forest(o, d, t_init, sc, info)
+        torch.cuda.synchronize()
+        check(wavefront.launches[kernel] == before + 1,
+              f"trace_forest did not launch {kernel}")
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out_p = wavefront.trace_forest_reference(o, d, t_init, sc, info)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        ms = cuda_ms(lambda: wavefront.trace_forest(o, d, t_init, sc, info),
+                     5)
+        tk, uk, vk, ik, bk, lk = out_k
+        tp, up, vp, ip, bp, lp = out_p
+        same = ik == ip
+        err = max(float((x[same] - y[same]).abs().max())
+                  for x, y in ((uk, up), (vk, vp)))
+        t_rel = ((tk - tp).abs() / (1.0 + tp.abs()))[tp < 1e29]
+        err = max(err, float(t_rel.max()) if t_rel.numel() else 0.0)
+        box, leaf = int(bk.sum()), int(lk.sum())
+        # triangle tests: every row for a live ray of the brute kernel;
+        # for the walk, the leaves visited times the mean leaf size
+        tri_tests = (int(live.sum()) * info.num_tris if kernel
+                     == "brute_kernel"
+                     else leaf * info.num_tris / info.num_leaves)
+        rec = {"phase": "kernel_vs_plain", "kernel": kernel,
+               "rays": 2 * n, "live_rays": int(live.sum()),
+               "tris": info.num_tris, "leaves": info.num_leaves,
+               "hit_share": float((ik >= 0).float().mean()),
+               "idx_eq": float(same.float().mean()), "max_abs_err": err,
+               "t_miss_eq": bool(((tk > 1e29) == (tp > 1e29)).all()),
+               "box_eq": float((bk == bp).float().mean()),
+               "leaf_eq": float((lk == lp).float().mean()),
+               "dead_exact": bool(((tk == 0.0) & (ik == -1) & (bk == 0)
+                                   & (lk == 0))[~live].all()),
+               "box_tests": box, "leaf_visits": leaf,
+               "tri_tests": tri_tests, "ms": ms, "plain_ms": plain_ms,
+               **least(2 * n * (28 + 24) + table_bytes(sc, FOREST_TABLES),
+                       box * OPS_BOX + tri_tests * OPS_TRI_DIV),
+               "card": card}
+        emit(rec, log)
+        check(rec["idx_eq"] >= 0.999, f"{kernel}: rows equal on {rec}")
+        check(err <= 1e-5, f"{kernel}: t, u, v differ by {err}")
+        check(rec["t_miss_eq"] and rec["dead_exact"], f"{kernel}: {rec}")
+        check(0.05 < rec["hit_share"] < 0.95, f"{kernel}: hits {rec}")
+        if kernel == "traverse_kernel":
+            check(rec["box_eq"] >= 0.999 and rec["leaf_eq"] >= 0.999,
+                  f"{kernel}: counters {rec}")
+        else:
+            check(rec["box_eq"] == 1.0 and rec["leaf_eq"] == 1.0,
+                  f"{kernel}: counters {rec}")
+        return rec
+
+    def compare_block():
+        """block_kernel against integrator.trace_plain on config 6's rays
+        of one sample at 800x600, at the 2-spp limits."""
+        sc, info = scenes.BUILDERS[6]().build(device="cuda")
+        o, d, state = sample_rays(*scenes.CAMERAS[6], 800, 600)
+        alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+        kw = dict(max_bounces=BOUNCES)
+        before = fused.trace_block.launches
+        rad_k, st_k, q_k = fused.trace_block(sc, info, o, d, alive, state,
+                                             **kw)
+        torch.cuda.synchronize()
+        check(fused.trace_block.launches == before + 1,
+              "trace_block did not launch block_kernel")
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        inc, skyc, st_p, q_p = integrator.trace_plain(sc, info, o, d, alive,
+                                                      state, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        ms = cuda_ms(lambda: fused.trace_block(sc, info, o, d, alive, state,
+                                               **kw), 5)
+        rk = torch.stack(list(rad_k), -1)
+        rp = torch.stack([inc[i] + skyc[i] for i in range(3)], -1)
+        diff = (rk - rp).abs().amax(-1)
+        qk, qp = int(q_k), int(q_p.sum())
+        rec = {"phase": "kernel_vs_plain", "kernel": "block_kernel",
+               "config": 6, "rays": int(state.numel()),
+               "finite": bool(torch.isfinite(rk).all()),
+               "state_eq": float((st_k == st_p).float().mean()),
+               "frac_within_1e-4": float((diff < 1e-4).float().mean()),
+               "mean_abs": float((rk - rp).abs().mean()),
+               "max_abs_err": float(diff.max()), "queries_kernel": qk,
+               "queries_plain": qp, "ms": ms, "plain_ms": plain_ms,
+               **bound(sc, info, int(state.numel()), qk,
+                       ray_bytes=24 + 1 + 8 + 8 + 12), "card": card}
+        emit(rec, log)
+        check(rec["finite"], "block_kernel: output not finite")
+        check(rec["state_eq"] >= 0.99, f"block_kernel: {rec}")
+        check(rec["frac_within_1e-4"] >= 0.99, f"block_kernel: {rec}")
+        check(rec["mean_abs"] < 5e-3, f"block_kernel: {rec}")
+        check(abs(qk - qp) <= 0.01 * qp + 16, f"block_kernel: {rec}")
+        return rec
+
+    brute_rec = compare_forest("brute_kernel", grid, grid_info, *grid_cam)
+    walk_rec = compare_forest("traverse_kernel", terrain, terrain_info,
+                              *terrain_cam)
+    block_rec = compare_block()
+
+    def zero_counts():
+        frame.trace_frame.launches = 0
+        fused.trace_block.launches = 0
+        for k in wavefront.launches:
+            wavefront.launches[k] = 0
+
+    def timed_frames(r, n_frames):
+        """Warm-up frame, then `n_frames` timed ones: (wall ms, CUDA ms,
+        queries of the timed frames)."""
+        r.step()
+        torch.cuda.synchronize()
+        q0 = r.rays_traced
+        walls, events = [], []
+        for _ in range(n_frames):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            a.record()
+            r.step()
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+            events.append(a.elapsed_time(b))
+        return walls, events, r.rays_traced - q0
+
+    # ---- 3. main paths at full size --------------------------------------
+    zero_counts()
     main_rec = {}
     for n, (spp, raytracing) in MAIN.items():
         sc, info = scenes.BUILDERS[n]().build(device="cuda")
@@ -232,20 +551,7 @@ def main() -> int:
         r = Renderer(sc, info, cfg, cam_pos=cam, cam_rot=rot, seed=n,
                      device="cuda")
         before = frame.trace_frame.launches
-        r.step()                                   # warm-up
-        torch.cuda.synchronize()
-        q0 = r.rays_traced
-        walls, events = [], []
-        for _ in range(2):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t = time.perf_counter()
-            a.record()
-            r.step()
-            b.record()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t))
-            events.append(a.elapsed_time(b))
-        queries = r.rays_traced - q0
+        walls, events, queries = timed_frames(r, 2)
         img = r.display_image()
         rec = {"phase": "main_path", "config": n, "width": 800,
                "height": 600, "spp": spp, "bounces": BOUNCES,
@@ -262,8 +568,108 @@ def main() -> int:
     launches_main = frame.trace_frame.launches
     check(launches_main > 0, "the main path never launched frame_kernel")
 
-    # ---- 4. goldens ------------------------------------------------------
+    # the per-bounce route: terrain through Renderer, OBJ grid through
+    # Renderer (fused="off") and render_rays (fused="on")
+    zero_counts()
+    for raytracing in (True, False):
+        cfg = RenderConfig(width=800, height=600,
+                           samples_per_frame=TERRAIN_SPP,
+                           max_bounces=BOUNCES, raytracing=raytracing,
+                           auto_focus=True)
+        r = Renderer(terrain, terrain_info, cfg, cam_pos=terrain_cam[0],
+                     cam_rot=terrain_cam[1], seed=2, device="cuda")
+        before = wavefront.launches["traverse_kernel"]
+        walls, events, queries = timed_frames(r, 2 if raytracing else 1)
+        img = r.display_image()
+        sky = torch.tensor([0.5, 0.6, 0.9], device=dev)
+        rec = {"phase": "main_path", "scene": "terrain",
+               "tris": terrain_info.num_tris, "width": 800, "height": 600,
+               "spp": TERRAIN_SPP, "bounces": BOUNCES,
+               "whitted": not raytracing, "wall_ms": walls,
+               "cuda_ms": events, "queries": queries,
+               "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
+               "launches": wavefront.launches["traverse_kernel"] - before,
+               "covered": float(((img - sky).abs().amax(-1) > 0.02)
+                                .float().mean()),
+               "finite": bool(torch.isfinite(img).all()), "card": card}
+        main_rec["terrain_path" if raytracing else "terrain_whitted"] = rec
+        emit(rec, log)
+        check(rec["finite"], "terrain: image not finite")
+        check(0.1 < rec["covered"] < 0.98, f"terrain: picture {rec}")
+        check(rec["launches"] >= (3 if raytracing else 2) * TERRAIN_SPP,
+              f"terrain: launches {rec}")
     gw, gh, gspp, gseed = GOLDEN
+    grid_cfg = dict(width=gw, height=gh, samples_per_frame=gspp,
+                    max_bounces=BOUNCES, auto_focus=False,
+                    focal_distance=5.0)
+    r = Renderer(grid, grid_info, RenderConfig(fused="off", **grid_cfg),
+                 cam_pos=grid_cam[0], cam_rot=grid_cam[1], device="cuda")
+    grid_off = r.step(frame_seed=gseed).clone()
+    uv, index = camera.pixel_centers(gw, gh, dev)
+    grid_pose = [torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in grid_cam]
+    grid_on, _ = render_rays(grid, grid_info, uv, index, *grid_pose, gseed,
+                             torch.tensor(5.0, device=dev),
+                             config=RenderConfig(fused="on", **grid_cfg))
+    torch.cuda.synchronize()
+    launches_route = {"block_kernel": fused.trace_block.launches,
+                      **wavefront.launches}
+    emit({"phase": "main_path", "scene": "obj_grid",
+          "tris": grid_info.num_tris, "launches": dict(launches_route),
+          "frame_kernel_launches": frame.trace_frame.launches}, log)
+    check(all(v > 0 for v in launches_route.values()),
+          f"the per-bounce route missed a kernel: {launches_route}")
+    check(frame.trace_frame.launches == 0,
+          "the per-bounce route launched frame_kernel")
+
+    # ---- 4. routes against each other ------------------------------------
+    def route_frame(pallas):
+        cfg = RenderConfig(width=W_CMP, height=H_CMP,
+                           samples_per_frame=SPP_CMP, max_bounces=BOUNCES,
+                           auto_focus=False, focal_distance=20.0,
+                           pallas=pallas)
+        return render_frame(terrain, terrain_info, cfg, *terrain_cam, 4321,
+                            device="cuda")
+
+    img_k, q_k = route_frame("auto")
+    img_p, q_p = route_frame("off")
+    o, d, state = sample_rays(*terrain_cam, W_CMP, H_CMP)
+    alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+    st_k, st_p = (integrator.trace_bounces(
+        terrain, terrain_info, o, d, alive, state, max_bounces=BOUNCES,
+        pallas=pallas)[2] for pallas in ("auto", "off"))
+    diff = (img_k - img_p).abs().amax(-1)
+    route_rec = {"phase": "route_vs_plain_route", "scene": "terrain",
+                 "shape": [W_CMP, H_CMP, SPP_CMP, BOUNCES],
+                 "state_eq": float((st_k == st_p).float().mean()),
+                 "frac_within_1e-4": float((diff < 1e-4).float().mean()),
+                 "mean_abs": float((img_k - img_p).abs().mean()),
+                 "queries_kernel": int(q_k), "queries_plain": int(q_p)}
+    emit(route_rec, log)
+    check(route_rec["state_eq"] >= 0.99, f"route: {route_rec}")
+    check(route_rec["frac_within_1e-4"] >= 0.99, f"route: {route_rec}")
+    check(route_rec["mean_abs"] < 5e-3, f"route: {route_rec}")
+    check(abs(int(q_k) - int(q_p)) <= 0.01 * int(q_p) + 16,
+          f"route: {route_rec}")
+    grid_frame, _ = render_frame(grid, grid_info, RenderConfig(**grid_cfg),
+                                 *grid_cam, gseed, device="cuda")
+    imgs = {"block": grid_on.reshape(gh, gw, 3), "per_bounce": grid_off,
+            "frame": grid_frame}
+    imgs = {k: np.clip(v.cpu().numpy(), 0.0, 1.0) for k, v in imgs.items()}
+    rmse = {f"{a}_vs_{b}": img_util.rmse(imgs[a], imgs[b])
+            for a, b in (("block", "per_bounce"), ("block", "frame"),
+                         ("per_bounce", "frame"))}
+    emit({"phase": "routes", "scene": "obj_grid", "shape": list(GOLDEN[:3]),
+          "rmse": rmse, "budget": 0.05,
+          "picture_std": float(imgs["frame"].std())}, log)
+    check(all(v < 0.05 for v in rmse.values()), f"routes disagree: {rmse}")
+    check(imgs["frame"].std() > 0.05, "the OBJ grid is not in the picture")
+
+    if "--profile" in sys.argv[1:]:
+        profile_route(torch, Renderer, RenderConfig, terrain, terrain_info,
+                      terrain_cam, card, log)
+
+    # ---- 5. goldens ------------------------------------------------------
     for n in (1, 2, 4, 6):
         sc, info = scenes.BUILDERS[n]().build(device="cuda")
         cam, rot = scenes.CAMERAS[n]
@@ -298,7 +704,23 @@ def main() -> int:
                        for k, c in full.items()},
         "per_config_320x240": {str(k): {key: c[key] for key in keys}
                                for k, c in small.items()},
-    }]}
+    }] + [{
+        "name": kname, "route": "cuda",
+        "source": f"pathtracer0_tpu_torch/csrc/{src}", "replaces": replaces,
+        "launches": launches_route[kname],
+        **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+        "library_ms": None,
+        "detail": {k: v for k, v in rec.items()
+                   if k not in ("phase", "kernel", "card")},
+    } for kname, src, replaces, rec in (
+        ("block_kernel", "block_kernel.cu",
+         "pathtracer0_tpu/kernels/fused.py:1353 _fused_kernel", block_rec),
+        ("brute_kernel", "forest_kernel.cu",
+         "pathtracer0_tpu/kernels/wavefront.py:64 _brute_kernel", brute_rec),
+        ("traverse_kernel", "forest_kernel.cu",
+         "pathtracer0_tpu/kernels/wavefront.py:562 _traverse_kernel",
+         walk_rec))]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": log, **kernels}, f, indent=1)

@@ -1,11 +1,22 @@
 """Render configuration of the PyTorch/CUDA port.
 
 Same fields and defaults as the JAX package's `RenderConfig`, so a config
-can be written once and handed to either renderer. The JAX package's
-TPU execution knobs `pallas`, `fused` and `ray_batch_size` are kept for
-that reason but are ignored here: the port has one frame path (the
-whole-frame kernel on the card, its plain PyTorch version on the CPU) and
-no ray chunking.
+can be written once and handed to either renderer. Of that package's
+execution knobs the port reads two, both "auto", "on" or "off" (there is
+no "interpret": the plain PyTorch versions of the kernels serve the CPU):
+
+  fused   "auto" / "on": a scene the brute-force kernels take (at most
+          2048 triangles, 1..32 materials) renders through the whole-frame
+          kernel, and `render_rays` sends its rays to the block kernel;
+          "off": every scene goes the per-bounce route over the SAH forest
+  pallas  "auto" / "on": the forest is walked by the CUDA forest kernels
+          on the card and by their plain versions on the CPU; "off": by
+          the plain versions on any device (the yardstick)
+
+`ray_batch_size` is ignored: the port does not chunk rays.
+`traversal_stack_depth` is ignored too: the traversal stack is sized from
+the forest's depth. `max_bvh_depth`, `max_tris_in_leaf`, `sah_planes` and
+`stream_threshold` are read by `Scene.build(config=...)`.
 """
 from __future__ import annotations
 
@@ -42,9 +53,10 @@ class RenderConfig:
     max_tris_in_leaf: int = 1
     sah_planes: int = 5
 
-    # Ignored by the port (see module docstring).
+    # Routing (see the module docstring).
     pallas: str = "auto"
     fused: str = "auto"
+    # Ignored by the port (see the module docstring).
     ray_batch_size: int = 1 << 20
     traversal_stack_depth: int = 64
     refraction_stack_depth: int = 10

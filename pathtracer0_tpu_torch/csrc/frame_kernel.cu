@@ -21,182 +21,27 @@
 // (now per ray rather than per block). Staging the tables in shared
 // memory and regrouping rays for coherence are left for later work.
 //
-// Plain version: pathtracer0_tpu_torch/kernels/frame.py
-// `trace_frame_reference`.
-#include <cuda_runtime.h>
-
-#include "pathtrace.cuh"
+// The per-ray integrators are in integrate.cuh. Plain version:
+// pathtracer0_tpu_torch/kernels/frame.py `trace_frame_reference`.
+#include "integrate.cuh"
 
 using namespace pt;
 
 struct FrameArgs {
-  const float* mats;
-  const float* ell;
-  const float* imp;
-  const int* ell_flags;
-  const int* imp_info;
-  const float* tris;
-  const float* attr;
-  const float* uvt;
-  const float* atlas;
-  const int* slots;
-  const int* mat_maps;
-  const float* sky;
+  SceneArgs scene;
   const float* scal;  // cam_pos(3), rotation matrix(9) row-major, ifd
   const long long* state_in;
   long long* state_out;
   float* rad_out;                    // (H*W, 3) summed over spp, sky included
   unsigned long long* rays_out;      // scene queries, accumulated
-  int n_mats, n_ell, n_imp, n_tris, sky_h, sky_w;
-  int width, height, spp, max_bounces, stack_size, march_steps, bisect_iters;
-  float march_tmax, xs_scale, ys_scale, focal_length, blur;
-  int whitted, gate_ss;
+  int width, height, spp, max_bounces, stack_size;
+  float xs_scale, ys_scale, focal_length, blur;
+  int whitted;
 };
-
-__device__ __forceinline__ float mat_col(const Scene& sc, int mat, int col) {
-  return __ldg(sc.mats + mat * 48 + col);
-}
-
-// Path integrator for one ray (frag.glsl:810-882). Adds the radiance
-// without sky into inc and the sky into skyc; returns the queries made.
-__device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
-                          int max_bounces, int S, bool gate_ss, V3& inc,
-                          V3& skyc) {
-  V3 col = v3(1.0f, 1.0f, 1.0f);
-  float stk[MAX_STACK];
-#pragma unroll
-  for (int i = 0; i < MAX_STACK; ++i) stk[i] = 0.0f;
-  stk[0] = AIR_IOR;
-  int ssize = 1;
-  bool inobj = false;
-  V3 enter = v3(0.0f, 0.0f, 0.0f);
-  int queries = 0;
-  bool alive = true;
-  for (int bounce = 0; bounce < max_bounces && alive; ++bounce) {
-    ++queries;
-    V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-    Hit h = closest_hit(sc, on, d);
-    if (!h.is_hit) {
-      V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
-      if (col.x > 0.0f) skyc.x += s.x * col.x;
-      if (col.y > 0.0f) skyc.y += s.y * col.y;
-      if (col.z > 0.0f) skyc.z += s.z * col.z;
-      break;
-    }
-    V3 hx = v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z);
-    int m = h.mat;
-    V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
-    V3 Ks = v3(mat_col(sc, m, 6), mat_col(sc, m, 7), mat_col(sc, m, 8));
-    V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
-    V3 Tf = v3(mat_col(sc, m, 12), mat_col(sc, m, 13), mat_col(sc, m, 14));
-    ShadeFields f;
-    f.Tr = mat_col(sc, m, 11);
-    f.Tf = Tf;
-    f.illum = mat_col(sc, m, 20);
-    f.Pm = mat_col(sc, m, 24);
-    f.Pr = mat_col(sc, m, 25);
-    f.Pc = mat_col(sc, m, 27);
-    f.Pcr = mat_col(sc, m, 28);
-    f.subsurface = mat_col(sc, m, 41);
-    float Ni = mat_col(sc, m, 15), Density = mat_col(sc, m, 19);
-    V3 n = h.n;
-    V3 s;
-    if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
-    if (map_sample(sc, m, MAP_PM, h.tu, h.tv, &s)) f.Pm = s.x;
-    if (map_sample(sc, m, MAP_PR, h.tu, h.tv, &s)) f.Pr = s.x;
-    if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
-    if (map_sample(sc, m, MAP_KS, h.tu, h.tv, &s)) Ks = s;
-    if (map_sample(sc, m, MAP_PC, h.tu, h.tv, &s)) f.Pc = s.x;
-    if (map_sample(sc, m, MAP_TR, h.tu, h.tv, &s)) f.Tr = s.x;
-    if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
-
-    // normal flip by sign(N.D) (frag.glsl:829-830)
-    float nd = dot(n, d);
-    float flip = nd > 0.0f ? -1.0f : 1.0f;
-    n = v3(n.x * flip, n.y * flip, n.z * flip);
-
-    // refraction-index stack (frag.glsl:832-841)
-    bool entering = nd < 0.0f;
-    float s0 = stk[0], s1 = stk[1];
-    bool do_push = entering && ssize < S;
-    if (do_push) {
-#pragma unroll
-      for (int i = MAX_STACK - 1; i >= 1; --i)
-        if (i < S) stk[i] = stk[i - 1];
-      stk[0] = Ni;
-      ++ssize;
-    }
-    float n1 = entering ? stk[1] : s0;
-    float n2 = entering ? stk[0] : s1;
-    if (!entering && ssize > 0) {
-#pragma unroll
-      for (int i = 0; i < MAX_STACK - 1; ++i)
-        if (i < S - 1) stk[i] = stk[i + 1];
-#pragma unroll
-      for (int i = 0; i < MAX_STACK; ++i)
-        if (i == S - 1) stk[i] = 0.0f;
-      --ssize;
-    }
-
-    Lobe lobe = choose_ray(f, n1, n2, n, d, state, gate_ss);
-
-    // medium bookkeeping (frag.glsl:847-863)
-    bool transmitted = lobe.win == 3;
-    V3 dd = v3(enter.x - hx.x, enter.y - hx.y, enter.z - hx.z);
-    float dist = sqrtf(dot(dd, dd));
-    bool apply_absorb = transmitted && (!entering || inobj);
-    if (transmitted) {
-      inobj = entering;
-      if (entering) enter = hx;
-    }
-
-    // transport (frag.glsl:865-874)
-    inc.x += Ke.x * col.x;
-    inc.y += Ke.y * col.y;
-    inc.z += Ke.z * col.z;
-    bool cutoff = sqrtf(dot(col, col)) < 0.1f;
-    if (apply_absorb) {
-      col = v3(col.x * expf(-Tf.x * dist * Density), col.y * expf(-Tf.y * dist * Density),
-               col.z * expf(-Tf.z * dist * Density));
-    } else if (lobe.win != 4) {
-      V3 k = lobe.win == 2 ? Ks : Kd;
-      col = v3(col.x * k.x, col.y * k.y, col.z * k.z);
-    }
-    o = hx;
-    d = lobe.dir;
-    state = lobe.state;
-    alive = !cutoff;
-  }
-  return queries;
-}
-
-// Whitted shade (frag.glsl:655-681): Ka + Kd (0.2 + N.y) + Ke on a hit
-// with the unflipped normal, the sky on a miss.
-__device__ V3 direct_diffuse(const Scene& sc, V3 o, V3 d) {
-  V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-  Hit h = closest_hit(sc, on, d);
-  if (!h.is_hit) return sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
-  int m = h.mat;
-  V3 Ka = v3(mat_col(sc, m, 0), mat_col(sc, m, 1), mat_col(sc, m, 2));
-  V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
-  V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
-  V3 n = h.n, s;
-  if (map_sample(sc, m, MAP_KA, h.tu, h.tv, &s)) Ka = v3(Ka.x * s.x, Ka.y * s.y, Ka.z * s.z);
-  if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
-  if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
-  if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
-  return v3(Ka.x + Kd.x * (0.2f + n.y) + Ke.x, Ka.y + Kd.y * (0.2f + n.y) + Ke.y,
-            Ka.z + Kd.z * (0.2f + n.y) + Ke.z);
-}
-
-constexpr int BLOCK = 128;
 
 template <bool WHITTED>
 __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
-  Scene sc{a.mats, a.ell, a.imp, a.ell_flags, a.imp_info, a.tris, a.attr,
-           a.uvt, a.atlas, a.slots, a.mat_maps, a.sky, a.n_mats, a.n_ell,
-           a.n_imp, a.n_tris, a.sky_h, a.sky_w, a.march_steps,
-           a.bisect_iters, a.march_tmax};
+  const Scene sc = make_scene(a.scene);
   const int n_pix = a.width * a.height;
   const int pix = blockIdx.x * BLOCK + threadIdx.x;
   unsigned long long queries = 0;
@@ -240,7 +85,7 @@ __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
       } else {
         V3 ci = v3(0.0f, 0.0f, 0.0f), cs = v3(0.0f, 0.0f, 0.0f);
         queries += trace_path(sc, o, d, state, a.max_bounces, a.stack_size,
-                              a.gate_ss != 0, ci, cs);
+                              a.scene.gate_ss != 0, ci, cs);
         inc = v3(inc.x + ci.x, inc.y + ci.y, inc.z + ci.z);
         skyc = v3(skyc.x + cs.x, skyc.y + cs.y, skyc.z + cs.z);
       }
@@ -250,18 +95,7 @@ __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
     a.rad_out[3 * pix + 2] = inc.z + skyc.z;
     a.state_out[pix] = (long long)state;
   }
-  // one atomic per block for the query count
-  __shared__ unsigned long long warp_sum[BLOCK / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) queries += __shfl_down_sync(0xffffffffu, queries, off);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = queries;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long total = 0;
-#pragma unroll
-    for (int w = 0; w < BLOCK / 32; ++w) total += warp_sum[w];
-    if (total) atomicAdd(a.rays_out, total);
-  }
+  block_sum_add(queries, a.rays_out);
 }
 
 extern "C" int pt_launch_frame(const FrameArgs* a, void* stream) {

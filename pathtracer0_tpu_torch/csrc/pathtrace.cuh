@@ -1,5 +1,6 @@
 // Per-ray functions of the path tracer, for the frame kernel
-// (frame_kernel.cu). Everything here is __host__ __device__ and mirrors
+// (frame_kernel.cu) and the block kernel (block_kernel.cu) through
+// integrate.cuh. Everything here is __host__ __device__ and mirrors
 // the plain PyTorch version operation for operation:
 //   RNG                core/rng.py
 //   bilinear, sky      scene/texture.py

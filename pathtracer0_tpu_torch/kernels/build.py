@@ -1,8 +1,10 @@
-"""Build csrc/frame_kernel.cu with nvcc and load it with ctypes.
+"""Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
 
-The library has a plain C interface. It is compiled for Hopper (sm_90a)
-into `_build/` at first use and cached there under a hash of the sources
-and flags. Nothing here runs at import time.
+Each library has a plain C interface. It is compiled for Hopper (sm_90a)
+into `_build/` at first use and cached there under a hash of its sources
+and the flags; `build_all` starts one nvcc per library together, so a
+fresh checkout pays the slowest build and not their sum. Nothing here
+runs at import time.
 
 Numerics: no --use_fast_math, and -fmad=false so that no multiply-add is
 contracted; the plain PyTorch versions do not contract either, and a
@@ -20,12 +22,17 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = (CSRC / "frame_kernel.cu", CSRC / "pathtrace.cuh")
+# library -> its source, then the headers it includes
+LIBS = {
+    "frame_kernel": ("frame_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
+    "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
+    "forest_kernel": ("forest_kernel.cu",),
+}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
-ptxas_log = ""  # nvcc's report (registers, spills) of this process's build
+_libs = {}
+ptxas_log = {}  # library -> nvcc's report (registers, spills) of this build
 
 
 def nvcc() -> str:
@@ -36,24 +43,53 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load():
-    """The loaded frame-kernel library, built first if needed."""
-    global _lib, ptxas_log
-    if _lib is None:
-        h = hashlib.sha256(" ".join(FLAGS).encode())
-        for src in SOURCES:
-            h.update(src.read_bytes())
-        out = BUILD / f"libframe_kernel_{h.hexdigest()[:16]}.so"
-        if not out.exists():
-            BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc(), *FLAGS, "-o", str(tmp), str(SOURCES[0])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            ptxas_log = proc.stdout
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {SOURCES[0].name}:\n"
-                                   f"{proc.stdout}")
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in LIBS[name]:
+        h.update((CSRC / src).read_bytes())
+    return BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=tuple(LIBS)):
+    """Compile every library of `names` that is not built yet, all nvcc
+    processes running at once. Raises if one fails."""
+    running = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / LIBS[name][0])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        ptxas_log[name] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(f"nvcc failed on {LIBS[name][0]}:\n"
+                          f"{ptxas_log[name]}")
+        else:
             os.replace(tmp, out)
-        _lib = ctypes.CDLL(str(out))
-    return _lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str = "frame_kernel"):
+    """The loaded library `name`, built first if needed."""
+    if name not in _libs:
+        build_all((name,))
+        _libs[name] = ctypes.CDLL(str(_target(name)))
+    return _libs[name]
+
+
+def ptr(t, dtype, device) -> int:
+    """The device address of tensor `t` for a kernel's argument struct; a
+    tensor of another type or device, or one that is not contiguous, is
+    refused."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"the kernel needs contiguous {dtype} tensors on {device}, "
+            f"got {t.dtype} on {t.device}")
+    return t.data_ptr()

@@ -5,7 +5,8 @@ Counterpart of the JAX package's kernels/fused.py frame path
 (`trace_frame`, whose Pallas kernel is `_frame_kernel`, and
 `render_fused_frame`). On the card `trace_frame` launches
 csrc/frame_kernel.cu; on the CPU it runs `trace_frame_reference`, the
-plain PyTorch version built on render/integrator.py. Both return the
+plain PyTorch version built on render/integrator.py's brute-force
+`trace_plain` and `direct_diffuse_plain`. Both return the
 radiance summed over the samples WITH the sky (the TPU kernel deferred the
 sky to a second pass because Mosaic cannot gather), the RNG state carried
 across the samples, and the count of scene queries.
@@ -21,34 +22,28 @@ from ..core import camera
 from ..core import math as vm
 from ..core import rng as vrng
 from ..render import integrator
-from ..scene.packing import MAX_MATERIALS, MAX_TRIS
-from ..shade import implicits
-from . import build
-
-MAX_STACK = 16  # csrc/pathtrace.cuh MAX_STACK
+from . import build, fused
+from .build import ptr
+from .fused import MAX_STACK, SceneArgs, scene_args
 
 
 class _FrameArgs(ctypes.Structure):
     """csrc/frame_kernel.cu `FrameArgs`, field for field."""
 
-    _fields_ = [(n, ctypes.c_void_p) for n in (
-        "mats", "ell", "imp", "ell_flags", "imp_info", "tris", "attr", "uvt",
-        "atlas", "slots", "mat_maps", "sky", "scal", "state_in", "state_out",
-        "rad_out", "rays_out")] + [(n, ctypes.c_int) for n in (
-        "n_mats", "n_ell", "n_imp", "n_tris", "sky_h", "sky_w", "width",
-        "height", "spp", "max_bounces", "stack_size", "march_steps",
-        "bisect_iters")] + [(n, ctypes.c_float) for n in (
-        "march_tmax", "xs_scale", "ys_scale", "focal_length", "blur")] + [
-        (n, ctypes.c_int) for n in ("whitted", "gate_ss")]
+    _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
+        "scal", "state_in", "state_out", "rad_out", "rays_out")] + [
+        (n, ctypes.c_int) for n in (
+            "width", "height", "spp", "max_bounces", "stack_size")] + [
+        (n, ctypes.c_float) for n in (
+            "xs_scale", "ys_scale", "focal_length", "blur")] + [
+        ("whitted", ctypes.c_int)]
 
 
 def eligible(info, *, whitted: bool = False) -> bool:
-    """Whether the frame path takes this scene: at most MAX_TRIS
-    triangles and 1..MAX_MATERIALS materials; Whitted mode also needs no
-    subsurface material (its thickness probe is not ported yet)."""
-    return (info.num_tris <= MAX_TRIS
-            and 1 <= info.num_materials <= MAX_MATERIALS
-            and not (whitted and info.mat_gates[0]))
+    """Whether the frame path takes this scene: one the brute-force
+    kernels take (kernels/fused.eligible); Whitted mode also needs no
+    subsurface material (the thickness probe needs the forest)."""
+    return fused.eligible(info) and not (whitted and info.mat_gates[0])
 
 
 def _raygen(cam_pos, rotmat, ifd, state, width, height, *, cam_size,
@@ -81,11 +76,11 @@ def trace_frame_reference(scene, info, cam_pos, cam_rot, ifd, state, *,
                               cam_size=cam_size, focal_length=focal_length,
                               blur=blur)
         if whitted:
-            col = integrator.direct_diffuse(scene, info, o, d, alive)
+            col = integrator.direct_diffuse_plain(scene, info, o, d, alive)
             inc = [inc[i] + col[i] for i in range(3)]
             rays = rays + state.numel()
         else:
-            c, s, state, q = integrator.trace(
+            c, s, state, q = integrator.trace_plain(
                 scene, info, o, d, alive, state, max_bounces=max_bounces,
                 stack_size=stack_size)
             inc = [inc[i] + c[i] for i in range(3)]
@@ -93,14 +88,6 @@ def trace_frame_reference(scene, info, cam_pos, cam_rot, ifd, state, *,
             rays = rays + q.sum()
     rad = torch.stack([inc[i] + skyc[i] for i in range(3)], dim=-1)
     return rad, state, rays
-
-
-def _ptr(t: torch.Tensor, dtype: torch.dtype, device) -> int:
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
-            f"frame kernel needs contiguous {dtype} tensors on {device}, "
-            f"got {t.dtype} on {t.device}")
-    return t.data_ptr()
 
 
 def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
@@ -128,7 +115,7 @@ def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
         raise ValueError(f"stack_size {stack_size} not in [2, {MAX_STACK}]")
     if state.shape != (width * height,) or spp < 1 or max_bounces < 0:
         raise ValueError("state must hold one entry per pixel; spp >= 1")
-    lib = build.load()
+    lib = build.load("frame_kernel")
     lib.pt_launch_frame.argtypes = [ctypes.POINTER(_FrameArgs),
                                     ctypes.c_void_p]
     lib.pt_launch_frame.restype = ctypes.c_int
@@ -139,29 +126,15 @@ def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
     rad = torch.empty((width * height, 3), dtype=torch.float32, device=dev)
     state_out = torch.empty_like(state)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
-    f32, i32 = torch.float32, torch.int32
-    s = scene
     args = _FrameArgs(
-        mats=_ptr(s.materials, f32, dev), ell=_ptr(s.ell_tab, f32, dev),
-        imp=_ptr(s.imp_tab, f32, dev), ell_flags=_ptr(s.ell_flags, i32, dev),
-        imp_info=_ptr(s.imp_info, i32, dev), tris=_ptr(s.tris, f32, dev),
-        attr=_ptr(s.attr, f32, dev), uvt=_ptr(s.uvt, f32, dev),
-        atlas=_ptr(s.atlas, f32, dev), slots=_ptr(s.slots, i32, dev),
-        mat_maps=_ptr(s.mat_maps, i32, dev), sky=_ptr(s.sky, f32, dev),
-        scal=_ptr(scal, f32, dev),
-        state_in=_ptr(state, torch.int64, dev),
-        state_out=_ptr(state_out, torch.int64, dev),
-        rad_out=_ptr(rad, f32, dev), rays_out=_ptr(rays, torch.int64, dev),
-        n_mats=info.num_materials, n_ell=info.num_ellipsoids,
-        n_imp=info.num_implicits, n_tris=info.num_tris,
-        sky_h=info.sky_shape[0], sky_w=info.sky_shape[1],
-        width=width, height=height, spp=spp, max_bounces=max_bounces,
-        stack_size=stack_size, march_steps=implicits.MARCH_STEPS,
-        bisect_iters=implicits.BISECT_ITERS,
-        march_tmax=implicits.MARCH_TMAX, xs_scale=float(np.float32(-cam_size)),
+        scene_args(scene, info, dev), scal=ptr(scal, torch.float32, dev),
+        state_in=ptr(state, torch.int64, dev),
+        state_out=state_out.data_ptr(), rad_out=rad.data_ptr(),
+        rays_out=rays.data_ptr(), width=width, height=height, spp=spp,
+        max_bounces=max_bounces, stack_size=stack_size,
+        xs_scale=float(np.float32(-cam_size)),
         ys_scale=float(np.float32(height / float(width) * cam_size)),
-        focal_length=focal_length, blur=blur, whitted=int(whitted),
-        gate_ss=int(info.mat_gates[0]))
+        focal_length=focal_length, blur=blur, whitted=int(whitted))
     err = lib.pt_launch_frame(
         ctypes.byref(args),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))

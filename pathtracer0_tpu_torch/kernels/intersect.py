@@ -6,6 +6,9 @@
                  cross-multiplication and one reciprocal follows the loop
                  (the JAX package's fused kernel and csrc/pathtrace.cuh
                  `closest_hit` do the same arithmetic)
+  tri_divide     the form the forest kernels use (csrc/forest_kernel.cu):
+                 inv_det = 1/det, then multiply
+  ray_box        slab test with a finite reciprocal direction
   ray_ellipsoid  stretched sphere, smallest positive root (PARITY.md #3)
   compute_tangent  UV-space tangent, Gram-Schmidt against the normal
 """
@@ -68,6 +71,44 @@ def tri_candidate(o, d, v1, e1, e2):
     ok = ((adet >= EPSILON) & (uc >= 0.0) & (vc >= 0.0)
           & (uc + vc <= adet) & (tc > EPSILON * adet))
     return ok, tc, adet, uc, vc
+
+
+def tri_divide(o, d, v1, e1, e2):
+    """Möller-Trumbore as the forest kernels do it, on (x, y, z) tuples:
+    returns (ok, t, u, v) with ok = |det| >= 1e-10, u, v in [0, 1],
+    u + v <= 1, t > EPSILON. The caller adds the closest-so-far test."""
+    p = _cross(d, e2)
+    det = _dot(e1, p)
+    inv_det = 1.0 / det
+    s = (o[0] - v1[0], o[1] - v1[1], o[2] - v1[2])
+    u = _dot(s, p) * inv_det
+    q = _cross(s, e1)
+    v = _dot(d, q) * inv_det
+    t = _dot(e2, q) * inv_det
+    ok = ((torch.abs(det) >= EPSILON) & (u >= 0.0) & (u <= 1.0)
+          & (v >= 0.0) & (u + v <= 1.0) & (t > EPSILON))
+    return ok, t, u, v
+
+
+def safe_inv_dir(d):
+    """Finite reciprocal of a direction component for slab tests: a zero
+    component would give 1/d = inf and, with a box plane on the ray,
+    0 * inf = NaN. Clamped to +-1e30, every product stays finite."""
+    return torch.clamp(1.0 / torch.where(d == 0.0, 1e-30, d), -1e30, 1e30)
+
+
+def ray_box(o, inv_d, box_min, box_max):
+    """Slab test on (x, y, z) tuples, inv_d from `safe_inv_dir`: the entry
+    distance (0 from inside the box), 1e30 on a miss (frag.glsl:408-419)."""
+    near = far = None
+    for i in range(3):
+        ta = (box_min[i] - o[i]) * inv_d[i]
+        tb = (box_max[i] - o[i]) * inv_d[i]
+        lo, hi = torch.minimum(ta, tb), torch.maximum(ta, tb)
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    hit = (far >= near) & (far > 0.0)
+    return torch.where(hit, torch.clamp(near, min=0.0), MISS)
 
 
 def ellipsoid_soa(o, d, c, stretch, rad):

@@ -1,0 +1,247 @@
+"""The scene query: closest hit over the SAH forest, the implicit surfaces
+and the ellipsoids (rayScene, frag.glsl:548-653), and the attributes at
+the hit.
+
+Counterpart of the JAX package's kernels/traverse.py. Vectors are
+(x, y, z) tuples of (R,) tensors, as everywhere in the port.
+
+  ray_scene       nudge the origins by 1e-4 d (frag.glsl:549), walk the
+                  forest (kernels/wavefront.trace_forest: the CUDA kernels
+                  on the card, their plain versions on the CPU), then
+                  merge the analytic primitives
+  surface_sample  normal, UV, tangent and material at the final hits, once
+                  per ray; both routes of the renderer shade from it
+  probe_forest_t  closest triangle distance only (the Whitted subsurface
+                  thickness probe, frag.glsl:662-676)
+  heat_counts     the per-ray traversal counters
+
+Reference quirks kept: an implicit surface's hit parameter is measured in
+its local frame and compared with world distances as it is, and every hit
+location is nudged origin + t d.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..shade import bsdf, implicits
+from . import wavefront
+from .intersect import MISS, ellipsoid_soa
+
+NUDGE = float(np.float32(1e-4))       # frag.glsl:549
+HIT_T = 1e25                          # t below this is a hit (frag.glsl:634)
+
+
+class Hit(NamedTuple):
+    """rayScene result (raySceneResult, frag.glsl:83-96) over (R,) rays."""
+
+    t: torch.Tensor       # distance; 1e30 = miss, 0 on a switched-off ray
+    tri: torch.Tensor     # int64 triangle id, -1 if none
+    u: torch.Tensor       # barycentric u, v
+    v: torch.Tensor
+    obj: torch.Tensor     # int64 root node of the object hit, -1 if none
+    kind: torch.Tensor    # int64: 0 none, 1 triangle, 2 implicit, 3 ellipsoid
+    prim: torch.Tensor    # int64 implicit / ellipsoid index, -1 otherwise
+
+    @property
+    def is_hit(self):
+        """Also true on a switched-off ray (t = 0): mask with `alive`."""
+        return self.t < HIT_T
+
+
+class SurfaceSample(NamedTuple):
+    """Attributes at the closest hit."""
+
+    loc: tuple            # hit location, nudged origin + t d
+    norm: tuple           # shading normal before any flip
+    tangent: tuple        # UV tangent, orthogonal to norm; 0 without UVs
+    uv: tuple             # GL (u, v), v flipped; (-1, -1) without UVs
+    mat: torch.Tensor     # int64 material id, -1 on a miss
+    has_uv: torch.Tensor  # bool: a triangle hit that carries UVs
+
+
+def _row(tab, k):
+    return [tab[k, i] for i in range(tab.shape[1])]
+
+
+def _mat3(r, v):
+    return (r[0] * v[0] + r[1] * v[1] + r[2] * v[2],
+            r[3] * v[0] + r[4] * v[1] + r[5] * v[2],
+            r[6] * v[0] + r[7] * v[1] + r[8] * v[2])
+
+
+def _mat3_t(r, v):
+    return (r[0] * v[0] + r[3] * v[1] + r[6] * v[2],
+            r[1] * v[0] + r[4] * v[1] + r[7] * v[2],
+            r[2] * v[0] + r[5] * v[1] + r[8] * v[2])
+
+
+def _implicit_frame(scene, info, k, o, d):
+    """Ray (o, d) in implicit k's local frame, and its table row."""
+    r = _row(scene.imp_tab, k)
+    lo = ((o[0] - r[0]) / r[3], (o[1] - r[1]) / r[4], (o[2] - r[2]) / r[5])
+    ld = (d[0] / r[3], d[1] / r[4], d[2] / r[5])
+    if info.imp_rotated[k]:
+        lo, ld = _mat3(r[8:17], lo), _mat3(r[8:17], ld)
+    return lo, ld, r
+
+
+def _ellipsoid_frame(scene, info, e, o, d):
+    r = _row(scene.ell_tab, e)
+    if info.ell_rotated[e]:
+        return _mat3(r[8:17], o), _mat3(r[8:17], d), r
+    return o, d, r
+
+
+def _merge_analytic_batched(o, d, scene, info, hit: Hit) -> Hit:
+    """Merge every implicit surface, then every ellipsoid, into `hit`
+    (frag.glsl:578-631). One primitive after the other with a strict
+    t < closest, so the first of equal distances wins on every device."""
+    t, tri, obj, kind, prim = hit.t, hit.tri, hit.obj, hit.kind, hit.prim
+    tests = []
+    for k in range(info.num_implicits):
+        lo, ld, _ = _implicit_frame(scene, info, k, o, d)
+        tk, found = implicits.march(info.imp_fn_ids[k], *lo, *ld)
+        tests.append((2, k, tk, found))
+    for e in range(info.num_ellipsoids):
+        ro, rd, r = _ellipsoid_frame(scene, info, e, o, d)
+        te, disc = ellipsoid_soa(ro, rd, r[0:3], r[3:6], r[6])
+        tests.append((3, e, te, (disc > 0.0) & (te > 0.0)))
+    for code, k, tk, valid in tests:
+        ok = valid & (tk < t)
+        t = torch.where(ok, tk, t)
+        kind = torch.where(ok, code, kind)
+        prim = torch.where(ok, k, prim)
+        tri = torch.where(ok, -1, tri)
+        obj = torch.where(ok, -1, obj)
+    return Hit(t, tri, hit.u, hit.v, obj, kind, prim)
+
+
+def empty_hit(t_init) -> Hit:
+    """No hit yet: t = t_init, every index -1."""
+    none = torch.full(t_init.shape, -1, dtype=torch.int64,
+                      device=t_init.device)
+    zero = torch.zeros_like(t_init)
+    return Hit(t_init, none, zero, zero, none, torch.zeros_like(none), none)
+
+
+def _t_init(like, active):
+    full = torch.full_like(like, MISS)
+    return full if active is None else torch.where(active, full, 0.0)
+
+
+def _forest_fn(pallas: str):
+    if pallas in ("auto", "on"):
+        return wavefront.trace_forest
+    if pallas == "off":
+        return wavefront.trace_forest_reference
+    raise ValueError(f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
+
+
+def nudged(o, d):
+    return tuple(o[i] + NUDGE * d[i] for i in range(3))
+
+
+def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
+    """Closest hit of rays o + t d. `active` (R,) bool switches rays off:
+    they cost nothing and come back t = 0, tri = -1. pallas "auto" / "on":
+    the forest kernels on CUDA tensors, their plain versions on CPU
+    tensors; "off": the plain versions on any device.
+
+    Returns (Hit, nudged origins)."""
+    forest = _forest_fn(pallas)
+    on = nudged(o, d)
+    hit = empty_hit(_t_init(on[0], active))
+    if info.num_objects > 0:
+        t, u, v, idx, _, _ = forest(on, d, hit.t, scene, info)
+        got = idx >= 0
+        row = torch.clamp(idx, min=0).to(torch.int64)
+        tri = torch.where(got, scene.wf_perm[row].to(torch.int64), -1)
+        obj = torch.where(
+            got, scene.tri_obj[torch.clamp(tri, min=0)].to(torch.int64), -1)
+        hit = Hit(t, tri, u, v, obj, got.to(torch.int64), hit.prim)
+    return _merge_analytic_batched(on, d, scene, info, hit), on
+
+
+def probe_forest_t(o, d, scene, info, *, pallas: str = "auto"):
+    """Distance to the closest triangle of the whole forest from the
+    nudged origins (1e30 if none). Forest scenes only."""
+    on = nudged(o, d)
+    return _forest_fn(pallas)(on, d, _t_init(on[0], None), scene, info)[0]
+
+
+def heat_counts(o, d, scene, info, *, pallas: str = "auto"):
+    """Per-ray (box tests, leaf visits) of the forest walk."""
+    on = nudged(o, d)
+    out = _forest_fn(pallas)(on, d, _t_init(on[0], None), scene, info)
+    return out[4], out[5]
+
+
+def surface_sample(hit: Hit, o, d, scene, info) -> SurfaceSample:
+    """Normal, UV, tangent and material at the final hits
+    (frag.glsl:483-519, 596-600, 622-626). `o` must be the nudged origins
+    `ray_scene` returned."""
+    loc = tuple(o[i] + hit.t * d[i] for i in range(3))
+    is_tri = hit.kind == 1
+    zero = torch.zeros_like(hit.t)
+    norm = (zero, zero, zero)
+    tangent = (zero, zero, zero)
+    tu = tv = torch.full_like(hit.t, -1.0)
+    mat = torch.full_like(hit.tri, -1)
+    has_uv = torch.zeros_like(is_tri)
+    if info.num_tris:
+        tri = torch.clamp(hit.tri, min=0)
+        a = scene.attr[tri]
+        half = torch.floor(a[:, 9] * 0.5)
+        smooth = (a[:, 9] - 2.0 * half) > 0.5
+        u, v = hit.u, hit.v
+        w = 1.0 - u - v
+        ni = tuple(a[:, i] * w + a[:, 3 + i] * u + a[:, 6 + i] * v
+                   for i in range(3))
+        mag = torch.sqrt(bsdf.dot3(ni, ni))
+        norm = tuple(torch.where(is_tri,
+                                 torch.where(smooth, ni[i] / mag, a[:, i]),
+                                 0.0) for i in range(3))
+        mat = torch.where(is_tri, half.to(torch.int64), mat)
+        if info.any_uv:
+            uv = scene.uvt[tri]
+            has_uv = is_tri & (uv[:, 9] > 0.5)
+            tur = uv[:, 0] * w + uv[:, 2] * u + uv[:, 4] * v
+            tvr = uv[:, 1] * w + uv[:, 3] * u + uv[:, 5] * v
+            tu = torch.where(has_uv, tur, -1.0)
+            tv = torch.where(has_uv, 1.0 - tvr, -1.0)   # GL flips v
+            # raw UV tangent, Gram-Schmidt against the shading normal
+            raw = (uv[:, 6], uv[:, 7], uv[:, 8])
+            ndt = bsdf.dot3(raw, norm)
+            g = tuple(raw[i] - norm[i] * ndt for i in range(3))
+            gm = torch.sqrt(bsdf.dot3(g, g))
+            tangent = tuple(torch.where(has_uv, g[i] / gm, 0.0)
+                            for i in range(3))
+    return _assemble_sample(hit, o, d, scene, info, loc, norm, tangent,
+                            (tu, tv), mat, has_uv)
+
+
+def _assemble_sample(hit, o, d, scene, info, loc, norm, tangent, uv, mat,
+                     has_uv) -> SurfaceSample:
+    """Normals and materials of the analytic primitives over the triangle
+    attributes."""
+    for k in range(info.num_implicits):
+        here = (hit.kind == 2) & (hit.prim == k)
+        lo, ld, r = _implicit_frame(scene, info, k, o, d)
+        p = tuple(lo[i] + ld[i] * hit.t for i in range(3))
+        g = bsdf.unit3(implicits.gradient_soa(info.imp_fn_ids[k], *p))
+        if info.imp_rotated[k]:
+            g = _mat3_t(r[8:17], g)
+        norm = tuple(torch.where(here, g[i], norm[i]) for i in range(3))
+        mat = torch.where(here, r[7].to(torch.int64), mat)
+    for e in range(info.num_ellipsoids):
+        here = (hit.kind == 3) & (hit.prim == e)
+        ro, rd, r = _ellipsoid_frame(scene, info, e, o, d)
+        n = bsdf.unit3(tuple(ro[i] + hit.t * rd[i] - r[i] for i in range(3)))
+        if info.ell_rotated[e]:
+            n = _mat3_t(r[8:17], n)
+        norm = tuple(torch.where(here, n[i], norm[i]) for i in range(3))
+        mat = torch.where(here, r[7].to(torch.int64), mat)
+    return SurfaceSample(loc, norm, tangent, uv, mat, has_uv)

@@ -1,14 +1,21 @@
-"""Plain PyTorch integrators: the path `trace` (frag.glsl:810-882) and
-Whitted `direct_diffuse` (frag.glsl:655-681), over a brute-force closest
-hit.
+"""Integrators: the path `trace` (frag.glsl:810-882) and Whitted
+`direct_diffuse` (frag.glsl:655-681), as batched PyTorch ops on (R,)
+tensors, one tensor per vector component.
 
-This is the plain version of the frame kernel (csrc/frame_kernel.cu) and
-follows the same arithmetic, operation for operation, on (R,) tensors,
-one tensor per vector component:
+Two scene queries feed one bounce loop and one shading helper:
 
-  closest hit   every triangle (division-free Möller-Trumbore, first
-                closest in table order wins), then every implicit surface
-                (bracketed march), then every ellipsoid
+  per-bounce route  kernels/traverse.ray_scene: the SAH forest (the CUDA
+                    forest kernels on the card), then the analytic
+                    primitives. `trace_bounces`, `direct_diffuse`. The JAX
+                    package runs this loop as XLA ops, not as a Pallas
+                    kernel, so plain PyTorch is the port of it.
+  brute force       `closest_hit`: every triangle with the division-free
+                    Möller-Trumbore test, first closest in table order
+                    wins. `trace_plain` and `direct_diffuse_plain` follow
+                    csrc/integrate.cuh operation for operation and are the
+                    plain versions of the frame and block kernels, and the
+                    oracle of small scenes.
+
   per bounce    material decode + maps -> normal flip by sign(N.D) ->
                 refraction-index stack push (entering) / pop -> chooseRay
                 -> medium bookkeeping -> emission -> throughput cutoff
@@ -17,70 +24,42 @@ one tensor per vector component:
   miss          sky(d) * throughput on each channel whose throughput is
                 positive; the ray ends
 
-A ray's scene queries (bounces it started alive) are counted per ray.
+The RNG state advances only for rays that hit in that bounce; a ray's
+scene queries (bounces it started alive) are counted per ray. `trace`
+sends rays to the block kernel (kernels/fused.trace_fused) where the scene
+is eligible and `fused` is not "off", else through `trace_bounces`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import warnings
 
 import numpy as np
 import torch
 
-from ..kernels.intersect import MISS, ellipsoid_soa, tri_candidate
+from ..kernels import traverse
+from ..kernels.intersect import MISS, tri_candidate
+from ..kernels.traverse import Hit, SurfaceSample
 from ..scene.material import COL
 from ..scene.texture import bilinear, sky_uv
-from ..shade import bsdf, implicits
+from ..shade import bsdf
 from ..shade.mtl import map_sample, tbn_map
 
 AIR_IOR = float(np.float32(1.0029))   # frag.glsl:816
-NUDGE = float(np.float32(1e-4))       # frag.glsl:549
-HIT_T = 1e25                          # t below this is a hit
-
-
-class Hit(NamedTuple):
-    t: torch.Tensor
-    n: tuple                 # shading normal before any flip
-    mat: torch.Tensor        # int64, 0 on a miss
-    is_hit: torch.Tensor
-    tu: torch.Tensor         # GL uv (v flipped), -1 without UVs
-    tv: torch.Tensor
-    tangent_raw: tuple       # UV-space tangent before Gram-Schmidt
-    uvok: torch.Tensor       # triangle hit with UVs
-
-
-def _row(tab, k):
-    return [tab[k, i] for i in range(tab.shape[1])]
-
-
-def _mat3(r, v):
-    return (r[0] * v[0] + r[1] * v[1] + r[2] * v[2],
-            r[3] * v[0] + r[4] * v[1] + r[5] * v[2],
-            r[6] * v[0] + r[7] * v[1] + r[8] * v[2])
-
-
-def _mat3_t(r, v):
-    return (r[0] * v[0] + r[3] * v[1] + r[6] * v[2],
-            r[1] * v[0] + r[4] * v[1] + r[7] * v[2],
-            r[2] * v[0] + r[5] * v[1] + r[8] * v[2])
+NUDGE = traverse.NUDGE
 
 
 def closest_hit(scene, info, o, d, alive) -> Hit:
-    """Closest hit of rays from the (already nudged) origins o along d:
-    (x, y, z) tuples of (R,) tensors; alive (R,) bool."""
-    zero = torch.zeros_like(o[0])
-    n = (zero, zero, zero)
-    mat = torch.zeros(zero.shape, dtype=torch.int64, device=zero.device)
-    kind = torch.zeros_like(mat)
-    tur = tvr = huv = zero
-    tw = (zero, zero, zero)
-
+    """Brute-force closest hit of rays from the (already nudged) origins o
+    along d: (x, y, z) tuples of (R,) tensors; rays not `alive` come back
+    t = 0."""
+    hit = traverse.empty_hit(torch.where(alive, MISS, 0.0))
     if info.num_tris:
-        tn = torch.where(alive, MISS, 0.0)
-        td = torch.ones_like(zero)
-        un = vn = zero
-        hid = torch.full_like(mat, -1)
+        tn = hit.t
+        td = torch.ones_like(tn)
+        un = vn = torch.zeros_like(tn)
+        hid = hit.tri
         for k in range(info.num_tris):
-            row = _row(scene.tris, k)
+            row = [scene.tris[k, i] for i in range(9)]
             ok, tc, adet, uc, vc = tri_candidate(o, d, row[0:3], row[3:6],
                                                  row[6:9])
             ok = ok & (tc * td < tn * adet)
@@ -90,98 +69,53 @@ def closest_hit(scene, info, o, d, alive) -> Hit:
             vn = torch.where(ok, vc, vn)
             hid = torch.where(ok, k, hid)
         invd = 1.0 / td
-        t = tn * invd
-        u = un * invd
-        v = vn * invd
         got = hid >= 0
-        a = torch.where(got[:, None], scene.attr[torch.clamp(hid, min=0)],
-                        0.0)
-        half = torch.floor(a[:, 9] * 0.5)
-        smooth = (a[:, 9] - 2.0 * half) > 0.5
-        mat = half.to(torch.int64)
-        w = 1.0 - u - v
-        ni = tuple(a[:, i] * w + a[:, 3 + i] * u + a[:, 6 + i] * v
-                   for i in range(3))
-        mag = torch.sqrt(ni[0] * ni[0] + ni[1] * ni[1] + ni[2] * ni[2])
-        n = tuple(torch.where(smooth, ni[i] / mag, a[:, i]) for i in range(3))
-        kind = torch.where(got, 1, kind)
-        uv = torch.where(got[:, None], scene.uvt[torch.clamp(hid, min=0)],
-                         0.0)
-        tur = uv[:, 0] * w + uv[:, 2] * u + uv[:, 4] * v
-        tvr = uv[:, 1] * w + uv[:, 3] * u + uv[:, 5] * v
-        tw = (uv[:, 6], uv[:, 7], uv[:, 8])
-        huv = uv[:, 9]
-    else:
-        t = torch.where(alive, MISS, 0.0)
-
-    for k in range(info.num_implicits):
-        r = _row(scene.imp_tab, k)
-        lo = ((o[0] - r[0]) / r[3], (o[1] - r[1]) / r[4],
-              (o[2] - r[2]) / r[5])
-        ld = (d[0] / r[3], d[1] / r[4], d[2] / r[5])
-        rot = r[8:17]
-        if info.imp_rotated[k]:
-            lo, ld = _mat3(rot, lo), _mat3(rot, ld)
-        fn = info.imp_fn_ids[k]
-        tk, found = implicits.march(fn, *lo, *ld)
-        ok = found & (tk < t)
-        p = tuple(lo[i] + ld[i] * tk for i in range(3))
-        g = bsdf.unit3(implicits.gradient_soa(fn, *p))
-        if info.imp_rotated[k]:
-            g = _mat3_t(rot, g)
-        t = torch.where(ok, tk, t)
-        n = tuple(torch.where(ok, g[i], n[i]) for i in range(3))
-        mat = torch.where(ok, r[7].to(torch.int64), mat)
-        kind = torch.where(ok, 2, kind)
-
-    for e in range(info.num_ellipsoids):
-        r = _row(scene.ell_tab, e)
-        rot = r[8:17]
-        ro, rd = (_mat3(rot, o), _mat3(rot, d)) if info.ell_rotated[e] \
-            else (o, d)
-        te, disc = ellipsoid_soa(ro, rd, r[0:3], r[3:6], r[6])
-        ok = (disc > 0.0) & (te > 0.0) & (te < t)
-        loc = bsdf.unit3(tuple(ro[i] + te * rd[i] - r[i] for i in range(3)))
-        if info.ell_rotated[e]:
-            loc = _mat3_t(rot, loc)
-        t = torch.where(ok, te, t)
-        n = tuple(torch.where(ok, loc[i], n[i]) for i in range(3))
-        mat = torch.where(ok, r[7].to(torch.int64), mat)
-        kind = torch.where(ok, 3, kind)
-
-    is_hit = alive & (t < HIT_T)
-    uvok = (kind == 1) & (huv > 0.5)
-    tu = torch.where(uvok, tur, -1.0)
-    tv = torch.where(uvok, 1.0 - tvr, -1.0)
-    return Hit(t, n, mat, is_hit, tu, tv, tw, uvok)
+        obj = torch.where(
+            got, scene.tri_obj[torch.clamp(hid, min=0)].to(torch.int64), -1)
+        hit = Hit(tn * invd, hid, un * invd, vn * invd, obj,
+                  got.to(torch.int64), hit.prim)
+    return traverse._merge_analytic_batched(o, d, scene, info, hit)
 
 
-def _map_tangent(hit: Hit, n):
-    """Raw UV tangent Gram-Schmidt'ed against n and normalized; zero for
-    hits without UVs."""
-    ndt = bsdf.dot3(hit.tangent_raw, n)
-    g = tuple(hit.tangent_raw[i] - n[i] * ndt for i in range(3))
-    gm = torch.sqrt(bsdf.dot3(g, g))
-    return tuple(torch.where(hit.uvok, g[i] / gm, 0.0) for i in range(3))
+def _brute_query(scene, info):
+    def query(o, d, alive):
+        on = traverse.nudged(o, d)
+        return closest_hit(scene, info, on, d, alive), on
+    return query
 
 
-def _apply_maps(scene, info, hit: Hit, fields: dict, channels):
-    """mapMtl + normal mapping for the hit materials: RGB fields are
-    (r, g, b) tuples, Ka/Kd multiply, the rest are replaced. Returns
-    (fields, shading normal)."""
-    n = hit.n
+def _forest_query(scene, info, pallas):
+    def query(o, d, alive):
+        return traverse.ray_scene(o, d, scene, info, pallas=pallas,
+                                  active=alive)
+    return query
+
+
+def _shade_setup(scene, info, surf: SurfaceSample, names, channels):
+    """Material decode, mapMtl and normal mapping at the hits: the one
+    shading helper of both routes. `names` are the COL fields wanted
+    (three-wide ones come back as (r, g, b) tuples); Ka/Kd multiply their
+    map sample, the rest are replaced by it. Returns (fields, shading
+    normal)."""
+    mat = torch.clamp(surf.mat, min=0)     # a miss decodes material 0
+    rec = scene.materials[mat]
+    fields = {}
+    for name in names:
+        c = COL[name]
+        fields[name] = ((rec[:, c], rec[:, c + 1], rec[:, c + 2])
+                        if name in _RGB else rec[:, c])
+    n = surf.norm
     if not info.map_bindings:
         return fields, n
     bound_channels = {b[0] for b in info.map_bindings}
-    fields = dict(fields)
+    tu, tv = surf.uv
     for ch in channels:
         if ch not in bound_channels:
             continue
-        bound, s = map_sample(scene, hit.mat, ch, hit.tu, hit.tv)
+        bound, s = map_sample(scene, mat, ch, tu, tv)
         name = ch[4:]
         if ch == "map_norm":
-            mapped = tbn_map(n, _map_tangent(hit, n),
-                             (s[:, 0], s[:, 1], s[:, 2]))
+            mapped = tbn_map(n, surf.tangent, (s[:, 0], s[:, 1], s[:, 2]))
             n = tuple(torch.where(bound, mapped[i], n[i]) for i in range(3))
         elif name in ("Ka", "Kd"):
             fields[name] = tuple(torch.where(bound, fields[name][i] * s[:, i],
@@ -204,16 +138,21 @@ def sky(scene, info, d):
     return c[:, 0], c[:, 1], c[:, 2]
 
 
+_RGB = ("Ka", "Kd", "Ks", "Ke", "Tf", "subsurfaceColor", "subsurfaceRadius")
 _PATH_MAPS = ("map_Kd", "map_Pm", "map_Pr", "map_norm", "map_Ks", "map_Pc",
               "map_Tr", "map_Ke")
+_PATH_FIELDS = ("Kd", "Ks", "Ke", "Tr", "Pm", "Pr", "Pc", "Tf", "Density",
+                "Ni", "Pcr", "illum", "subsurface")
 _WHITTED_MAPS = ("map_Ka", "map_Kd", "map_Ke", "map_norm")
+_WHITTED_FIELDS = ("Ka", "Kd", "Ke", "subsurface", "subsurfaceColor",
+                   "subsurfaceRadius")
 
 
-def trace(scene, info, o, d, alive, state, *, max_bounces: int,
-          stack_size: int = 10):
-    """Path integrator: o, d (x, y, z) tuples of (R,); d normalized.
+def _bounce_loop(query, scene, info, o, d, alive, state, *, max_bounces: int,
+                 stack_size: int):
+    """The bounce loop over `query(o, d, alive) -> (Hit, nudged origins)`.
     Returns (radiance without sky (r, g, b), sky radiance (r, g, b),
-    state, queries (R,) int64)."""
+    state, queries (R,) int64). One host sync per bounce (`alive.any()`)."""
     if stack_size < 2:
         raise ValueError("the refraction stack needs at least 2 entries")
     f0 = torch.zeros_like(o[0])
@@ -228,30 +167,18 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
     inobj = torch.zeros_like(alive)
     enter = (f0, f0, f0)
     queries = torch.zeros_like(ssize)
-    mats = scene.materials
     for _ in range(max_bounces):
         if not bool(alive.any()):
             break
         queries = queries + alive.to(torch.int64)
-        on = tuple(o[i] + NUDGE * d[i] for i in range(3))
-        hit = closest_hit(scene, info, on, d, alive)
+        hit, on = query(o, d, alive)
+        surf = traverse.surface_sample(hit, on, d, scene, info)
+        hitf = alive & hit.is_hit
         is_miss = alive & ~hit.is_hit
-        hx = tuple(on[i] + hit.t * d[i] for i in range(3))
+        hx = surf.loc
 
-        rec = mats[hit.mat]
-
-        def f(name, k=0):
-            return rec[:, COL[name] + k]
-
-        def f3(name):
-            return (f(name), f(name, 1), f(name, 2))
-
-        fields, n = _apply_maps(scene, info, hit, {
-            "Kd": f3("Kd"), "Ks": f3("Ks"), "Ke": f3("Ke"), "Tr": f("Tr"),
-            "Pm": f("Pm"), "Pr": f("Pr"), "Pc": f("Pc")}, _PATH_MAPS)
-        Kd, Ks, Ke = fields["Kd"], fields["Ks"], fields["Ke"]
-        Tf = f3("Tf")
-        Density, Ni = f("Density"), f("Ni")
+        m, n = _shade_setup(scene, info, surf, _PATH_FIELDS, _PATH_MAPS)
+        Kd, Ks, Ke, Tf = m["Kd"], m["Ks"], m["Ke"], m["Tf"]
 
         # normal flip by sign(N.D) (frag.glsl:829-830)
         nd = bsdf.dot3(n, d)
@@ -262,7 +189,7 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
         entering = nd < 0.0
         do_push = entering & (ssize < stack_size)
         pushed = torch.where(do_push[:, None],
-                             torch.cat([Ni[:, None], stack[:, :-1]], 1),
+                             torch.cat([m["Ni"][:, None], stack[:, :-1]], 1),
                              stack)
         size_push = torch.where(do_push, ssize + 1, ssize)
         n1 = torch.where(entering, pushed[:, 1], stack[:, 0])
@@ -274,8 +201,8 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
         new_size = torch.where(do_pop, ssize - 1, size_push)
 
         lobe = bsdf.choose_ray_soa(
-            fields["Pr"], fields["Pm"], fields["Pc"], f("Pcr"), fields["Tr"],
-            Tf, f("illum"), f("subsurface"), n1, n2, n, d, state)
+            m["Pr"], m["Pm"], m["Pc"], m["Pcr"], m["Tr"], Tf, m["illum"],
+            m["subsurface"], n1, n2, n, d, state)
 
         # medium bookkeeping (frag.glsl:847-863)
         transmitted = lobe.win == 3
@@ -288,7 +215,6 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
                           for i in range(3))
 
         # transport (frag.glsl:865-874)
-        hitf = hit.is_hit
         inc = tuple(inc[i] + torch.where(hitf, Ke[i] * col[i], 0.0)
                     for i in range(3))
         cutoff = torch.sqrt(bsdf.dot3(col, col)) < 0.1
@@ -298,7 +224,7 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
         for i in range(3):
             c = col[i] * torch.where(spec, Ks[i], Kd[i])
             c = torch.where(passthrough, col[i], c)
-            absorbed = col[i] * torch.exp(-Tf[i] * dist * Density)
+            absorbed = col[i] * torch.exp(-Tf[i] * dist * m["Density"])
             new_col.append(torch.where(apply_absorb, absorbed, c))
 
         # miss: sky on each channel with positive throughput; the ray ends
@@ -322,28 +248,93 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
     return inc, skyc, state, queries
 
 
-def direct_diffuse(scene, info, o, d, alive):
-    """Whitted shade: Ka + Kd (0.2 + N.y) + Ke on a hit with the unflipped
-    (possibly normal-mapped) normal, the sky on a miss. Scenes with
-    subsurface materials need the thickness probe, which the port does
-    not have yet."""
-    if info.mat_gates[0]:
-        raise NotImplementedError(
-            "Whitted shading of subsurface materials (the thickness probe) "
-            "waits for a later slice of the port")
-    on = tuple(o[i] + NUDGE * d[i] for i in range(3))
-    hit = closest_hit(scene, info, on, d, alive)
-    rec = scene.materials[hit.mat]
+def trace_plain(scene, info, o, d, alive, state, *, max_bounces: int,
+                stack_size: int = 10):
+    """Path integrator over the brute-force `closest_hit`: the plain
+    version of the frame and block kernels. o, d (x, y, z) tuples of (R,);
+    d normalized. Returns as `_bounce_loop`."""
+    return _bounce_loop(_brute_query(scene, info), scene, info, o, d, alive,
+                        state, max_bounces=max_bounces,
+                        stack_size=stack_size)
 
-    def f3(name):
-        c = COL[name]
-        return (rec[:, c], rec[:, c + 1], rec[:, c + 2])
 
-    fields, n = _apply_maps(scene, info, hit, {
-        "Ka": f3("Ka"), "Kd": f3("Kd"), "Ke": f3("Ke")}, _WHITTED_MAPS)
-    Ka, Kd, Ke = fields["Ka"], fields["Kd"], fields["Ke"]
-    is_miss = alive & ~hit.is_hit
+def trace_bounces(scene, info, o, d, alive, state, *, max_bounces: int,
+                  stack_size: int = 10, pallas: str = "auto"):
+    """Path integrator of the per-bounce route: every bounce one
+    `ray_scene` over the forest. Returns as `_bounce_loop`."""
+    return _bounce_loop(_forest_query(scene, info, pallas), scene, info, o,
+                        d, alive, state, max_bounces=max_bounces,
+                        stack_size=stack_size)
+
+
+def trace(scene, info, o, d, alive, state, *, max_bounces: int,
+          stack_size: int = 10, fused: str = "auto", pallas: str = "auto"):
+    """Path integrator of one sample's rays. fused "auto" / "on": the
+    block kernel where the scene is eligible (kernels/fused.trace_fused);
+    "off", or a scene it does not take: the per-bounce route.
+
+    Returns (radiance with sky (r, g, b), state, queries (1,) int64)."""
+    from ..kernels import fused as fused_mod
+
+    if fused not in ("auto", "on", "off"):
+        raise ValueError(f"fused must be 'auto', 'on' or 'off', not {fused!r}")
+    if fused != "off":
+        if fused_mod.eligible(info):
+            return fused_mod.trace_fused(
+                scene, info, o, d, alive, state, max_bounces=max_bounces,
+                stack_size=stack_size)
+        if fused == "on":
+            warnings.warn(
+                "fused='on' requested but the scene is outside the block "
+                f"kernel ({info.num_tris} triangles, {info.num_materials} "
+                "materials); using the per-bounce route", stacklevel=2)
+    inc, skyc, state, queries = trace_bounces(
+        scene, info, o, d, alive, state, max_bounces=max_bounces,
+        stack_size=stack_size, pallas=pallas)
+    return (tuple(inc[i] + skyc[i] for i in range(3)), state,
+            queries.sum().reshape(1))
+
+
+def _direct(query, scene, info, o, d, alive, probe):
+    hit, on = query(o, d, alive)
+    surf = traverse.surface_sample(hit, on, d, scene, info)
+    m, n = _shade_setup(scene, info, surf, _WHITTED_FIELDS, _WHITTED_MAPS)
+    col = [m["Ka"][i] + m["Kd"][i] * (0.2 + n[1]) + m["Ke"][i]
+           for i in range(3)]
+    if probe is not None and info.mat_gates[0] and info.num_objects > 0:
+        # thickness: the same direction again from the hit point
+        # (frag.glsl:662-676), the distance actually travelled
+        si = probe(surf.loc, d)
+        has_ss = m["subsurface"] > 0.0
+        for i in range(3):
+            sigma_t = 1.0 / torch.clamp(m["subsurfaceRadius"][i], min=1e-4)
+            col[i] = torch.where(
+                has_ss, torch.exp(-sigma_t * si) * m["subsurfaceColor"][i],
+                col[i])
     sr = sky(scene, info, d)
-    return tuple(torch.where(hit.is_hit, Ka[i] + Kd[i] * (0.2 + n[1]) + Ke[i],
-                             0.0)
-                 + torch.where(is_miss, sr[i], 0.0) for i in range(3))
+    return tuple(torch.where(alive & hit.is_hit, col[i], 0.0)
+                 + torch.where(alive & ~hit.is_hit, sr[i], 0.0)
+                 for i in range(3))
+
+
+def direct_diffuse(scene, info, o, d, alive, *, pallas: str = "auto"):
+    """Whitted shade of the per-bounce route: Ka + Kd (0.2 + N.y) + Ke on
+    a hit with the unflipped (possibly normal-mapped) normal, the sky on a
+    miss. Subsurface materials shade by the thickness behind the hit,
+    probed through the whole forest (the reference probes the hit object
+    alone: the two differ only where another object cuts the segment)."""
+    def probe(loc, direction):
+        return traverse.probe_forest_t(loc, direction, scene, info,
+                                       pallas=pallas)
+
+    return _direct(_forest_query(scene, info, pallas), scene, info, o, d,
+                   alive, probe)
+
+
+def direct_diffuse_plain(scene, info, o, d, alive):
+    """Whitted shade over the brute-force `closest_hit`: the plain version
+    of the frame kernel's Whitted mode, which has no thickness probe."""
+    if info.mat_gates[0]:
+        raise ValueError("Whitted shading of subsurface materials needs "
+                         "the thickness probe: use direct_diffuse")
+    return _direct(_brute_query(scene, info), scene, info, o, d, alive, None)

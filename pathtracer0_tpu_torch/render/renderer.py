@@ -1,13 +1,21 @@
 """Frames, progressive accumulation and screenshots (dispatch.java:593-851,
 frag.glsl:884-933).
 
-`render_frame` renders one frame of H*W pixels x spp samples through the
-whole-frame path (kernels/frame.py): one RNG stream per pixel seeded
-index + frame_seed and carried across the samples. Autofocus takes the
-centre ray's hit distance (frag.glsl:901-906), probed once per frame, or
-once per camera pose by `Renderer`.
+`render_frame` renders one frame of H*W pixels x spp samples, one RNG
+stream per pixel seeded index + frame_seed and carried across the samples,
+by one of two routes:
 
-Not ported yet: checkpoint/resume, `pick` and the debug heatmap.
+  frame path        kernels/frame.py, the whole frame in one launch, where
+                    the scene is eligible and `config.fused` is not "off"
+  per-bounce route  `render_rays`: the samples one after the other, each a
+                    `dof_ray` and one `integrator.trace` (or
+                    `direct_diffuse`) over the SAH forest
+
+Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
+once per frame, or once per camera pose by `Renderer`.
+
+Not ported yet: checkpoint/resume, `pick`, the debug heatmap, the legacy
+shading modes, ray chunking (`ray_batch_size`) and `fold_spp`.
 """
 from __future__ import annotations
 
@@ -19,20 +27,24 @@ import torch
 
 from ..config import RenderConfig
 from ..core import camera
+from ..core import math as vm
+from ..core import rng as vrng
 from ..core.device import resolve_device
-from ..kernels import frame
+from ..kernels import frame, traverse
 from . import integrator
 
 
-def _check(config: RenderConfig, info):
+def _check(config: RenderConfig):
     if config.debug or config.legacy_shading or config.legacy_pathtrace:
         raise NotImplementedError(
             "the debug heatmap and the legacy shading modes wait for a "
             "later slice of the port")
-    if not frame.eligible(info, whitted=not config.raytracing):
-        raise NotImplementedError(
-            f"scene with {info.num_tris} triangles and {info.num_materials} "
-            "materials is outside the frame path of this slice of the port")
+    for name in ("fused", "pallas"):
+        if getattr(config, name) not in ("auto", "on", "off"):
+            raise ValueError(
+                f"{name} must be 'auto', 'on' or 'off', not "
+                f"{getattr(config, name)!r}: the port has no interpret "
+                "mode, its plain versions serve the CPU")
 
 
 def _on(scene, device) -> torch.device:
@@ -43,7 +55,7 @@ def _on(scene, device) -> torch.device:
 
 
 def autofocus_distance(scene, info, cam_pos, cam_rot, focal_distance: float,
-                       auto_focus: bool):
+                       auto_focus: bool, pallas: str = "auto"):
     """The internal focal distance: the centre ray's hit distance when
     autofocus is on and it hits, else `focal_distance` (0-dim f32)."""
     ifd = torch.tensor(focal_distance, dtype=torch.float32,
@@ -51,13 +63,49 @@ def autofocus_distance(scene, info, cam_pos, cam_rot, focal_distance: float,
     if not auto_focus:
         return ifd
     d = camera.center_probe_direction(cam_rot)
-    dt = tuple(d[i].reshape(1) for i in range(3))
-    on = tuple((cam_pos[i] + integrator.NUDGE * d[i]).reshape(1)
-               for i in range(3))
-    alive = torch.ones(1, dtype=torch.bool, device=scene.device)
-    hit = integrator.closest_hit(scene, info, on, dt, alive)
+    hit, _ = traverse.ray_scene(
+        tuple(cam_pos[i].reshape(1) for i in range(3)),
+        tuple(d[i].reshape(1) for i in range(3)), scene, info, pallas=pallas)
     mid = torch.where(hit.is_hit, hit.t, -1.0)[0]
     return torch.where(mid > 0.0, mid, ifd)
+
+
+def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
+                ifd, *, config: RenderConfig, screen_h_ratio=None):
+    """The per-bounce route over a flat batch of pixels: uv (N, 2) pixel
+    centres, index (N,) pixel indices that seed the RNG streams. This is
+    the unit that spreads over several cards: pixels are independent.
+    `screen_h_ratio` is the whole image's height / width (default: the
+    config's). Returns (colour (N, 3), mean of the samples; queries (1,)
+    int64)."""
+    spp = config.samples_per_frame
+    if screen_h_ratio is None:
+        screen_h_ratio = config.screen_h_ratio
+    rotmat = vm.rotation_matrix(cam_rot.to(torch.float32))
+    direction = camera.primary_directions(
+        uv, rotmat, config.cam_size, config.focal_length, screen_h_ratio)
+    state = vrng.seed(index, frame_seed)
+    alive = torch.ones(state.shape, dtype=torch.bool, device=state.device)
+    zero = torch.zeros(state.shape, dtype=torch.float32, device=state.device)
+    total = [zero, zero, zero]
+    queries = torch.zeros(1, dtype=torch.int64, device=state.device)
+    for _ in range(spp):
+        o, d, state = camera.dof_ray(cam_pos, direction, rotmat, config.blur,
+                                     ifd, state)
+        o, d = o.unbind(-1), d.unbind(-1)
+        if config.raytracing:
+            col, state, q = integrator.trace(
+                scene, info, o, d, alive, state,
+                max_bounces=config.max_bounces,
+                stack_size=config.refraction_stack_depth,
+                fused=config.fused, pallas=config.pallas)
+            queries = queries + q
+        else:
+            col = integrator.direct_diffuse(scene, info, o, d, alive,
+                                            pallas=config.pallas)
+            queries = queries + state.numel()
+        total = [total[i] + col[i] for i in range(3)]
+    return torch.stack(total, dim=-1) / float(spp), queries
 
 
 def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
@@ -65,19 +113,26 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
     """One frame: ((H, W, 3) float32 mean of the samples, scene queries
     (1,) int64). `ifd` skips the autofocus probe when given."""
     dev = _on(scene, device)
-    _check(config, info)
+    _check(config)
     cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     cam_rot = torch.as_tensor(cam_rot, dtype=torch.float32, device=dev)
     if ifd is None:
         ifd = autofocus_distance(scene, info, cam_pos, cam_rot,
-                                 config.focal_distance, config.auto_focus)
-    col, rays = frame.render_fused_frame(
-        scene, info, cam_pos, cam_rot, frame_seed, ifd,
-        width=config.width, height=config.height,
-        spp=config.samples_per_frame, max_bounces=config.max_bounces,
-        stack_size=config.refraction_stack_depth, cam_size=config.cam_size,
-        focal_length=config.focal_length, blur=config.blur,
-        whitted=not config.raytracing)
+                                 config.focal_distance, config.auto_focus,
+                                 config.pallas)
+    whitted = not config.raytracing
+    if config.fused != "off" and frame.eligible(info, whitted=whitted):
+        col, rays = frame.render_fused_frame(
+            scene, info, cam_pos, cam_rot, frame_seed, ifd,
+            width=config.width, height=config.height,
+            spp=config.samples_per_frame, max_bounces=config.max_bounces,
+            stack_size=config.refraction_stack_depth,
+            cam_size=config.cam_size, focal_length=config.focal_length,
+            blur=config.blur, whitted=whitted)
+    else:
+        uv, index = camera.pixel_centers(config.width, config.height, dev)
+        col, rays = render_rays(scene, info, uv, index, cam_pos, cam_rot,
+                                frame_seed, ifd, config=config)
     return col.reshape(config.height, config.width, 3), rays
 
 
@@ -101,7 +156,7 @@ class Renderer:
     def __init__(self, scene, info, config: RenderConfig, cam_pos=None,
                  cam_rot=None, seed: int = 0, device=None):
         self.device = _on(scene, device)
-        _check(config, info)
+        _check(config)
         self.scene, self.info, self.config = scene, info, config
         self.seed = seed
         self.cam_pos = torch.as_tensor(
@@ -144,7 +199,7 @@ class Renderer:
         if self._ifd is None:
             self._ifd = autofocus_distance(
                 self.scene, self.info, self.cam_pos, self.cam_rot,
-                cfg.focal_distance, cfg.auto_focus)
+                cfg.focal_distance, cfg.auto_focus, cfg.pallas)
         self._sum, self._rays = render_frames_accum(
             self.scene, self.info, cfg, self.cam_pos, self.cam_rot, seeds,
             self._sum, self._rays, device=self.device, ifd=self._ifd)

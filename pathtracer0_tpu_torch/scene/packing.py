@@ -1,11 +1,11 @@
-"""The packed scene the frame path reads, in layouts chosen for the GPU.
+"""The packed scene the renderer reads, in layouts chosen for the GPU.
 
-One row per primitive, so a thread reads a triangle, an attribute record
-or a material with one base address (the JAX package's 128-lane rows
-exist only because Mosaic needs static lane offsets):
+One row per primitive, so a thread reads a triangle, an attribute record,
+a node or a material with one base address (the JAX package's 128-lane
+rows exist only because Mosaic needs static lane offsets):
 
-  tris      (T, 9)  f32  v1, e1 = v2 - v1, e2 = v3 - v1
-  attr      (T, 10) f32  n1, n2, n3, 2*mat + smooth
+  tris      (T, 9)  f32  v1, e1 = v2 - v1, e2 = v3 - v1, by triangle id
+  attr      (T, 10) f32  n1, n2, n3, 2*mat + smooth, by triangle id
   uvt       (T, 10) f32  uv1, uv2, uv3, raw UV-space tangent, has_uv
   materials (M, 48) f32  scene/material.COL layout
   ell_tab   (E, 17) f32  centre, stretch, radius, mat, R (row-major)
@@ -17,10 +17,21 @@ exist only because Mosaic needs static lane offsets):
   mat_maps  (M, 9)  i32  atlas slot of each MAP_CHANNELS map, -1 if none
   sky       (h*w, 3) f32 texture 0, the equirect sky
 
-Empty tables keep one zero row so every pointer handed to the kernel is
-valid; the real counts live in SceneInfo. No BVH is built: the frame
-path tests every triangle, so scenes past MAX_TRIS wait for the BVH slice
-of the port.
+and the SAH forest (accel/bvh.py), one BVH per object:
+
+  nodes_f   (N, 8)  f32  AABB min xyz, max xyz, two pads
+  nodes_i   (N, 4)  i32  left, right (-1 at a leaf), first row of the
+                         leaf in wf_tris, triangles in the leaf
+  wf_tris   (T, 9)  f32  the rows of `tris` in leaf order, so a leaf is
+                         a contiguous run
+  wf_perm   (T,)    i32  wf_tris row -> triangle id
+  tri_obj   (T,)    i32  triangle id -> root node of its object
+  roots     (O,)    i32  root node of each object
+
+Empty tables keep one zero row so every pointer handed to a kernel is
+valid; the real counts live in SceneInfo. Scenes past
+`config.stream_threshold` triangles need the streamed LBVH path, which the
+port does not have yet.
 """
 from __future__ import annotations
 
@@ -30,12 +41,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..accel import bvh as bvh_mod
 from .material import COL, pack_materials
 
 # Largest triangle count of the brute-force frame path (the JAX package's
 # FUSED_MAX_TRIS).
 MAX_TRIS = 2048
 MAX_MATERIALS = 32
+# Deepest per-ray traversal stack csrc/forest_kernel.cu is built with; a
+# forest whose leaves lie deeper than this less one is refused at pack time.
+TRAVERSE_MAX_STACK = 264
 # Map channels the integrators read, in the column order of `mat_maps`
 # (csrc/pathtrace.cuh MAP_* indices follow it).
 MAP_CHANNELS = ("map_Ka", "map_Kd", "map_Ks", "map_Ke", "map_Tr",
@@ -61,6 +76,12 @@ class SceneInfo(NamedTuple):
     map_bindings: tuple     # (channel, material, atlas slot)
     map_shapes: tuple       # per atlas slot: (h, w, texel offset)
     sky_shape: tuple        # (h, w)
+    num_objects: int = 0    # roots of the forest
+    num_leaves: int = 0
+    max_leaf_size: int = 0  # most triangles in one leaf
+    forest_depth: int = 0   # deepest leaf, a root being at depth 0
+    any_uv: bool = False
+    any_smooth: bool = False
 
 
 @dataclasses.dataclass
@@ -79,6 +100,12 @@ class PackedScene:
     slots: torch.Tensor
     mat_maps: torch.Tensor
     sky: torch.Tensor
+    nodes_f: torch.Tensor
+    nodes_i: torch.Tensor
+    wf_tris: torch.Tensor
+    wf_perm: torch.Tensor
+    tri_obj: torch.Tensor
+    roots: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -140,17 +167,51 @@ def _check_material_ids(n_mats, attr, ell_tab, imp_tab):
                          f"{sorted(set(ids.astype(int).tolist()))}")
 
 
+def forest_depth(left, right, roots) -> int:
+    """Depth of the deepest leaf, a root being at depth 0."""
+    deepest, todo = 0, [(int(r), 0) for r in roots]
+    while todo:
+        node, depth = todo.pop()
+        if left[node] < 0:
+            deepest = max(deepest, depth)
+        else:
+            todo += [(int(left[node]), depth + 1),
+                     (int(right[node]), depth + 1)]
+    return deepest
+
+
+def _forest_tables(forest, tris, object_ranges):
+    """The forest's device tables (module docstring) from BVHArrays."""
+    n = forest.num_nodes
+    nodes_f = np.zeros((max(n, 1), 8), np.float32)
+    nodes_i = np.full((max(n, 1), 4), -1, np.int32)
+    nodes_f[:n, 0:3] = forest.node_min
+    nodes_f[:n, 3:6] = forest.node_max
+    nodes_i[:n, 0] = forest.left
+    nodes_i[:n, 1] = forest.right
+    nodes_i[:n, 2] = forest.leaf_start
+    nodes_i[:n, 3] = forest.leaf_end - forest.leaf_start
+    perm = np.asarray(forest.leaf_tri_indices, np.int32)
+    tri_obj = np.full(max(tris.shape[0], 1), -1, np.int32)
+    for (start, end), root in zip(object_ranges, forest.roots):
+        tri_obj[start:end] = root
+    return dict(nodes_f=nodes_f, nodes_i=nodes_i, wf_tris=_pad1(tris[perm]),
+                wf_perm=_pad1(perm), tri_obj=tri_obj,
+                roots=_pad1(np.asarray(forest.roots, np.int32)))
+
+
 def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
             imp_rotated, imp_fn_ids, map_images, bindings, sky_img,
-            maps_present, device):
+            maps_present, forest, object_ranges, device):
     """Assemble (PackedScene, SceneInfo) from host arrays."""
     n_tri = tris.shape[0]
     _check_material_ids(mats.shape[0], attr, ell_tab[:len(ell_rotated)],
                         imp_tab[:len(imp_rotated)])
-    if n_tri > MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tri} triangles: the port traces at most {MAX_TRIS} by brute "
-            "force; larger scenes wait for the BVH slice of the port")
+    depth = forest_depth(forest.left, forest.right, forest.roots)
+    if depth + 1 > TRAVERSE_MAX_STACK:
+        raise ValueError(
+            f"the forest is {depth} levels deep; the traversal kernel's "
+            f"stack serves {TRAVERSE_MAX_STACK - 1} (lower max_bvh_depth)")
     shapes, offset = [], 0
     for img in map_images:
         shapes.append((img.shape[0], img.shape[1], offset))
@@ -164,10 +225,11 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
     imp_info[:n_imp, 1] = imp_rotated
     ell_flags = np.zeros(max(n_ell, 1), np.int32)
     ell_flags[:n_ell] = ell_rotated
+    tris = np.asarray(tris, np.float32)
+    attr = np.asarray(attr, np.float32)
+    uvt = np.asarray(uvt, np.float32)
     host = dict(
-        tris=_pad1(np.asarray(tris, np.float32)),
-        attr=_pad1(np.asarray(attr, np.float32)),
-        uvt=_pad1(np.asarray(uvt, np.float32)),
+        tris=_pad1(tris), attr=_pad1(attr), uvt=_pad1(uvt),
         materials=np.asarray(mats, np.float32),
         ell_tab=_pad1(np.asarray(ell_tab, np.float32)[:n_ell]),
         imp_tab=(np.asarray(imp_tab, np.float32)[:n_imp] if n_imp
@@ -178,9 +240,11 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         slots=_pad1(np.asarray(shapes, np.int32).reshape(-1, 3)),
         mat_maps=_mat_maps(bindings, mats.shape[0]),
         sky=np.asarray(sky_img, np.float32).reshape(-1, 3),
+        **_forest_tables(forest, tris, object_ranges),
     )
     scene = PackedScene(**{k: torch.tensor(v, device=device)
                            for k, v in host.items()})
+    is_leaf = forest.left < 0
     info = SceneInfo(
         num_tris=n_tri, num_ellipsoids=n_ell, num_implicits=n_imp,
         num_materials=int(mats.shape[0]),
@@ -191,8 +255,38 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         map_bindings=tuple(tuple(b) for b in bindings),
         map_shapes=tuple(shapes),
         sky_shape=(int(sky_img.shape[0]), int(sky_img.shape[1])),
+        num_objects=int(forest.roots.shape[0]),
+        num_leaves=int(is_leaf.sum()),
+        max_leaf_size=forest.max_leaf_size(),
+        forest_depth=depth,
+        any_uv=bool((uvt[:, 9] > 0).any()),
+        any_smooth=bool((attr[:, 9] % 2 > 0).any()),
     )
     return scene, info
+
+
+def _attr_rows(n1, n2, n3, mat, smooth) -> np.ndarray:
+    attr = np.zeros((n1.shape[0], 10), np.float32)
+    attr[:, 0:3], attr[:, 3:6], attr[:, 6:9] = n1, n2, n3
+    attr[:, 9] = (2.0 * np.asarray(mat, np.float32)
+                  + np.asarray(smooth, np.float32))
+    return attr
+
+
+def _uvt_rows(e1, e2, uv1, uv2, uv3, has_uv) -> np.ndarray:
+    """UV rows with the raw UV-space tangent (frag.glsl:421-439 before
+    Gram-Schmidt) of float32 edges e1, e2; zero where it is not finite."""
+    uvt = np.zeros((e1.shape[0], 10), np.float32)
+    uvt[:, 0:2], uvt[:, 2:4], uvt[:, 4:6] = uv1, uv2, uv3
+    du1, du2 = uv2 - uv1, uv3 - uv1
+    det = du1[:, 0] * du2[:, 1] - du1[:, 1] * du2[:, 0]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        traw = (du2[:, 1:2] * e1 - du1[:, 1:2] * e2) / det[:, None]
+    has_uv = np.asarray(has_uv) > 0
+    ok = has_uv & np.isfinite(traw).all(axis=1)
+    uvt[ok, 6:9] = traw[ok]
+    uvt[:, 9] = has_uv
+    return uvt
 
 
 def _column(scene, name, width, dtype):
@@ -208,35 +302,38 @@ def _column(scene, name, width, dtype):
     return np.zeros((0, width) if width else (0,), dtype)
 
 
-def pack_scene(scene, device):
-    """Pack a `Scene` (scene/scene.py) onto `device`."""
+def pack_scene(scene, device, config, max_leaf=None):
+    """Pack a `Scene` (scene/scene.py) onto `device`: one BVH per object
+    (an OBJ group, a loose triangle, a bulk mesh) built with `config`'s
+    `sah_planes`, `max_bvh_depth` and `max_tris_in_leaf` (or `max_leaf`)."""
     v1 = _column(scene, "v1", 3, np.float64)
     v2 = _column(scene, "v2", 3, np.float64)
     v3 = _column(scene, "v3", 3, np.float64)
     n_tri = v1.shape[0]
+    if n_tri > config.stream_threshold:
+        raise NotImplementedError(
+            f"{n_tri} triangles exceed stream_threshold = "
+            f"{config.stream_threshold}: such scenes need the streamed LBVH "
+            "path, which waits for a later slice of the port")
+    object_ranges = list(scene.tris.object_ranges)
+    ofs = len(scene.tris)
+    for bm in scene.bulk_meshes:
+        object_ranges.append((ofs, ofs + bm["v1"].shape[0]))
+        ofs += bm["v1"].shape[0]
+    forest = bvh_mod.build_forest(
+        v1, v2, v3, object_ranges, sah_planes=config.sah_planes,
+        max_depth=config.max_bvh_depth,
+        max_leaf=config.max_tris_in_leaf if max_leaf is None else max_leaf)
     tris = np.concatenate([v1, v2 - v1, v3 - v1], axis=1).astype(np.float32)
-    attr = np.zeros((n_tri, 10), np.float32)
-    for k, name in enumerate(("n1", "n2", "n3")):
-        attr[:, 3 * k:3 * k + 3] = _column(scene, name, 3, np.float32)
-    attr[:, 9] = (2.0 * _column(scene, "mat", 0, np.float32)
-                  + _column(scene, "has_smooth", 0, np.float32))
-    uvt = np.zeros((n_tri, 10), np.float32)
-    uvs = [_column(scene, f"uv{k}", 2, np.float32) for k in (1, 2, 3)]
-    huv = _column(scene, "has_uv", 0, np.float32)
-    for k in range(3):
-        uvt[:, 2 * k:2 * k + 2] = uvs[k]
-    for t in np.flatnonzero(huv > 0):
-        # raw UV-space tangent (frag.glsl:421-439 before Gram-Schmidt)
-        e1 = (v2[t] - v1[t]).astype(np.float32)
-        e2 = (v3[t] - v1[t]).astype(np.float32)
-        du1 = uvs[1][t] - uvs[0][t]
-        du2 = uvs[2][t] - uvs[0][t]
-        det = du1[0] * du2[1] - du1[1] * du2[0]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            traw = (du2[1] * e1 - du1[1] * e2) / det
-        if np.all(np.isfinite(traw)):
-            uvt[t, 6:9] = traw
-        uvt[t, 9] = 1.0
+    attr = _attr_rows(*(_column(scene, k, 3, np.float32)
+                        for k in ("n1", "n2", "n3")),
+                      _column(scene, "mat", 0, np.float32),
+                      _column(scene, "has_smooth", 0, np.float32))
+    uvt = _uvt_rows((v2 - v1).astype(np.float32),
+                    (v3 - v1).astype(np.float32),
+                    *(_column(scene, f"uv{k}", 2, np.float32)
+                      for k in (1, 2, 3)),
+                    _column(scene, "has_uv", 0, np.float32))
 
     n_ell = len(scene.ell_rad)
     ell_tab = np.zeros((n_ell, 17), np.float32)
@@ -285,7 +382,7 @@ def pack_scene(scene, device):
         ell_rotated=ell_rotated, imp_tab=imp_tab, imp_rotated=imp_rotated,
         imp_fn_ids=[int(f) for f in scene.imp_fn], map_images=map_images,
         bindings=bindings, sky_img=sky, maps_present=maps_present,
-        device=device)
+        forest=forest, object_ranges=object_ranges, device=device)
 
 
 def _unpack_rows(rows: np.ndarray, per_row: int, stride: int) -> np.ndarray:
@@ -298,28 +395,67 @@ def _unpack_rows(rows: np.ndarray, per_row: int, stride: int) -> np.ndarray:
 def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
     """Carry a scene built by the JAX package across to the port.
 
-    `arrays` holds that package's DeviceScene fields as numpy arrays
-    (fs_tris, fs_attr, fs_uvt, fs_maps, materials, ell_tab, imp_tab,
-    tex_data, tex_sizes; fs_sky may be present and is not needed) and
-    `info` its StaticSceneInfo fields as a plain dict. Triangles keep that
-    package's order (BVH leaf order), so both renderers see identical
-    geometry in identical order. Returns (PackedScene, SceneInfo).
+    `arrays` holds that package's DeviceScene fields as numpy arrays and
+    `info` its StaticSceneInfo fields as a plain dict. Always needed:
+    materials, ell_tab, imp_tab, tex_data, tex_sizes, fs_maps. Then either
+
+      * the forest and the triangle columns (node_min, node_max, node_left,
+        node_right, leaf_start, leaf_end, leaf_tri, roots, tri_v1..tri_v3,
+        tri_n1..tri_n3, tri_uv1..tri_uv3, tri_has_uv, tri_has_smooth,
+        tri_mat, tri_obj): triangles keep their ids and the port walks the
+        very forest the JAX package built; or
+      * the dense tables of its fused path alone (fs_tris, fs_attr,
+        fs_uvt): triangles come in that package's BVH leaf order and the
+        port builds a forest of its own over them, as one object.
+
+    Material maps come across where that package packed them for its fused
+    path (fs_maps). Returns (PackedScene, SceneInfo).
     """
-    fs_tris = np.asarray(arrays["fs_tris"], np.float32)
-    if fs_tris.shape[0] > 1:
-        tris = _unpack_rows(fs_tris, 14, 9)
-        live = np.flatnonzero(np.any(tris != 0.0, axis=1))
-        n_tri = int(live[-1]) + 1 if live.size else 0
-        tris = tris[:n_tri]
-        attr = _unpack_rows(np.asarray(arrays["fs_attr"], np.float32),
-                            12, 10)[:n_tri]
-        fs_uvt = np.asarray(arrays["fs_uvt"], np.float32)
-        uvt = (_unpack_rows(fs_uvt, 12, 10)[:n_tri] if fs_uvt.shape[0] > 1
-               else np.zeros((n_tri, 10), np.float32))
+    if "node_min" in arrays and int(info["num_objects"]):
+        def f32(key):
+            return np.asarray(arrays[key], np.float32)
+
+        v1, v2, v3 = f32("tri_v1"), f32("tri_v2"), f32("tri_v3")
+        tris = np.concatenate([v1, v2 - v1, v3 - v1], axis=1)
+        attr = _attr_rows(f32("tri_n1"), f32("tri_n2"), f32("tri_n3"),
+                          arrays["tri_mat"], arrays["tri_has_smooth"])
+        uvt = _uvt_rows(v2 - v1, v3 - v1, f32("tri_uv1"), f32("tri_uv2"),
+                        f32("tri_uv3"), arrays["tri_has_uv"])
+        roots = np.asarray(arrays["roots"], np.int32)
+        forest = bvh_mod.BVHArrays(
+            node_min=f32("node_min"), node_max=f32("node_max"),
+            leaf_start=np.asarray(arrays["leaf_start"], np.int32),
+            leaf_end=np.asarray(arrays["leaf_end"], np.int32),
+            left=np.asarray(arrays["node_left"], np.int32),
+            right=np.asarray(arrays["node_right"], np.int32),
+            leaf_tri_indices=np.asarray(arrays["leaf_tri"], np.int32),
+            roots=roots)
+        # objects are contiguous id ranges, in the order of their roots
+        tri_obj = np.asarray(arrays["tri_obj"])
+        starts = [int(np.flatnonzero(tri_obj == r)[0]) for r in roots]
+        object_ranges = list(zip(starts, starts[1:] + [tris.shape[0]]))
     else:
-        tris = np.zeros((0, 9), np.float32)
-        attr = np.zeros((0, 10), np.float32)
-        uvt = np.zeros((0, 10), np.float32)
+        fs_tris = np.asarray(arrays["fs_tris"], np.float32)
+        if fs_tris.shape[0] > 1:
+            tris = _unpack_rows(fs_tris, 14, 9)
+            live = np.flatnonzero(np.any(tris != 0.0, axis=1))
+            n_tri = int(live[-1]) + 1 if live.size else 0
+            tris = tris[:n_tri]
+            attr = _unpack_rows(np.asarray(arrays["fs_attr"], np.float32),
+                                12, 10)[:n_tri]
+            fs_uvt = np.asarray(arrays["fs_uvt"], np.float32)
+            uvt = (_unpack_rows(fs_uvt, 12, 10)[:n_tri]
+                   if fs_uvt.shape[0] > 1
+                   else np.zeros((n_tri, 10), np.float32))
+        else:
+            tris = np.zeros((0, 9), np.float32)
+            attr = np.zeros((0, 10), np.float32)
+            uvt = np.zeros((0, 10), np.float32)
+        object_ranges = [(0, tris.shape[0])] if tris.shape[0] else []
+        forest = bvh_mod.build_forest(
+            tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
+            tris[:, 0:3] + tris[:, 6:9], object_ranges,
+            max_leaf=max(int(info.get("max_leaf_size", 1)), 1))
     fs_maps = np.asarray(arrays["fs_maps"], np.float32)
     map_images = []
     for h, w, base, rpy in info.get("fs_map_shapes", ()):
@@ -341,4 +477,4 @@ def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
         map_images=map_images,
         bindings=tuple(info.get("fs_map_bindings", ())),
         sky_img=tex_data[0, :sh, :sw], maps_present=maps_present,
-        device=device)
+        forest=forest, object_ranges=object_ranges, device=device)

@@ -1,70 +1,36 @@
 """Scene builder: the host-side API of the reference `scene` class
 (dispatch.java:866-1064), as the JAX package exposes it.
 
+    scene.addObject(path, mtl, scale, shift, rot)   -> add_object
     scene.addTri(v1, v2, v3, m)                     -> add_tri
     scene.addEllipsoid(c, stretch, rot, radius, m)  -> add_ellipsoid
     scene.addImplicit(fn, shift, scale, rot, m)     -> add_implicit
     scene.addMaterial(name) / setLastMtl(prop, val) -> add_material /
                                                        set_last_mtl
 plus texture 0 as the sky (set_sky) and bulk meshes (add_mesh).
-`build(device=...)` packs everything onto one device (scene/packing.py).
+`build(device=...)` builds the SAH forest over the triangles and packs
+everything onto one device (scene/packing.py).
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import List, Sequence, Union
+import os
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
+from ..config import RenderConfig
 from ..core.device import resolve_device
-from .material import Material
+from .material import Material, parse_mtl
+from .objparse import TriangleSoA, parse_obj
 from .packing import pack_scene
 from .texture import TextureRegistry
-
-
-@dataclasses.dataclass
-class TriangleList:
-    """Loose triangles (float64 until packing)."""
-
-    v1: List[np.ndarray] = dataclasses.field(default_factory=list)
-    v2: List[np.ndarray] = dataclasses.field(default_factory=list)
-    v3: List[np.ndarray] = dataclasses.field(default_factory=list)
-    n1: List[np.ndarray] = dataclasses.field(default_factory=list)
-    n2: List[np.ndarray] = dataclasses.field(default_factory=list)
-    n3: List[np.ndarray] = dataclasses.field(default_factory=list)
-    uv1: List[np.ndarray] = dataclasses.field(default_factory=list)
-    uv2: List[np.ndarray] = dataclasses.field(default_factory=list)
-    uv3: List[np.ndarray] = dataclasses.field(default_factory=list)
-    has_uv: List[bool] = dataclasses.field(default_factory=list)
-    has_smooth: List[bool] = dataclasses.field(default_factory=list)
-    mat: List[int] = dataclasses.field(default_factory=list)
-
-    def __len__(self):
-        return len(self.v1)
-
-    def add_flat(self, v1, v2, v3, mat: int):
-        """A flat-shaded triangle without UVs: the normalized face normal
-        (v3-v1) x (v2-v1) (dispatch.java:398 orientation) in all three
-        normal slots."""
-        v1, v2, v3 = (np.asarray(v, np.float64) for v in (v1, v2, v3))
-        fn = np.cross(v3 - v1, v2 - v1)
-        mag = np.linalg.norm(fn)
-        fn = fn / mag if mag > 0 else fn
-        for name, val in (("v1", v1), ("v2", v2), ("v3", v3), ("n1", fn),
-                          ("n2", fn), ("n3", fn)):
-            getattr(self, name).append(val)
-        for name in ("uv1", "uv2", "uv3"):
-            getattr(self, name).append(np.zeros(2))
-        self.has_uv.append(False)
-        self.has_smooth.append(False)
-        self.mat.append(int(mat))
 
 
 class Scene:
     def __init__(self):
         self.materials: List[Material] = []
         self.textures = TextureRegistry()
-        self.tris = TriangleList()
+        self.tris = TriangleSoA()
         self.imp_fn: List[int] = []
         self.imp_shift: List[Sequence[float]] = []
         self.imp_scale: List[Sequence[float]] = []
@@ -104,10 +70,30 @@ class Scene:
         self.materials[-1].set(prop, value)
 
     # -- geometry -----------------------------------------------------------
-    def add_object(self, *args, **kwargs):
-        raise NotImplementedError(
-            "OBJ loading (add_object) waits for the objparse slice of the "
-            "port")
+    def add_object(self, filepath: str, material: int = 0,
+                   scale=(1.0, 1.0, 1.0), shift=(0.0, 0.0, 0.0),
+                   rot=(0.0, 0.0, 0.0)):
+        """A directory: every .mtl, then every .obj inside it; a file: that
+        one .obj (dispatch.java:867-886). Each `o`/`g` group becomes one
+        object of the forest."""
+        if os.path.isdir(filepath):
+            entries = sorted(os.listdir(filepath))
+            objs = [e for e in entries if e.lower().endswith(".obj")]
+            if not objs:
+                print("no obj files found in the directory.")
+                return
+            for m in (e for e in entries if e.lower().endswith(".mtl")):
+                parse_mtl(os.path.join(filepath, m), filepath,
+                          self.materials, self.textures)
+            for o in objs:
+                parse_obj(os.path.join(filepath, o), self.tris, material,
+                          scale, shift, rot,
+                          [m.name for m in self.materials], filepath)
+        elif os.path.isfile(filepath) and filepath.lower().endswith(".obj"):
+            parse_obj(filepath, self.tris, material, scale, shift, rot,
+                      [m.name for m in self.materials], "")
+        else:
+            raise FileNotFoundError(filepath)
 
     def add_mesh_indexed(self, *args, **kwargs):
         raise NotImplementedError(
@@ -115,14 +101,18 @@ class Scene:
             "slice of the port; expand the faces and use add_mesh")
 
     def add_tri(self, v1, v2, v3, m: int):
-        """One flat-shaded triangle without UVs (dispatch.java:1013-1015)."""
-        self.tris.add_flat(v1, v2, v3, m)
+        """One flat-shaded triangle without UVs (dispatch.java:1013-1015),
+        an object of its own in the forest."""
+        start = len(self.tris)
+        self.tris.add_triangle(v1, v2, v3, (0, 0, 0), (0, 0, 0), (0, 0, 0),
+                               (0, 0), (0, 0), (0, 0), False, m)
+        self.tris.object_ranges.append((start, start + 1))
 
     def add_mesh(self, v1, v2, v3, m: int, normals=None, uvs=None):
         """Bulk triangle mesh from (T, 3) vertex arrays. normals: optional
         three (T, 3) per-vertex normal arrays (smooth shading), else flat;
-        uvs: optional three (T, 2) arrays. Packs after all loose
-        triangles, meshes in the order they were added."""
+        uvs: optional three (T, 2) arrays. Packs as one object after all
+        parsed and loose triangles, meshes in the order they were added."""
         v1 = np.asarray(v1, np.float64).reshape(-1, 3)
         v2 = np.asarray(v2, np.float64).reshape(-1, 3)
         v3 = np.asarray(v3, np.float64).reshape(-1, 3)
@@ -175,7 +165,10 @@ class Scene:
         self.imp_mat.append(int(m))
 
     # -- packing -------------------------------------------------------------
-    def build(self, device=None):
-        """Pack onto `device` (default: the card). Returns
-        (PackedScene, SceneInfo)."""
-        return pack_scene(self, resolve_device(device))
+    def build(self, device=None, config: Optional[RenderConfig] = None,
+              max_leaf: Optional[int] = None):
+        """Build the forest (`config.sah_planes`, `max_bvh_depth`,
+        `max_tris_in_leaf` or `max_leaf`) and pack onto `device` (default:
+        the card). Returns (PackedScene, SceneInfo)."""
+        return pack_scene(self, resolve_device(device),
+                          config or RenderConfig(), max_leaf=max_leaf)

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA frame kernel against its plain
-PyTorch version, and the renderer's main path through the kernel.
+"""Card-only tests of the port: each CUDA kernel (frame, block, brute,
+traverse) against its plain PyTorch version, and the renderer's routes
+through the kernels.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -125,3 +126,195 @@ def test_every_implicit_on_card(fn):
     assert bool((diff[~hits_k & ~hits_p] < 1e-4).all())
     assert float((diff[hits_k & hits_p] < 1e-2).float().mean()) >= 0.99
     assert float((rk - rp).abs().mean()) < 5e-3
+
+
+# ---- the per-bounce route: forest kernels and the block kernel ------------
+
+def _terrain_scene(n, max_leaf):
+    """A height-field mesh of 2 (n - 1)^2 triangles under two spheres."""
+    import numpy as np
+
+    xs = np.linspace(-6.0, 6.0, n)
+    X, Z = np.meshgrid(xs, xs)
+    Y = np.sin(X * 1.3) * np.cos(Z * 1.1) * 0.6
+    P = np.stack([X, Y, Z + 8.0], axis=-1)
+    a, b, c, d = P[:-1, :-1], P[1:, :-1], P[:-1, 1:], P[1:, 1:]
+    v1 = np.concatenate([a.reshape(-1, 3), d.reshape(-1, 3)])
+    v2 = np.concatenate([b.reshape(-1, 3), b.reshape(-1, 3)])
+    v3 = np.concatenate([c.reshape(-1, 3), c.reshape(-1, 3)])
+    sc = Scene()
+    sc.set_constant_sky((0.5, 0.6, 0.9))
+    sc.add_material("terrain")
+    sc.set_last_mtl("Kd", (0.45, 0.52, 0.38))
+    sc.set_last_mtl("Pr", 1.0)
+    sc.add_material("glass")
+    sc.set_last_mtl("Tr", 0.92)
+    sc.set_last_mtl("Ni", 1.5)
+    sc.set_last_mtl("illum", 7)
+    sc.add_mesh(v1, v2, v3, 0)
+    sc.add_sphere((0.0, 1.6, 6.0), 0.8, m=1)
+    return sc.build(config=RenderConfig(max_tris_in_leaf=max_leaf))
+
+
+def _forest_rays(n):
+    g = torch.Generator().manual_seed(5)
+    o = torch.randn(n, 3, generator=g) * torch.tensor([4.0, 0.5, 2.0]) \
+        + torch.tensor([0.0, 2.5, 1.0])
+    d = torch.randn(n, 3, generator=g) * 0.5 + torch.tensor([0.0, -0.4, 1.0])
+    d = d / d.norm(dim=1, keepdim=True)
+    t_init = torch.where(torch.arange(n) % 7 == 0, 0.0, 1e30)
+    o, d = (tuple(v[:, i].contiguous().cuda() for i in range(3))
+            for v in (o, d))
+    return o, d, t_init.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kernel", [(9, "brute_kernel"),
+                                      (40, "traverse_kernel")])
+def test_forest_kernels_match_plain_on_card(n, kernel):
+    """t, u, v within 1e-5, the row hit equal on >= 99.9% of the rays,
+    switched-off rays exact, the walk's per-ray counters equal."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    sc, info = _terrain_scene(n, 4)
+    assert wavefront.use_brute(info) == (kernel == "brute_kernel")
+    o, d, t_init = _forest_rays(8192)
+    before = dict(wavefront.launches)
+    out_k = wavefront.trace_forest(o, d, t_init, sc, info)
+    assert wavefront.launches[kernel] == before[kernel] + 1
+    out_p = wavefront.trace_forest_reference(o, d, t_init, sc, info)
+    assert wavefront.launches[kernel] == before[kernel] + 1
+    same = out_k[3] == out_p[3]
+    assert float(same.float().mean()) >= 0.999
+    for a, b in zip(out_k[:3], out_p[:3]):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=1e-5, atol=1e-5)
+    dead = t_init == 0.0
+    assert bool((out_k[0][dead] == 0.0).all())
+    assert bool((out_k[3][dead] == -1).all())
+    assert 0.1 < float((out_k[3] >= 0).float().mean()) < 0.95
+    assert float((out_k[4] == out_p[4]).float().mean()) >= 0.999
+    assert float((out_k[5] == out_p[5]).float().mean()) >= 0.999
+    assert bool((out_k[5][dead] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_block_kernel_matches_plain_on_card(n):
+    """One sample's rays through csrc/block_kernel.cu and through
+    integrator.trace_plain, some rays not alive."""
+    _card()
+    from pathtracer0_tpu_torch.core import math as tmath
+    from pathtracer0_tpu_torch.kernels import fused
+    from pathtracer0_tpu_torch.render import integrator
+
+    sc, info = scenes.BUILDERS[n]().build()
+    cam, rot = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in scenes.CAMERAS[n])
+    state = trng.seed(torch.arange(W * H, device="cuda"), SEED)
+    o, d, state = tframe._raygen(
+        cam, tmath.rotation_matrix(rot), torch.tensor(IFD, device="cuda"),
+        state, W, H, cam_size=1.5, focal_length=1.0, blur=BLUR)
+    alive = torch.arange(W * H, device="cuda") % 5 != 0
+    before = fused.trace_block.launches
+    rad_k, st_k, q_k = fused.trace_block(sc, info, o, d, alive, state,
+                                         max_bounces=6)
+    assert fused.trace_block.launches == before + 1
+    inc, skyc, st_p, q_p = integrator.trace_plain(
+        sc, info, o, d, alive, state, max_bounces=6)
+    rk = torch.stack(list(rad_k), -1)
+    rp = torch.stack([inc[i] + skyc[i] for i in range(3)], -1)
+    diff = (rk - rp).abs().amax(-1)
+    assert bool(torch.isfinite(rk).all())
+    assert float((st_k == st_p).float().mean()) >= 0.99
+    assert float((diff < 1e-4).float().mean()) >= 0.99
+    assert abs(int(q_k) - int(q_p.sum())) <= 0.01 * int(q_p.sum()) + 16
+    assert torch.equal(st_k[~alive], state[~alive])
+    assert float(rk[~alive].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_routes_go_through_their_kernels():
+    """A mesh past the frame path renders through traverse_kernel; a small
+    one with fused="off" through brute_kernel; render_rays with fused="on"
+    through block_kernel. The routes agree within the golden budget."""
+    _card()
+    from pathtracer0_tpu_torch.core import camera
+    from pathtracer0_tpu_torch.kernels import fused, wavefront
+    from pathtracer0_tpu_torch.render.renderer import render_rays
+    from pathtracer0_tpu_torch.utils import image as img_util
+
+    cam, rot = (0.0, 2.5, 0.0), (0.3, 0.0, 0.0)
+    kw = dict(width=W, height=H, samples_per_frame=4, max_bounces=4)
+    big, big_info = _terrain_scene(40, 4)
+    small, small_info = _terrain_scene(9, 4)
+    before = dict(wavefront.launches)
+    r = Renderer(big, big_info, RenderConfig(**kw), cam_pos=cam, cam_rot=rot)
+    img = r.render(2)
+    assert wavefront.launches["traverse_kernel"] > before["traverse_kernel"]
+    assert bool(torch.isfinite(img).all())
+    plain = Renderer(big, big_info, RenderConfig(pallas="off", **kw),
+                     cam_pos=cam, cam_rot=rot)
+    assert img_util.rmse(img.cpu().numpy(),
+                         plain.render(2).cpu().numpy()) < 0.05
+
+    frames = {}
+    for fused_opt in ("auto", "off"):
+        r = Renderer(small, small_info, RenderConfig(fused=fused_opt, **kw),
+                     cam_pos=cam, cam_rot=rot, seed=3)
+        frames[fused_opt] = r.render(2).cpu().numpy()
+    assert wavefront.launches["brute_kernel"] > before["brute_kernel"]
+    assert img_util.rmse(frames["auto"], frames["off"]) < 0.05
+    uv, index = camera.pixel_centers(W, H, "cuda")
+    n0 = fused.trace_block.launches
+    col, _ = render_rays(
+        small, small_info, uv, index, torch.tensor(cam, device="cuda"),
+        torch.tensor(rot, device="cuda"), 11,
+        torch.tensor(IFD, device="cuda"),
+        config=RenderConfig(fused="on", **kw))
+    assert fused.trace_block.launches == n0 + 4
+    assert bool(torch.isfinite(col).all())
+
+
+@pytest.mark.cuda
+def test_deep_forest_takes_a_larger_stack_on_card():
+    """Triangles shrinking geometrically towards x = 0 give, with one SAH
+    plane, a tree some 43 levels deep: traverse_kernel runs with its
+    64-entry stack and agrees with its plain version and with brute
+    force."""
+    _card()
+    import numpy as np
+
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    n = 200
+    x = 1e5 * 0.88 ** np.arange(n)
+    s, zero = 0.1 * x, np.zeros(n)
+    v1 = np.stack([x, zero, zero + 3.0], 1)
+    v2 = v1 + np.stack([s, zero, zero], 1)
+    v3 = v1 + np.stack([zero, s, zero], 1)
+    sc = Scene()
+    sc.set_constant_sky((0.3, 0.3, 0.3))
+    sc.add_material("m")
+    sc.add_mesh(v1, v2, v3, 0)
+    scene, info = sc.build(config=RenderConfig(sah_planes=1))
+    assert wavefront.STACK_SIZES[0] < info.forest_depth + 1 \
+        <= wavefront.STACK_SIZES[1]
+    rng = np.random.RandomState(4)
+    k = rng.randint(0, n, 4096)
+    o = v1[k] + np.stack([s[k] * rng.rand(4096) * 1.2,
+                          s[k] * rng.rand(4096) * 1.2, -s[k] * 3], 1)
+    o = tuple(torch.tensor(o[:, i], dtype=torch.float32, device="cuda")
+              for i in range(3))
+    zeros = torch.zeros(4096, device="cuda")
+    d = (zeros, zeros, zeros + 1.0)
+    t_init = torch.full((4096,), 1e30, device="cuda")
+    out_k = wavefront.trace_forest(o, d, t_init, scene, info)
+    out_p = wavefront.traverse_reference(o, d, t_init, scene, info)
+    out_b = wavefront.brute_reference(o, d, t_init, scene, info)
+    for a, b, c in zip(out_k[:4], out_p[:4], out_b[:4]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(out_k[4], out_p[4]) and torch.equal(out_k[5], out_p[5])
+    assert 0.2 < float((out_k[3] >= 0).float().mean()) < 0.9
+    assert int(out_k[3].unique().numel()) > 80

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from pathtracer0_tpu import scenes as jscenes
+from pathtracer0_tpu_torch import RenderConfig
 from pathtracer0_tpu_torch import scenes as tscenes
 from pathtracer0_tpu_torch.scene import packing
 from pathtracer0_tpu_torch.scene.scene import Scene
@@ -95,7 +96,7 @@ def test_scene_api_limits():
     sc = Scene()
     sc.set_constant_sky((0.5, 0.6, 0.7))
     sc.add_material("a")
-    with pytest.raises(NotImplementedError, match="objparse"):
+    with pytest.raises(FileNotFoundError):
         sc.add_object("x.obj")
     with pytest.raises(NotImplementedError, match="indexed"):
         sc.add_mesh_indexed(np.zeros((3, 3)), np.array([[0, 1, 2]]), 0)
@@ -106,10 +107,12 @@ def test_scene_api_limits():
         sc.build(device="cpu")
     big = Scene()
     big.add_material("a")
-    v = np.random.RandomState(0).rand(packing.MAX_TRIS + 1, 3)
+    v = np.random.RandomState(0).rand(65, 3)
     big.add_mesh(v, v + [1, 0, 0], v + [0, 1, 0], 0)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        big.build(device="cpu")
+    with pytest.raises(NotImplementedError, match="streamed LBVH"):
+        big.build(device="cpu", config=RenderConfig(stream_threshold=64))
+    _, info = big.build(device="cpu")
+    assert info.num_tris == 65 and info.num_objects == 1
 
 
 def test_parse_mtl_matches_jax(tmp_path):
@@ -152,3 +155,47 @@ def test_add_tri_flat_normal():
                                   [0, 0, 0, 1, 0, 0, 0, 1, 0])
     np.testing.assert_allclose(p.attr[0, :3].numpy(), [0, 0, -1])
     assert float(p.attr[0, 9]) == 0.0
+
+
+def test_add_object_directory_matches_jax(tmp_path):
+    """A directory with an .mtl and an .obj (two groups, `usemtl`, UVs and
+    normals, a quad, a transform): both packages parse the same materials,
+    triangles, object ranges and forest."""
+    from pathtracer0_tpu import RenderConfig as JConfig
+    from pathtracer0_tpu import Scene as JScene
+
+    (tmp_path / "m.mtl").write_text(
+        "newmtl red\nKd 0.8 0.1 0.1\nPr 0.4\n\nnewmtl blue\nKd 0 0 1\n")
+    (tmp_path / "a.obj").write_text(
+        "mtllib m.mtl\no first\nusemtl red\n"
+        "v 0 0 2\nv 1 0 2\nv 1 1 2.5\nv 0 1 2\n"
+        "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 0 -1\nvn 0.1 0 -1\n"
+        "f 1/1/1 2/2/2 3/3/1 4/4/2\nf 1/1/1 3/3/1 4/4/2\n"
+        "g second\nusemtl blue\nv 2 0 3\nv 3 0 3\nv 2 1 3\n"
+        "f 5 6 7\nf 5//1 7//1 6//2\n")
+    kw = dict(material=0, scale=(1.0, 2.0, 1.0), shift=(0.5, 0.0, 1.0),
+              rot=(0.1, 0.2, 0.3))
+    js, ts = JScene(), Scene()
+    for sc in (js, ts):
+        sc.set_constant_sky((0.5, 0.5, 0.5))
+        sc.add_material("default")
+        sc.add_object(str(tmp_path), **kw)
+    assert [m.name for m in ts.materials] == [m.name for m in js.materials]
+    assert ts.tris.object_ranges == js.tris.object_ranges == [(0, 2), (2, 4)]
+    assert ts.tris.mat == js.tris.mat
+    assert ts.tris.has_uv == js.tris.has_uv == [True, True, False, False]
+    assert ts.tris.has_smooth == js.tris.has_smooth
+    for name in ("v1", "v2", "v3", "n1", "n2", "n3", "uv1", "uv2", "uv3"):
+        np.testing.assert_array_equal(np.stack(getattr(ts.tris, name)),
+                                      np.stack(getattr(js.tris, name)))
+    dev, info = js.build(JConfig())
+    p, pinfo = ts.build(device="cpu")
+    np.testing.assert_array_equal(p.materials.numpy(),
+                                  np.asarray(dev.materials))
+    np.testing.assert_array_equal(p.roots.numpy(), np.asarray(dev.roots))
+    np.testing.assert_array_equal(p.tri_obj.numpy(), np.asarray(dev.tri_obj))
+    np.testing.assert_array_equal(p.attr[:, 0:3].numpy(),
+                                  np.asarray(dev.tri_n1))
+    assert pinfo.any_uv == info.any_uv and pinfo.any_smooth == info.any_smooth
+    with pytest.raises(FileNotFoundError):
+        ts.add_object(str(tmp_path / "m.mtl"))

@@ -11,7 +11,8 @@ no "interpret": the plain PyTorch versions of the kernels serve the CPU):
           "off": every scene goes the per-bounce route over the SAH forest
   pallas  "auto" / "on": the forest is walked by the CUDA forest kernels
           on the card and by their plain versions on the CPU; "off": by
-          the plain versions on any device (the yardstick)
+          the plain versions, on the CPU only (the renderer refuses it on
+          the card, where nothing takes the kernels' place)
 
 `ray_batch_size` is ignored: the port does not chunk rays.
 `traversal_stack_depth` is ignored too: the traversal stack is sized from

@@ -17,17 +17,20 @@
 //                    so far (frag.glsl:563-577); inside one, a stack in
 //                    local memory, children ordered by entry distance, far
 //                    pushed first (frag.glsl:523-531). A walk holds at most
-//                    depth + 1 nodes; the launcher picks the instantiation
-//                    whose STACK serves the forest's depth, and a push past
-//                    STACK is dropped, never written. Counters: 2 box tests
-//                    for each internal node visited, 1 for each leaf.
+//                    depth + 1 nodes; forests deeper than STACK - 1 are
+//                    refused when the scene is packed, and a push past
+//                    STACK is dropped, never written. A thread touches only
+//                    the entries its walk reaches, so one size serves every
+//                    depth. Counters: 2 box tests for each internal node
+//                    visited, 1 for each leaf.
 // The triangle test is the dividing Möller-Trumbore of the TPU kernels
 // (inv_det = 1/det, then multiply; strict t < closest, so the first row
 // wins a tie), not the division-free test of pathtrace.cuh. The slab test
 // uses a reciprocal direction clamped to +-1e30 so 0 * inf never happens.
 //
-// What bounds them: brute_kernel arithmetic (47 float operations per ray
-// and row); traverse_kernel the latency of dependent node and triangle
+// What bounds them: brute_kernel arithmetic (a whole triangle test is 46
+// float operations: two cross products, four dot products, the edge
+// vector, the reciprocal, three products by it and u + v); traverse_kernel the latency of dependent node and triangle
 // loads from L2 and divergence between the rays of a warp. Sorting rays
 // for coherence and wider nodes are left for later work.
 //
@@ -59,6 +62,7 @@ namespace {
 constexpr float MISS = 1e30f;
 constexpr float EPSILON = 1e-10f;  // frag.glsl:228
 constexpr int BLOCK = 128;
+constexpr int STACK = 264;  // scene/packing.py TRAVERSE_MAX_STACK
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -144,7 +148,6 @@ __global__ void __launch_bounds__(BLOCK) brute_kernel(ForestArgs a) {
   store(a, r, best, 0, leaf);
 }
 
-template <int STACK>
 __global__ void __launch_bounds__(BLOCK) traverse_kernel(ForestArgs a) {
   const int r = blockIdx.x * BLOCK + threadIdx.x;
   if (r >= a.n_rays) return;
@@ -189,17 +192,8 @@ extern "C" int pt_launch_brute(const ForestArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// `stack` is one of the sizes instantiated here (kernels/wavefront.py
-// STACK_SIZES); any other is refused with cudaErrorInvalidValue.
-extern "C" int pt_launch_traverse(const ForestArgs* a, int stack, void* stream) {
+extern "C" int pt_launch_traverse(const ForestArgs* a, void* stream) {
   const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (stack) {
-    case 32: traverse_kernel<32><<<grid, block, 0, st>>>(*a); break;
-    case 64: traverse_kernel<64><<<grid, block, 0, st>>>(*a); break;
-    case 128: traverse_kernel<128><<<grid, block, 0, st>>>(*a); break;
-    case 264: traverse_kernel<264><<<grid, block, 0, st>>>(*a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  traverse_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

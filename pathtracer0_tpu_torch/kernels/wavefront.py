@@ -18,8 +18,10 @@ The stack walk visits the objects in order, each pruned by the closest
 hit so far (frag.glsl:563-577), and inside an object pushes the far child
 first (frag.glsl:523-531). Its counters are per ray: 2 box tests for each
 internal node visited, 1 leaf visit for each leaf (the TPU kernel counted
-per block of rays). A walk never holds more than forest depth + 1 nodes,
-so the stack is sized from `info.forest_depth`.
+per block of rays). A walk never holds more than forest depth + 1 nodes:
+the plain version sizes its stack tensor from `info.forest_depth`, the
+kernel has scene/packing.TRAVERSE_MAX_STACK entries per ray, and a deeper
+forest is refused when the scene is packed.
 """
 from __future__ import annotations
 
@@ -27,14 +29,12 @@ import ctypes
 
 import torch
 
+from ..scene.packing import TRAVERSE_MAX_STACK
 from . import build
 from .intersect import ray_box, safe_inv_dir, tri_divide
 
 # forests of at most this many leaves skip the stack walk
 BRUTE_MAX_ROWS = 192
-# stack sizes csrc/forest_kernel.cu instantiates `traverse_kernel` with
-# (the last is scene/packing.TRAVERSE_MAX_STACK)
-STACK_SIZES = (32, 64, 128, 264)
 
 launches = {"brute_kernel": 0, "traverse_kernel": 0}
 
@@ -181,26 +181,18 @@ def trace_forest(o, d, t_init, scene, info):
         box=box.data_ptr(), leaf=leaf.data_ptr(), n_rays=n_rays,
         n_roots=info.num_objects, n_tris=info.num_tris,
         n_leaves=info.num_leaves)
+    brute = use_brute(info)
+    name = "brute_kernel" if brute else "traverse_kernel"
+    if not brute and info.forest_depth + 1 > TRAVERSE_MAX_STACK:
+        raise ValueError(f"forest depth {info.forest_depth} needs a stack "
+                         f"of {info.forest_depth + 1}; the kernel has "
+                         f"{TRAVERSE_MAX_STACK}")
     lib = build.load("forest_kernel")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if use_brute(info):
-        name = "brute_kernel"
-        lib.pt_launch_brute.argtypes = [ctypes.POINTER(_ForestArgs),
-                                        ctypes.c_void_p]
-        lib.pt_launch_brute.restype = ctypes.c_int
-        err = lib.pt_launch_brute(ctypes.byref(args), stream)
-    else:
-        name = "traverse_kernel"
-        need = info.forest_depth + 1
-        fits = [s for s in STACK_SIZES if s >= need]
-        if not fits:
-            raise ValueError(f"forest depth {info.forest_depth} needs a "
-                             f"stack of {need}; the kernel has "
-                             f"{STACK_SIZES[-1]}")
-        lib.pt_launch_traverse.argtypes = [ctypes.POINTER(_ForestArgs),
-                                           ctypes.c_int, ctypes.c_void_p]
-        lib.pt_launch_traverse.restype = ctypes.c_int
-        err = lib.pt_launch_traverse(ctypes.byref(args), fits[0], stream)
+    launch = lib.pt_launch_brute if brute else lib.pt_launch_traverse
+    launch.argtypes = [ctypes.POINTER(_ForestArgs), ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    err = launch(ctypes.byref(args),
+                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1

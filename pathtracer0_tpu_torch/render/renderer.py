@@ -34,7 +34,7 @@ from ..kernels import frame, traverse
 from . import integrator
 
 
-def _check(config: RenderConfig):
+def _check(config: RenderConfig, dev: torch.device):
     if config.debug or config.legacy_shading or config.legacy_pathtrace:
         raise NotImplementedError(
             "the debug heatmap and the legacy shading modes wait for a "
@@ -45,6 +45,12 @@ def _check(config: RenderConfig):
                 f"{name} must be 'auto', 'on' or 'off', not "
                 f"{getattr(config, name)!r}: the port has no interpret "
                 "mode, its plain versions serve the CPU")
+    if config.pallas == "off" and dev.type != "cpu":
+        raise ValueError(
+            "pallas='off' renders through the plain versions of the forest "
+            "kernels, which serve the CPU only; on the card the kernels "
+            "are held against them through kernels/wavefront."
+            "trace_forest_reference")
 
 
 def _on(scene, device) -> torch.device:
@@ -78,6 +84,7 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     `screen_h_ratio` is the whole image's height / width (default: the
     config's). Returns (colour (N, 3), mean of the samples; queries (1,)
     int64)."""
+    _check(config, index.device)
     spp = config.samples_per_frame
     if screen_h_ratio is None:
         screen_h_ratio = config.screen_h_ratio
@@ -113,7 +120,7 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
     """One frame: ((H, W, 3) float32 mean of the samples, scene queries
     (1,) int64). `ifd` skips the autofocus probe when given."""
     dev = _on(scene, device)
-    _check(config)
+    _check(config, dev)
     cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     cam_rot = torch.as_tensor(cam_rot, dtype=torch.float32, device=dev)
     if ifd is None:
@@ -156,7 +163,7 @@ class Renderer:
     def __init__(self, scene, info, config: RenderConfig, cam_pos=None,
                  cam_rot=None, seed: int = 0, device=None):
         self.device = _on(scene, device)
-        _check(config)
+        _check(config, self.device)
         self.scene, self.info, self.config = scene, info, config
         self.seed = seed
         self.cam_pos = torch.as_tensor(

@@ -48,8 +48,9 @@ from .material import COL, pack_materials
 # FUSED_MAX_TRIS).
 MAX_TRIS = 2048
 MAX_MATERIALS = 32
-# Deepest per-ray traversal stack csrc/forest_kernel.cu is built with; a
-# forest whose leaves lie deeper than this less one is refused at pack time.
+# The per-ray traversal stack csrc/forest_kernel.cu is built with (its
+# STACK); a forest whose leaves lie deeper than this less one is refused at
+# pack time.
 TRAVERSE_MAX_STACK = 264
 # Map channels the integrators read, in the column order of `mat_maps`
 # (csrc/pathtrace.cuh MAP_* indices follow it).

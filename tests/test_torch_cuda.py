@@ -241,7 +241,9 @@ def test_routes_go_through_their_kernels():
     through block_kernel. The routes agree within the golden budget."""
     _card()
     from pathtracer0_tpu_torch.core import camera
+    from pathtracer0_tpu_torch.core import math as tmath
     from pathtracer0_tpu_torch.kernels import fused, wavefront
+    from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import render_rays
     from pathtracer0_tpu_torch.utils import image as img_util
 
@@ -254,10 +256,26 @@ def test_routes_go_through_their_kernels():
     img = r.render(2)
     assert wavefront.launches["traverse_kernel"] > before["traverse_kernel"]
     assert bool(torch.isfinite(img).all())
-    plain = Renderer(big, big_info, RenderConfig(pallas="off", **kw),
-                     cam_pos=cam, cam_rot=rot)
-    assert img_util.rmse(img.cpu().numpy(),
-                         plain.render(2).cpu().numpy()) < 0.05
+    # the plain route is no renderer option on the card: hold the kernels'
+    # route against it on one sample's rays
+    with pytest.raises(ValueError, match="pallas='off'"):
+        Renderer(big, big_info, RenderConfig(pallas="off", **kw),
+                 cam_pos=cam, cam_rot=rot)
+    state = trng.seed(torch.arange(W * H, device="cuda"), SEED)
+    o, d, state = tframe._raygen(
+        torch.tensor(cam, device="cuda"),
+        tmath.rotation_matrix(torch.tensor(rot, device="cuda")),
+        torch.tensor(IFD, device="cuda"), state, W, H, cam_size=1.5,
+        focal_length=1.0, blur=BLUR)
+    alive = torch.ones(W * H, dtype=torch.bool, device="cuda")
+    out = {p: integrator.trace_bounces(big, big_info, o, d, alive, state,
+                                       max_bounces=4, pallas=p)
+           for p in ("auto", "off")}
+    rad = {p: torch.stack([v[0][i] + v[1][i] for i in range(3)], -1)
+           for p, v in out.items()}
+    diff = (rad["auto"] - rad["off"]).abs().amax(-1)
+    assert float((out["auto"][2] == out["off"][2]).float().mean()) >= 0.99
+    assert float((diff < 1e-4).float().mean()) >= 0.99
 
     frames = {}
     for fused_opt in ("auto", "off"):
@@ -280,9 +298,8 @@ def test_routes_go_through_their_kernels():
 @pytest.mark.cuda
 def test_deep_forest_takes_a_larger_stack_on_card():
     """Triangles shrinking geometrically towards x = 0 give, with one SAH
-    plane, a tree some 43 levels deep: traverse_kernel runs with its
-    64-entry stack and agrees with its plain version and with brute
-    force."""
+    plane, a tree some 43 levels deep: traverse_kernel walks it and
+    agrees with its plain version and with brute force."""
     _card()
     import numpy as np
 
@@ -299,8 +316,7 @@ def test_deep_forest_takes_a_larger_stack_on_card():
     sc.add_material("m")
     sc.add_mesh(v1, v2, v3, 0)
     scene, info = sc.build(config=RenderConfig(sah_planes=1))
-    assert wavefront.STACK_SIZES[0] < info.forest_depth + 1 \
-        <= wavefront.STACK_SIZES[1]
+    assert 32 < info.forest_depth + 1 <= wavefront.TRAVERSE_MAX_STACK
     rng = np.random.RandomState(4)
     k = rng.randint(0, n, 4096)
     o = v1[k] + np.stack([s[k] * rng.rand(4096) * 1.2,

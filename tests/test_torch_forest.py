@@ -479,8 +479,8 @@ def test_too_deep_a_forest_is_refused_at_pack_time(pairs, monkeypatch):
     """The traversal stack is sized from the forest's depth; a forest the
     kernel's largest stack cannot serve raises when it is packed."""
     p = pairs("grid40")
-    assert p.pinfo.forest_depth + 1 <= twavefront.STACK_SIZES[0] \
-        <= twavefront.STACK_SIZES[-1] == packing.TRAVERSE_MAX_STACK
+    assert p.pinfo.forest_depth + 1 <= twavefront.TRAVERSE_MAX_STACK \
+        == packing.TRAVERSE_MAX_STACK
     monkeypatch.setattr(packing, "TRAVERSE_MAX_STACK", p.pinfo.forest_depth)
     with pytest.raises(ValueError, match="levels deep"):
         p.tscene.build(device="cpu",
@@ -514,8 +514,8 @@ def _deep_mesh(n=200, ratio=0.88):
 
 
 def test_deep_forest_walk():
-    """A forest deeper than the smallest kernel stack: the stack tensor
-    grows with the depth and the walk still finds every hit."""
+    """A forest some 43 levels deep: the stack tensor grows with the
+    depth and the walk still finds every hit."""
     v1, v2, v3 = _deep_mesh()
     out = []
     for cls in (JScene, Scene):
@@ -526,8 +526,7 @@ def test_deep_forest_walk():
         out.append(sc)
     dev, info = out[0].build(JConfig(sah_planes=1))
     sc, pinfo = out[1].build(device="cpu", config=RenderConfig(sah_planes=1))
-    assert twavefront.STACK_SIZES[0] < pinfo.forest_depth + 1 \
-        <= twavefront.STACK_SIZES[1]
+    assert 32 < pinfo.forest_depth + 1 <= twavefront.TRAVERSE_MAX_STACK
     assert not twavefront.use_brute(pinfo)
     # rays aimed at triangles of every size, from just in front of them
     rng = np.random.RandomState(4)

@@ -406,3 +406,16 @@ def test_routing_options():
     with pytest.raises(ValueError):
         tfused.trace_fused(scene, info_big, o, d, alive, state, max_bounces=2)
     assert tmath.rotation_matrix(cam).shape == (3, 3)
+
+
+def test_plain_forest_route_is_no_renderer_option_on_the_card():
+    """pallas="off" (the plain versions of the forest kernels) renders on
+    the CPU only: the renderer's check refuses it for any other device,
+    so no setting takes a mesh on the card past the kernels."""
+    from pathtracer0_tpu_torch.render import renderer as trenderer
+
+    off = RenderConfig(width=4, height=4, pallas="off")
+    trenderer._check(off, torch.device("cpu"))
+    trenderer._check(RenderConfig(width=4, height=4), torch.device("cuda"))
+    with pytest.raises(ValueError, match="pallas='off'"):
+        trenderer._check(off, torch.device("cuda"))

@@ -6,8 +6,9 @@
 Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
-  1. environment   card name and power limit; the three CUDA sources are
-                   built together, one nvcc each
+  1. environment   card name and power limit; the four CUDA sources (one
+                   nvcc each) and the host LBVH builder (g++) are built
+                   together
   2. kernels       each kernel against its plain PyTorch version on the
                    card, with kernel, plain and bound times:
                    frame_kernel for configs 1 (Whitted), 2, 4 and 6 at
@@ -21,7 +22,13 @@ non-zero:
                    480,000 primary rays alone, the batch the main path
                    gives it;
                    block_kernel on one sample's rays at 800x600 of config 6
-                   and of the OBJ grid
+                   and of the OBJ grid;
+                   streamed_kernel on the 999,698-triangle terrain
+                   (scenes.terrain(708)): the 480,000 primary rays of its
+                   camera, the batch the main path gives it, and 960,000
+                   rays (primary + random, one in seven switched off); and
+                   against traverse_kernel on the n = 181 terrain built
+                   both ways (stream_threshold=0 against the SAH forest)
   3. main paths    every launch counter is zeroed just before each and
                    read just after.
                    Frame path: Renderer at 800x600 with autofocus, config
@@ -34,22 +41,31 @@ non-zero:
                    frame (traverse_kernel); a 12x12 grid loaded from an OBJ
                    file, at 800x600, 8 spp, one warm-up and 2 timed frames,
                    through Renderer with fused="off" (brute_kernel) and
-                   through render_rays with fused="on" (block_kernel)
+                   through render_rays with fused="on" (block_kernel).
+                   Streamed route: the 999,698-triangle terrain through
+                   Renderer at 800x600, 2 spp, 3 bounces, no autofocus, one
+                   warm-up and 2 timed frames in path mode and one Whitted
+                   frame (streamed_kernel, one launch per sample and
+                   bounce, no other kernel)
   4. routes        the terrain on the card through the kernels against the
-                   same bounce loop over their plain versions at 320x240x2;
+                   same bounce loop over their plain versions at 320x240x2,
+                   built over the SAH forest and streamed, and the two
+                   against each other (RMSE < 0.05);
                    the OBJ grid at 160x120x4: block path, per-bounce route
                    and frame kernel against each other (RMSE < 0.05)
   5. goldens       configs 1, 2, 4, 6 at 160x120x4, seed 1234, against
                    tests/goldens/config{n}.png (RMSE < 0.05)
 
-With `--profile` it also traces one terrain frame of the per-bounce route
-with torch.profiler and records the card's busy share and the kernels
-that took most of it (phase `profile`).
+With `--profile` it also traces one frame of the n = 181 terrain and one of
+the 999,698-triangle terrain with torch.profiler and records the card's
+busy time, its kernel count and the kernels that took most of it (phase
+`profile`).
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
 chiprun_out/chip_smoke.json.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,6 +77,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 W_CMP, H_CMP, SPP_CMP, BOUNCES = 320, 240, 2, 6
 MAIN = {1: (1, False), 2: (16, True), 4: (16, True), 6: (16, True)}
 TERRAIN_N, TERRAIN_SPP, TERRAIN_LEAF = 181, 8, 4
+# the streamed route's cell: the scale benchmark's terrain and settings
+BIG_N, BIG_SPP, BIG_BOUNCES = 708, 2, 3
 GOLDEN = (160, 120, 4, 1234)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores
@@ -82,6 +100,10 @@ OPS_QUERY, OPS_TRI, OPS_ELL, OPS_IMP, OPS_ROT = 7, 47, 47, 41, 30
 # (9) and the determinant (5). The rest of the test (46 operations in
 # all) depends on the data, so the bound is a floor.
 OPS_BOX, OPS_TRI_DIV = 23, 14
+# The streamed kernel (csrc/streamed_kernel.cu): the same box test; of the
+# division-free triangle test d x e2 (9), the determinant (5) and its sign
+# fold (1), up to the first compare that can reject (|det| >= 1e-10).
+OPS_TRI_FREE = 15
 # Timed-spp parity (16 spp in cells 2, 4 and 6): bit equality decays with
 # spp, one diverged pixel's later samples all differ, so the limits bound
 # the share of diverged pixels and the per-sample mean's error.
@@ -116,18 +138,21 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_route(torch, Renderer, RenderConfig, scene, info, cam, card,
-                  log):
+def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
     """One 800x600 frame of the per-bounce route under torch.profiler:
-    how busy the card is and which kernels take its time."""
+    how busy the card is (its device time over an untraced frame's wall
+    time) and which kernels take its time (`ours`: the share of the
+    package's own kernels in the device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = RenderConfig(width=800, height=600, samples_per_frame=TERRAIN_SPP,
-                       max_bounces=BOUNCES, auto_focus=True)
     r = Renderer(scene, info, cfg, cam_pos=cam[0], cam_rot=cam[1], seed=2,
                  device="cuda")
     r.step()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    r.step()
+    torch.cuda.synchronize()
+    untraced_ms = 1e3 * (time.perf_counter() - t)
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -139,8 +164,16 @@ def profile_route(torch, Renderer, RenderConfig, scene, info, cam, card,
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    emit({"phase": "profile", "scene": "terrain", "spp": TERRAIN_SPP,
-          "wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
+    # csrc/*.cu: every kernel of the package takes one `...Args` struct
+    ours = [e for e in kernels if e.key.endswith("Args)")]
+    emit({"phase": "profile", "scene": label,
+          "spp": cfg.samples_per_frame, "bounces": cfg.max_bounces,
+          "wall_ms_untraced": untraced_ms, "wall_ms_traced": wall_ms,
+          "device_busy_ms": busy_ms, "busy_share": busy_ms / untraced_ms,
+          "ours": [{"name": e.key[:80], "count": int(e.count),
+                    "ms": e.device_time_total / 1e3,
+                    "share_of_busy": e.device_time_total / 1e3 / busy_ms}
+                   for e in ours],
           "device_kernels": int(sum(e.count for e in kernels)),
           "top": [{"name": e.key[:80], "count": int(e.count),
                    "ms": e.device_time_total / 1e3} for e in top],
@@ -161,6 +194,7 @@ def main() -> int:
     from pathtracer0_tpu_torch.core import camera
     from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.core import rng as vrng
+    from pathtracer0_tpu_torch.accel import lbvh
     from pathtracer0_tpu_torch.kernels import build, frame, fused, wavefront
     from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
@@ -304,9 +338,10 @@ def main() -> int:
             for n, (spp, _) in MAIN.items()}
 
     # the slice's scenes: the terrain and the OBJ grid
-    def terrain_scene():
+    def terrain_scene(stream_threshold=1 << 16):
         """bench.py's height function at n = TERRAIN_N as one mesh, a metal
-        and a glass sphere on it."""
+        and a glass sphere on it; `stream_threshold=0` builds the streamed
+        LBVH over it instead of the SAH forest."""
         n = TERRAIN_N
         ext = 50.0 * (n / 708.0)
         xs = np.linspace(-ext, ext, n)
@@ -338,7 +373,8 @@ def main() -> int:
         sc.add_sphere((-2.5, 7.0, -4.0), 1.5, m=1)
         sc.add_sphere((2.5, 7.0, -5.0), 1.5, m=2)
         t0 = time.perf_counter()
-        out = sc.build(config=RenderConfig(max_tris_in_leaf=TERRAIN_LEAF))
+        out = sc.build(config=RenderConfig(
+            max_tris_in_leaf=TERRAIN_LEAF, stream_threshold=stream_threshold))
         return (*out, time.perf_counter() - t0)
 
     terrain_cam = ((0.0, 14.0, -50.0 * (TERRAIN_N / 708.0) * 1.16),
@@ -399,16 +435,14 @@ def main() -> int:
             state, width, height, cam_size=1.5, focal_length=1.0, blur=0.001)
         return [c.contiguous() for c in o], [c.contiguous() for c in d], state
 
-    def compare_forest(kernel, sc, info, cam, rot, random_rays=True):
-        """A forest kernel against its plain version: the camera's primary
-        rays at 800x600 and, with `random_rays`, as many random rays from
-        above the scene; one ray in seven switched off."""
+    def query_rays(cam, rot, lo, hi, random_rays):
+        """(o, d, t_init) of a kernel comparison: the camera's primary rays
+        at 800x600 and, with `random_rays`, as many random rays from above
+        the box lo, hi of the scene; one ray in seven switched off."""
         o, d, _ = sample_rays(cam, rot, 800, 600)
         n = o[0].shape[0]
         if random_rays:
             g = torch.Generator(device="cpu").manual_seed(7)
-            root_boxes = sc.nodes_f[sc.roots.to(torch.int64)].cpu()
-            lo, hi = root_boxes[:, 0:3].amin(0), root_boxes[:, 3:6].amax(0)
             ro = lo + (hi - lo) * torch.rand(n, 3, generator=g) \
                 + torch.tensor([0.0, 3.0, 0.0])
             # from above the scene, mostly downwards
@@ -419,6 +453,26 @@ def main() -> int:
             d = tuple(torch.cat([d[i], rd[:, i].to(dev)]) for i in range(3))
             n = 2 * n
         t_init = torch.where(torch.arange(n, device=dev) % 7 == 0, 0.0, 1e30)
+        return o, d, t_init
+
+    def forest_box(sc):
+        root_boxes = sc.nodes_f[sc.roots.to(torch.int64)].cpu()
+        return root_boxes[:, 0:3].amin(0), root_boxes[:, 3:6].amax(0)
+
+    def hit_error(out_k, out_p, same):
+        """(largest difference of u, v where both hit the same row, largest
+        difference of t relative to 1 + t where both hit at all)."""
+        uv = max(float((x[same] - y[same]).abs().max())
+                 for x, y in ((out_k[1], out_p[1]), (out_k[2], out_p[2])))
+        tk, tp = out_k[0], out_p[0]
+        t_rel = ((tk - tp).abs() / (1.0 + tp.abs()))[(tk < 1e29)
+                                                     & (tp < 1e29)]
+        return uv, float(t_rel.max()) if t_rel.numel() else 0.0
+
+    def compare_forest(kernel, sc, info, cam, rot, random_rays=True):
+        """A forest kernel against its plain version on `query_rays`."""
+        o, d, t_init = query_rays(cam, rot, *forest_box(sc), random_rays)
+        n = t_init.shape[0]
         live = t_init > 0.0
         before = wavefront.launches[kernel]
         out_k = wavefront.trace_forest(o, d, t_init, sc, info)
@@ -436,10 +490,7 @@ def main() -> int:
         tk, uk, vk, ik, bk, lk = out_k
         tp, up, vp, ip, bp, lp = out_p
         same = ik == ip
-        err = max(float((x[same] - y[same]).abs().max())
-                  for x, y in ((uk, up), (vk, vp)))
-        t_rel = ((tk - tp).abs() / (1.0 + tp.abs()))[tp < 1e29]
-        err = max(err, float(t_rel.max()) if t_rel.numel() else 0.0)
+        err = max(hit_error(out_k, out_p, same))
         box, leaf = int(bk.sum()), int(lk.sum())
         # triangle tests the counters prove: every row for a live ray of
         # the brute kernel; for the walk, the smallest leaf's triangles at
@@ -528,6 +579,160 @@ def main() -> int:
     compare_block("config6", *scenes.BUILDERS[6]().build(device="cuda"),
                   *scenes.CAMERAS[6])
     block_rec = compare_block("obj_grid", grid, grid_info, *grid_cam)
+
+    # the streamed route's scenes: the scale benchmark's terrain, and the
+    # n = 181 terrain built streamed
+    def big_scene():
+        """scenes.terrain(BIG_N) built on the card as a user builds it, and
+        beside it the seconds of the same build on the CPU device (all but
+        the upload), of copying that scene's tensors to the card, and of
+        the LBVH builder alone."""
+        sc = scenes.terrain(BIG_N)
+        t0 = time.perf_counter()
+        scene, info = sc.build()
+        torch.cuda.synchronize()
+        seconds = {"build_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        host, _ = sc.build(device="cpu")
+        seconds["host_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moved = [getattr(host, f.name).to(dev)
+                 for f in dataclasses.fields(host)]
+        torch.cuda.synchronize()
+        seconds["upload_s"] = time.perf_counter() - t0
+        seconds["upload_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in moved)
+        mesh = sc.bulk_meshes[0]
+        t0 = time.perf_counter()
+        lbvh.build_streamed(mesh["v1"], mesh["v2"], mesh["v3"])
+        seconds["lbvh_s"] = time.perf_counter() - t0
+        return scene, info, seconds
+
+    big, big_info, big_seconds = big_scene()
+    big_cam = scenes.terrain_camera(BIG_N)
+    terrain_st, terrain_st_info, _ = terrain_scene(stream_threshold=0)
+    emit({"phase": "scenes", "big_tris": big_info.num_tris,
+          "big_treelets": big_info.st_n_treelets,
+          "big_slots": int(big.st_tris.shape[0]), **big_seconds,
+          "terrain_streamed_treelets": terrain_st_info.st_n_treelets},
+         log)
+    check(big_info.streamed and big_info.num_tris == 2 * (BIG_N - 1) ** 2
+          and big_info.num_objects == 0,
+          "the 1M-triangle terrain must be a streamed scene")
+    check(terrain_st_info.streamed
+          and terrain_st_info.num_tris == terrain_info.num_tris,
+          "the n = 181 terrain must build streamed too")
+
+    def compare_streamed(label, sc, info, cam, rot, random_rays):
+        """streamed_kernel against streamed_reference on `query_rays`."""
+        top = sc.st_top[0].cpu()
+        o, d, t_init = query_rays(cam, rot, top[0:3], top[3:6], random_rays)
+        n = t_init.shape[0]
+        live = t_init > 0.0
+        before = wavefront.launches["streamed_kernel"]
+        out_k = wavefront.trace_streamed(o, d, t_init, sc, info)
+        torch.cuda.synchronize()
+        check(wavefront.launches["streamed_kernel"] == before + 1,
+              "trace_streamed did not launch streamed_kernel")
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out_p = wavefront.streamed_reference(o, d, t_init, sc, info)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        ms = cuda_ms(lambda: wavefront.trace_streamed(o, d, t_init, sc, info),
+                     5)
+        tk, _, _, ik, bk, rk = out_k
+        tp, _, _, ip, bp, rp = out_p
+        same = ik == ip
+        box, rows = int(bk.sum()), int(rk.sum())
+        tri_tests = rows * lbvh.TRIS_PER_ROW
+        # each visited row and box once: the plain walk marks, in a pass
+        # of its own, the distinct boxes that some ray tests (6 floats
+        # each) and the distinct groups that some ray enters (4 rows of 14
+        # triangles of 9 floats)
+        n_tl = info.st_n_treelets
+        marks = (torch.zeros(2 * n_tl - 1 + 64 * n_tl, dtype=torch.bool,
+                             device=dev),
+                 torch.zeros(32 * n_tl, dtype=torch.bool, device=dev))
+        wavefront.streamed_reference(o, d, t_init, sc, info, visited=marks)
+        boxes_read, groups_read = (int(m.sum()) for m in marks)
+        visited = (boxes_read * 24 + groups_read * lbvh.SUB_GROUP_ROWS
+                   * lbvh.TRIS_PER_ROW * 36)
+        rec = {"phase": "kernel_vs_plain", "kernel": "streamed_kernel",
+               "scene": label, "rays": n, "live_rays": int(live.sum()),
+               "tris": info.num_tris, "treelets": info.st_n_treelets,
+               "hit_share": float((ik >= 0).float().mean()),
+               "idx_eq": float(same.float().mean()),
+               "max_abs_err": max(hit_error(out_k, out_p, same)),
+               "t_miss_eq": bool(((tk > 1e29) == (tp > 1e29)).all()),
+               "box_eq": float((bk == bp).float().mean()),
+               "rows_eq": float((rk == rp).float().mean()),
+               "dead_exact": bool(((tk == 0.0) & (out_k[1] == 0.0)
+                                   & (out_k[2] == 0.0) & (ik == -1)
+                                   & (bk == 0) & (rk == 0))[~live].all()),
+               "box_tests": box, "row_visits": rows, "tri_tests": tri_tests,
+               "distinct_boxes": boxes_read,
+               "distinct_rows": groups_read * lbvh.SUB_GROUP_ROWS,
+               "table_bytes_read": visited,
+               "box_tests_per_live_ray": box / max(int(live.sum()), 1),
+               "row_visits_per_live_ray": rows / max(int(live.sum()), 1),
+               "ms": ms, "plain_ms": plain_ms,
+               **least(n * (28 + 24) + visited,
+                       box * OPS_BOX + tri_tests * OPS_TRI_FREE),
+               "card": card}
+        emit(rec, log)
+        check(rec["idx_eq"] >= 0.999, f"streamed_kernel: slots equal {rec}")
+        check(rec["max_abs_err"] <= 1e-5, f"streamed_kernel: t, u, v {rec}")
+        check(rec["t_miss_eq"] and rec["dead_exact"],
+              f"streamed_kernel: {rec}")
+        check(0.02 < rec["hit_share"] < 0.98, f"streamed_kernel: hits {rec}")
+        check(rec["box_eq"] >= 0.999 and rec["rows_eq"] >= 0.999,
+              f"streamed_kernel: counters {rec}")
+        return rec
+
+    def compare_streamed_with_walk():
+        """The n = 181 terrain built both ways: streamed_kernel over the
+        LBVH against traverse_kernel over the SAH forest, the same rays.
+        A division-free against a dividing triangle test: triangle id equal
+        on >= 99.9%, t within 1e-4 (1 + t); u and v, whose error grows as
+        the determinant shrinks, are recorded."""
+        o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain), True)
+        out_s = wavefront.trace_streamed(o, d, t_init, terrain_st,
+                                         terrain_st_info)
+        out_f = wavefront.trace_forest(o, d, t_init, terrain, terrain_info)
+        tri_s = torch.where(
+            out_s[3] >= 0,
+            terrain_st.st_perm[out_s[3].clamp(min=0).to(torch.int64)], -1)
+        tri_f = torch.where(
+            out_f[3] >= 0,
+            terrain.wf_perm[out_f[3].clamp(min=0).to(torch.int64)], -1)
+        same = tri_s == tri_f
+        uv_err, t_err = hit_error(out_s, out_f, same)
+        both = (out_s[0] < 1e29) & (out_f[0] < 1e29) & (t_init > 0.0)
+        t_abs = float((out_s[0] - out_f[0]).abs()[both].max())
+        rec = {"phase": "streamed_vs_walk", "scene": "terrain",
+               "rays": int(t_init.shape[0]), "tris": terrain_info.num_tris,
+               "tri_eq": float(same.float().mean()),
+               "max_abs_err": t_err, "t_max_abs_err": t_abs,
+               "uv_max_abs_err": uv_err,
+               "hit_share": float((tri_s >= 0).float().mean()),
+               "streamed_ms": cuda_ms(lambda: wavefront.trace_streamed(
+                   o, d, t_init, terrain_st, terrain_st_info), 5),
+               "walk_ms": cuda_ms(lambda: wavefront.trace_forest(
+                   o, d, t_init, terrain, terrain_info), 5),
+               "card": card}
+        emit(rec, log)
+        check(rec["tri_eq"] >= 0.999, f"streamed against the walk: {rec}")
+        check(rec["max_abs_err"] <= 1e-4, f"streamed against the walk: {rec}")
+        check(0.02 < rec["hit_share"] < 0.95,
+              f"streamed against the walk: {rec}")
+
+    compare_streamed("terrain_1m_mixed", big, big_info, *big_cam, True)
+    # the record of the `kernels` line: the batch the main path launches
+    streamed_rec = compare_streamed("terrain_1m_primary", big, big_info,
+                                    *big_cam, False)
+    compare_streamed_with_walk()
 
     def zero_counts():
         frame.trace_frame.launches = 0
@@ -673,20 +878,62 @@ def main() -> int:
         check(count >= 3 * TERRAIN_SPP, f"obj_grid {label}: launches {rec}")
     launches_route = {"block_kernel": fused.trace_block.launches,
                       **wavefront.launches}
+    check(launches_route.pop("streamed_kernel") == 0,
+          "the SAH scenes launched streamed_kernel")
     check(all(v > 0 for v in launches_route.values()),
           f"the per-bounce route missed a kernel: {launches_route}")
     check(frame.trace_frame.launches == 0,
           "the per-bounce route launched frame_kernel")
+
+    # the streamed route: the 1M-triangle terrain through Renderer
+    zero_counts()
+    for raytracing in (True, False):
+        cfg = RenderConfig(width=800, height=600, samples_per_frame=BIG_SPP,
+                           max_bounces=BIG_BOUNCES, raytracing=raytracing,
+                           auto_focus=False, blur=0.0)
+        r = Renderer(big, big_info, cfg, cam_pos=big_cam[0],
+                     cam_rot=big_cam[1], seed=5, device="cuda")
+        before = wavefront.launches["streamed_kernel"]
+        n_timed = 2 if raytracing else 1
+        walls, events, queries = timed_frames(r, n_timed)
+        img = r.display_image()
+        sky = torch.tensor([0.5, 0.6, 0.9], device=dev)
+        rec = {"phase": "main_path", "scene": "terrain_1m",
+               "tris": big_info.num_tris, "width": 800, "height": 600,
+               "spp": BIG_SPP, "bounces": BIG_BOUNCES,
+               "whitted": not raytracing, "wall_ms": walls,
+               "cuda_ms": events, "queries": queries,
+               "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
+               "launches": wavefront.launches["streamed_kernel"] - before,
+               **big_seconds,
+               "covered": float(((img - sky).abs().amax(-1) > 0.02)
+                                .float().mean()),
+               "finite": bool(torch.isfinite(img).all()), "card": card}
+        main_rec["big_path" if raytracing else "big_whitted"] = rec
+        emit(rec, log)
+        check(rec["finite"], "terrain 1M: image not finite")
+        check(0.1 < rec["covered"] < 0.98, f"terrain 1M: picture {rec}")
+        # one launch per frame, sample and bounce
+        check(rec["launches"] == (n_timed + 1) * BIG_SPP
+              * (BIG_BOUNCES if raytracing else 1),
+              f"terrain 1M: launches {rec}")
+    launches_streamed = wavefront.launches["streamed_kernel"]
+    check({k: v for k, v in wavefront.launches.items() if v}
+          == {"streamed_kernel": launches_streamed}
+          and frame.trace_frame.launches == 0
+          and fused.trace_block.launches == 0,
+          f"the streamed route launched another kernel: {wavefront.launches}")
 
     # ---- 4. routes against each other ------------------------------------
     route_cfg = RenderConfig(width=W_CMP, height=H_CMP,
                              samples_per_frame=SPP_CMP, max_bounces=BOUNCES,
                              auto_focus=False, focal_distance=20.0)
 
-    def route_frame(pallas):
+    def route_frame(pallas, sc=terrain, info=terrain_info):
         """The terrain's frame as `render_rays` makes it, sample by
-        sample, the forest walked by the kernels ("auto") or by their
-        plain versions ("off", which the renderer refuses on the card)."""
+        sample, the forest (or, of the streamed build, the LBVH) walked by
+        the kernels ("auto") or by their plain versions ("off", which the
+        renderer refuses on the card)."""
         cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
                     for v in terrain_cam)
         uv, index = camera.pixel_centers(W_CMP, H_CMP, dev)
@@ -702,32 +949,44 @@ def main() -> int:
                 cam, direction, rotmat, route_cfg.blur,
                 torch.tensor(20.0, device=dev), state)
             inc, skyc, state, q = integrator.trace_bounces(
-                terrain, terrain_info, o.unbind(-1), d.unbind(-1), alive,
-                state, max_bounces=BOUNCES, pallas=pallas)
+                sc, info, o.unbind(-1), d.unbind(-1), alive, state,
+                max_bounces=BOUNCES, pallas=pallas)
             total = total + torch.stack(
                 [inc[i] + skyc[i] for i in range(3)], -1)
             queries += int(q.sum())
         return (total / SPP_CMP).reshape(H_CMP, W_CMP, 3), state, queries
 
-    img_k, st_k, q_k = route_frame("auto")
-    img_p, st_p, q_p = route_frame("off")
-    img_r, q_r = render_frame(terrain, terrain_info, route_cfg, *terrain_cam,
-                              4321, device="cuda")
-    check(float((img_r - img_k).abs().max()) < 1e-6 and int(q_r) == q_k,
-          "render_frame and the sample-by-sample route disagree")
-    diff = (img_k - img_p).abs().amax(-1)
-    route_rec = {"phase": "route_vs_plain_route", "scene": "terrain",
-                 "shape": [W_CMP, H_CMP, SPP_CMP, BOUNCES],
-                 "state_eq": float((st_k == st_p).float().mean()),
-                 "frac_within_1e-4": float((diff < 1e-4).float().mean()),
-                 "mean_abs": float((img_k - img_p).abs().mean()),
-                 "queries_kernel": int(q_k), "queries_plain": int(q_p)}
-    emit(route_rec, log)
-    check(route_rec["state_eq"] >= 0.99, f"route: {route_rec}")
-    check(route_rec["frac_within_1e-4"] >= 0.99, f"route: {route_rec}")
-    check(route_rec["mean_abs"] < 5e-3, f"route: {route_rec}")
-    check(abs(int(q_k) - int(q_p)) <= 0.01 * int(q_p) + 16,
-          f"route: {route_rec}")
+    route_imgs = {}
+    for label, sc, info in (("terrain", terrain, terrain_info),
+                            ("terrain_streamed", terrain_st,
+                             terrain_st_info)):
+        img_k, st_k, q_k = route_frame("auto", sc, info)
+        img_p, st_p, q_p = route_frame("off", sc, info)
+        img_r, q_r = render_frame(sc, info, route_cfg, *terrain_cam, 4321,
+                                  device="cuda")
+        check(float((img_r - img_k).abs().max()) < 1e-6 and int(q_r) == q_k,
+              f"{label}: render_frame and the sample-by-sample route "
+              "disagree")
+        diff = (img_k - img_p).abs().amax(-1)
+        route_rec = {"phase": "route_vs_plain_route", "scene": label,
+                     "shape": [W_CMP, H_CMP, SPP_CMP, BOUNCES],
+                     "state_eq": float((st_k == st_p).float().mean()),
+                     "frac_within_1e-4": float((diff < 1e-4).float().mean()),
+                     "mean_abs": float((img_k - img_p).abs().mean()),
+                     "queries_kernel": int(q_k), "queries_plain": int(q_p)}
+        emit(route_rec, log)
+        check(route_rec["state_eq"] >= 0.99, f"route: {route_rec}")
+        check(route_rec["frac_within_1e-4"] >= 0.99, f"route: {route_rec}")
+        check(route_rec["mean_abs"] < 5e-3, f"route: {route_rec}")
+        check(abs(int(q_k) - int(q_p)) <= 0.01 * int(q_p) + 16,
+              f"route: {route_rec}")
+        route_imgs[label] = np.clip(img_k.cpu().numpy(), 0.0, 1.0)
+    # the same terrain streamed against the SAH route
+    err = img_util.rmse(route_imgs["terrain"], route_imgs["terrain_streamed"])
+    emit({"phase": "routes", "scene": "terrain",
+          "shape": [W_CMP, H_CMP, SPP_CMP, BOUNCES],
+          "rmse": {"streamed_vs_sah": err}, "budget": 0.05}, log)
+    check(err < 0.05, f"streamed route against the SAH route: RMSE {err}")
     grid_small = dict(width=gw, height=gh, samples_per_frame=gspp,
                       **grid_cfg)
     grid_frame, grid_off = (
@@ -751,8 +1010,17 @@ def main() -> int:
     check(imgs["frame"].std() > 0.05, "the OBJ grid is not in the picture")
 
     if "--profile" in sys.argv[1:]:
-        profile_route(torch, Renderer, RenderConfig, terrain, terrain_info,
-                      terrain_cam, card, log)
+        profile_route(
+            torch, Renderer,
+            RenderConfig(width=800, height=600,
+                         samples_per_frame=TERRAIN_SPP, max_bounces=BOUNCES,
+                         auto_focus=True),
+            "terrain", terrain, terrain_info, terrain_cam, card, log)
+        profile_route(
+            torch, Renderer,
+            RenderConfig(width=800, height=600, samples_per_frame=BIG_SPP,
+                         max_bounces=BIG_BOUNCES, auto_focus=False, blur=0.0),
+            "terrain_1m", big, big_info, big_cam, card, log)
 
     # ---- 5. goldens ------------------------------------------------------
     for n in (1, 2, 4, 6):
@@ -792,20 +1060,25 @@ def main() -> int:
     }] + [{
         "name": kname, "route": "cuda",
         "source": f"pathtracer0_tpu_torch/csrc/{src}", "replaces": replaces,
-        "launches": launches_route[kname],
+        "launches": count,
         **{key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by")},
         "library_ms": None,
         "detail": {k: v for k, v in rec.items()
                    if k not in ("phase", "kernel", "card")},
-    } for kname, src, replaces, rec in (
+    } for kname, src, replaces, rec, count in (
         ("block_kernel", "block_kernel.cu",
-         "pathtracer0_tpu/kernels/fused.py:1353 _fused_kernel", block_rec),
+         "pathtracer0_tpu/kernels/fused.py:1353 _fused_kernel", block_rec,
+         launches_route["block_kernel"]),
         ("brute_kernel", "forest_kernel.cu",
-         "pathtracer0_tpu/kernels/wavefront.py:64 _brute_kernel", brute_rec),
+         "pathtracer0_tpu/kernels/wavefront.py:64 _brute_kernel", brute_rec,
+         launches_route["brute_kernel"]),
         ("traverse_kernel", "forest_kernel.cu",
          "pathtracer0_tpu/kernels/wavefront.py:562 _traverse_kernel",
-         walk_rec))]}
+         walk_rec, launches_route["traverse_kernel"]),
+        ("streamed_kernel", "streamed_kernel.cu",
+         "pathtracer0_tpu/kernels/wavefront.py:151 _streamed_kernel",
+         streamed_rec, launches_streamed))]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": log, **kernels}, f, indent=1)

@@ -8,16 +8,21 @@ no "interpret": the plain PyTorch versions of the kernels serve the CPU):
   fused   "auto" / "on": a scene the brute-force kernels take (at most
           2048 triangles, 1..32 materials) renders through the whole-frame
           kernel, and `render_rays` sends its rays to the block kernel;
-          "off": every scene goes the per-bounce route over the SAH forest
-  pallas  "auto" / "on": the forest is walked by the CUDA forest kernels
-          on the card and by their plain versions on the CPU; "off": by
-          the plain versions, on the CPU only (the renderer refuses it on
-          the card, where nothing takes the kernels' place)
+          "off": every scene goes the per-bounce route over the SAH forest.
+          A streamed scene always goes the per-bounce route; "on" refuses
+          it
+  pallas  "auto" / "on": the forest, or the LBVH of a streamed scene, is
+          walked by the CUDA kernels on the card and by their plain
+          versions on the CPU; "off": by the plain versions, on the CPU
+          only (the renderer refuses it on the card, where nothing takes
+          the kernels' place)
 
-`ray_batch_size` is ignored: the port does not chunk rays.
-`traversal_stack_depth` is ignored too: the traversal stack is sized from
-the forest's depth. `max_bvh_depth`, `max_tris_in_leaf`, `sah_planes` and
-`stream_threshold` are read by `Scene.build(config=...)`.
+`ray_batch_size` bounds the pixels the per-bounce route renders at once
+(render/renderer.render_rays; 0: no limit). `traversal_stack_depth` is
+ignored: the traversal stack is sized from the forest's depth.
+`max_bvh_depth`, `max_tris_in_leaf`, `sah_planes` and `stream_threshold`
+are read by `Scene.build(config=...)`: a scene of more than
+`stream_threshold` triangles gets the streamed LBVH instead of the forest.
 """
 from __future__ import annotations
 
@@ -57,9 +62,8 @@ class RenderConfig:
     # Routing (see the module docstring).
     pallas: str = "auto"
     fused: str = "auto"
-    # Ignored by the port (see the module docstring).
     ray_batch_size: int = 1 << 20
-    traversal_stack_depth: int = 64
+    traversal_stack_depth: int = 64  # ignored (see the module docstring)
     refraction_stack_depth: int = 10
     stream_threshold: int = 65536
 

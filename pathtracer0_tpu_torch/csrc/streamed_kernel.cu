@@ -1,0 +1,219 @@
+// Streamed-LBVH kernel for Hopper (sm_90a): the closest triangle hit of a
+// batch of rays over the two-level LBVH of a large scene (accel/lbvh.py).
+//
+// Replaces the TPU kernel `_streamed_kernel` of
+// pathtracer0_tpu/kernels/wavefront.py (launched by its `trace_streamed`).
+// That kernel moves a block of rays through the tree together: a block
+// frustum, interval slab tests on the scalar unit, group bit masks, and
+// treelets copied into fast memory by double-buffered DMA. None of that is
+// carried over. What is kept is what it computes: from a per-ray `t_init`
+// (0 switches the ray off: t = 0, u = v = 0, idx = -1, counters 0) the
+// closest hit by the division-free Möller-Trumbore test, returned as t, u,
+// v and idx = row * 14 + slot.
+//
+// Design: one thread per ray and ONE walk over both levels. The top tree
+// is an implicit complete binary tree (children of node i are 2i+1 and
+// 2i+2) whose leaves are the treelets; a treelet is again a complete
+// binary tree, of 63 boxes over 32 groups of 4 rows of 14 triangles. The
+// builder stores those 63 boxes, so the walk goes on into the subtree heap
+// (it does not loop over the 32 group boxes as the TPU kernel does): a
+// node code below 2n-1 is a top node, 2n-1 + 64 * treelet + k is node k of
+// that treelet's subtree, and a top leaf is pushed as its subtree's root,
+// whose box is the same. Per internal node: the ray's own slab test of
+// both children (reciprocal direction clamped to +-1e30, a box whose min
+// exceeds its max refused outright, because an infinite inverted box
+// passes a bare slab test), far child pushed first, each only if its entry
+// distance is below the ray's closest hit so far; a popped node is dropped
+// if the closest hit has since come below its entry distance. Per group:
+// its 56 triangle slots in order. The closest hit is carried as numerators
+// t, u, v over the denominator td (start t = t_init, td = 1) and compared
+// by cross-multiplication, strictly, so the first slot in walk order wins
+// a tie; the pruning distance is refreshed by one division at each
+// accepted hit; one reciprocal and three products follow the walk.
+// Empty slots (zero edges, det = 0) and empty rows mask themselves.
+//
+// Counters, per ray: 2 box tests for each internal node visited (top tree
+// or subtree), 4 row visits for each group entered (the TPU kernel counted
+// per block of rays).
+//
+// The stack holds (node, entry distance) and at most one entry per level
+// plus one: log2(treelets) + 6. Trees that need more than STACK are refused
+// when the scene is packed (scene/packing.py STREAM_MAX_STACK) and again by
+// the wrapper before it launches, so no push is ever dropped.
+//
+// What bounds it: the latency of dependent box and triangle loads from L2
+// (a group is 2,016 contiguous bytes, read by one thread as scalars) and
+// the divergence of a warp's rays. Staging treelets in shared memory,
+// regrouping rays and wider loads are left for later work.
+//
+// Build with -fmad=false and no fast math. Plain version:
+// pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`.
+#include <cuda_runtime.h>
+
+// kernels/wavefront.py `_StreamArgs`, field for field.
+struct StreamArgs {
+  const float* o[3];
+  const float* d[3];
+  const float* t_init;
+  const float* top;   // (2n-1, 8) min xyz, max xyz, pad, pad; heap order
+  const float* sub;   // (64n, 8) per treelet 63 boxes in heap order + a pad
+  const float* tris;  // (1792n, 9) v1, e1, e2 by slot
+  float* t;
+  float* u;
+  float* v;
+  int* idx;
+  int* box;
+  int* rows;
+  int n_rays, n_treelets;
+};
+
+namespace {
+
+constexpr float MISS = 1e30f;
+constexpr float EPSILON = 1e-10f;  // frag.glsl:228
+constexpr int BLOCK = 128;
+constexpr int STACK = 32;          // scene/packing.py STREAM_MAX_STACK
+// accel/lbvh.py: TRIS_PER_ROW, SUB_GROUP_ROWS, TREELET_ROWS
+constexpr int TRIS_PER_ROW = 14, GROUP_ROWS = 4, TREELET_ROWS = 128;
+constexpr int GROUPS = TREELET_ROWS / GROUP_ROWS;   // 32
+constexpr int SUB_STRIDE = 2 * GROUPS;              // 64
+constexpr int GROUP_TRIS = GROUP_ROWS * TRIS_PER_ROW;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+__device__ __forceinline__ float safe_inv(float d) {
+  const float inv = 1.0f / (d == 0.0f ? 1e-30f : d);
+  return inv < -1e30f ? -1e30f : (inv > 1e30f ? 1e30f : inv);
+}
+
+// Entry distance of the ray into the box at `b` (0 from inside), MISS if
+// it passes by or the box is empty (min x > max x).
+__device__ __forceinline__ float entry(const float* __restrict__ b, const Ray& r) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  // lo = min x, min y, min z, max x; hi = max y, max z, pad, pad
+  const float tx1 = (lo.x - r.ox) * r.ix, tx2 = (lo.w - r.ox) * r.ix;
+  const float ty1 = (lo.y - r.oy) * r.iy, ty2 = (hi.x - r.oy) * r.iy;
+  const float tz1 = (lo.z - r.oz) * r.iz, tz2 = (hi.y - r.oz) * r.iz;
+  const float t_near = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  const float t_far = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return (t_far >= t_near && t_far > 0.0f && lo.x <= lo.w) ? fmaxf(t_near, 0.0f) : MISS;
+}
+
+__global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
+  const int r = blockIdx.x * BLOCK + threadIdx.x;
+  if (r >= a.n_rays) return;
+  float t = a.t_init[r], td = 1.0f, u = 0.0f, v = 0.0f;
+  int idx = -1, box = 0, rows = 0;
+  if (t > 0.0f) {
+    Ray ray{a.o[0][r], a.o[1][r], a.o[2][r], a.d[0][r], a.d[1][r], a.d[2][r], 0.0f, 0.0f, 0.0f};
+    ray.ix = safe_inv(ray.dx);
+    ray.iy = safe_inv(ray.dy);
+    ray.iz = safe_inv(ray.dz);
+    const int n_top = a.n_treelets - 1;       // internal nodes of the top tree
+    const int sub0 = 2 * a.n_treelets - 1;    // code of subtree node 0 of treelet 0
+    float tcur = t;                           // t / td, the pruning distance
+    int stack_n[STACK];
+    float stack_d[STACK];
+    int sp = 1;
+    stack_n[0] = n_top > 0 ? 0 : sub0;
+    stack_d[0] = 0.0f;
+    while (sp > 0) {
+      --sp;
+      const int node = stack_n[sp];
+      if (!(stack_d[sp] < tcur)) continue;
+      const bool in_sub = node >= sub0;
+      const int k = (node - sub0) & (SUB_STRIDE - 1);
+      if (in_sub && k >= GROUPS - 1) {
+        // a group of the treelet: its 56 slots in order
+        rows += GROUP_ROWS;
+        const int treelet = (node - sub0) / SUB_STRIDE;
+        const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
+        const float* p = a.tris + static_cast<size_t>(slot0) * 9;
+        for (int j = 0; j < GROUP_TRIS; ++j, p += 9) {
+          const float v1x = __ldg(p), v1y = __ldg(p + 1), v1z = __ldg(p + 2);
+          const float e1x = __ldg(p + 3), e1y = __ldg(p + 4), e1z = __ldg(p + 5);
+          const float e2x = __ldg(p + 6), e2y = __ldg(p + 7), e2z = __ldg(p + 8);
+          const float px = ray.dy * e2z - ray.dz * e2y;
+          const float py = ray.dz * e2x - ray.dx * e2z;
+          const float pz = ray.dx * e2y - ray.dy * e2x;
+          const float det = e1x * px + e1y * py + e1z * pz;
+          const float sx = ray.ox - v1x, sy = ray.oy - v1y, sz = ray.oz - v1z;
+          const float ur = sx * px + sy * py + sz * pz;
+          const float qx = sy * e1z - sz * e1y;
+          const float qy = sz * e1x - sx * e1z;
+          const float qz = sx * e1y - sy * e1x;
+          const float vr = ray.dx * qx + ray.dy * qy + ray.dz * qz;
+          const float tr = e2x * qx + e2y * qy + e2z * qz;
+          const float sg = det >= 0.0f ? 1.0f : -1.0f;
+          const float adet = det * sg, uc = ur * sg, vc = vr * sg, tc = tr * sg;
+          if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet &&
+              tc > EPSILON * adet && tc * td < t * adet) {
+            t = tc;
+            td = adet;
+            u = uc;
+            v = vc;
+            idx = slot0 + j;
+            tcur = tc / adet;
+          }
+        }
+      } else {
+        box += 2;
+        // children: of top node i the top nodes 2i+1, 2i+2 (a top leaf is
+        // pushed as its treelet's subtree root); of subtree node k the
+        // subtree nodes 2k+1, 2k+2, whose code is node + k + 1
+        int c0, c1;
+        const float* b0;
+        if (in_sub) {
+          c0 = node + k + 1;
+          c1 = c0 + 1;
+          b0 = a.sub + static_cast<size_t>(c0 - sub0) * 8;
+        } else {
+          const int child = 2 * node + 1;
+          b0 = a.top + static_cast<size_t>(child) * 8;
+          if (child >= n_top) {
+            c0 = sub0 + (child - n_top) * SUB_STRIDE;
+            c1 = c0 + SUB_STRIDE;
+          } else {
+            c0 = child;
+            c1 = child + 1;
+          }
+        }
+        const float d0 = entry(b0, ray), d1 = entry(b0 + 8, ray);
+        const bool swap = d0 > d1;
+        const int far_n = swap ? c0 : c1, near_n = swap ? c1 : c0;
+        const float far_d = swap ? d0 : d1, near_d = swap ? d1 : d0;
+        if (far_d < tcur) {
+          stack_n[sp] = far_n;
+          stack_d[sp++] = far_d;
+        }
+        if (near_d < tcur) {
+          stack_n[sp] = near_n;
+          stack_d[sp++] = near_d;
+        }
+      }
+    }
+    const float inv = 1.0f / td;
+    t *= inv;
+    u *= inv;
+    v *= inv;
+  }
+  a.t[r] = t;
+  a.u[r] = u;
+  a.v[r] = v;
+  a.idx[r] = idx;
+  a.box[r] = box;
+  a.rows[r] = rows;
+}
+
+}  // namespace
+
+// Returns the CUDA error of the launch, 0 for none. The caller has checked
+// that the tree fits the stack (kernels/wavefront.py `_check_streamed`).
+extern "C" int pt_launch_streamed(const StreamArgs* a, void* stream) {
+  const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
+  streamed_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,10 +1,11 @@
-"""Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
+"""Build the sources under csrc/ and load them with ctypes.
 
-Each library has a plain C interface. It is compiled for Hopper (sm_90a)
-into `_build/` at first use and cached there under a hash of its sources
-and the flags; `build_all` starts one nvcc per library together, so a
-fresh checkout pays the slowest build and not their sum. Nothing here
-runs at import time.
+Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
+nvcc for Hopper (sm_90a), the host one (HOST_LIBS, the LBVH builder) by
+g++, into `_build/` at first use, and cached there under a hash of their
+sources and the flags; `build_all` starts one compiler per library
+together, so a fresh checkout pays the slowest build and not their sum.
+Nothing here runs at import time.
 
 Numerics: no --use_fast_math, and -fmad=false so that no multiply-add is
 contracted; the plain PyTorch versions do not contract either, and a
@@ -27,12 +28,17 @@ LIBS = {
     "frame_kernel": ("frame_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "forest_kernel": ("forest_kernel.cu",),
+    "streamed_kernel": ("streamed_kernel.cu",),
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# built by g++ for the host; no contraction here either, so the builder's
+# float32 boxes equal the NumPy builder's bit for bit
+HOST_LIBS = {"streambuild": ("streambuild.cpp",)}
+HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs = {}
-ptxas_log = {}  # library -> nvcc's report (registers, spills) of this build
+ptxas_log = {}  # library -> its compiler's output (nvcc: registers, spills)
 
 
 def nvcc() -> str:
@@ -43,16 +49,32 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the LBVH builder "
+                           "(csrc/streambuild.cpp) cannot be built")
+    return found
+
+
+def _recipe(name: str):
+    """(sources, function that finds the compiler, flags) of `name`."""
+    if name in HOST_LIBS:
+        return HOST_LIBS[name], gxx, HOST_FLAGS
+    return LIBS[name], nvcc, FLAGS
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in LIBS[name]:
+    sources, _, flags = _recipe(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update((CSRC / src).read_bytes())
     return BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=tuple(LIBS)):
-    """Compile every library of `names` that is not built yet, all nvcc
-    processes running at once. Raises if one fails."""
+def build_all(names=(*LIBS, *HOST_LIBS)):
+    """Compile every library of `names` that is not built yet, all
+    compilers running at once. Raises if one fails."""
     running = []
     for name in names:
         out = _target(name)
@@ -60,16 +82,16 @@ def build_all(names=tuple(LIBS)):
             continue
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        sources, compiler, flags = _recipe(name)
         proc = subprocess.Popen(
-            [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / LIBS[name][0])],
+            [compiler(), *flags, "-o", str(tmp), str(CSRC / sources[0])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc))
     failed = []
     for name, out, tmp, proc in running:
         ptxas_log[name] = proc.communicate()[0]
         if proc.returncode:
-            failed.append(f"nvcc failed on {LIBS[name][0]}:\n"
-                          f"{ptxas_log[name]}")
+            failed.append(f"the build of {name} failed:\n{ptxas_log[name]}")
         else:
             os.replace(tmp, out)
     if failed:

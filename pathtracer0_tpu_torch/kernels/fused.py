@@ -68,8 +68,9 @@ def scene_args(scene, info, dev) -> SceneArgs:
 
 def eligible(info) -> bool:
     """Whether the brute-force kernels (block and frame) take this scene:
-    at most MAX_TRIS triangles and 1..MAX_MATERIALS materials."""
-    return (info.num_tris <= MAX_TRIS
+    at most MAX_TRIS triangles, 1..MAX_MATERIALS materials, and not a
+    streamed scene (one built past `stream_threshold`, however small)."""
+    return (not info.streamed and info.num_tris <= MAX_TRIS
             and 1 <= info.num_materials <= MAX_MATERIALS)
 
 

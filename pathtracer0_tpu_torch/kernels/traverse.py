@@ -1,19 +1,25 @@
-"""The scene query: closest hit over the SAH forest, the implicit surfaces
-and the ellipsoids (rayScene, frag.glsl:548-653), and the attributes at
-the hit.
+"""The scene query: closest hit over the SAH forest (or, for a streamed
+scene, the two-level LBVH), the implicit surfaces and the ellipsoids
+(rayScene, frag.glsl:548-653), and the attributes at the hit.
 
 Counterpart of the JAX package's kernels/traverse.py. Vectors are
 (x, y, z) tuples of (R,) tensors, as everywhere in the port.
 
   ray_scene       nudge the origins by 1e-4 d (frag.glsl:549), walk the
                   forest (kernels/wavefront.trace_forest: the CUDA kernels
-                  on the card, their plain versions on the CPU), then
-                  merge the analytic primitives
+                  on the card, their plain versions on the CPU) or, where
+                  `info.streamed`, the LBVH (wavefront.trace_streamed),
+                  then merge the analytic primitives
   surface_sample  normal, UV, tangent and material at the final hits, once
                   per ray; both routes of the renderer shade from it
   probe_forest_t  closest triangle distance only (the Whitted subsurface
                   thickness probe, frag.glsl:662-676)
   heat_counts     the per-ray traversal counters
+  spatial_sort_key  the JAX package's ray-coherence key. That package sorts
+                  the rays of a streamed query by it, because its kernel
+                  culls by the frustum of a block of rays; the results do
+                  not depend on the order, and a kernel that walks per ray
+                  is right without it, so the route here does not sort.
 
 Reference quirks kept: an implicit surface's hit parameter is measured in
 its local frame and compared with world distances as it is, and every hit
@@ -41,7 +47,8 @@ class Hit(NamedTuple):
     tri: torch.Tensor     # int64 triangle id, -1 if none
     u: torch.Tensor       # barycentric u, v
     v: torch.Tensor
-    obj: torch.Tensor     # int64 root node of the object hit, -1 if none
+    obj: torch.Tensor     # int64 root node of the object hit (its ordinal
+                          # in a streamed scene), -1 if none
     kind: torch.Tensor    # int64: 0 none, 1 triangle, 2 implicit, 3 ellipsoid
     prim: torch.Tensor    # int64 implicit / ellipsoid index, -1 otherwise
 
@@ -132,12 +139,24 @@ def _t_init(like, active):
     return full if active is None else torch.where(active, full, 0.0)
 
 
-def _forest_fn(pallas: str):
-    if pallas in ("auto", "on"):
-        return wavefront.trace_forest
-    if pallas == "off":
-        return wavefront.trace_forest_reference
-    raise ValueError(f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
+def _forest_fn(pallas: str, info):
+    """The triangle query of the scene, (o, d, t_init, scene, info) ->
+    (t, u, v, idx, counter, counter), and the table that maps its idx to
+    a triangle id."""
+    if pallas not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
+    plain = pallas == "off"
+    if info.streamed:
+        return (wavefront.streamed_reference if plain
+                else wavefront.trace_streamed), "st_perm"
+    return (wavefront.trace_forest_reference if plain
+            else wavefront.trace_forest), "wf_perm"
+
+
+def has_tree(info) -> bool:
+    """Whether the scene's triangles lie under a forest or an LBVH."""
+    return info.num_objects > 0 or info.streamed
 
 
 def nudged(o, d):
@@ -147,18 +166,18 @@ def nudged(o, d):
 def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
     """Closest hit of rays o + t d. `active` (R,) bool switches rays off:
     they cost nothing and come back t = 0, tri = -1. pallas "auto" / "on":
-    the forest kernels on CUDA tensors, their plain versions on CPU
-    tensors; "off": the plain versions on any device.
+    the forest or streamed kernels on CUDA tensors, their plain versions
+    on CPU tensors; "off": the plain versions on any device.
 
     Returns (Hit, nudged origins)."""
-    forest = _forest_fn(pallas)
+    forest, perm = _forest_fn(pallas, info)
     on = nudged(o, d)
     hit = empty_hit(_t_init(on[0], active))
-    if info.num_objects > 0:
+    if has_tree(info):
         t, u, v, idx, _, _ = forest(on, d, hit.t, scene, info)
         got = idx >= 0
         row = torch.clamp(idx, min=0).to(torch.int64)
-        tri = torch.where(got, scene.wf_perm[row].to(torch.int64), -1)
+        tri = torch.where(got, getattr(scene, perm)[row].to(torch.int64), -1)
         obj = torch.where(
             got, scene.tri_obj[torch.clamp(tri, min=0)].to(torch.int64), -1)
         hit = Hit(t, tri, u, v, obj, got.to(torch.int64), hit.prim)
@@ -166,17 +185,55 @@ def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
 
 
 def probe_forest_t(o, d, scene, info, *, pallas: str = "auto"):
-    """Distance to the closest triangle of the whole forest from the
-    nudged origins (1e30 if none). Forest scenes only."""
+    """Distance to the closest triangle of the whole forest, or of the
+    streamed LBVH, from the nudged origins (1e30 if none). Scenes with
+    triangles only."""
     on = nudged(o, d)
-    return _forest_fn(pallas)(on, d, _t_init(on[0], None), scene, info)[0]
+    return _forest_fn(pallas, info)[0](on, d, _t_init(on[0], None), scene,
+                                       info)[0]
 
 
 def heat_counts(o, d, scene, info, *, pallas: str = "auto"):
-    """Per-ray (box tests, leaf visits) of the forest walk."""
+    """Per-ray (box tests, leaf visits) of the forest walk; of a streamed
+    scene (box tests, row visits)."""
     on = nudged(o, d)
-    out = _forest_fn(pallas)(on, d, _t_init(on[0], None), scene, info)
+    out = _forest_fn(pallas, info)[0](on, d, _t_init(on[0], None), scene,
+                                      info)
     return out[4], out[5]
+
+
+def _morton_spread(v):
+    """Two zero bits between each of the low 10 bits of int32 `v`."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def spatial_sort_key(o, d, scene_lo, scene_hi, o_bits: int = 5,
+                     d_bits: int = 4):
+    """Ray-coherence sort key of rays o, d (R, 3) inside the box scene_lo,
+    scene_hi (3,), int32, octant-major: the three direction-sign bits
+    lead, then the Morton code of the origin's cell, then that of the unit
+    direction's. Bit-equal to the JAX package's `_spatial_sort_key`."""
+    def quantize(x, bits):
+        top = 2 ** bits - 1
+        return torch.clamp((x * top).to(torch.int32), 0, top)
+
+    def morton(q):
+        return ((_morton_spread(q[:, 0]) << 2)
+                | (_morton_spread(q[:, 1]) << 1) | _morton_spread(q[:, 2]))
+
+    span = torch.clamp(scene_hi - scene_lo, min=1e-6)
+    qo = quantize((o - scene_lo) / span, o_bits)
+    dn = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)),
+                         min=1e-20)
+    qd = quantize(dn * 0.5 + 0.5, d_bits)
+    pos = (d >= 0).to(torch.int32)
+    octant = (pos[:, 0] << 2) | (pos[:, 1] << 1) | pos[:, 2]
+    return ((octant << (3 * (o_bits + d_bits))) | (morton(qo) << (3 * d_bits))
+            | morton(qd))
 
 
 def surface_sample(hit: Hit, o, d, scene, info) -> SurfaceSample:

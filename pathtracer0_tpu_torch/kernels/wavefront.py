@@ -1,4 +1,5 @@
-"""Closest triangle hit of a batch of rays against the SAH forest.
+"""Closest triangle hit of a batch of rays against the SAH forest, or
+against the streamed LBVH of a large scene.
 
 Counterpart of the JAX package's kernels/wavefront.py `trace_forest` and
 its two Pallas kernels: `_brute_kernel` (every triangle against every
@@ -22,6 +23,29 @@ per block of rays). A walk never holds more than forest depth + 1 nodes:
 the plain version sizes its stack tensor from `info.forest_depth`, the
 kernel has scene/packing.TRAVERSE_MAX_STACK entries per ray, and a deeper
 forest is refused when the scene is packed.
+
+`trace_streamed` is the counterpart of that package's `trace_streamed` and
+its `_streamed_kernel`: on the card csrc/streamed_kernel.cu, one thread
+per ray, on CPU tensors `streamed_reference`. One walk covers both levels
+of the LBVH (accel/lbvh.py): the top tree, whose leaves are the treelets,
+and on into the treelet's own 63-box subtree heap down to a group of 4
+rows, whose 56 triangle slots are tested in order (the TPU kernel loops
+over a treelet's 32 group boxes instead; the builder stores the whole
+heap, and a per-ray walk visits fewer boxes through it). A node code below
+2n - 1 is a top node, 2n - 1 + 64 * treelet + k node k of that treelet's
+subtree. The triangle test is the division-free one
+(kernels/intersect.tri_candidate): the closest hit is carried as
+numerators over the denominator td and compared by cross-multiplication,
+strictly, so the first slot in walk order wins a tie; one reciprocal
+follows the walk. Children are ordered by the ray's own entry distances,
+far pushed first, each pushed only if its distance is below the pruning
+distance t / td, which is refreshed by one division at every accepted
+hit; a popped node is dropped if the pruning distance has since come
+below its entry distance. A box whose min exceeds its max (an empty row,
+group or treelet: +inf, -inf) is refused before the slab test, which an
+infinite inverted box would pass. Counters per ray: 2 box tests for each
+internal node visited, 4 row visits for each group entered. idx is
+row * 14 + slot; scene.st_perm gives the triangle id.
 """
 from __future__ import annotations
 
@@ -29,14 +53,22 @@ import ctypes
 
 import torch
 
-from ..scene.packing import TRAVERSE_MAX_STACK
+from ..accel import lbvh
+from ..scene.packing import (STREAM_MAX_STACK, TRAVERSE_MAX_STACK,
+                             stream_stack_need)
 from . import build
-from .intersect import ray_box, safe_inv_dir, tri_divide
+from .intersect import (MISS, ray_box, safe_inv_dir, tri_candidate,
+                        tri_divide)
 
 # forests of at most this many leaves skip the stack walk
 BRUTE_MAX_ROWS = 192
 
-launches = {"brute_kernel": 0, "traverse_kernel": 0}
+launches = {"brute_kernel": 0, "traverse_kernel": 0, "streamed_kernel": 0}
+
+# the treelet's shape (csrc/streamed_kernel.cu has the same constants)
+_GROUPS = lbvh.TREELET_ROWS // lbvh.SUB_GROUP_ROWS
+_SUB_STRIDE = 2 * _GROUPS
+_GROUP_TRIS = lbvh.SUB_GROUP_ROWS * lbvh.TRIS_PER_ROW
 
 
 class _ForestArgs(ctypes.Structure):
@@ -197,3 +229,180 @@ def trace_forest(o, d, t_init, scene, info):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
     return t, u, v, idx, box, leaf
+
+
+class _StreamArgs(ctypes.Structure):
+    """csrc/streamed_kernel.cu `StreamArgs`, field for field."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "top", "sub", "tris",
+        "t", "u", "v", "idx", "box", "rows")] + [
+        (n, ctypes.c_int) for n in ("n_rays", "n_treelets")]
+
+
+def _check_streamed(scene, info):
+    n = info.st_n_treelets
+    if not info.streamed or n < 1:
+        raise ValueError("the scene has no streamed LBVH to trace")
+    if (info.st_treelet_rows, info.st_leaf_cap) != (lbvh.TREELET_ROWS,
+                                                    lbvh.TRIS_PER_ROW):
+        raise ValueError("the streamed tables were built with other row or "
+                         "treelet sizes than accel/lbvh.py's")
+    want = {"st_top": (2 * n - 1, 8), "st_sub": (_SUB_STRIDE * n, 8),
+            "st_tris": (lbvh.TREELET_ROWS * lbvh.TRIS_PER_ROW * n, 9)}
+    for name, shape in want.items():
+        if tuple(getattr(scene, name).shape) != shape:
+            raise ValueError(f"{name} must be {shape} for {n} treelets, "
+                             f"not {tuple(getattr(scene, name).shape)}")
+    need = stream_stack_need(n)
+    if need > STREAM_MAX_STACK:
+        raise ValueError(f"{n} treelets need a stack of {need}; the kernel "
+                         f"has {STREAM_MAX_STACK}")
+
+
+def streamed_reference(o, d, t_init, scene, info, visited=None):
+    """Plain version of `streamed_kernel` (module docstring): one (R, cap)
+    stack of (node, entry distance), every ray popping one node per step
+    until all stacks are empty. Returns as `trace_streamed`.
+
+    `visited`, if given, is a pair of bool tensors that the walk marks:
+    (2n - 1 + 64n,) the boxes some ray tested (rows of st_top, then of
+    st_sub) and (32n,) the groups some ray entered. They say what the
+    batch has to read of the tables."""
+    _check_streamed(scene, info)
+    n = info.st_n_treelets
+    n_top, sub0 = n - 1, 2 * n - 1
+    dev = t_init.device
+    n_rays = t_init.shape[0]
+    rays = torch.arange(n_rays, device=dev)
+    # the box of top node c at row c, of subtree node code c at row c too
+    boxes = torch.cat([scene.st_top, scene.st_sub])
+    last_box = boxes.shape[0] - 2
+    inv_d = tuple(safe_inv_dir(c) for c in d)
+    cap = stream_stack_need(n)
+    t, td = t_init.clone(), torch.ones_like(t_init)
+    u, v = torch.zeros_like(t_init), torch.zeros_like(t_init)
+    idx = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
+    tcur = t_init.clone()
+    box, rows = torch.zeros_like(idx), torch.zeros_like(idx)
+    stack_n = torch.zeros((n_rays, cap), dtype=torch.int64, device=dev)
+    stack_d = torch.zeros((n_rays, cap), dtype=torch.float32, device=dev)
+    stack_n[:, 0] = 0 if n_top > 0 else sub0
+    sp = (t_init > 0.0).to(torch.int64)
+    lanes = torch.arange(_GROUP_TRIS, device=dev)
+
+    def entry(at):
+        b = boxes[at]
+        dist = ray_box(o, inv_d, (b[:, 0], b[:, 1], b[:, 2]),
+                       (b[:, 3], b[:, 4], b[:, 5]))
+        return torch.where(b[:, 0] <= b[:, 3], dist, MISS)
+
+    def push(sp, want, node, dist):
+        at = torch.clamp(sp, max=cap - 1)
+        stack_n[rays, at] = torch.where(want, node, stack_n[rays, at])
+        stack_d[rays, at] = torch.where(want, dist, stack_d[rays, at])
+        return sp + want.to(torch.int64)
+
+    while bool((sp > 0).any()):
+        active = sp > 0
+        sp = sp - active.to(torch.int64)
+        node, dist = stack_n[rays, sp], stack_d[rays, sp]
+        go = active & (dist < tcur)
+        in_sub = node >= sub0
+        k = (node - sub0) & (_SUB_STRIDE - 1)
+        at_group = go & in_sub & (k >= _GROUPS - 1)
+        inner = go & ~at_group
+
+        # a group of a treelet: its 56 slots in order, for the rays there
+        at = at_group.nonzero()[:, 0]
+        if at.numel():
+            treelet = (node[at] - sub0) // _SUB_STRIDE
+            slot0 = ((treelet * lbvh.TREELET_ROWS
+                      + (k[at] - (_GROUPS - 1)) * lbvh.SUB_GROUP_ROWS)
+                     * lbvh.TRIS_PER_ROW)
+            slots = slot0[:, None] + lanes
+            if visited is not None:
+                visited[1][slot0 // _GROUP_TRIS] = True
+            tri = scene.st_tris[slots]
+            ok, tc, adet, uc, vc = tri_candidate(
+                tuple(c[at][:, None] for c in o),
+                tuple(c[at][:, None] for c in d),
+                tuple(tri[..., i] for i in (0, 1, 2)),
+                tuple(tri[..., i] for i in (3, 4, 5)),
+                tuple(tri[..., i] for i in (6, 7, 8)))
+            best = [x[at] for x in (t, td, u, v, idx, tcur)]
+            slots = slots.to(torch.int32)
+            for j in range(_GROUP_TRIS):
+                okj = ok[:, j] & (tc[:, j] * best[1] < best[0] * adet[:, j])
+                new = (tc[:, j], adet[:, j], uc[:, j], vc[:, j], slots[:, j],
+                       tc[:, j] / adet[:, j])
+                best = [torch.where(okj, a, b) for a, b in zip(new, best)]
+            for x, b in zip((t, td, u, v, idx, tcur), best):
+                x[at] = b
+
+        # an internal node: both children by the ray's entry distances.
+        # Of top node i they are top nodes 2i+1, 2i+2, a top leaf pushed as
+        # its treelet's subtree root; of subtree node k the subtree nodes
+        # 2k+1, 2k+2, whose code is node + k + 1
+        b0 = torch.clamp(torch.where(in_sub, node + k + 1, 2 * node + 1),
+                         max=last_box)
+        d0, d1 = entry(b0), entry(b0 + 1)
+        if visited is not None:
+            visited[0][b0[inner]] = True
+            visited[0][b0[inner] + 1] = True
+        to_leaf = ~in_sub & (b0 >= n_top)
+        c0 = torch.where(to_leaf, sub0 + (b0 - n_top) * _SUB_STRIDE, b0)
+        c1 = torch.where(to_leaf, c0 + _SUB_STRIDE, c0 + 1)
+        swap = d0 > d1
+        far_d, near_d = torch.where(swap, d0, d1), torch.where(swap, d1, d0)
+        sp = push(sp, inner & (far_d < tcur), torch.where(swap, c0, c1),
+                  far_d)
+        sp = push(sp, inner & (near_d < tcur), torch.where(swap, c1, c0),
+                  near_d)
+        box = box + 2 * inner.to(torch.int32)
+        rows = rows + lbvh.SUB_GROUP_ROWS * at_group.to(torch.int32)
+    inv = 1.0 / td
+    return t * inv, u * inv, v * inv, idx, box, rows
+
+
+def trace_streamed(o, d, t_init, scene, info):
+    """Closest triangle hit of rays o + t d over the streamed LBVH, o and
+    d (x, y, z) tuples of (R,) float32, from the per-ray closest-so-far
+    `t_init` (R,), 0 switching a ray off.
+
+    Returns (t, u, v, idx, box tests, row visits): idx (R,) int32 is the
+    slot of scene.st_tris that was hit (-1 for none; scene.st_perm gives
+    the triangle id), the counters are (R,) int32. CUDA tensors go through
+    csrc/streamed_kernel.cu, CPU tensors through `streamed_reference`."""
+    dev = t_init.device
+    if dev.type == "cpu":
+        return streamed_reference(o, d, t_init, scene, info)
+    if dev.type != "cuda":
+        raise ValueError(f"no streamed kernel for device {dev}")
+    _check_streamed(scene, info)
+    n_rays = t_init.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    rays = [c.contiguous() for c in (*o, *d, t_init)]
+    if n_rays < 1 or any(c.shape != (n_rays,) for c in rays):
+        raise ValueError("o, d and t_init must hold one entry per ray, and "
+                         "at least one ray")
+    t, u, v = (torch.empty(n_rays, dtype=f32, device=dev) for _ in range(3))
+    idx, box, rows = (torch.empty(n_rays, dtype=i32, device=dev)
+                      for _ in range(3))
+    args = _StreamArgs(
+        *(build.ptr(c, f32, dev) for c in rays),
+        top=build.ptr(scene.st_top, f32, dev),
+        sub=build.ptr(scene.st_sub, f32, dev),
+        tris=build.ptr(scene.st_tris, f32, dev),
+        t=t.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), idx=idx.data_ptr(),
+        box=box.data_ptr(), rows=rows.data_ptr(), n_rays=n_rays,
+        n_treelets=info.st_n_treelets)
+    launch = build.load("streamed_kernel").pt_launch_streamed
+    launch.argtypes = [ctypes.POINTER(_StreamArgs), ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    err = launch(ctypes.byref(args),
+                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err:
+        raise RuntimeError(f"streamed_kernel launch failed: CUDA error {err}")
+    launches["streamed_kernel"] += 1
+    return t, u, v, idx, box, rows

@@ -5,8 +5,10 @@ tensors, one tensor per vector component.
 Two scene queries feed one bounce loop and one shading helper:
 
   per-bounce route  kernels/traverse.ray_scene: the SAH forest (the CUDA
-                    forest kernels on the card), then the analytic
-                    primitives. `trace_bounces`, `direct_diffuse`. The JAX
+                    forest kernels on the card) or, for a streamed scene,
+                    the two-level LBVH (the streamed kernel), then the
+                    analytic primitives. `trace_bounces`, `direct_diffuse`.
+                    The JAX
                     package runs this loop as XLA ops, not as a Pallas
                     kernel, so plain PyTorch is the port of it.
   brute force       `closest_hit`: every triangle with the division-free
@@ -27,7 +29,8 @@ Two scene queries feed one bounce loop and one shading helper:
 The RNG state advances only for rays that hit in that bounce; a ray's
 scene queries (bounces it started alive) are counted per ray. `trace`
 sends rays to the block kernel (kernels/fused.trace_fused) where the scene
-is eligible and `fused` is not "off", else through `trace_bounces`.
+is eligible and `fused` is not "off", else through `trace_bounces`; a
+streamed scene is never eligible, and fused="on" refuses it.
 """
 from __future__ import annotations
 
@@ -267,6 +270,19 @@ def trace_bounces(scene, info, o, d, alive, state, *, max_bounces: int,
                         stack_size=stack_size)
 
 
+def check_fused(info, fused: str):
+    """Refuse a value of `fused` that is none of "auto", "on", "off", and
+    fused="on" on a streamed scene: the block kernel reads the dense
+    triangle table of small scenes, and a streamed scene renders through
+    the per-bounce route alone."""
+    if fused not in ("auto", "on", "off"):
+        raise ValueError(f"fused must be 'auto', 'on' or 'off', not {fused!r}")
+    if fused == "on" and info.streamed:
+        raise ValueError(
+            "fused='on' on a streamed scene: it renders through the "
+            "per-bounce route alone")
+
+
 def trace(scene, info, o, d, alive, state, *, max_bounces: int,
           stack_size: int = 10, fused: str = "auto", pallas: str = "auto"):
     """Path integrator of one sample's rays. fused "auto" / "on": the
@@ -276,8 +292,7 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
     Returns (radiance with sky (r, g, b), state, queries (1,) int64)."""
     from ..kernels import fused as fused_mod
 
-    if fused not in ("auto", "on", "off"):
-        raise ValueError(f"fused must be 'auto', 'on' or 'off', not {fused!r}")
+    check_fused(info, fused)
     if fused != "off":
         if fused_mod.eligible(info):
             return fused_mod.trace_fused(
@@ -301,7 +316,7 @@ def _direct(query, scene, info, o, d, alive, probe):
     m, n = _shade_setup(scene, info, surf, _WHITTED_FIELDS, _WHITTED_MAPS)
     col = [m["Ka"][i] + m["Kd"][i] * (0.2 + n[1]) + m["Ke"][i]
            for i in range(3)]
-    if probe is not None and info.mat_gates[0] and info.num_objects > 0:
+    if probe is not None and info.mat_gates[0] and traverse.has_tree(info):
         # thickness: the same direction again from the hit point
         # (frag.glsl:662-676), the distance actually travelled
         si = probe(surf.loc, d)
@@ -321,8 +336,9 @@ def direct_diffuse(scene, info, o, d, alive, *, pallas: str = "auto"):
     """Whitted shade of the per-bounce route: Ka + Kd (0.2 + N.y) + Ke on
     a hit with the unflipped (possibly normal-mapped) normal, the sky on a
     miss. Subsurface materials shade by the thickness behind the hit,
-    probed through the whole forest (the reference probes the hit object
-    alone: the two differ only where another object cuts the segment)."""
+    probed through the whole forest or the streamed LBVH (the reference
+    probes the hit object alone: the two differ only where another object
+    cuts the segment)."""
     def probe(loc, direction):
         return traverse.probe_forest_t(loc, direction, scene, info,
                                        pallas=pallas)

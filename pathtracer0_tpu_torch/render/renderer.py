@@ -9,16 +9,19 @@ by one of two routes:
                     the scene is eligible and `config.fused` is not "off"
   per-bounce route  `render_rays`: the samples one after the other, each a
                     `dof_ray` and one `integrator.trace` (or
-                    `direct_diffuse`) over the SAH forest
+                    `direct_diffuse`) over the SAH forest or, for a
+                    streamed scene, the two-level LBVH; more than
+                    `config.ray_batch_size` pixels go through it in chunks
 
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
 
 Not ported yet: checkpoint/resume, `pick`, the debug heatmap, the legacy
-shading modes, ray chunking (`ray_batch_size`) and `fold_spp`.
+shading modes and `fold_spp`.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -48,9 +51,9 @@ def _check(config: RenderConfig, dev: torch.device):
     if config.pallas == "off" and dev.type != "cpu":
         raise ValueError(
             "pallas='off' renders through the plain versions of the forest "
-            "kernels, which serve the CPU only; on the card the kernels "
-            "are held against them through kernels/wavefront."
-            "trace_forest_reference")
+            "and streamed kernels, which serve the CPU only; on the card "
+            "the kernels are held against them through kernels/wavefront."
+            "trace_forest_reference and streamed_reference")
 
 
 def _on(scene, device) -> torch.device:
@@ -83,11 +86,29 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     the unit that spreads over several cards: pixels are independent.
     `screen_h_ratio` is the whole image's height / width (default: the
     config's). Returns (colour (N, 3), mean of the samples; queries (1,)
-    int64)."""
+    int64).
+
+    More than `config.ray_batch_size` pixels (0: no limit) are rendered in
+    that many nearly equal chunks one after the other, so the live state
+    (some 30 tensors a ray) stays inside a fixed envelope whatever the
+    resolution; a pixel's RNG stream depends on its index alone, so the
+    result is the same."""
     _check(config, index.device)
-    spp = config.samples_per_frame
+    integrator.check_fused(info, config.fused)
     if screen_h_ratio is None:
         screen_h_ratio = config.screen_h_ratio
+    n, batch = index.shape[0], config.ray_batch_size
+    if batch and n > batch:
+        whole = dataclasses.replace(config, ray_batch_size=0)
+        n_chunks = -(-n // batch)
+        parts = [render_rays(scene, info, uv_c, index_c, cam_pos, cam_rot,
+                             frame_seed, ifd, config=whole,
+                             screen_h_ratio=screen_h_ratio)
+                 for uv_c, index_c in zip(uv.tensor_split(n_chunks),
+                                          index.tensor_split(n_chunks))]
+        return (torch.cat([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]).sum(0))
+    spp = config.samples_per_frame
     rotmat = vm.rotation_matrix(cam_rot.to(torch.float32))
     direction = camera.primary_directions(
         uv, rotmat, config.cam_size, config.focal_length, screen_h_ratio)

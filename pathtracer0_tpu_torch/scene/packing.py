@@ -28,10 +28,26 @@ and the SAH forest (accel/bvh.py), one BVH per object:
   tri_obj   (T,)    i32  triangle id -> root node of its object
   roots     (O,)    i32  root node of each object
 
+or, for a scene of more than `config.stream_threshold` triangles, no SAH
+forest (`info.num_objects` is 0 and `tri_obj` holds the object's ordinal)
+but the streamed two-level LBVH (accel/lbvh.py), `info.streamed`:
+
+  st_top    (2n-1, 8)    f32  top-tree boxes in heap order, n treelets
+  st_sub    (64 n, 8)    f32  each treelet's 63 subtree boxes in heap
+                              order and one pad
+  st_tris   (1792 n, 9)  f32  v1, e1, e2 by slot: 128 rows of 14 to a
+                              treelet, empty slots zero
+  st_perm   (1792 n,)    i32  slot -> triangle id, -1 where empty
+
+One box or triangle per row, as above: the JAX package's 128-lane rows and
+its ways of rebuilding these tables on the device spare its narrow host
+link and are not carried over. Only its size policy is: a scene streams
+when it has more than `stream_threshold` triangles (so `stream_threshold =
+0` streams any mesh). Its other reasons to stream (forests its packet
+kernel cannot hold) gate limits the forest kernels here do not have.
+
 Empty tables keep one zero row so every pointer handed to a kernel is
-valid; the real counts live in SceneInfo. Scenes past
-`config.stream_threshold` triangles need the streamed LBVH path, which the
-port does not have yet.
+valid; the real counts live in SceneInfo.
 """
 from __future__ import annotations
 
@@ -42,6 +58,7 @@ import numpy as np
 import torch
 
 from ..accel import bvh as bvh_mod
+from ..accel import lbvh
 from .material import COL, pack_materials
 
 # Largest triangle count of the brute-force frame path (the JAX package's
@@ -52,6 +69,10 @@ MAX_MATERIALS = 32
 # STACK); a forest whose leaves lie deeper than this less one is refused at
 # pack time.
 TRAVERSE_MAX_STACK = 264
+# The per-ray stack csrc/streamed_kernel.cu is built with (its STACK): the
+# walk of the top tree and of one treelet's subtree holds at most one node
+# per level and one more; a deeper tree is refused at pack time.
+STREAM_MAX_STACK = 32
 # Map channels the integrators read, in the column order of `mat_maps`
 # (csrc/pathtrace.cuh MAP_* indices follow it).
 MAP_CHANNELS = ("map_Ka", "map_Kd", "map_Ks", "map_Ke", "map_Tr",
@@ -83,6 +104,10 @@ class SceneInfo(NamedTuple):
     forest_depth: int = 0   # deepest leaf, a root being at depth 0
     any_uv: bool = False
     any_smooth: bool = False
+    streamed: bool = False  # the streamed LBVH instead of the forest
+    st_n_treelets: int = 0
+    st_treelet_rows: int = 0
+    st_leaf_cap: int = 0    # triangle slots in a row
 
 
 @dataclasses.dataclass
@@ -107,6 +132,10 @@ class PackedScene:
     wf_perm: torch.Tensor
     tri_obj: torch.Tensor
     roots: torch.Tensor
+    st_top: torch.Tensor
+    st_sub: torch.Tensor
+    st_tris: torch.Tensor
+    st_perm: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -181,6 +210,41 @@ def forest_depth(left, right, roots) -> int:
     return deepest
 
 
+_NO_FOREST = bvh_mod.BVHArrays(
+    node_min=np.zeros((0, 3), np.float32),
+    node_max=np.zeros((0, 3), np.float32),
+    leaf_start=np.zeros(0, np.int32), leaf_end=np.zeros(0, np.int32),
+    left=np.zeros(0, np.int32), right=np.zeros(0, np.int32),
+    leaf_tri_indices=np.zeros(0, np.int32), roots=np.zeros(0, np.int32))
+
+
+def stream_stack_need(n_treelets: int) -> int:
+    """Most nodes the streamed walk holds at once: one per level of the
+    top tree and of a treelet's subtree, and one more."""
+    n_groups = lbvh.TREELET_ROWS // lbvh.SUB_GROUP_ROWS
+    return (n_treelets.bit_length() - 1) + (n_groups.bit_length() - 1) + 1
+
+
+def _streamed_tables(sf, n_tri, object_ranges):
+    """The streamed LBVH's device tables from a StreamedForest, or their
+    one-row placeholders from None; `tri_obj` then is not theirs."""
+    if sf is None:
+        return dict(st_top=np.zeros((1, 8), np.float32),
+                    st_sub=np.zeros((1, 8), np.float32),
+                    st_tris=np.zeros((1, 9), np.float32),
+                    st_perm=np.full(1, -1, np.int32))
+    need = stream_stack_need(sf.n_treelets)
+    if need > STREAM_MAX_STACK:
+        raise ValueError(
+            f"the streamed tree of {sf.n_treelets} treelets needs a stack "
+            f"of {need}; the kernel has {STREAM_MAX_STACK}")
+    tri_obj = np.full(max(n_tri, 1), -1, np.int32)
+    for k, (start, end) in enumerate(object_ranges):
+        tri_obj[start:end] = k
+    return dict(st_top=sf.ctree_f, st_sub=sf.sub_f, st_tris=sf.tris,
+                st_perm=sf.row_perm, tri_obj=tri_obj)
+
+
 def _forest_tables(forest, tris, object_ranges):
     """The forest's device tables (module docstring) from BVHArrays."""
     n = forest.num_nodes
@@ -203,8 +267,9 @@ def _forest_tables(forest, tris, object_ranges):
 
 def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
             imp_rotated, imp_fn_ids, map_images, bindings, sky_img,
-            maps_present, forest, object_ranges, device):
-    """Assemble (PackedScene, SceneInfo) from host arrays."""
+            maps_present, forest, object_ranges, device, streamed=None):
+    """Assemble (PackedScene, SceneInfo) from host arrays: over the SAH
+    `forest`, or over the StreamedForest `streamed` with `forest` empty."""
     n_tri = tris.shape[0]
     _check_material_ids(mats.shape[0], attr, ell_tab[:len(ell_rotated)],
                         imp_tab[:len(imp_rotated)])
@@ -241,7 +306,8 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         slots=_pad1(np.asarray(shapes, np.int32).reshape(-1, 3)),
         mat_maps=_mat_maps(bindings, mats.shape[0]),
         sky=np.asarray(sky_img, np.float32).reshape(-1, 3),
-        **_forest_tables(forest, tris, object_ranges),
+        **{**_forest_tables(forest, tris, object_ranges),
+           **_streamed_tables(streamed, n_tri, object_ranges)},
     )
     scene = PackedScene(**{k: torch.tensor(v, device=device)
                            for k, v in host.items()})
@@ -262,6 +328,10 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         forest_depth=depth,
         any_uv=bool((uvt[:, 9] > 0).any()),
         any_smooth=bool((attr[:, 9] % 2 > 0).any()),
+        streamed=streamed is not None,
+        st_n_treelets=streamed.n_treelets if streamed else 0,
+        st_treelet_rows=lbvh.TREELET_ROWS if streamed else 0,
+        st_leaf_cap=lbvh.TRIS_PER_ROW if streamed else 0,
     )
     return scene, info
 
@@ -306,25 +376,27 @@ def _column(scene, name, width, dtype):
 def pack_scene(scene, device, config, max_leaf=None):
     """Pack a `Scene` (scene/scene.py) onto `device`: one BVH per object
     (an OBJ group, a loose triangle, a bulk mesh) built with `config`'s
-    `sah_planes`, `max_bvh_depth` and `max_tris_in_leaf` (or `max_leaf`)."""
+    `sah_planes`, `max_bvh_depth` and `max_tris_in_leaf` (or `max_leaf`);
+    past `config.stream_threshold` triangles the streamed LBVH over all of
+    them, in the median-split order of the native builder."""
     v1 = _column(scene, "v1", 3, np.float64)
     v2 = _column(scene, "v2", 3, np.float64)
     v3 = _column(scene, "v3", 3, np.float64)
     n_tri = v1.shape[0]
-    if n_tri > config.stream_threshold:
-        raise NotImplementedError(
-            f"{n_tri} triangles exceed stream_threshold = "
-            f"{config.stream_threshold}: such scenes need the streamed LBVH "
-            "path, which waits for a later slice of the port")
     object_ranges = list(scene.tris.object_ranges)
     ofs = len(scene.tris)
     for bm in scene.bulk_meshes:
         object_ranges.append((ofs, ofs + bm["v1"].shape[0]))
         ofs += bm["v1"].shape[0]
-    forest = bvh_mod.build_forest(
-        v1, v2, v3, object_ranges, sah_planes=config.sah_planes,
-        max_depth=config.max_bvh_depth,
-        max_leaf=config.max_tris_in_leaf if max_leaf is None else max_leaf)
+    if n_tri > config.stream_threshold:
+        forest, streamed = _NO_FOREST, lbvh.build_streamed(v1, v2, v3)
+    else:
+        streamed = None
+        forest = bvh_mod.build_forest(
+            v1, v2, v3, object_ranges, sah_planes=config.sah_planes,
+            max_depth=config.max_bvh_depth,
+            max_leaf=(config.max_tris_in_leaf if max_leaf is None
+                      else max_leaf))
     tris = np.concatenate([v1, v2 - v1, v3 - v1], axis=1).astype(np.float32)
     attr = _attr_rows(*(_column(scene, k, 3, np.float32)
                         for k in ("n1", "n2", "n3")),
@@ -383,7 +455,8 @@ def pack_scene(scene, device, config, max_leaf=None):
         ell_rotated=ell_rotated, imp_tab=imp_tab, imp_rotated=imp_rotated,
         imp_fn_ids=[int(f) for f in scene.imp_fn], map_images=map_images,
         bindings=bindings, sky_img=sky, maps_present=maps_present,
-        forest=forest, object_ranges=object_ranges, device=device)
+        forest=forest, object_ranges=object_ranges, device=device,
+        streamed=streamed)
 
 
 def _unpack_rows(rows: np.ndarray, per_row: int, stride: int) -> np.ndarray:
@@ -409,19 +482,46 @@ def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
         fs_uvt): triangles come in that package's BVH leaf order and the
         port builds a forest of its own over them, as one object.
 
+    A streamed scene of that package (info["streamed"]) comes with its
+    triangle columns as above and its LBVH tables (st_top, st_tris, st_sub,
+    st_perm), which are carried into the port's layouts: the port then
+    walks the very tree the JAX package built.
+
     Material maps come across where that package packed them for its fused
     path (fs_maps). Returns (PackedScene, SceneInfo).
     """
-    if "node_min" in arrays and int(info["num_objects"]):
-        def f32(key):
-            return np.asarray(arrays[key], np.float32)
+    def f32(key):
+        return np.asarray(arrays[key], np.float32)
 
+    streamed = None
+    is_streamed = bool(info.get("streamed"))
+    if is_streamed or ("node_min" in arrays and int(info["num_objects"])):
         v1, v2, v3 = f32("tri_v1"), f32("tri_v2"), f32("tri_v3")
         tris = np.concatenate([v1, v2 - v1, v3 - v1], axis=1)
         attr = _attr_rows(f32("tri_n1"), f32("tri_n2"), f32("tri_n3"),
                           arrays["tri_mat"], arrays["tri_has_smooth"])
         uvt = _uvt_rows(v2 - v1, v3 - v1, f32("tri_uv1"), f32("tri_uv2"),
                         f32("tri_uv3"), arrays["tri_has_uv"])
+    if is_streamed:
+        if (int(info["st_treelet_rows"]), int(info["st_leaf_cap"])) != (
+                lbvh.TREELET_ROWS, lbvh.TRIS_PER_ROW):
+            raise ValueError("the streamed tables were built with other "
+                             "row or treelet sizes than accel/lbvh.py's")
+        n_treelets = int(info["st_n_treelets"])
+        st_tris = _unpack_rows(f32("st_tris"), lbvh.TRIS_PER_ROW, 9)
+        streamed = lbvh.StreamedForest(
+            ctree_f=f32("st_top"), tris=st_tris,
+            sub_f=np.ascontiguousarray(f32("st_sub")[:, :8]),
+            row_perm=np.asarray(arrays["st_perm"], np.int32),
+            n_rows=-(-tris.shape[0] // lbvh.TRIS_PER_ROW),
+            n_treelets=n_treelets,
+            leaf_depth=(n_treelets * lbvh.TREELET_ROWS).bit_length() - 1)
+        forest = _NO_FOREST
+        # objects are contiguous id ranges; tri_obj holds their ordinals
+        tri_obj = np.asarray(arrays["tri_obj"])[:tris.shape[0]]
+        starts = [0] + (np.flatnonzero(np.diff(tri_obj)) + 1).tolist()
+        object_ranges = list(zip(starts, starts[1:] + [tris.shape[0]]))
+    elif "node_min" in arrays and int(info["num_objects"]):
         roots = np.asarray(arrays["roots"], np.int32)
         forest = bvh_mod.BVHArrays(
             node_min=f32("node_min"), node_max=f32("node_max"),
@@ -478,4 +578,5 @@ def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
         map_images=map_images,
         bindings=tuple(info.get("fs_map_bindings", ())),
         sky_img=tex_data[0, :sh, :sw], maps_present=maps_present,
-        forest=forest, object_ranges=object_ranges, device=device)
+        forest=forest, object_ranges=object_ranges, device=device,
+        streamed=streamed)

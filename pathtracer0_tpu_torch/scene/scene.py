@@ -7,9 +7,10 @@
     scene.addImplicit(fn, shift, scale, rot, m)     -> add_implicit
     scene.addMaterial(name) / setLastMtl(prop, val) -> add_material /
                                                        set_last_mtl
-plus texture 0 as the sky (set_sky) and bulk meshes (add_mesh).
-`build(device=...)` builds the SAH forest over the triangles and packs
-everything onto one device (scene/packing.py).
+plus texture 0 as the sky (set_sky) and bulk meshes (add_mesh,
+add_mesh_indexed). `build(device=...)` builds the SAH forest over the
+triangles, or the two-level LBVH past `config.stream_threshold` of them,
+and packs everything onto one device (scene/packing.py).
 """
 from __future__ import annotations
 
@@ -95,10 +96,34 @@ class Scene:
         else:
             raise FileNotFoundError(filepath)
 
-    def add_mesh_indexed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "indexed meshes (add_mesh_indexed) wait for the indexed-mesh "
-            "slice of the port; expand the faces and use add_mesh")
+    def add_mesh_indexed(self, verts, faces, m: int, normals=None,
+                         uvs=None):
+        """Bulk triangle mesh in indexed form: verts (V, 3) shared vertex
+        positions, faces (T, 3) vertex indices, optional per-vertex
+        normals (V, 3) (smooth shading; else flat) and UVs (V, 2). The same
+        mesh as `add_mesh(verts[faces[:, 0]], verts[faces[:, 1]],
+        verts[faces[:, 2]], m, ...)`, and expanded to it here on the host:
+        positions, smooth normals and UVs are gathers, flat normals
+        (v3 - v1) x (v2 - v1) in float64."""
+        verts = np.asarray(verts, np.float64).reshape(-1, 3)
+        faces = np.asarray(faces, np.int64).reshape(-1, 3)
+        if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
+            raise ValueError("face index out of range")
+        if normals is not None:
+            normals = np.asarray(normals, np.float64).reshape(-1, 3)
+            if normals.shape[0] != verts.shape[0]:
+                raise ValueError("normals must be per-vertex (V, 3)")
+        if uvs is not None:
+            uvs = np.asarray(uvs, np.float64).reshape(-1, 2)
+            if uvs.shape[0] != verts.shape[0]:
+                raise ValueError("uvs must be per-vertex (V, 2)")
+
+        def corners(table):
+            return (None if table is None
+                    else tuple(table[faces[:, c]] for c in range(3)))
+
+        self.add_mesh(*corners(verts), m, normals=corners(normals),
+                      uvs=corners(uvs))
 
     def add_tri(self, v1, v2, v3, m: int):
         """One flat-shaded triangle without UVs (dispatch.java:1013-1015),
@@ -168,7 +193,8 @@ class Scene:
     def build(self, device=None, config: Optional[RenderConfig] = None,
               max_leaf: Optional[int] = None):
         """Build the forest (`config.sah_planes`, `max_bvh_depth`,
-        `max_tris_in_leaf` or `max_leaf`) and pack onto `device` (default:
-        the card). Returns (PackedScene, SceneInfo)."""
+        `max_tris_in_leaf` or `max_leaf`), or the streamed LBVH for more
+        than `config.stream_threshold` triangles, and pack onto `device`
+        (default: the card). Returns (PackedScene, SceneInfo)."""
         return pack_scene(self, resolve_device(device),
                           config or RenderConfig(), max_leaf=max_leaf)

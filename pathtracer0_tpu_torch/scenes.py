@@ -1,4 +1,5 @@
-"""Built-in benchmark scenes of the port: BASELINE configs 1, 2, 4 and 6.
+"""Built-in benchmark scenes of the port: BASELINE configs 1, 2, 4 and 6
+and the scale benchmark's procedural terrain (`terrain`).
 
 The same scenes as the JAX package's scenes.py (own copy): Whitted
 analytic (1), path-traced metal and glass (2), the full PBR stack with an
@@ -198,3 +199,34 @@ CAMERAS = {
 }
 
 BUILDERS = {1: whitted_analytic, 2: metal_glass, 4: full_pbr, 6: textured}
+
+
+def terrain(n: int = 708) -> Scene:
+    """The scale benchmark's procedural terrain: an n x n height field of
+    2 (n - 1)^2 triangles (999,698 at n = 708, 4M at n = 1416) at constant
+    triangle density, one indexed mesh of one rough material under a
+    constant sky. Past `stream_threshold` triangles it renders through the
+    streamed LBVH. Camera: `terrain_camera(n)`."""
+    ext = 50.0 * (n / 708.0)
+    xs = np.linspace(-ext, ext, n)
+    X, Z = np.meshgrid(xs, xs)
+    Y = (np.sin(X * 0.35) * np.cos(Z * 0.28) * 1.8
+         + np.sin(X * 0.09 + 1.3) * 4.0
+         + np.random.RandomState(0).rand(n, n) * 0.15)
+    g = np.arange(n * n, dtype=np.int64).reshape(n, n)
+    ga, gb = g[:-1, :-1].reshape(-1), g[1:, :-1].reshape(-1)
+    gc, gd = g[:-1, 1:].reshape(-1), g[1:, 1:].reshape(-1)
+    faces = np.concatenate([np.stack([ga, gb, gc], axis=1),
+                            np.stack([gd, gb, gc], axis=1)])
+    sc = Scene()
+    sc.set_constant_sky((0.5, 0.6, 0.9))
+    sc.add_material("terrain")
+    sc.set_last_mtl("Kd", (0.45, 0.52, 0.38))
+    sc.set_last_mtl("Pr", 1.0)
+    sc.add_mesh_indexed(np.stack([X, Y, Z], axis=-1).reshape(-1, 3), faces, 0)
+    return sc
+
+
+def terrain_camera(n: int = 708):
+    """(position, rotation) looking over `terrain(n)` from its near edge."""
+    return (0.0, 14.0, -50.0 * (n / 708.0) * 1.16), (0.25, 0.0, 0.0)

@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel (frame, block, brute,
-traverse) against its plain PyTorch version, and the renderer's routes
-through the kernels.
+traverse, streamed) against its plain PyTorch version, the renderer's
+routes through the kernels, and the native LBVH builder built there.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -130,8 +130,8 @@ def test_every_implicit_on_card(fn):
 
 # ---- the per-bounce route: forest kernels and the block kernel ------------
 
-def _terrain_scene(n, max_leaf):
-    """A height-field mesh of 2 (n - 1)^2 triangles under two spheres."""
+def _terrain_scene(n, max_leaf, stream_threshold=1 << 16):
+    """A height-field mesh of 2 (n - 1)^2 triangles under a sphere."""
     import numpy as np
 
     xs = np.linspace(-6.0, 6.0, n)
@@ -153,7 +153,8 @@ def _terrain_scene(n, max_leaf):
     sc.set_last_mtl("illum", 7)
     sc.add_mesh(v1, v2, v3, 0)
     sc.add_sphere((0.0, 1.6, 6.0), 0.8, m=1)
-    return sc.build(config=RenderConfig(max_tris_in_leaf=max_leaf))
+    return sc.build(config=RenderConfig(max_tris_in_leaf=max_leaf,
+                                        stream_threshold=stream_threshold))
 
 
 def _forest_rays(n):
@@ -334,3 +335,136 @@ def test_deep_forest_takes_a_larger_stack_on_card():
     assert torch.equal(out_k[4], out_p[4]) and torch.equal(out_k[5], out_p[5])
     assert 0.2 < float((out_k[3] >= 0).float().mean()) < 0.9
     assert int(out_k[3].unique().numel()) > 80
+
+
+# ---- the streamed route: the LBVH kernel -----------------------------------
+
+def _assert_streamed(out_k, out_p, t_init):
+    same = out_k[3] == out_p[3]
+    assert float(same.float().mean()) >= 0.999
+    for a, b in zip(out_k[:3], out_p[:3]):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
+    dead = t_init == 0.0
+    for x, off in zip(out_k, (0.0, 0.0, 0.0, -1, 0, 0)):
+        assert bool((x[dead] == off).all())
+    assert float((out_k[4] == out_p[4]).float().mean()) >= 0.999
+    assert float((out_k[5] == out_p[5]).float().mean()) >= 0.999
+
+
+# 128 triangles: one treelet; 3,042: two; 8,978: 642 rows in 6 treelets of
+# a top tree of 8, the last two empty
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,treelets", [(9, 1), (40, 2), (68, 8)])
+def test_streamed_kernel_matches_plain_on_card(n, treelets):
+    """idx equal on >= 99.9% of the rays, t, u, v within 1e-5, switched-off
+    rays exact, the per-ray counters equal on >= 99.9%."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    sc, info = _terrain_scene(n, 4, stream_threshold=0)
+    assert info.streamed and info.st_n_treelets == treelets
+    assert info.num_objects == 0
+    o, d, t_init = _forest_rays(8192)
+    before = wavefront.launches["streamed_kernel"]
+    out_k = wavefront.trace_streamed(o, d, t_init, sc, info)
+    torch.cuda.synchronize()
+    assert wavefront.launches["streamed_kernel"] == before + 1
+    out_p = wavefront.streamed_reference(o, d, t_init, sc, info)
+    assert wavefront.launches["streamed_kernel"] == before + 1
+    _assert_streamed(out_k, out_p, t_init)
+    assert 0.1 < float((out_k[3] >= 0).float().mean()) < 0.95
+    # the same triangles as the SAH forest's walk finds
+    forest, finfo = _terrain_scene(n, 4)
+    out_f = wavefront.trace_forest(o, d, t_init, forest, finfo)
+    tri_s = torch.where(out_k[3] >= 0,
+                        sc.st_perm[out_k[3].clamp(min=0).long()], -1)
+    tri_f = torch.where(out_f[3] >= 0,
+                        forest.wf_perm[out_f[3].clamp(min=0).long()], -1)
+    assert float((tri_s == tri_f).float().mean()) >= 0.999
+    torch.testing.assert_close(out_k[0], out_f[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_edge_cases_on_card():
+    """All lanes off; rays with zero direction components (straight down,
+    along an axis) through a top tree with empty treelets; a short t_init."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    sc, info = _terrain_scene(68, 4, stream_threshold=0)
+    o, d, t_init = _forest_rays(2048)
+    off = wavefront.trace_streamed(o, d, torch.zeros_like(t_init), sc, info)
+    for x, want in zip(off, (0.0, 0.0, 0.0, -1, 0, 0)):
+        assert bool((x == want).all())
+    zero = torch.zeros(2048, device="cuda")
+    one = torch.ones(2048, device="cuda")
+    high = tuple(c if i != 1 else c.abs() + 3.0 for i, c in enumerate(o))
+    for direction in ((zero, -one, zero), (zero, zero, one),
+                      (one * 0.6, -one * 0.8, zero)):
+        for ti in (t_init, torch.where(t_init > 0, 2.5, 0.0)):
+            out_k = wavefront.trace_streamed(high, direction, ti, sc, info)
+            out_p = wavefront.streamed_reference(high, direction, ti, sc,
+                                                 info)
+            assert bool(torch.isfinite(out_k[0]).all())
+            _assert_streamed(out_k, out_p, ti)
+    down = wavefront.trace_streamed(high, (zero, -one, zero), t_init, sc, info)
+    assert float((down[3] >= 0).float().mean()) > 0.1
+    with pytest.raises(ValueError):
+        wavefront.trace_streamed(o, d, t_init[:-1], sc, info)
+    forest, finfo = _terrain_scene(9, 4)
+    with pytest.raises(ValueError, match="streamed"):
+        wavefront.trace_streamed(o, d, t_init, forest, finfo)
+
+
+@pytest.mark.cuda
+def test_streamed_route_goes_through_its_kernel():
+    """A scene past stream_threshold renders through Renderer in path and
+    Whitted mode with one streamed_kernel launch per scene query and no
+    other kernel; fused="on" refuses it."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import fused, wavefront
+
+    cam, rot = (0.0, 2.5, 0.0), (0.3, 0.0, 0.0)
+    sc, info = _terrain_scene(40, 4, stream_threshold=1000)
+    assert info.streamed
+    for raytracing in (True, False):
+        cfg = RenderConfig(width=W, height=H, samples_per_frame=3,
+                           max_bounces=4, raytracing=raytracing,
+                           auto_focus=False)
+        before = dict(wavefront.launches)
+        others = (tframe.trace_frame.launches, fused.trace_block.launches)
+        r = Renderer(sc, info, cfg, cam_pos=cam, cam_rot=rot)
+        img = r.render(2)
+        after = dict(wavefront.launches)
+        got = after.pop("streamed_kernel") - before.pop("streamed_kernel")
+        assert 2 * 3 <= got <= 2 * 3 * (4 if raytracing else 1)
+        assert after == before
+        assert others == (tframe.trace_frame.launches,
+                          fused.trace_block.launches)
+        assert bool(torch.isfinite(img).all()) and float(img.std()) > 0.02
+    with pytest.raises(ValueError, match="streamed"):
+        Renderer(sc, info, RenderConfig(width=W, height=H, fused="on"),
+                 cam_pos=cam, cam_rot=rot).render(1)
+
+
+@pytest.mark.cuda
+def test_native_lbvh_builder_builds_beside_the_card():
+    """g++ builds csrc/streambuild.cpp on the machine that holds the card;
+    its Morton order is bit-equal to the NumPy builder's, and the default
+    median-split order holds the same triangles."""
+    _card()
+    import numpy as np
+
+    from pathtracer0_tpu_torch.accel import lbvh, native_lbvh
+
+    assert native_lbvh.available()
+    rng = np.random.RandomState(2)
+    v1 = rng.rand(6000, 3) * 30.0
+    v2, v3 = v1 + rng.randn(6000, 3) * 0.4, v1 + rng.randn(6000, 3) * 0.4
+    nat = native_lbvh.build_streamed(v1, v2, v3, mode=0)
+    ref = lbvh._build_streamed_numpy(v1, v2, v3)
+    for a, b in zip(nat[:4], ref[:4]):
+        assert np.array_equal(a, b)
+    med = lbvh.build_streamed(v1, v2, v3)
+    assert sorted(med.row_perm[:6000]) == list(range(6000))
+    assert np.array_equal(med.ctree_f[0], ref.ctree_f[0])

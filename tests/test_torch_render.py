@@ -129,7 +129,7 @@ def test_import_boundary():
         "from pathtracer0_tpu_torch import scenes, render_frame\n"
         "from pathtracer0_tpu_torch.kernels import frame, build, fused\n"
         "from pathtracer0_tpu_torch.kernels import wavefront, traverse\n"
-        "from pathtracer0_tpu_torch.accel import bvh\n"
+        "from pathtracer0_tpu_torch.accel import bvh, lbvh, native_lbvh\n"
         "from pathtracer0_tpu_torch.scene import packing, objparse\n"
         "from pathtracer0_tpu_torch.render import integrator, renderer\n"
         "import chip_smoke\n"

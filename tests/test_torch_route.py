@@ -381,10 +381,15 @@ def test_routing_options():
     sc.add_material("a")
     v1, v2, v3 = _terrain(8)
     sc.add_mesh(v1, v2, v3, 0)
-    with pytest.raises(NotImplementedError, match="stream"):
-        sc.build(device="cpu", config=RenderConfig(stream_threshold=50))
-    scene, info = sc.build(device="cpu")
     cam = torch.zeros(3)
+    # a streamed scene renders through the per-bounce route alone
+    scene, info = sc.build(device="cpu",
+                           config=RenderConfig(stream_threshold=50))
+    assert info.streamed and not tfused.eligible(info)
+    with pytest.raises(ValueError, match="streamed"):
+        render_frame(scene, info, RenderConfig(width=4, height=4, fused="on"),
+                     cam, cam, 1, device="cpu")
+    scene, info = sc.build(device="cpu")
     for bad in (dict(fused="interpret"), dict(pallas="interpret")):
         with pytest.raises(ValueError, match="interpret"):
             render_frame(scene, info, RenderConfig(width=4, height=4, **bad),

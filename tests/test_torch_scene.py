@@ -98,8 +98,11 @@ def test_scene_api_limits():
     sc.add_material("a")
     with pytest.raises(FileNotFoundError):
         sc.add_object("x.obj")
-    with pytest.raises(NotImplementedError, match="indexed"):
-        sc.add_mesh_indexed(np.zeros((3, 3)), np.array([[0, 1, 2]]), 0)
+    with pytest.raises(ValueError, match="face index"):
+        sc.add_mesh_indexed(np.zeros((3, 3)), np.array([[0, 1, 3]]), 0)
+    with pytest.raises(ValueError, match="per-vertex"):
+        sc.add_mesh_indexed(np.zeros((3, 3)), np.array([[0, 1, 2]]), 0,
+                            normals=np.ones((2, 3)))
     with pytest.raises(ValueError):
         sc.add_implicit(11, (0, 0, 0), (1, 1, 1), (0, 0, 0), 0)
     sc.add_sphere((0, 0, 3), 1.0, m=1)
@@ -109,10 +112,12 @@ def test_scene_api_limits():
     big.add_material("a")
     v = np.random.RandomState(0).rand(65, 3)
     big.add_mesh(v, v + [1, 0, 0], v + [0, 1, 0], 0)
-    with pytest.raises(NotImplementedError, match="streamed LBVH"):
-        big.build(device="cpu", config=RenderConfig(stream_threshold=64))
+    # past stream_threshold: the streamed LBVH and no forest
+    _, info = big.build(device="cpu", config=RenderConfig(stream_threshold=64))
+    assert info.streamed and info.num_objects == 0 and info.num_tris == 65
     _, info = big.build(device="cpu")
     assert info.num_tris == 65 and info.num_objects == 1
+    assert not info.streamed
 
 
 def test_parse_mtl_matches_jax(tmp_path):

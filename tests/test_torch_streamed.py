@@ -1,0 +1,417 @@
+"""The port's streamed route (LBVH -> `trace_streamed` -> `ray_scene` ->
+bounce loop -> frame) against the JAX package's, on the CPU.
+
+The JAX package builds each scene with `stream_threshold=0`;
+`scene_from_numpy` carries its LBVH tables into the port's layouts, so
+both packages walk the very same tree. The JAX side runs its Pallas
+`_streamed_kernel` in interpret mode (as its own tests do on the CPU), the
+port its plain version `streamed_reference`.
+
+Tolerances. Kernel against kernel: the slot hit equal on >= 99.9% of the
+rays (one t on a shared edge may go to either neighbour: the two walk in
+different orders), t, u, v within 1e-5 where the slots agree, switched-off
+rays exact. Frames: those of tests/test_torch_route.py (per-pixel max-abs
+difference < 1e-4 on >= 99% of the pixels, mean abs difference < 5e-3, ray
+count within 1% + 16). Streamed against the SAH route (a division-free
+against a dividing triangle test): triangle id equal on >= 99.9%, t within
+1e-4. Through `ray_scene` the distances are held relative to 1 + t: an
+ellipsoid's root differs by a few ulps of t between the two packages.
+"""
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pathtracer0_tpu import RenderConfig as JConfig
+from pathtracer0_tpu import Scene as JScene
+from pathtracer0_tpu.kernels import traverse as jtraverse
+from pathtracer0_tpu.kernels import wavefront as jwavefront
+from pathtracer0_tpu.render import renderer as jrenderer
+from pathtracer0_tpu_torch import (RenderConfig, Renderer, Scene, render_frame,
+                                   scenes)
+from pathtracer0_tpu_torch.core import camera as tcamera
+from pathtracer0_tpu_torch.kernels import traverse as ttraverse
+from pathtracer0_tpu_torch.kernels import wavefront as twavefront
+from pathtracer0_tpu_torch.render.renderer import render_rays
+from pathtracer0_tpu_torch.scene.packing import scene_from_numpy
+
+torch.set_num_threads(1)
+
+FIELDS = ("tri_v1", "tri_v2", "tri_v3", "tri_n1", "tri_n2", "tri_n3",
+          "tri_uv1", "tri_uv2", "tri_uv3", "tri_has_uv", "tri_has_smooth",
+          "tri_mat", "tri_obj", "st_top", "st_tris", "st_sub", "st_perm",
+          "fs_maps", "materials", "ell_tab", "imp_tab", "tex_data",
+          "tex_sizes")
+
+
+def _grid(n, seed=0):
+    """n x n jittered triangles over a 0.7-pitch grid (the grid of
+    tests/test_wavefront.py), as (v1, v2, v3)."""
+    rng = np.random.RandomState(seed)
+    i, k = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    base = np.stack([i.ravel() * 0.7, rng.rand(n * n) * 1.5,
+                     k.ravel() * 0.7], -1)
+    v2 = base + np.stack([np.full(n * n, 0.6), rng.randn(n * n) * 0.3,
+                          np.zeros(n * n)], -1)
+    v3 = base + np.stack([np.zeros(n * n), rng.randn(n * n) * 0.3,
+                          np.full(n * n, 0.6)], -1)
+    return base, v2, v3
+
+
+def _fill(sc, n, ellipsoid):
+    sc.set_constant_sky((0.5, 0.6, 0.9))
+    sc.add_material("ground")
+    sc.set_last_mtl("Kd", (0.7, 0.6, 0.5))
+    sc.set_last_mtl("Ka", (0.05, 0.02, 0.0))
+    sc.add_material("metal")
+    sc.set_last_mtl("Pm", 1.0)
+    sc.set_last_mtl("Pr", 0.05)
+    sc.set_last_mtl("Ks", (0.9, 0.85, 0.7))
+    sc.add_mesh(*_grid(n), 0)
+    if ellipsoid:
+        c = 0.35 * n
+        sc.add_ellipsoid((c, 1.6, c), (1.0, 1.4, 0.8), (0.2, 0.0, 0.3),
+                         2.0 + 0.05 * n, 1)
+    return sc
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX scene, info, port scene carried across, info) of an n x n
+    grid built streamed, with or without an ellipsoid."""
+    cache = {}
+
+    def get(n, ellipsoid=False):
+        if (n, ellipsoid) not in cache:
+            dev, info = _fill(JScene(), n, ellipsoid).build(
+                JConfig(stream_threshold=0))
+            sc, pinfo = scene_from_numpy(
+                {k: np.asarray(getattr(dev, k)) for k in FIELDS},
+                info._asdict())
+            cache[n, ellipsoid] = (dev, info, sc, pinfo)
+        return cache[n, ellipsoid]
+    return get
+
+
+def _rays(n_rays, n, seed=1):
+    """Rays from above an n x n grid, mostly downwards, some with a zero
+    direction component."""
+    rng = np.random.RandomState(seed)
+    o = np.stack([rng.rand(n_rays) * 0.7 * n, 3.0 + rng.rand(n_rays) * 2.0,
+                  rng.rand(n_rays) * 0.7 * n], -1).astype(np.float32)
+    d = rng.randn(n_rays, 3) + np.array([0.0, -1.5, 0.0])
+    d[::17, 0] = 0.0
+    d[5::17, 2] = 0.0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def _soa(a):
+    t = torch.tensor(np.asarray(a))
+    return tuple(t[:, i].contiguous() for i in range(3))
+
+
+def test_scene_from_numpy_carries_the_lbvh(pair):
+    dev, info, sc, pinfo = pair(12)
+    assert info.streamed and pinfo.streamed
+    assert pinfo.num_objects == 0 and pinfo.num_tris == 144
+    assert (pinfo.st_n_treelets, pinfo.st_treelet_rows, pinfo.st_leaf_cap) \
+        == (info.st_n_treelets, info.st_treelet_rows, info.st_leaf_cap)
+    n = pinfo.st_n_treelets
+    assert sc.st_top.shape == (2 * n - 1, 8) and sc.st_sub.shape == (64 * n, 8)
+    assert sc.st_tris.shape == (1792 * n, 9) and sc.st_perm.shape == (1792 * n,)
+    np.testing.assert_array_equal(sc.st_top.numpy(), np.asarray(dev.st_top))
+    np.testing.assert_array_equal(
+        sc.st_tris.numpy().reshape(-1, 126), np.asarray(dev.st_tris)[:, :126])
+    np.testing.assert_array_equal(sc.st_sub.numpy()[:, :6],
+                                  np.asarray(dev.st_sub)[:, :6])
+    np.testing.assert_array_equal(sc.st_perm.numpy(), np.asarray(dev.st_perm))
+    np.testing.assert_array_equal(sc.tri_obj.numpy(), 0)
+    # the port's own build of the same mesh is the same tree (both default
+    # to the native builder's median-split order)
+    own, oinfo = _fill(Scene(), 12, False).build(
+        device="cpu", config=RenderConfig(stream_threshold=0))
+    assert oinfo == pinfo
+    for name in ("st_top", "st_sub", "st_tris", "st_perm", "attr"):
+        assert torch.equal(getattr(own, name), getattr(sc, name)), name
+
+
+# 12 x 12 = 144 triangles: one treelet; 45 x 45 = 2,025: two (a treelet
+# holds 1,792), the second mostly empty
+@pytest.mark.parametrize("n,treelets", [(12, 1), (45, 2)])
+def test_streamed_reference_matches_jax_kernel(pair, n, treelets):
+    dev, info, sc, pinfo = pair(n)
+    assert pinfo.st_n_treelets == treelets
+    o, d = _rays(2048, n)
+    t_init = np.where(np.arange(2048) % 7 == 0, 0.0, 1e30).astype(np.float32)
+    tj, uj, vj, ij, _, _ = jwavefront.trace_streamed(
+        jnp.asarray(o.T), jnp.asarray(d.T), jnp.asarray(t_init), dev.st_top,
+        dev.st_tris, dev.st_sub, n_treelets=info.st_n_treelets,
+        treelet_rows=info.st_treelet_rows, leaf_cap=info.st_leaf_cap,
+        block_rows=8, interpret=True)
+    before = dict(twavefront.launches)
+    tt, ut, vt, it, box, rows = twavefront.trace_streamed(
+        _soa(o), _soa(d), torch.tensor(t_init), sc, pinfo)
+    assert twavefront.launches == before    # CPU: the plain version
+    ij, it = np.asarray(ij), it.numpy()
+    same = ij == it
+    assert same.mean() >= 0.999, same.mean()
+    assert 0.1 < (it >= 0).mean() < 0.95
+    for a, b in ((tj, tt), (uj, ut), (vj, vt)):
+        a, b = np.asarray(a)[same], b.numpy()[same]
+        hit = a < 1e29
+        assert np.array_equal(hit, b < 1e29)
+        assert np.abs(a[hit] - b[hit]).max() <= 1e-5
+    off = t_init == 0.0
+    assert (tt.numpy()[off] == 0.0).all() and (it[off] == -1).all()
+    assert (ut.numpy()[off] == 0.0).all() and (vt.numpy()[off] == 0.0).all()
+    assert (box.numpy()[off] == 0).all() and (rows.numpy()[off] == 0).all()
+    # a live ray tests at least the root's children; rows come in groups
+    assert (box.numpy()[~off] >= 2).all()
+    assert (rows.numpy() % 4 == 0).all() and rows.numpy().max() > 0
+
+
+def test_streamed_reference_edge_cases(pair):
+    """All lanes off; a ray with zero direction components through a tree
+    whose second treelet is mostly empty boxes; a short t_init prunes."""
+    dev, info, sc, pinfo = pair(45)
+    o, d = _rays(64, 45)
+    dead = twavefront.streamed_reference(_soa(o), _soa(d), torch.zeros(64),
+                                         sc, pinfo)
+    assert (dead[0] == 0).all() and (dead[3] == -1).all()
+    assert (dead[4] == 0).all() and (dead[5] == 0).all()
+    # straight down: two zero direction components
+    o1 = torch.tensor([[10.0, 5.0, 10.0]])
+    d1 = torch.tensor([[0.0, -1.0, 0.0]])
+    t, u, v, idx, box, rows = twavefront.streamed_reference(
+        _soa(o1), _soa(d1), torch.full((1,), 1e30), sc, pinfo)
+    assert torch.isfinite(t).all() and int(idx[0]) >= 0
+    forest, finfo = _fill(Scene(), 45, False).build(
+        device="cpu", config=RenderConfig(max_tris_in_leaf=4))
+    hit_f, _ = ttraverse.ray_scene(_soa(o1), _soa(d1), forest, finfo)
+    hit_t, _ = ttraverse.ray_scene(_soa(o1), _soa(d1), sc, pinfo)
+    assert int(hit_t.tri[0]) == int(hit_f.tri[0]) >= 0
+    assert abs(float(hit_t.t[0]) - float(hit_f.t[0])) <= 1e-5
+    # nothing closer than t_init = 0.5: no hit, t comes back as it went in
+    near = twavefront.streamed_reference(_soa(o1), _soa(d1),
+                                         torch.full((1,), 0.5), sc, pinfo)
+    assert float(near[0][0]) == 0.5 and int(near[3][0]) == -1
+    # an empty box is refused whatever the ray: inf * finite would pass
+    # the bare slab test
+    assert np.isinf(sc.st_sub.numpy()[64:, 0]).any()
+
+
+@pytest.mark.parametrize("n", [12, 45])
+def test_streamed_reference_marks_what_it_reads(pair, n):
+    """`visited` changes no result; the marked boxes and groups are no more
+    than the counters' visits, hold every group with a hit, and leave the
+    never-tested root and the empty treelet's boxes out."""
+    _, _, sc, pinfo = pair(n)
+    o, d = _rays(512, n)
+    t_init = torch.where(torch.arange(512) % 7 == 0, 0.0, 1e30)
+    nt = pinfo.st_n_treelets
+    marks = (torch.zeros(2 * nt - 1 + 64 * nt, dtype=torch.bool),
+             torch.zeros(32 * nt, dtype=torch.bool))
+    plain = twavefront.streamed_reference(_soa(o), _soa(d), t_init, sc, pinfo)
+    marked = twavefront.streamed_reference(_soa(o), _soa(d), t_init, sc,
+                                           pinfo, visited=marks)
+    for a, b in zip(plain, marked):
+        assert torch.equal(a, b)
+    idx, box, rows = marked[3:]
+    boxes, groups = marks
+    assert 0 < int(boxes.sum()) <= int(box.sum())
+    assert 0 < int(groups.sum()) <= int(rows.sum()) // 4
+    assert not bool(boxes[0])
+    hit_groups = torch.unique(idx[idx >= 0].to(torch.int64) // 56)
+    assert bool(groups[hit_groups].all())
+    # a group is entered only through its own box, 2n - 1 + 64 treelet + 31
+    # + group, unless it is alone in its tree
+    entered = groups.nonzero()[:, 0]
+    codes = 2 * nt - 1 + 64 * (entered // 32) + 31 + entered % 32
+    assert bool(boxes[codes].all())
+    # boxes of empty groups are tested (and refused) but never entered
+    empty = torch.cat([sc.st_top, sc.st_sub])[:, 0] > \
+        torch.cat([sc.st_top, sc.st_sub])[:, 3]
+    assert bool(empty.any())
+    sub_codes = torch.arange(32 * nt)
+    group_box = 2 * nt - 1 + 64 * (sub_codes // 32) + 31 + sub_codes % 32
+    assert not bool(groups[empty[group_box]].any())
+
+
+def _assert_hits(a, b, t_tol):
+    """Port Hit `a` against Hit `b` (port or JAX), t within t_tol (1 + t)."""
+    tri_a, tri_b = np.asarray(a.tri), np.asarray(b.tri)
+    same = tri_a == tri_b
+    assert same.mean() >= 0.999, same.mean()
+    ta, tb = np.asarray(a.t)[same], np.asarray(b.t)[same]
+    assert np.array_equal(ta < 1e25, tb < 1e25)
+    hit = ta < 1e25
+    assert (np.abs(ta[hit] - tb[hit]) / (1.0 + tb[hit])).max() <= t_tol
+    for name in ("kind", "prim"):
+        assert np.array_equal(np.asarray(getattr(a, name))[same],
+                              np.asarray(getattr(b, name))[same]), name
+
+
+@pytest.mark.parametrize("n", [12, 45])
+def test_ray_scene_streamed_matches_jax_and_the_sah_route(pair, n):
+    """`ray_scene` on a streamed scene with an ellipsoid in it, so the
+    analytic merge is covered: against the JAX package's on the same tree,
+    and against the port's own SAH forest over the same mesh."""
+    dev, info, sc, pinfo = pair(n, ellipsoid=True)
+    o, d = _rays(2048, n, seed=3)
+    active = np.arange(2048) % 5 != 0
+    hit_j, on_j = jtraverse.ray_scene(jnp.asarray(o), jnp.asarray(d), dev,
+                                      info, active=jnp.asarray(active))
+    hit_t, on_t = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo,
+                                      active=torch.tensor(active))
+    _assert_hits(hit_t, hit_j, 1e-5)
+    kinds = hit_t.kind.numpy()
+    assert (kinds == 1).mean() > 0.05 and (kinds == 3).mean() > 0.05
+    assert (hit_t.t.numpy()[~active] == 0.0).all()
+    # the object is the mesh's ordinal, as the JAX package's
+    assert np.array_equal(hit_t.obj.numpy(), np.asarray(hit_j.obj))
+    np.testing.assert_array_equal(torch.stack(on_t, -1).numpy(),
+                                  np.asarray(on_j))
+    # the SAH route: its own forest, the dividing triangle test
+    forest, finfo = _fill(Scene(), n, True).build(
+        device="cpu", config=RenderConfig(max_tris_in_leaf=4))
+    assert not finfo.streamed and finfo.num_objects == 1
+    hit_f, _ = ttraverse.ray_scene(_soa(o), _soa(d), forest, finfo,
+                                   active=torch.tensor(active))
+    _assert_hits(hit_t, hit_f, 1e-4)
+    # pallas="off" is the plain version too on the CPU
+    hit_p, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo, pallas="off",
+                                   active=torch.tensor(active))
+    assert torch.equal(hit_p.t, hit_t.t) and torch.equal(hit_p.tri, hit_t.tri)
+    # probe and counters take the streamed branch
+    t_probe = ttraverse.probe_forest_t(_soa(o), _soa(d), sc, pinfo)
+    tri_only = kinds == 1
+    assert torch.equal(t_probe[tri_only], hit_t.t[tri_only])
+    box, rows = ttraverse.heat_counts(_soa(o), _soa(d), sc, pinfo)
+    assert int(box.min()) >= 2 and int(rows.max()) > 0
+
+
+W, H, CAM, ROT, SEED = 48, 36, (2.5, 3.0, -4.0), (0.4, 0.0, 0.0), 7
+
+
+def _assert_frames(a, b, rays_a, rays_b):
+    assert np.isfinite(b).all()
+    diff = np.abs(a - b).max(axis=-1)
+    assert (diff < 1e-4).mean() >= 0.99, (diff.max(), (diff < 1e-4).mean())
+    assert np.abs(a - b).mean() < 5e-3
+    assert abs(float(rays_a) - float(rays_b)) <= 0.01 * float(rays_a) + 16
+
+
+@pytest.mark.parametrize("raytracing", [True, False],
+                         ids=["path", "whitted"])
+def test_streamed_frame_matches_jax(pair, raytracing):
+    """The slice as a whole: a 48x36, 1 spp, 2 bounce frame of a small
+    streamed scene (the frame of tests/test_wavefront.py's
+    test_renders_end_to_end, an ellipsoid added) in both packages."""
+    dev, info, sc, pinfo = pair(8, ellipsoid=True)
+    kw = dict(width=W, height=H, samples_per_frame=1, max_bounces=2,
+              auto_focus=False, blur=0.0, raytracing=raytracing,
+              stream_threshold=0)
+    jcfg = JConfig(**kw)
+    img_j, rays_j = jrenderer.render_frame(
+        dev, jnp.asarray(CAM, jnp.float32), jnp.asarray(ROT, jnp.float32),
+        jnp.uint32(SEED), info=info, params=jrenderer._frame_params(jcfg),
+        width=W, height=H, spp=1, raytracing=raytracing, auto_focus=False,
+        cam_size=jcfg.cam_size, focal_length=jcfg.focal_length, blur=0.0,
+        focal_distance=jcfg.focal_distance)
+    img_t, rays_t = render_frame(sc, pinfo, RenderConfig(**kw), CAM, ROT,
+                                 SEED, device="cpu")
+    b = img_t.numpy()
+    _assert_frames(np.asarray(img_j), b, rays_j, int(rays_t))
+    # the grid, the ellipsoid and the sky are in the picture
+    assert b.std() > 0.05
+    assert (np.abs(b[..., 2] - b[..., 0]) > 1e-3).any()
+
+
+def test_streamed_frame_through_renderer_and_against_the_sah_route():
+    """The port's own build (`stream_threshold=0`) through Renderer, path
+    and Whitted, against the same mesh over the SAH forest: RMSE < 0.05."""
+    from pathtracer0_tpu_torch.utils import image as img_util
+
+    for raytracing in (True, False):
+        imgs = []
+        for stream in (True, False):
+            cfg = RenderConfig(
+                width=W, height=H, samples_per_frame=2, max_bounces=2,
+                auto_focus=True, raytracing=raytracing, max_tris_in_leaf=4,
+                stream_threshold=0 if stream else 1 << 16)
+            sc, info = _fill(Scene(), 8, True).build(device="cpu", config=cfg)
+            assert info.streamed == stream
+            r = Renderer(sc, info, cfg, cam_pos=CAM, cam_rot=ROT, seed=3,
+                         device="cpu")
+            imgs.append(np.clip(r.render(1).numpy(), 0.0, 1.0))
+            assert r.rays_traced >= W * H * 2
+        assert img_util.rmse(*imgs) < 0.05
+        assert imgs[0].std() > 0.05
+
+
+@pytest.mark.parametrize("raytracing", [True, False],
+                         ids=["path", "whitted"])
+def test_ray_batch_size_chunks_change_nothing(raytracing):
+    """`render_rays` over more than `ray_batch_size` pixels renders them
+    in chunks; a pixel's RNG stream depends on its index alone, so the
+    frame and the query count are identical, ragged last chunk or not."""
+    cfg = RenderConfig(width=W, height=H, samples_per_frame=2, max_bounces=3,
+                       auto_focus=False, focal_distance=5.0,
+                       raytracing=raytracing, stream_threshold=0)
+    sc, info = _fill(Scene(), 8, True).build(device="cpu", config=cfg)
+    whole, q = render_frame(sc, info, cfg, CAM, ROT, SEED, device="cpu")
+    for batch in (1000, 577, W * H - 1):
+        img, qc = render_frame(
+            sc, info, dataclasses.replace(cfg, ray_batch_size=batch), CAM,
+            ROT, SEED, device="cpu")
+        assert torch.equal(img, whole) and int(qc) == int(q), batch
+    # render_rays itself, on a subset of the pixels
+    uv, index = tcamera.pixel_centers(W, H, torch.device("cpu"))
+    pose = [torch.tensor(v, dtype=torch.float32) for v in (CAM, ROT)]
+    part, _ = render_rays(sc, info, uv[100:700], index[100:700], *pose, SEED,
+                          torch.tensor(5.0),
+                          config=dataclasses.replace(cfg, ray_batch_size=128))
+    assert torch.equal(part, whole.reshape(-1, 3)[100:700])
+
+
+def test_spatial_sort_key_matches_jax():
+    """The ray-coherence key (not on the port's route) is bit-equal to the
+    JAX package's on seeded rays, some with zero direction components and
+    some outside the box."""
+    o, d = _rays(4096, 20, seed=11)
+    o[::9] += 30.0
+    lo = np.array([0.0, -1.0, 0.0], np.float32)
+    hi = np.array([14.0, 6.0, 14.0], np.float32)
+    kj = jtraverse._spatial_sort_key(jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(lo), jnp.asarray(hi))
+    kt = ttraverse.spatial_sort_key(torch.tensor(o), torch.tensor(d),
+                                    torch.tensor(lo), torch.tensor(hi))
+    assert kt.dtype == torch.int32
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    assert len(np.unique(kt.numpy())) > 500
+
+
+def test_terrain_scene_streams_past_the_threshold():
+    """`scenes.terrain(n)`: 2 (n - 1)^2 triangles as one indexed mesh; it
+    streams once past `stream_threshold`. (Its own camera suits the
+    benchmark's sizes; this small one is looked at from close by.)"""
+    sc = scenes.terrain(24)
+    cfg = RenderConfig(width=32, height=24, samples_per_frame=1,
+                       max_bounces=3, auto_focus=False, blur=0.0,
+                       stream_threshold=1000)
+    scene, info = sc.build(device="cpu", config=cfg)
+    assert info.num_tris == 2 * 23 * 23 and info.streamed
+    assert info.num_objects == 0 and info.st_n_treelets == 1
+    cam, rot = scenes.terrain_camera(708)
+    assert cam == pytest.approx((0.0, 14.0, -58.0)) and rot == (0.25, 0, 0)
+    img, rays = render_frame(scene, info, cfg, (0.0, 5.5, -2.5),
+                             (0.5, 0.0, 0.0), 5, device="cpu")
+    assert torch.isfinite(img).all() and int(rays) > 32 * 24
+    sky = torch.tensor([0.5, 0.6, 0.9])
+    covered = float(((img - sky).abs().amax(-1) > 0.02).float().mean())
+    assert 0.05 < covered < 0.98
+    _, small = sc.build(device="cpu", config=RenderConfig())
+    assert not small.streamed and small.num_objects == 1

@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
-  1. environment   card name and power limit; the four CUDA sources (one
+  1. environment   card name and power limit; the five CUDA sources (one
                    nvcc each) and the host LBVH builder (g++) are built
                    together
   2. kernels       each kernel against its plain PyTorch version on the
@@ -28,7 +28,15 @@ non-zero:
                    camera, the batch the main path gives it, and 960,000
                    rays (primary + random, one in seven switched off); and
                    against traverse_kernel on the n = 181 terrain built
-                   both ways (stream_threshold=0 against the SAH forest)
+                   both ways (stream_threshold=0 against the SAH forest);
+                   the group-test kernels (vpu_kernel, mxu_kernel and
+                   mxu_big_kernel at both precisions, mxu_big_kernel with
+                   mm_only, mxu_split3_kernel) at the diagnostic's own shape
+                   (32 groups, 16,384 synthetic rays) and at the card's
+                   width: the 1M terrain's 480,000 primary rays against the
+                   32 groups of the treelet most of them hit; the products
+                   themselves against float32 ones, B against C, and each
+                   form against A (recorded)
   3. main paths    every launch counter is zeroed just before each and
                    read just after.
                    Frame path: Renderer at 800x600 with autofocus, config
@@ -46,7 +54,10 @@ non-zero:
                    Renderer at 800x600, 2 spp, 3 bounces, no autofocus, one
                    warm-up and 2 timed frames in path mode and one Whitted
                    frame (streamed_kernel, one launch per sample and
-                   bounce, no other kernel)
+                   bounce, no other kernel).
+                   Diagnostic: tools.diag_mxu.main at its defaults (32
+                   groups, 64 passes, 16,384 rays) and at the card's width
+                   (480,000 rays, 4 passes): rows A, B, C, C mm_only, D
   4. routes        the terrain on the card through the kernels against the
                    same bounce loop over their plain versions at 320x240x2,
                    built over the SAH forest and streamed, and the two
@@ -104,6 +115,25 @@ OPS_BOX, OPS_TRI_DIV = 23, 14
 # division-free triangle test d x e2 (9), the determinant (5) and its sign
 # fold (1), up to the first compare that can reject (|det| >= 1e-10).
 OPS_TRI_FREE = 15
+# The group-test kernels (csrc/mxu_group_kernel.cu). Tensor-core peaks of
+# the H100 SXM (NVIDIA data sheet, dense): TF32 for "highest" (three
+# passes), bf16 for "default" (one) and the bf16 split (three). What the
+# closest-hit function needs of a pass, per ray and group: 5 quantities of
+# 56 triangles over the 10 features that are ever non-zero, 2 x 10 x 280
+# operations. The kernels multiply the padded table, 2 x 16 x 320 (8 pad
+# candidates a quantity, 6 zero features): that count bounds only
+# `mm_only`, whose function is the padded product itself, and is printed
+# beside the other as `padded product`. After the product, what every one
+# of the 56 candidates surely needs on the CUDA cores: the sign test, 3
+# min, 3 max and 2 compares; the reciprocal and what follows depend on the
+# data. `mm_only` adds one candidate per ray and group.
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
+OPS_SIGN_TEST, OPS_MM_ONLY = 8, 1
+OPS_PRODUCT, OPS_PRODUCT_PADDED = 2 * 10 * 280, 2 * 16 * 320
+GROUPS, GROUP_REPS_WIDE = 32, 4
+FORM_PASSES = {"highest": (3, PEAK_TF32), "default": (1, PEAK_BF16),
+               "split3": (3, PEAK_BF16)}
 # Timed-spp parity (16 spp in cells 2, 4 and 6): bit equality decays with
 # spp, one diverged pixel's later samples all differ, so the limits bound
 # the share of diverged pixels and the per-sample mean's error.
@@ -195,11 +225,13 @@ def main() -> int:
     from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.core import rng as vrng
     from pathtracer0_tpu_torch.accel import lbvh
-    from pathtracer0_tpu_torch.kernels import build, frame, fused, wavefront
+    from pathtracer0_tpu_torch.kernels import (build, frame, fused, mxu_group,
+                                               mxu_tri, wavefront)
     from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
                                                        render_frame,
                                                        render_rays)
+    from pathtracer0_tpu_torch.tools import diag_mxu
     from pathtracer0_tpu_torch.utils import image as img_util
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -734,11 +766,269 @@ def main() -> int:
                                     *big_cam, False)
     compare_streamed_with_walk()
 
+    # the group-test diagnostic's data: its own synthetic shape, and the
+    # card's width on real data
+    def wide_data():
+        """The 1M terrain's 480,000 primary rays against the 32 groups of
+        the treelet that most of their hits fall in, centred on its box."""
+        o, d, _ = sample_rays(*big_cam, 800, 600)
+        t_init = torch.full_like(o[0], 1e30)
+        idx = wavefront.trace_streamed(o, d, t_init, big, big_info)[3]
+        slots = lbvh.TREELET_ROWS * lbvh.TRIS_PER_ROW
+        per_treelet = torch.bincount(idx[idx >= 0] // slots,
+                                     minlength=big_info.st_n_treelets)
+        treelet = int(per_treelet.argmax())
+        box = big.st_top[big_info.st_n_treelets - 1 + treelet].cpu()
+        return {"tris": big.st_tris[treelet * slots:(treelet + 1) * slots]
+                .contiguous(), "o": tuple(o), "d": tuple(d),
+                "center": ((box[0:3] + box[3:6]) / 2.0).tolist(),
+                "treelet": treelet, "treelet_hits": int(per_treelet.max())}
+
+    group_data = {"tool": diag_mxu.synthetic(GROUPS, 16, "cuda"),
+                  "wide": wide_data()}
+    # the tool's rays turned at its triangles: about half the rays hit,
+    # where the shapes above have hits on one ray in twenty and one in fifty
+    group_data["aimed"] = diag_mxu.aim(group_data["tool"])[0]
+    emit({"phase": "scenes", "wide_treelet": group_data["wide"]["treelet"],
+          "wide_treelet_hits": group_data["wide"]["treelet_hits"],
+          "wide_center": group_data["wide"]["center"]}, log)
+
+    def group_bound(n_rays, form=None, mm_only=False):
+        """Least time of one pass of a group-test kernel over GROUPS groups:
+        the largest of its bytes (rays in, hits out, the table once) over
+        the memory rate, its product over the tensor cores' rate, and the
+        float32 operations every slot or candidate surely needs over the
+        CUDA cores' rate."""
+        work = n_rays * GROUPS
+        if form is None:        # vpu_kernel: 6 ray floats, t_init, triangles
+            parts = {"bytes": n_rays * (28 + 16) + GROUPS * 56 * 36,
+                     "tensor cores": 0.0,
+                     "cuda cores": OPS_TRI_FREE * 56 * work / PEAK_F32}
+        else:   # 16 features and t_init per ray; bf16 hi + lo are 4 bytes too
+            passes, rate = FORM_PASSES[form]
+            padded = passes * OPS_PRODUCT_PADDED * work / rate
+            parts = {"bytes": n_rays * (64 + 4 + 16) + GROUPS * 320 * 16 * 4,
+                     "tensor cores": padded if mm_only
+                     else passes * OPS_PRODUCT * work / rate,
+                     "cuda cores": (OPS_MM_ONLY if mm_only
+                                    else OPS_SIGN_TEST * 56) * work / PEAK_F32}
+        parts["bytes"] = parts["bytes"] / PEAK_BYTES
+        unit = max(parts, key=parts.get)
+        bound = {"bound_ms": 1e3 * parts[unit],
+                 "bound_by": "bytes" if unit == "bytes" else "operations",
+                 "bound_unit": unit,
+                 "bound_parts_ms": {k: 1e3 * v for k, v in parts.items()}}
+        if form is not None:
+            bound["bound_parts_ms"]["padded product"] = 1e3 * padded
+        return bound
+
+    def plain_ms_of(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def share_of(ok, among):
+        """The share of the rays `among` that are `ok`; 1 if there is none."""
+        n = int(among.sum())
+        return float((ok & among).sum()) / n if n else 1.0
+
+    def form_parity(out_k, out_p):
+        """Two (t, u, v, idx) of product forms: of the rays that hit in
+        either, the share with idx equal and the share with idx equal and t
+        within 1e-4 (1 + t) (few rays hit, so a share of all rays would
+        hide a kernel that loses hits); the share of all rays with idx
+        equal, the largest t error (relative to 1 + t, and absolute) where
+        idx agrees on a hit, and whether the misses are exact."""
+        same = out_k[3] == out_p[3]
+        hit = same & (out_p[3] >= 0)
+        either = (out_k[3] >= 0) | (out_p[3] >= 0)
+        dt = (out_k[0] - out_p[0]).abs()[hit]
+        rel = dt / (1.0 + out_p[0][hit].abs())
+        good = same.clone()
+        good[hit] = rel <= 1e-4
+        return {"hits_idx_eq": share_of(same, either),
+                "hits_idx_eq_and_t_within_1e-4": share_of(good, either),
+                "idx_eq": float(same.float().mean()),
+                "t_rel_err": float(rel.max()) if rel.numel() else 0.0,
+                "max_abs_err": float(dt.max()) if dt.numel() else 0.0,
+                "miss_exact": bool((out_k[0] == out_p[0])[same & ~hit].all()),
+                "hit_share": float((out_k[3] >= 0).float().mean())}
+
+    def against_a(out_a, out):
+        """The tool's finding: a form against the scalar test."""
+        both = (out_a[3] >= 0) & (out[3] >= 0)
+        dt = (out_a[0] - out[0]).abs()[both]
+        return {"idx_mismatch": float((out_a[3] != out[3]).float().mean()),
+                "max_abs_dt": float(dt.max()) if dt.numel() else 0.0}
+
+    def compare_group(shape, data):
+        """Every group-test kernel against its plain version on `data`,
+        one pass over GROUPS groups: {variant: record}."""
+        tris, o, d, center = (data[k] for k in ("tris", "o", "d", "center"))
+        n = o[0].shape[0]
+        coef = mxu_tri.coef_table(tris[:GROUPS * mxu_tri.GROUP_TRIS], center)
+        feats = mxu_tri.ray_features(o, d, center)
+        t_init = torch.full((n,), 1e30, device=dev)
+        zero = torch.zeros_like(t_init)
+        kw = dict(n_groups=GROUPS, reps=1)
+        recs, outs = {}, {}
+
+        def record(variant, kernel, run, plain, bound, parity, limits):
+            before = mxu_group.launches[kernel]
+            out_k = run()
+            torch.cuda.synchronize()
+            check(mxu_group.launches[kernel] == before + 1,
+                  f"{variant} did not launch {kernel}")
+            out_p, plain_ms = plain_ms_of(plain)
+            rec = {"phase": "kernel_vs_plain", "kernel": kernel,
+                   "variant": variant, "shape": shape, "rays": n,
+                   "groups": GROUPS, **parity(out_k, out_p),
+                   "finite": bool(torch.isfinite(out_k[0]).all()),
+                   "ms": cuda_ms(run, 5), "plain_ms": plain_ms, **bound,
+                   "card": card}
+            if variant != "A" and "mm_only" not in variant:
+                rec["against_a"] = against_a(outs["A"], out_k)
+            emit(rec, log)
+            check(rec["finite"], f"{variant}: t not finite")
+            for key, least_ok in limits.items():
+                check(rec[key] >= least_ok, f"{variant} {shape}: {key} {rec}")
+            recs[variant], outs[variant] = rec, out_k
+            return rec
+
+        def scalar_parity(out_k, out_p):
+            same = out_k[3] == out_p[3]
+            either = (out_k[3] >= 0) | (out_p[3] >= 0)
+            return {"hits_idx_eq": share_of(same, either),
+                    "idx_eq": float(same.float().mean()),
+                    "max_abs_err": max(float((x - y).abs()[same].max())
+                                       for x, y in zip(out_k[:3], out_p[:3])),
+                    "hit_share": float((out_k[3] >= 0).float().mean())}
+
+        rec = record("A", "vpu_kernel",
+                     lambda: mxu_group.run_vpu(tris, o, d, t_init, **kw),
+                     lambda: mxu_group.vpu_reference(tris, o, d, t_init, **kw),
+                     group_bound(n), scalar_parity, {"hits_idx_eq": 0.999})
+        check(rec["max_abs_err"] <= 1e-5, f"A {shape}: t, u, v {rec}")
+        # idx equal on >= 99.5% of the rays that hit in either, and t
+        # within 1e-4 (1 + t) on every ray with equal idx
+        form_limits = {"hits_idx_eq": 0.995,
+                       "hits_idx_eq_and_t_within_1e-4": 0.995}
+        for precision in mxu_group.PRECISIONS:
+            pkw = dict(precision=precision, **kw)
+            for row, kernel, run in (("B", "mxu_kernel", mxu_group.run_mxu),
+                                     ("C", "mxu_big_kernel",
+                                      mxu_group.run_mxu_big)):
+                rec = record(
+                    f"{row} {precision}", kernel,
+                    lambda: run(coef, feats, t_init, **pkw),
+                    lambda: mxu_group.mxu_reference(coef, feats, t_init,
+                                                    **pkw),
+                    group_bound(n, precision), form_parity, form_limits)
+                check(rec["miss_exact"] and rec["t_rel_err"] <= 1e-4,
+                      f"{row} {precision}: t {rec}")
+            b_vs_c = form_parity(outs[f"B {precision}"],
+                                 outs[f"C {precision}"])
+            emit({"phase": "kernel_vs_kernel", "pair": f"B, C {precision}",
+                  "shape": shape, **b_vs_c}, log)
+            check(all(b_vs_c[k] >= v for k, v in form_limits.items())
+                  and b_vs_c["t_rel_err"] <= 1e-4,
+                  f"B against C {precision}: {b_vs_c}")
+
+            def mm_parity(out_k, out_p, precision=precision):
+                c, f = (mxu_group._rounded(x, precision)
+                        for x in (coef, feats))
+                mag = sum(c[g, 0].abs() @ f.abs() for g in range(GROUPS))
+                err = (out_k[0] - out_p[0]).abs()
+                return {"err_over_magnitudes": float((err / mag).max()),
+                        "max_abs_err": float(err.max()),
+                        "untouched": bool((out_k[3] == -1).all())}
+
+            rec = record(
+                f"C mm_only {precision}", "mxu_big_kernel",
+                lambda: mxu_group.run_mxu_big(coef, feats, zero,
+                                              mm_only=True, **pkw),
+                lambda: mxu_group.mm_only_reference(coef, feats, zero, **pkw),
+                group_bound(n, precision, mm_only=True), mm_parity, {})
+            check(rec["err_over_magnitudes"] <= 1e-5 and rec["untouched"],
+                  f"C mm_only {precision}: {rec}")
+        rec = record("D", "mxu_split3_kernel",
+                     lambda: mxu_group.run_mxu_split3(coef, feats, t_init,
+                                                      **kw),
+                     lambda: mxu_group.split3_reference(coef, feats, t_init,
+                                                        **kw),
+                     group_bound(n, "split3"), form_parity, form_limits)
+        check(rec["miss_exact"] and rec["t_rel_err"] <= 1e-4, f"D: t {rec}")
+
+        # the products themselves, on the first 16,384 rays: the kernels'
+        # against the plain float32 product of the same (rounded or split)
+        # operands, relative to the sum of magnitudes |coef| |feats|
+        few = feats[:, :16384].contiguous()
+        mag = (coef.abs() @ few.abs()).clamp(min=1e-30)
+        for kernel, form in (("mxu_kernel", "highest"),
+                             ("mxu_kernel", "default"),
+                             ("mxu_big_kernel", "highest"),
+                             ("mxu_big_kernel", "default"),
+                             ("mxu_big_kernel", "split3")):
+            got = mxu_group.mxu_candidates(coef, few, n_groups=GROUPS,
+                                           precision=form, kernel=kernel)
+            want = mxu_group.candidates_reference(coef, few, n_groups=GROUPS,
+                                                  precision=form)
+            exact = (coef.double() @ few.double()).float()
+            rec = {"phase": "products", "form": form, "shape": shape,
+                   "kernel": ("mxu_split3_kernel" if form == "split3"
+                              else kernel),
+                   "rays": int(few.shape[1]),
+                   "err_over_magnitudes_x_2^20": float(
+                       ((got - want).abs() / mag).max()) * 2.0 ** 20,
+                   "kernel_vs_float64_x_2^20": float(
+                       ((got - exact).abs() / mag).max()) * 2.0 ** 20,
+                   "plain_vs_float64_x_2^20": float(
+                       ((want - exact).abs() / mag).max()) * 2.0 ** 20}
+            emit(rec, log)
+            check(rec["err_over_magnitudes_x_2^20"] <= 1.0,
+                  f"products {kernel} {form} {shape}: {rec}")
+            del got, want, exact
+        return recs, (coef, feats)
+
+    group_recs = {shape: compare_group(shape, data)
+                  for shape, data in group_data.items()}
+
+    def library_products():
+        """One PyTorch call for the product alone (what C `mm_only` prices)
+        at the card's width: the (32, 320, 16) table times the (16, 480,000)
+        features in float32, with TF32 allowed, and in bf16. It writes all
+        32 x 320 x 480,000 products out, which no kernel here does."""
+        coef, feats = group_recs["wide"][1]
+        times = {}
+        out = torch.empty((GROUPS, 320, feats.shape[1]), device=dev)
+        times["float32"] = cuda_ms(lambda: torch.matmul(coef, feats, out=out),
+                                   3)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        times["tf32"] = cuda_ms(lambda: torch.matmul(coef, feats, out=out), 3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del out
+        c16, f16 = coef.bfloat16(), feats.bfloat16()
+        out = torch.empty((GROUPS, 320, feats.shape[1]), device=dev,
+                          dtype=torch.bfloat16)
+        times["bf16"] = cuda_ms(lambda: torch.matmul(c16, f16, out=out), 3)
+        del out
+        torch.cuda.empty_cache()
+        emit({"phase": "library", "call": "torch.matmul", "shape": "wide",
+              "table": [GROUPS, 320, 16], "rays": int(feats.shape[1]),
+              "library_ms": times, "card": card}, log)
+        return times
+
+    library_ms = library_products()
+
     def zero_counts():
         frame.trace_frame.launches = 0
         fused.trace_block.launches = 0
-        for k in wavefront.launches:
-            wavefront.launches[k] = 0
+        for counts in (wavefront.launches, mxu_group.launches):
+            for k in counts:
+                counts[k] = 0
 
     def timed_frames(r, n_frames):
         """Warm-up frame, then `n_frames` timed ones: (wall ms, CUDA ms,
@@ -924,6 +1214,33 @@ def main() -> int:
           and fused.trace_block.launches == 0,
           f"the streamed route launched another kernel: {wavefront.launches}")
 
+    # the diagnostic: the tool at its defaults and at the card's width
+    zero_counts()
+    tool_rows = {}
+    for shape, kwargs in (("tool", {}),
+                          ("wide", {"reps": GROUP_REPS_WIDE,
+                                    "data": group_data["wide"]})):
+        rows = diag_mxu.main(GROUPS, **kwargs, out=lambda line: None)
+        tool_rows[shape] = rows
+        emit({"phase": "main_path", "tool": "diag_mxu", "shape": shape,
+              "rows": rows, "card": card}, log)
+        check([r["row"][0] for r in rows] == list("ABCCBCCD"),
+              f"diag_mxu {shape}: rows {[r['row'] for r in rows]}")
+        for r in rows:
+            check(r["us_per_group_1024_rays"] > 0.0
+                  and 2.5 < r["ms_4_reps"] / r["ms_reps"] < 5.5,
+                  f"diag_mxu {shape}: 4 x reps against reps {r}")
+    check(tool_rows["tool"][0]["rays"] == 16384
+          and tool_rows["wide"][0]["rays"] == 480000,
+          "diag_mxu ran at other widths")
+    launches_tool = dict(mxu_group.launches)
+    check(all(v > 0 for v in launches_tool.values()),
+          f"the diagnostic missed a kernel: {launches_tool}")
+    check(not any(wavefront.launches.values())
+          and frame.trace_frame.launches == 0
+          and fused.trace_block.launches == 0,
+          "the diagnostic launched a renderer kernel")
+
     # ---- 4. routes against each other ------------------------------------
     route_cfg = RenderConfig(width=W_CMP, height=H_CMP,
                              samples_per_frame=SPP_CMP, max_bounces=BOUNCES,
@@ -1079,6 +1396,50 @@ def main() -> int:
         ("streamed_kernel", "streamed_kernel.cu",
          "pathtracer0_tpu/kernels/wavefront.py:151 _streamed_kernel",
          streamed_rec, launches_streamed))]}
+    # the group-test kernels: the card's width (480,000 rays, one pass over
+    # 32 groups) on the line, the diagnostic's own shape and rows in `detail`
+    def group_entry(kernel, replaces, main, variants):
+        drop = ("phase", "kernel", "card", "shape")
+        wide = group_recs["wide"][0]
+        by_shape = {shape: {v: {k: x for k, x in recs[v].items()
+                                if k not in drop} for v in variants}
+                    for shape, (recs, _) in group_recs.items()}
+        return {
+            "name": kernel, "route": "cuda",
+            "source": "pathtracer0_tpu_torch/csrc/mxu_group_kernel.cu",
+            "replaces": f"tools/diag_mxu.py:{replaces}",
+            "launches": launches_tool[kernel],
+            "max_abs_err": max(wide[v]["max_abs_err"] for v in variants
+                               if "mm_only" not in v),
+            **{key: wide[main][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+            "library_ms": None,
+            "detail": {
+                "variant": main, **by_shape,
+                "rows": {shape: [r for r in rows if r["row"][0] == main[0]]
+                         for shape, rows in tool_rows.items()}}}
+
+    kernels["kernels"] += [
+        group_entry("vpu_kernel", "35 _vpu_kernel", "A", ("A",)),
+        group_entry("mxu_kernel", "412 _mxu_kernel", "B default",
+                    ("B default", "B highest")),
+        group_entry("mxu_big_kernel", "105 _mxu_big_kernel", "C default",
+                    ("C default", "C highest", "C mm_only default",
+                     "C mm_only highest")),
+        group_entry("mxu_split3_kernel", "170 _mxu_split3_kernel", "D",
+                    ("D",))]
+    # one PyTorch call computes what the `mm_only` mode of mxu_big_kernel
+    # does, the product alone: torch.matmul in float32, with TF32 allowed and
+    # in bf16, beside the mode's own times; no call computes the full kernels
+    big = kernels["kernels"][-2]
+    big["library_ms"] = library_ms["bf16"]      # the entry is "default"
+    big["library_of"] = {
+        "mode": "mm_only", "torch.matmul_ms": library_ms,
+        "mm_only_ms": {p: big["detail"]["wide"][f"C mm_only {p}"]["ms"]
+                       for p in mxu_group.PRECISIONS}}
+    check(len(kernels["kernels"]) == 9
+          and all(k["launches"] > 0 for k in kernels["kernels"]),
+          "a kernel of the paths was never launched")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": log, **kernels}, f, indent=1)

@@ -46,9 +46,13 @@
 // the divergence of a warp's rays. Staging treelets in shared memory,
 // regrouping rays and wider loads are left for later work.
 //
-// Build with -fmad=false and no fast math. Plain version:
+// The slot test is csrc/tri_free.cuh's, which the group-test diagnostic
+// (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
+// math. Plain version:
 // pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`.
 #include <cuda_runtime.h>
+
+#include "tri_free.cuh"
 
 // kernels/wavefront.py `_StreamArgs`, field for field.
 struct StreamArgs {
@@ -70,7 +74,6 @@ struct StreamArgs {
 namespace {
 
 constexpr float MISS = 1e30f;
-constexpr float EPSILON = 1e-10f;  // frag.glsl:228
 constexpr int BLOCK = 128;
 constexpr int STACK = 32;          // scene/packing.py STREAM_MAX_STACK
 // accel/lbvh.py: TRIS_PER_ROW, SUB_GROUP_ROWS, TREELET_ROWS
@@ -133,30 +136,9 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
         const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
         const float* p = a.tris + static_cast<size_t>(slot0) * 9;
         for (int j = 0; j < GROUP_TRIS; ++j, p += 9) {
-          const float v1x = __ldg(p), v1y = __ldg(p + 1), v1z = __ldg(p + 2);
-          const float e1x = __ldg(p + 3), e1y = __ldg(p + 4), e1z = __ldg(p + 5);
-          const float e2x = __ldg(p + 6), e2y = __ldg(p + 7), e2z = __ldg(p + 8);
-          const float px = ray.dy * e2z - ray.dz * e2y;
-          const float py = ray.dz * e2x - ray.dx * e2z;
-          const float pz = ray.dx * e2y - ray.dy * e2x;
-          const float det = e1x * px + e1y * py + e1z * pz;
-          const float sx = ray.ox - v1x, sy = ray.oy - v1y, sz = ray.oz - v1z;
-          const float ur = sx * px + sy * py + sz * pz;
-          const float qx = sy * e1z - sz * e1y;
-          const float qy = sz * e1x - sx * e1z;
-          const float qz = sx * e1y - sy * e1x;
-          const float vr = ray.dx * qx + ray.dy * qy + ray.dz * qz;
-          const float tr = e2x * qx + e2y * qy + e2z * qz;
-          const float sg = det >= 0.0f ? 1.0f : -1.0f;
-          const float adet = det * sg, uc = ur * sg, vc = vr * sg, tc = tr * sg;
-          if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet &&
-              tc > EPSILON * adet && tc * td < t * adet) {
-            t = tc;
-            td = adet;
-            u = uc;
-            v = vc;
+          if (trifree::accept(p, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t, td, u, v)) {
             idx = slot0 + j;
-            tcur = tc / adet;
+            tcur = t / td;
           }
         }
       } else {

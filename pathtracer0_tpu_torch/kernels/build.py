@@ -28,7 +28,8 @@ LIBS = {
     "frame_kernel": ("frame_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "forest_kernel": ("forest_kernel.cu",),
-    "streamed_kernel": ("streamed_kernel.cu",),
+    "streamed_kernel": ("streamed_kernel.cu", "tri_free.cuh"),
+    "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh"),
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,161 @@
+"""Möller-Trumbore as a matrix product: the host side.
+
+The port's own copy of the JAX package's kernels/mxu_tri.py. Every
+quantity of the triangle test is bilinear in a per-ray and a per-triangle
+vector (triple-product identities, frag.glsl:351-372):
+
+  p     = d x e2
+  det   = e1 . p                  = (e2 x e1) . d
+  s     = o - v1
+  u_num = s . p                   = e2 . (o x d) - (e2 x v1) . d
+  q     = s x e1
+  v_num = d . q                   = -e1 . (o x d) - (v1 x e1) . d
+  t_num = e2 . q                  = n . o - n . v1,   n = e1 x e2
+
+so with the per-ray FEATURE vector (w = o x d)
+
+  f = [dx dy dz  wx wy wz  ox oy oz  1  0 ...] in R^16
+
+each is f . c for a per-triangle COEFFICIENT vector c, and a fifth one,
+w_num = det - u_num - v_num, turns the inside test into a sign test: a hit
+needs det, u_num, v_num and w_num of one sign. One product of a group's
+(320, 16) coefficients with (16, rays) features gives all five quantities
+of its 56 triangles for every ray.
+
+The expanded forms cancel badly when |o| or |v1| is large, so rays and
+triangles are both re-centred by one offset (`center`) before features and
+coefficients are built.
+
+Triangles come in the port's streamed layout (scene/packing.py `st_tris`):
+one triangle per 9-float row (v1, e1, e2), GROUP_TRIS = 56 consecutive
+rows a group, empty slots zero.
+
+Table layout, chosen for csrc/mxu_group_kernel.cu: (n_groups, 320, 16)
+float32, candidate-major with the 16 features of a candidate contiguous,
+so a thread reads the two neighbouring features of its `mma.sync` operand
+with one 32-bit load. Candidate q * 64 + j is quantity q (0 det, 1 u, 2 v,
+3 w, 4 t) of the group's triangle j; the 8 pad candidates past the 56 real
+ones carry det = +1, u = -1 on the constant feature, and so does an empty
+slot: both fail every sign test. `jax_layout` gives the table as the JAX
+package lays it out, (n_groups * 16, 320).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+N_FEATURES = 16
+QUANT_PAD = 64      # candidates per quantity (56 real + 8 pad)
+N_QUANT = 5         # det, u, v, w, t
+GROUP_TRIS = 56     # accel/lbvh.py SUB_GROUP_ROWS * TRIS_PER_ROW
+N_CAND = N_QUANT * QUANT_PAD
+
+
+def ray_features(o, d, center):
+    """(16, R) float32 features of R rays, re-centred by `center`. o and d
+    are (x, y, z) sequences of (R,) tensors (or (3, R) tensors); `center`
+    is the (3,) offset the coefficient table was built with."""
+    ox, oy, oz = (o[i] - float(center[i]) for i in range(3))
+    dx, dy, dz = d[0], d[1], d[2]
+    w = (oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx)
+    one = torch.ones_like(dx)
+    zero = torch.zeros_like(dx)
+    return torch.stack([dx, dy, dz, *w, ox, oy, oz, one]
+                       + [zero] * (N_FEATURES - 10))
+
+
+def _n_groups(tris) -> int:
+    slots = tris.shape[0]
+    if tris.ndim != 2 or tris.shape[1] != 9 or slots % GROUP_TRIS:
+        raise ValueError("tris must be (n_groups * 56, 9): v1, e1, e2 by "
+                         f"slot, not {tuple(tris.shape)}")
+    return slots // GROUP_TRIS
+
+
+def coef_table_np(tris: np.ndarray, center) -> np.ndarray:
+    """The (n_groups, 320, 16) float32 coefficient table of `tris`
+    (n_groups * 56, 9), computed in float64. The reference of `coef_table`."""
+    n_groups = _n_groups(tris)
+    v1 = tris[:, 0:3].astype(np.float64) - np.asarray(center, np.float64)
+    e1 = tris[:, 3:6].astype(np.float64)
+    e2 = tris[:, 6:9].astype(np.float64)
+    n = np.cross(e1, e2)
+    # empty slots: det = +1, u = -1 on the constant feature
+    is_pad = np.abs(tris).max(axis=1) == 0.0
+
+    coef = np.zeros((tris.shape[0], N_QUANT, N_FEATURES), np.float64)
+    coef[:, 0, 0:3] = np.cross(e2, e1)
+    coef[:, 0, 9] = np.where(is_pad, 1.0, 0.0)
+    coef[:, 1, 0:3] = -np.cross(e2, v1)
+    coef[:, 1, 3:6] = e2
+    coef[:, 1, 9] = np.where(is_pad, -1.0, 0.0)
+    coef[:, 2, 0:3] = -np.cross(v1, e1)
+    coef[:, 2, 3:6] = -e1
+    coef[:, 3] = coef[:, 0] - coef[:, 1] - coef[:, 2]   # w = det - u - v
+    coef[:, 4, 6:9] = n
+    coef[:, 4, 9] = -(n * v1).sum(axis=1)
+
+    out = np.zeros((n_groups, N_QUANT, QUANT_PAD, N_FEATURES), np.float32)
+    out[:, :, :GROUP_TRIS] = coef.reshape(
+        n_groups, GROUP_TRIS, N_QUANT, N_FEATURES).transpose(0, 2, 1, 3)
+    out[:, 0, GROUP_TRIS:, 9] = 1.0
+    out[:, 1, GROUP_TRIS:, 9] = -1.0
+    return out.reshape(n_groups, N_CAND, N_FEATURES)
+
+
+def coef_table(tris: torch.Tensor, center) -> torch.Tensor:
+    """`coef_table_np` in float32 on the device of `tris` (within 1e-6 of
+    it relative to the table's largest entry)."""
+    n_groups = _n_groups(tris)
+    tris = tris.to(torch.float32)
+    v1 = tris[:, 0:3] - torch.as_tensor(center, dtype=torch.float32,
+                                        device=tris.device)
+    e1, e2 = tris[:, 3:6], tris[:, 6:9]
+    n = torch.linalg.cross(e1, e2)
+    is_pad = (tris.abs().amax(dim=1) == 0.0).to(torch.float32)
+
+    coef = tris.new_zeros((tris.shape[0], N_QUANT, N_FEATURES))
+    coef[:, 0, 0:3] = torch.linalg.cross(e2, e1)
+    coef[:, 0, 9] = is_pad
+    coef[:, 1, 0:3] = -torch.linalg.cross(e2, v1)
+    coef[:, 1, 3:6] = e2
+    coef[:, 1, 9] = -is_pad
+    coef[:, 2, 0:3] = -torch.linalg.cross(v1, e1)
+    coef[:, 2, 3:6] = -e1
+    coef[:, 3] = coef[:, 0] - coef[:, 1] - coef[:, 2]
+    coef[:, 4, 6:9] = n
+    coef[:, 4, 9] = -(n * v1).sum(dim=1)
+
+    out = tris.new_zeros((n_groups, N_QUANT, QUANT_PAD, N_FEATURES))
+    out[:, :, :GROUP_TRIS] = coef.reshape(
+        n_groups, GROUP_TRIS, N_QUANT, N_FEATURES).permute(0, 2, 1, 3)
+    out[:, 0, GROUP_TRIS:, 9] = 1.0
+    out[:, 1, GROUP_TRIS:, 9] = -1.0
+    return out.reshape(n_groups, N_CAND, N_FEATURES)
+
+
+def jax_layout(coef):
+    """The table (n_groups, 320, 16), NumPy or torch, as the JAX package
+    lays it out: (n_groups * 16, 320), group g in rows [16 g, 16 g + 16)."""
+    n_groups = coef.shape[0]
+    swapped = (coef.transpose(0, 2, 1) if isinstance(coef, np.ndarray)
+               else coef.permute(0, 2, 1))
+    return swapped.reshape(n_groups * N_FEATURES, N_CAND)
+
+
+def candidates_np(tris, o, d):
+    """Float64 oracle: (det, u_num, v_num, t_num), each (R, slots), by the
+    direct Möller-Trumbore forms on `tris` (slots, 9) and rays o, d (R, 3);
+    what the expansion is held against."""
+    tr = np.asarray(tris, np.float64)
+    v1, e1, e2 = tr[:, 0:3], tr[:, 3:6], tr[:, 6:9]
+    o = np.asarray(o, np.float64)
+    d = np.asarray(d, np.float64)
+    p = np.cross(d[:, None, :], e2[None, :, :])
+    det = (e1[None] * p).sum(-1)
+    s = o[:, None, :] - v1[None, :, :]
+    u = (s * p).sum(-1)
+    q = np.cross(s, e1[None, :, :])
+    v = (d[:, None, :] * q).sum(-1)
+    t = (e2[None] * q).sum(-1)
+    return det, u, v, t

@@ -260,6 +260,26 @@ def _check_streamed(scene, info):
                          f"has {STREAM_MAX_STACK}")
 
 
+def group_accept(o, d, tri, slots, best):
+    """The division-free slot test of one group of 56 triangles per ray,
+    the slots in order (csrc/tri_free.cuh `accept`). o, d: (x, y, z) tuples
+    of (L,) tensors; `tri` (L, 56, 9) or, one group for all rays, (56, 9);
+    `slots` their idx values, (L, 56) or (56,) int32; best = [t, td, u, v,
+    idx, tcur] of (L,) tensors, the closest hit as numerators over td and
+    the pruning distance t / td. Returns the new `best`."""
+    ok, tc, adet, uc, vc = tri_candidate(
+        tuple(c[:, None] for c in o), tuple(c[:, None] for c in d),
+        tuple(tri[..., i] for i in (0, 1, 2)),
+        tuple(tri[..., i] for i in (3, 4, 5)),
+        tuple(tri[..., i] for i in (6, 7, 8)))
+    for j in range(_GROUP_TRIS):
+        okj = ok[:, j] & (tc[:, j] * best[1] < best[0] * adet[:, j])
+        new = (tc[:, j], adet[:, j], uc[:, j], vc[:, j], slots[..., j],
+               tc[:, j] / adet[:, j])
+        best = [torch.where(okj, a, b) for a, b in zip(new, best)]
+    return best
+
+
 def streamed_reference(o, d, t_init, scene, info, visited=None):
     """Plain version of `streamed_kernel` (module docstring): one (R, cap)
     stack of (node, entry distance), every ray popping one node per step
@@ -323,20 +343,10 @@ def streamed_reference(o, d, t_init, scene, info, visited=None):
             slots = slot0[:, None] + lanes
             if visited is not None:
                 visited[1][slot0 // _GROUP_TRIS] = True
-            tri = scene.st_tris[slots]
-            ok, tc, adet, uc, vc = tri_candidate(
-                tuple(c[at][:, None] for c in o),
-                tuple(c[at][:, None] for c in d),
-                tuple(tri[..., i] for i in (0, 1, 2)),
-                tuple(tri[..., i] for i in (3, 4, 5)),
-                tuple(tri[..., i] for i in (6, 7, 8)))
-            best = [x[at] for x in (t, td, u, v, idx, tcur)]
-            slots = slots.to(torch.int32)
-            for j in range(_GROUP_TRIS):
-                okj = ok[:, j] & (tc[:, j] * best[1] < best[0] * adet[:, j])
-                new = (tc[:, j], adet[:, j], uc[:, j], vc[:, j], slots[:, j],
-                       tc[:, j] / adet[:, j])
-                best = [torch.where(okj, a, b) for a, b in zip(new, best)]
+            best = group_accept(
+                tuple(c[at] for c in o), tuple(c[at] for c in d),
+                scene.st_tris[slots], slots.to(torch.int32),
+                [x[at] for x in (t, td, u, v, idx, tcur)])
             for x, b in zip((t, td, u, v, idx, tcur), best):
                 x[at] = b
 

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel (frame, block, brute,
-traverse, streamed) against its plain PyTorch version, the renderer's
+traverse, streamed, the four of the group-test diagnostic) against its
+plain PyTorch version, the diagnostic end to end, the renderer's
 routes through the kernels, and the native LBVH builder built there.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
@@ -468,3 +469,172 @@ def test_native_lbvh_builder_builds_beside_the_card():
     med = lbvh.build_streamed(v1, v2, v3)
     assert sorted(med.row_perm[:6000]) == list(range(6000))
     assert np.array_equal(med.ctree_f[0], ref.ctree_f[0])
+
+
+def _group_inputs(n_groups, n_rays, aimed=False):
+    """The diagnostic's synthetic data on the card, cut to `n_rays` rays:
+    (tris, o, d, coef, feats, t_init). `aimed` turns the rays at the
+    triangles, so that about half of them hit instead of one in twenty."""
+    from pathtracer0_tpu_torch.kernels import mxu_tri
+    from pathtracer0_tpu_torch.tools import diag_mxu
+
+    data = diag_mxu.synthetic(n_groups, -(-n_rays // 1024))
+    if aimed:
+        data = diag_mxu.aim(data)[0]
+    o, d = (tuple(c[:n_rays].contiguous() for c in data[k])
+            for k in ("o", "d"))
+    return (data["tris"], o, d,
+            mxu_tri.coef_table(data["tris"], data["center"]),
+            mxu_tri.ray_features(o, d, data["center"]),
+            torch.full((n_rays,), 1e30, device="cuda"))
+
+
+def _hits_idx_eq(out_k, out_p):
+    """The share with idx equal of the rays that hit in either output: few
+    rays hit, so a share of all rays would pass a kernel that loses hits."""
+    either = (out_k[3] >= 0) | (out_p[3] >= 0)
+    same = out_k[3] == out_p[3]
+    return float((same & either).sum()) / max(int(either.sum()), 1)
+
+
+def _assert_forms(out_k, out_p):
+    """Product forms, kernel against plain version or B against C: idx
+    equal on >= 99.5% of the rays that hit in either, t within 1e-4 x (1 +
+    t) where idx agrees (only the order of the float32 sums differs),
+    misses exact."""
+    same = out_k[3] == out_p[3]
+    hit = same & (out_p[3] >= 0)
+    assert _hits_idx_eq(out_k, out_p) >= 0.995
+    assert bool(((out_k[0] - out_p[0]).abs()[hit]
+                 <= 1e-4 * (1.0 + out_p[0][hit])).all())
+    assert bool((out_k[0] == out_p[0])[same & ~hit].all())
+    assert bool(torch.isfinite(out_k[0]).all())
+
+
+# 1,000 rays are no multiple of a warp's 16, of mxu_kernel's 128-ray block
+# or of mxu_big_kernel's
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays, aimed", [(16384, False), (1000, False),
+                                           (16384, True), (1000, True)])
+def test_group_kernels_match_plain_on_card(n_rays, aimed):
+    """Each of vpu_kernel, mxu_kernel, mxu_big_kernel (with mm_only) and
+    mxu_split3_kernel against its plain version at 4 groups, on the tool's
+    rays and on rays aimed at the triangles: the scalar test to the
+    streamed parity limits (idx equal on >= 99.9% of the rays that hit, t,
+    u, v within 1e-5), the product forms to `_assert_forms`, B against C
+    the same, mm_only within 1e-5 of the sum of magnitudes."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    tris, o, d, coef, feats, t_init = _group_inputs(4, n_rays, aimed)
+    kw = dict(n_groups=4, reps=1)
+    before = dict(mxu_group.launches)
+    a_k = mxu_group.run_vpu(tris, o, d, t_init, **kw)
+    a_p = mxu_group.vpu_reference(tris, o, d, t_init, **kw)
+    same = a_k[3] == a_p[3]
+    assert _hits_idx_eq(a_k, a_p) >= 0.999
+    for x, y in zip(a_k[:3], a_p[:3]):
+        assert float((x - y).abs()[same].max()) <= 1e-5
+    assert float((a_k[3] >= 0).float().mean()) > (0.4 if aimed else 0.002)
+    zero = torch.zeros_like(t_init)
+    for precision in mxu_group.PRECISIONS:
+        pkw = dict(precision=precision, **kw)
+        plain = mxu_group.mxu_reference(coef, feats, t_init, **pkw)
+        b = mxu_group.run_mxu(coef, feats, t_init, **pkw)
+        c = mxu_group.run_mxu_big(coef, feats, t_init, **pkw)
+        _assert_forms(b, plain)
+        _assert_forms(c, plain)
+        _assert_forms(b, c)
+        m_k = mxu_group.run_mxu_big(coef, feats, zero, mm_only=True, **pkw)
+        m_p = mxu_group.mm_only_reference(coef, feats, zero, **pkw)
+        mag = sum(coef[g, 0].abs() @ feats.abs() for g in range(4))
+        assert bool(((m_k[0] - m_p[0]).abs() <= 1e-5 * mag).all())
+        assert bool((m_k[3] == -1).all())
+    _assert_forms(mxu_group.run_mxu_split3(coef, feats, t_init, **kw),
+                  mxu_group.split3_reference(coef, feats, t_init, **kw))
+    torch.cuda.synchronize()
+    got = {k: mxu_group.launches[k] - before[k] for k in before}
+    assert got == {"vpu_kernel": 1, "mxu_kernel": 2, "mxu_big_kernel": 4,
+                   "mxu_split3_kernel": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, form", [
+    ("mxu_kernel", "highest"), ("mxu_kernel", "default"),
+    ("mxu_big_kernel", "highest"), ("mxu_big_kernel", "default"),
+    ("mxu_big_kernel", "split3")])
+def test_group_products_on_card(kernel, form):
+    """The kernels' products themselves (mxu_split3_kernel's for "split3")
+    against the float32 product of the same (rounded or split) operands:
+    within 2^-20 of the sum of magnitudes, float32 accuracy. For "highest"
+    that holds the three-pass TF32 split; for the bf16 forms every product
+    is exact in float32 and only the order of the sums differs."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    _, _, _, coef, feats, _ = _group_inputs(4, 1000, aimed=True)
+    got = mxu_group.mxu_candidates(coef, feats, n_groups=4, precision=form,
+                                   kernel=kernel)
+    want = mxu_group.candidates_reference(coef, feats, n_groups=4,
+                                          precision=form)
+    mag = coef.abs() @ feats.abs()
+    assert got.shape == (4, 320, 1000)
+    assert bool(((got - want).abs() <= 2.0 ** -20 * mag).all())
+
+
+@pytest.mark.cuda
+def test_group_kernels_repeat_and_refuse_on_card():
+    """Three passes leave what one pass found (mm_only adds three times); a
+    table on the CPU beside rays on the card is refused, as are wrong
+    shapes."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    tris, o, d, coef, feats, t_init = _group_inputs(4, 1000)
+    kw = dict(n_groups=4)
+    runs = (lambda r: mxu_group.run_vpu(tris, o, d, t_init, reps=r, **kw),
+            lambda r: mxu_group.run_mxu(coef, feats, t_init, reps=r, **kw),
+            lambda r: mxu_group.run_mxu(coef, feats, t_init, reps=r,
+                                        precision="highest", **kw),
+            lambda r: mxu_group.run_mxu_big(coef, feats, t_init, reps=r,
+                                            **kw),
+            lambda r: mxu_group.run_mxu_split3(coef, feats, t_init, reps=r,
+                                               **kw))
+    for run in runs:
+        for x, y in zip(run(1), run(3)):
+            assert torch.equal(x, y)
+    zero = torch.zeros_like(t_init)
+    one, three = (mxu_group.run_mxu_big(coef, feats, zero, reps=r,
+                                        mm_only=True, **kw)[0]
+                  for r in (1, 3))
+    assert float((three - 3.0 * one).abs().max()) \
+        <= 1e-5 * float(one.abs().max())
+    with pytest.raises(ValueError, match="cpu"):
+        mxu_group.run_mxu(coef.cpu(), feats, t_init, reps=1, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        mxu_group.run_mxu_split3(coef, feats.cpu(), t_init, reps=1, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        mxu_group.run_vpu(tris.cpu(), o, d, t_init, reps=1, **kw)
+    with pytest.raises(ValueError, match="feats"):
+        mxu_group.run_mxu_big(coef, feats[:, :-1], t_init, reps=1, **kw)
+    with pytest.raises(ValueError, match="precision"):
+        mxu_group.run_mxu(coef, feats, t_init, reps=1, precision="tf32",
+                          **kw)
+
+
+@pytest.mark.cuda
+def test_diag_tool_on_card():
+    """The diagnostic end to end on the card at a small size: eight rows,
+    each with a time from the 4 x reps against reps difference, through
+    all four kernels."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+    from pathtracer0_tpu_torch.tools import diag_mxu
+
+    before = dict(mxu_group.launches)
+    rows = diag_mxu.main(4, 8, n_blocks=4, out=lambda line: None)
+    assert [r["row"][0] for r in rows] == list("ABCCBCCD")
+    assert all(r["us_per_group_1024_rays"] > 0.0 for r in rows)
+    assert all(mxu_group.launches[k] > before[k] for k in before)
+    by = {r["row"]: r for r in rows}
+    assert by["B mxu rows (highest)"]["idx_mismatch"] < 0.005

@@ -1,0 +1,435 @@
+"""The port's group-test diagnostic (kernels/mxu_tri.py, kernels/mxu_group.py,
+tools/diag_mxu.py) against the JAX package's, on the CPU.
+
+The JAX side is tools/diag_mxu.py, imported by path (`tools/` is no
+package). Its launchers take no `interpret` argument, so the module fixture
+wraps `jax.experimental.pallas.pallas_call` with `interpret=True` while they
+trace, and restores it. On the CPU JAX computes `precision=None` in full
+float32, so for "default" the JAX kernels are fed operands already rounded
+to bf16. `_to_jax` / `_from_jax` carry the arrays across: the port's
+(slots, 9) triangles to 128-lane rows, flat (R,) rays to (R / 128, 128) and
+(R / 1024, 1, 1024) tiles and back, the coefficient table through
+`mxu_tri.jax_layout`.
+
+Tolerances. Host tables: `coef_table_np` bit-equal, the torch twin within
+1e-6 of the table's largest entry (as the JAX package says of its twin),
+features bit-equal; the kernels of both sides then get the very same
+table and features. Scalar test (A): idx equal on >= 99.9% of the rays, t
+within 1e-5 x (1 + t), u and v within 1e-4 (coordinates of 100 to 200: one
+ulp of a product o . e is 1.5e-5, and XLA orders the sums its own way;
+1.6e-5 was read). Product forms (B, C, D): idx equal, t within 1e-4 x (1 +
+t) and u, v within 1e-3 on >= 99.5% of the rays: both sides multiply the
+same float32 (or bf16-rounded) operands and only the order of the float32
+sums differs, which a grazing hit (|D| small against its terms) amplifies:
+one ray in 3,072 was read at 1.5e-4 x (1 + t), so the limit holds a share
+of the rays, and every ray 100 times the limit. `mm_only`: within 1e-5 of
+the sum of magnitudes.
+"""
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from pathtracer0_tpu.kernels import mxu_tri as jmxu
+from pathtracer0_tpu_torch.kernels import mxu_group, mxu_tri
+from pathtracer0_tpu_torch.tools import diag_mxu
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N_GROUPS, N_RAYS = 2, 1024
+CENTER = (150.0, 150.0, 150.0)
+CASES = ("tool", "aimed", "edge")
+
+
+def _case(name):
+    """Inputs from a numpy seed: `tool` is the tool's own synthetic recipe;
+    `aimed` sends each ray at a triangle's centroid so that about half the rays hit;
+    `edge` adds rays along the axes (zero direction components) and makes
+    group 1 all padding."""
+    data = diag_mxu.synthetic(N_GROUPS, N_RAYS // 1024, "cpu")
+    tris = data["tris"].numpy().copy()
+    o = np.stack([c.numpy() for c in data["o"]], 1)
+    d = np.stack([c.numpy() for c in data["d"]], 1)
+    if name != "tool":
+        if name == "edge":
+            tris[mxu_tri.GROUP_TRIS:] = 0.0
+        aimed, centroid = diag_mxu.aim({**data,
+                                        "tris": torch.from_numpy(tris)})
+        d = np.stack([c.numpy() for c in aimed["d"]], 1)
+        if name == "edge":
+            # every fourth ray along an axis, from 5 units before a centroid
+            axis = np.eye(3, dtype=np.float32)[np.arange(N_RAYS) % 3]
+            along = np.arange(N_RAYS) % 4 == 0
+            o = np.where(along[:, None], centroid - 5.0 * axis, o)
+            d = np.where(along[:, None], axis, d)
+    return {"tris": tris.astype(np.float32), "o": o.astype(np.float32),
+            "d": d.astype(np.float32),
+            "t_init": np.full(N_RAYS, 1e30, np.float32)}
+
+
+def _torch_inputs(case):
+    o, d = (tuple(torch.from_numpy(case[k][:, i].copy()) for i in range(3))
+            for k in ("o", "d"))
+    return torch.from_numpy(case["tris"]), o, d, \
+        torch.from_numpy(case["t_init"])
+
+
+def _to_jax(case):
+    """The port's arrays in the JAX tool's layouts."""
+    tris, n = case["tris"], case["o"].shape[0]
+    rows = tris.shape[0] // 14
+    tris128 = np.zeros((rows, 128), np.float32)
+    tris128[:, :126] = tris.reshape(rows, 126)
+    o3, d3 = case["o"].T.copy(), case["d"].T.copy()
+    return {"tris": tris128, "o3": o3, "d3": d3,
+            "o_b": o3.reshape(3, n // 128, 128),
+            "d_b": d3.reshape(3, n // 128, 128),
+            "t_b": case["t_init"].reshape(n // 128, 128),
+            "t_b1": case["t_init"].reshape(n // 1024, 1, 1024)}
+
+
+def _from_jax(outs):
+    """(t, u, v, idx) tiles of either JAX layout as flat (R,) arrays."""
+    return tuple(np.asarray(x).reshape(-1) for x in outs)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.array(x)).to(torch.bfloat16) \
+        .to(torch.float32).numpy()
+
+
+@pytest.fixture(scope="module")
+def jtool():
+    """tools/diag_mxu.py of the JAX package with its kernels in interpret
+    mode."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_diag_mxu", os.path.join(ROOT, "tools", "diag_mxu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    real = pl.pallas_call
+
+    def interpreted(*args, **kw):
+        kw["interpret"] = True
+        return real(*args, **kw)
+
+    pl.pallas_call = interpreted
+    try:
+        yield mod
+    finally:
+        pl.pallas_call = real
+
+
+@pytest.fixture(scope="module")
+def jax_runs(jtool):
+    """Every JAX launcher on every case, once: {case: {row: (t, u, v, idx)}}
+    as flat arrays."""
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    highest = jax.lax.Precision.HIGHEST
+    runs = {}
+    for name in CASES:
+        case = _case(name)
+        j = _to_jax(case)
+        coef = jmxu.coef_table_np(j["tris"], CENTER)
+        feats = np.asarray(jmxu.ray_features(jnp.asarray(j["o3"]),
+                                             jnp.asarray(j["d3"]), CENTER))
+        coef_r, feats_r = _bf16(coef), _bf16(feats)
+        zero_b1 = np.zeros_like(j["t_b1"])
+        runs[name] = {k: _from_jax(v) for k, v in {
+            "A": jtool.run_vpu(j["tris"], j["o_b"], j["d_b"], j["t_b"], **kw),
+            "B highest": jtool.run_mxu(coef, feats, j["t_b"], prec=highest,
+                                       **kw),
+            "B default": jtool.run_mxu(coef_r, feats_r, j["t_b"], **kw),
+            "C highest": jtool.run_mxu_big(coef, feats, j["t_b1"],
+                                           prec=highest, **kw),
+            "C default": jtool.run_mxu_big(coef_r, feats_r, j["t_b1"], **kw),
+            "C mm_only": jtool.run_mxu_big(coef, feats, zero_b1, prec=highest,
+                                           mm_only=True, **kw),
+            "D": jtool.run_mxu_split3(coef, feats, j["t_b1"], **kw),
+        }.items()}
+        runs[name]["coef"], runs[name]["feats"] = coef, feats
+    return runs
+
+
+def _tables(case):
+    """(coef, feats, t_init) of the port, bit-equal to the JAX side's."""
+    _, o, d, t_init = _torch_inputs(case)
+    return (torch.from_numpy(mxu_tri.coef_table_np(case["tris"], CENTER)),
+            mxu_tri.ray_features(o, d, CENTER), t_init)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_ray_features_match(name, jax_runs):
+    _, o, d, _ = _torch_inputs(_case(name))
+    feats = mxu_tri.ray_features(o, d, CENTER)
+    assert feats.shape == (16, N_RAYS) and feats.dtype == torch.float32
+    assert np.array_equal(feats.numpy(), jax_runs[name]["feats"])
+    # a (3, R) tensor is taken like a tuple
+    assert torch.equal(feats, mxu_tri.ray_features(torch.stack(o),
+                                                   torch.stack(d), CENTER))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_coef_table_np_bit_equal(name, jax_runs):
+    case = _case(name)
+    coef = mxu_tri.coef_table_np(case["tris"], CENTER)
+    assert coef.shape == (N_GROUPS, 320, 16) and coef.dtype == np.float32
+    assert np.array_equal(mxu_tri.jax_layout(coef), jax_runs[name]["coef"])
+    # pad candidates and empty slots: det = +1, u = -1 on the constant
+    quant = coef.reshape(N_GROUPS, 5, 64, 16)
+    assert np.all(quant[:, 0, 56:, 9] == 1.0)
+    assert np.all(quant[:, 1, 56:, 9] == -1.0)
+    empty = np.abs(case["tris"]).max(axis=1).reshape(N_GROUPS, 56) == 0
+    assert empty.any()
+    assert np.all(quant[:, 0, :56, 9][empty] == 1.0)
+    assert np.all(quant[:, 1, :56, 9][empty] == -1.0)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_coef_table_torch_twin(name, jax_runs):
+    case = _case(name)
+    want = mxu_tri.coef_table_np(case["tris"], CENTER)
+    got = mxu_tri.coef_table(torch.from_numpy(case["tris"]), CENTER)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+    # one layout function for NumPy and torch tables
+    assert torch.equal(mxu_tri.jax_layout(torch.from_numpy(want)),
+                       torch.from_numpy(mxu_tri.jax_layout(want)))
+    # the JAX package's device twin is held to the same limit
+    jdev = np.asarray(jmxu.coef_table_device(
+        jnp.asarray(_to_jax(case)["tris"]), jnp.asarray(CENTER, jnp.float32)))
+    assert np.abs(mxu_tri.jax_layout(got).numpy() - jdev).max() \
+        <= 1e-6 * np.abs(want).max()
+
+
+def test_expansion_against_direct_forms():
+    """coef . feats in float64 against the direct Möller-Trumbore forms
+    (`candidates_np`): the expansion's error is float32 rounding of the
+    table and the features, 2^-22 of the sum of magnitudes and a margin."""
+    case = _case("aimed")
+    center = np.asarray(CENTER)
+    det, u, v, t = mxu_tri.candidates_np(case["tris"], case["o"] - center,
+                                         case["d"])
+    shifted = case["tris"].copy()
+    shifted[:, 0:3] -= center.astype(np.float32)
+    direct = mxu_tri.candidates_np(shifted, case["o"] - center, case["d"])
+    jdirect = jmxu.candidates_np(_to_jax({**case, "tris": shifted})["tris"],
+                                 case["o"] - center, case["d"], (0, 0, 0))
+    for a, b in zip(direct, jdirect):
+        assert np.array_equal(a, b)
+    coef, feats, _ = _tables(case)
+    c64, f64 = coef.numpy().astype(np.float64), feats.numpy().astype(np.float64)
+    out = (c64 @ f64).reshape(N_GROUPS, 5, 64, N_RAYS)[:, :, :56]
+    mag = (np.abs(c64) @ np.abs(f64)).reshape(N_GROUPS, 5, 64,
+                                              N_RAYS)[:, :, :56]
+    live = (np.abs(case["tris"]).max(axis=1) > 0).reshape(N_GROUPS, 56)
+    det, u, v, t = direct
+    w = det - u - v
+    for q, want in enumerate((det, u, v, w, t)):
+        got = out[:, q].transpose(2, 0, 1).reshape(N_RAYS, -1)
+        m = mag[:, q].transpose(2, 0, 1).reshape(N_RAYS, -1)
+        err = np.abs(got - want)[:, live.ravel()]
+        assert np.all(err <= 2.0 ** -20 * m[:, live.ravel()] + 1e-9), q
+
+
+def _agree(got, want, share, t_rel, uv):
+    """idx equal, t within t_rel (1 + t) and u, v within uv (1 + |value|)
+    on >= `share` of the rays; every ray with equal idx within 100 times
+    those limits. Returns the share of rays that hit."""
+    got = [np.asarray(x) for x in got]
+    assert got[3].dtype == np.int32
+    same = got[3] == want[3]
+    assert same.mean() >= share, same.mean()
+    hit = same & (want[3] >= 0)
+    assert np.array_equal(got[0][same & ~hit], want[0][same & ~hit])
+    good = same.copy()
+    for k, tol in ((0, t_rel), (1, uv), (2, uv)):
+        err = np.abs(got[k] - want[k])[hit] / (1.0 + np.abs(want[k][hit]))
+        assert np.all(err <= 100.0 * tol), (k, err.max())
+        good[hit] &= err <= tol
+    assert good.mean() >= share, good.mean()
+    return float((want[3] >= 0).mean())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_vpu_reference_against_jax_kernel(name, jax_runs):
+    tris, o, d, t_init = _torch_inputs(_case(name))
+    before = dict(mxu_group.launches)
+    got = mxu_group.run_vpu(tris, o, d, t_init, n_groups=N_GROUPS, reps=1)
+    assert mxu_group.launches == before       # CPU tensors: the plain version
+    hits = _agree([x.numpy() for x in got], jax_runs[name]["A"], 0.999, 1e-5,
+                  uv=1e-4)
+    assert hits > (0.4 if name != "tool" else 0.0)
+    if name == "edge":      # nothing in the all-padding group
+        assert int(got[3].max()) < mxu_tri.GROUP_TRIS
+        assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.parametrize("precision", mxu_group.PRECISIONS)
+@pytest.mark.parametrize("name", CASES)
+def test_mxu_reference_against_jax_kernels(name, precision, jax_runs):
+    """B and C share one plain version; the JAX kernels `_mxu_kernel` and
+    `_mxu_big_kernel` must both agree with it, and with each other."""
+    coef, feats, t_init = _tables(_case(name))
+    kw = dict(n_groups=N_GROUPS, reps=1, precision=precision)
+    b = [x.numpy() for x in mxu_group.run_mxu(coef, feats, t_init, **kw)]
+    c = [x.numpy() for x in mxu_group.run_mxu_big(coef, feats, t_init, **kw)]
+    for x, y in zip(b, c):
+        assert np.array_equal(x, y)
+    hits = _agree(b, jax_runs[name][f"B {precision}"], 0.995, 1e-4, uv=1e-3)
+    _agree(c, jax_runs[name][f"C {precision}"], 0.995, 1e-4, uv=1e-3)
+    assert hits > (0.4 if name != "tool" else 0.0)
+    assert np.all(np.isfinite(b[0])) and np.all(b[3][b[0] > 1e29] == -1)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_mm_only_reference_against_jax_kernel(name, jax_runs):
+    coef, feats, _ = _tables(_case(name))
+    zero = torch.zeros(N_RAYS)
+    t, u, v, idx = mxu_group.run_mxu_big(
+        coef, feats, zero, n_groups=N_GROUPS, reps=1, precision="highest",
+        mm_only=True)
+    want = jax_runs[name]["C mm_only"]
+    mag = sum(coef[g, 0].abs() @ feats.abs() for g in range(N_GROUPS)).numpy()
+    assert np.all(np.abs(t.numpy() - want[0]) <= 1e-5 * mag + 1e-30)
+    assert np.abs(t.numpy()).max() > 0.0
+    assert bool((idx == -1).all()) and not bool(u.any()) and not bool(v.any())
+    # twice the passes add twice
+    t2 = mxu_group.run_mxu_big(coef, feats, zero, n_groups=N_GROUPS, reps=2,
+                               precision="highest", mm_only=True)[0]
+    assert np.all(np.abs(t2.numpy() - 2.0 * t.numpy()) <= 2e-5 * mag + 1e-30)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_split3_reference_against_jax_kernel(name, jax_runs):
+    coef, feats, t_init = _tables(_case(name))
+    got = mxu_group.run_mxu_split3(coef, feats, t_init, n_groups=N_GROUPS,
+                                   reps=1)
+    _agree([x.numpy() for x in got], jax_runs[name]["D"], 0.995, 1e-4,
+           uv=1e-3)
+    hi, lo = mxu_group.split_bf16(coef)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert float((hi.float() + lo.float() - coef).abs().max()) \
+        <= 2.0 ** -16 * float(coef.abs().max())
+    want = _jax_split(jax_runs[name]["coef"])
+    assert np.array_equal(mxu_tri.jax_layout(hi.float()).numpy(), want[0])
+    assert np.array_equal(mxu_tri.jax_layout(lo.float()).numpy(), want[1])
+
+
+def _jax_split(x):
+    """The JAX tool's `_split_bf16`, as float32 arrays."""
+    hi = jnp.asarray(x).astype(jnp.bfloat16)
+    lo = (jnp.asarray(x) - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    return (np.asarray(hi.astype(jnp.float32)),
+            np.asarray(lo.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("precision", ("highest", "default", "split3"))
+def test_candidates_reference(precision):
+    """`mxu_candidates` on the CPU: the products the plain versions test."""
+    coef, feats, _ = _tables(_case("aimed"))
+    cand = mxu_group.mxu_candidates(coef, feats, n_groups=N_GROUPS,
+                                    precision=precision)
+    assert cand.shape == (N_GROUPS, 320, N_RAYS)
+    exact = coef.double() @ feats.double()
+    mag = coef.double().abs() @ feats.double().abs()
+    # float32, 8 mantissa bits, 16: the error each form may show
+    bits = {"highest": 20, "default": 7, "split3": 14}[precision]
+    assert bool(((cand.double() - exact).abs() <= 2.0 ** -bits * mag).all())
+    if precision != "highest":
+        assert float((cand.double() - exact).abs().max()) > 0.0
+
+
+def test_repeated_passes_change_nothing():
+    tris, o, d, t_init = _torch_inputs(_case("aimed"))
+    coef, feats, _ = _tables(_case("aimed"))
+    kw = dict(n_groups=N_GROUPS)
+    runs = {
+        "A": lambda r: mxu_group.run_vpu(tris, o, d, t_init, reps=r, **kw),
+        "B": lambda r: mxu_group.run_mxu(coef, feats, t_init, reps=r, **kw),
+        "D": lambda r: mxu_group.run_mxu_split3(coef, feats, t_init, reps=r,
+                                                **kw)}
+    for fn in runs.values():
+        for x, y in zip(fn(1), fn(3)):
+            assert torch.equal(x, y)
+    # no pass at all returns the start
+    t, u, v, idx = runs["B"](0)
+    assert torch.equal(t, t_init) and bool((idx == -1).all())
+
+
+def test_a_closer_start_prunes():
+    """A ray whose t_init lies before its hit keeps t_init and idx -1."""
+    tris, o, d, t_init = _torch_inputs(_case("aimed"))
+    coef, feats, _ = _tables(_case("aimed"))
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    full = mxu_group.run_mxu(coef, feats, t_init, precision="highest", **kw)
+    short = torch.where(torch.arange(N_RAYS) % 2 == 0, full[0] * 0.5, t_init)
+    for out in (mxu_group.run_mxu(coef, feats, short, precision="highest",
+                                  **kw),
+                mxu_group.run_vpu(tris, o, d, short, **kw)):
+        cut = (torch.arange(N_RAYS) % 2 == 0) & (full[3] >= 0)
+        assert bool(cut.any())
+        assert bool((out[3][cut] == -1).all())
+        assert torch.equal(out[0][cut], short[cut])
+
+
+def test_wrappers_refuse_what_they_do_not_take():
+    tris, o, d, t_init = _torch_inputs(_case("tool"))
+    coef, feats, _ = _tables(_case("tool"))
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    with pytest.raises(ValueError, match="precision"):
+        mxu_group.run_mxu(coef, feats, t_init, precision="float64", **kw)
+    with pytest.raises(ValueError, match="coef"):
+        mxu_group.run_mxu(coef[:1], feats, t_init, **kw)
+    with pytest.raises(ValueError, match="coef"):
+        mxu_group.run_mxu_big(mxu_tri.jax_layout(coef), feats, t_init, **kw)
+    with pytest.raises(ValueError, match="feats"):
+        mxu_group.run_mxu_split3(coef, feats[:, :-1], t_init, **kw)
+    with pytest.raises(ValueError, match="tris"):
+        mxu_group.run_vpu(tris[:100], o, d, t_init, **kw)
+    with pytest.raises(ValueError, match="per ray"):
+        mxu_group.run_vpu(tris, o, d, t_init[:-1], **kw)
+    with pytest.raises(ValueError, match="56"):
+        mxu_tri.coef_table_np(tris.numpy()[:100], CENTER)
+    assert set(mxu_group.launches) == {"vpu_kernel", "mxu_kernel",
+                                       "mxu_big_kernel", "mxu_split3_kernel"}
+
+
+def test_tool_end_to_end_against_jax_rows(jax_runs, capsys):
+    """The port's tool on the CPU at 2 groups x 1,024 rays x 1 pass against
+    the JAX tool's rows, computed from its launchers as its `check` does."""
+    rows = diag_mxu.main(N_GROUPS, 1, n_blocks=1, device="cpu")
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert len(printed) == len(rows) == 8
+    by = {r["row"]: r for r in rows}
+    assert [r["row"][0] for r in rows] == list("ABCCBCCD")
+    assert all(r["us_per_group_1024_rays"] is None and r["device"] == "cpu"
+               for r in rows)                 # no time is measured on the CPU
+    j = jax_runs["tool"]
+    ta, ia = j["A"][0], j["A"][3]
+    assert by["A vpu rows"]["hits"] == float((ia >= 0).mean())
+    pairs = {"B mxu rows (highest)": "B highest",
+             "B mxu rows (default)": "B default",
+             "C mxu big (highest)": "C highest",
+             "C mxu big (default)": "C default",
+             "D mxu split3 (manual bf16 x 3)": "D"}
+    for label, key in pairs.items():
+        row, (tb, _, _, ib) = by[label], j[key]
+        assert row["hits_a"] == float((ia >= 0).mean())
+        assert abs(row["idx_mismatch"] - float((ia != ib).mean())) <= 0.005
+        both = (ia >= 0) & (ib >= 0)
+        want_dt = float(np.abs(ta - tb)[both].max()) if both.any() else 0.0
+        assert abs(row["max_abs_dt"] - want_dt) <= 1e-4 * (1.0 + want_dt)
+    assert "hits" not in by["C mxu big mm-only (default)"]
+
+
+def test_tool_needs_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diag_mxu.main(1, 1, n_blocks=1)

@@ -8,7 +8,8 @@ non-zero:
 
   1. environment   card name and power limit; the five CUDA sources (one
                    nvcc each) and the host LBVH builder (g++) are built
-                   together
+                   together; each kernel instantiation's registers and
+                   spills
   2. kernels       each kernel against its plain PyTorch version on the
                    card, with kernel, plain and bound times:
                    frame_kernel for configs 1 (Whitted), 2, 4 and 6 at
@@ -36,7 +37,17 @@ non-zero:
                    width: the 1M terrain's 480,000 primary rays against the
                    32 groups of the treelet most of them hit; the products
                    themselves against float32 ones, B against C, and each
-                   form against A (recorded)
+                   form against A (recorded); prefilter_kernel (row E) at
+                   the same three shapes, with the hits of A it lost and
+                   its gate counts;
+                   the refill schedule of frame_kernel for configs 2, 4 and
+                   6 at 800x600: against the plain version at 2 spp, and
+                   against the default schedule at the main path's 16 spp
+                   (bit-equal), both timed in turns, and the share of a
+                   warp's lanes a bounce step keeps busy in either schedule
+                   (check-only counting instantiations);
+                   mm_probe_kernel, every form and precision, at the
+                   probe's N = 1,024 and at 480,000
   3. main paths    every launch counter is zeroed just before each and
                    read just after.
                    Frame path: Renderer at 800x600 with autofocus, config
@@ -57,7 +68,13 @@ non-zero:
                    bounce, no other kernel).
                    Diagnostic: tools.diag_mxu.main at its defaults (32
                    groups, 64 passes, 16,384 rays) and at the card's width
-                   (480,000 rays, 4 passes): rows A, B, C, C mm_only, D
+                   (480,000 rays, 4 passes): rows A, B, C, C mm_only, D, E.
+                   Refill: configs 2, 4, 6 through Renderer at 800x600x16
+                   with PT0_FUSED_REFILL=1, in turns with a Renderer of the
+                   default schedule on the same frames (default, refill,
+                   refill, default; a warm-up and a timed frame a turn).
+                   Probe: tools.diag_mxu_mm.main at its defaults (N =
+                   1,024, 512 reps) and at N = 480,000 (16 reps)
   4. routes        the terrain on the card through the kernels against the
                    same bounce loop over their plain versions at 320x240x2,
                    built over the SAH forest and streamed, and the two
@@ -134,6 +151,18 @@ OPS_PRODUCT, OPS_PRODUCT_PADDED = 2 * 10 * 280, 2 * 16 * 320
 GROUPS, GROUP_REPS_WIDE = 32, 4
 FORM_PASSES = {"highest": (3, PEAK_TF32), "default": (1, PEAK_BF16),
                "split3": (3, PEAK_BF16)}
+# Row E (prefilter_kernel): two bf16 products of D, U, V, W (4 x 56
+# candidates over the 10 features that are ever non-zero) a ray and group,
+# then for every candidate the margin test, 4 products and 8 compares; the
+# slot test only for the rays of the units whose gate passed (the data's).
+OPS_E_PRODUCTS, OPS_MARGIN_TEST = 2 * (2 * 10 * 4 * 56), 12
+# The probe: a rep is the whole (320, 16) x (16, N) product, which it
+# exists to price (2 x 320 x 16 operations a column); its output needs 8
+# rows of it. Checked at 8 reps (each slice of the "dyn" forms once): the
+# float32 sum over reps rounds apart by about reps x 2^-24, so the 2^-20
+# limit holds a few reps, not the tool's 512.
+PROBE_N, PROBE_REPS, PROBE_WIDE_N, PROBE_WIDE_REPS = 1024, 512, 480000, 16
+PROBE_CHECK_REPS = 8
 # Timed-spp parity (16 spp in cells 2, 4 and 6): bit equality decays with
 # spp, one diverged pixel's later samples all differ, so the limits bound
 # the share of diverged pixels and the per-sample mean's error.
@@ -166,6 +195,24 @@ def smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(text):
+    """{kernel instantiation: registers and spill bytes} from nvcc's
+    `-Xptxas -v` output."""
+    usage, name = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            usage[name] = {}
+        elif name and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            usage[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            usage[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", "").split()
+            usage[name]["registers"] = int(words[words.index("registers") - 1])
+    return usage
 
 
 def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
@@ -225,13 +272,13 @@ def main() -> int:
     from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.core import rng as vrng
     from pathtracer0_tpu_torch.accel import lbvh
-    from pathtracer0_tpu_torch.kernels import (build, frame, fused, mxu_group,
-                                               mxu_tri, wavefront)
+    from pathtracer0_tpu_torch.kernels import (build, frame, fused, mm_probe,
+                                               mxu_group, mxu_tri, wavefront)
     from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
                                                        render_frame,
                                                        render_rays)
-    from pathtracer0_tpu_torch.tools import diag_mxu
+    from pathtracer0_tpu_torch.tools import diag_mxu, diag_mxu_mm
     from pathtracer0_tpu_torch.utils import image as img_util
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,9 +292,7 @@ def main() -> int:
     # ---- 1. environment + build --------------------------------------------
     t0 = time.perf_counter()
     build.build_all()
-    ptxas = {lib: [ln.strip() for ln in text.splitlines()
-                   if "registers" in ln or "spill" in ln]
-             for lib, text in build.ptxas_log.items()}
+    ptxas = {lib: ptxas_usage(text) for lib, text in build.ptxas_log.items()}
     emit({"phase": "environment", "card": card, "device": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas},
@@ -368,6 +413,90 @@ def main() -> int:
              for n in (1, 2, 4, 6)}
     full = {n: compare(n, 800, 600, min(spp, SPP_CMP), spp)
             for n, (spp, _) in MAIN.items()}
+
+    def compare_refill(n, spp_time):
+        """The refill schedule of frame_kernel at 800x600: against the plain
+        version at 2 spp (the kernel-parity limits), against the default
+        schedule at `spp_time` (the same bits: state and radiance equal on
+        >= 99.9% of pixels, queries equal), both schedules timed in turns
+        (default, refill, refill, default), and the lanes a bounce step
+        keeps busy in each (the check-only counting instantiations; their
+        lane sum must equal the queries)."""
+        sc, info = scenes.BUILDERS[n]().build(device="cuda")
+        cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in scenes.CAMERAS[n])
+        ifd = autofocus_distance(sc, info, cam, rot, 1.0, True)
+        state = vrng.seed(torch.arange(800 * 600, device=dev), 4321)
+        kw = dict(width=800, height=600, spp=SPP_CMP, max_bounces=BOUNCES,
+                  blur=0.001)
+        before = frame.trace_frame.refill_launches
+        rad_k, st_k, rays_k = frame.trace_frame(sc, info, cam, rot, ifd,
+                                                state, refill=True, **kw)
+        torch.cuda.synchronize()
+        check(frame.trace_frame.refill_launches == before + 1,
+              "trace_frame(refill=True) did not launch its kernel")
+        rad_p, st_p, rays_p = frame.trace_frame_reference(
+            sc, info, cam, rot, ifd, state, **kw)
+        diff = (rad_k - rad_p).abs().amax(-1)
+        qk, qp = int(rays_k.item()), int(rays_p.item())
+        rec = {"phase": "kernel_vs_plain", "kernel": "frame_kernel refill",
+               "config": n, "shape": [800, 600, SPP_CMP, BOUNCES],
+               "state_eq": float((st_k == st_p).float().mean()),
+               "frac_within_1e-4": float((diff < 1e-4).float().mean()),
+               "mean_abs": float((rad_k - rad_p).abs().mean()),
+               "max_abs_err": float(diff.max()),
+               "finite": bool(torch.isfinite(rad_k).all()),
+               "queries_kernel": qk, "queries_plain": qp}
+        kw["spp"] = spp_time
+        out_r = frame.trace_frame(sc, info, cam, rot, ifd, state,
+                                  refill=True, **kw)
+        out_d = frame.trace_frame(sc, info, cam, rot, ifd, state, **kw)
+        times = {"default": [], "refill": []}
+        for schedule in ("default", "refill", "refill", "default"):
+            times[schedule].append(cuda_ms(
+                lambda: frame.trace_frame(sc, info, cam, rot, ifd, state,
+                                          refill=schedule == "refill", **kw),
+                5))
+        lanes = {}
+        for schedule in ("default", "refill"):
+            out = frame.lane_use(sc, info, cam, rot, ifd, state,
+                                 refill=schedule == "refill", **kw)
+            used, steps = (int(x) for x in out[3].tolist())
+            lanes[schedule] = {
+                "lane_sum": used, "warp_steps": steps,
+                "lane_use": used / (32.0 * steps),
+                "same_frame": float(((out[0] == out_d[0]).all(-1)
+                                     & (out[1] == out_d[1])).float().mean())}
+        q_time = int(out_r[2].item())
+        rec.update({
+            "timed_spp": spp_time, "timed_queries": q_time,
+            "vs_default": {
+                "state_eq": float((out_r[1] == out_d[1]).float().mean()),
+                "radiance_eq": float((out_r[0] == out_d[0]).all(-1).float()
+                                     .mean()),
+                "queries_default": int(out_d[2].item())},
+            "ms": min(times["refill"]), "ms_default": min(times["default"]),
+            "ms_turns": times, "plain_ms": full[n]["plain_ms"],
+            "lanes": lanes, **bound(sc, info, 800 * 600, q_time),
+            "card": card})
+        emit(rec, log)
+        check(rec["finite"], f"refill {n}: not finite")
+        check(rec["state_eq"] >= 0.99, f"refill {n}: {rec}")
+        check(rec["frac_within_1e-4"] >= 0.99, f"refill {n}: {rec}")
+        check(rec["mean_abs"] < 5e-3, f"refill {n}: {rec}")
+        check(abs(qk - qp) <= 0.01 * qp + 16, f"refill {n}: queries {rec}")
+        vs = rec["vs_default"]
+        check(vs["state_eq"] >= 0.999 and vs["radiance_eq"] >= 0.999
+              and vs["queries_default"] == q_time,
+              f"refill {n}: against the default schedule {vs}")
+        for schedule, lane in lanes.items():
+            check(lane["lane_sum"] == q_time and lane["same_frame"] >= 0.999
+                  and 0.0 < lane["lane_use"] <= 1.0,
+                  f"refill {n}: lane count of {schedule} {lane}")
+        return rec
+
+    refill_full = {n: compare_refill(n, spp) for n, (spp, raytracing)
+                   in MAIN.items() if raytracing}
 
     # the slice's scenes: the terrain and the OBJ grid
     def terrain_scene(stream_threshold=1 << 16):
@@ -822,6 +951,27 @@ def main() -> int:
             bound["bound_parts_ms"]["padded product"] = 1e3 * padded
         return bound
 
+    def prefilter_bound(n_rays, passed_pairs):
+        """Least time of one pass of prefilter_kernel over GROUPS groups:
+        bytes (rays in: re-centred origins, directions, t_init, features;
+        hits out; the bf16 tables and the triangles once), the two bf16
+        products, and on the CUDA cores the margin test of every candidate
+        plus the slot test of the rays of the units that passed (this
+        run's count)."""
+        work = n_rays * GROUPS
+        parts = {"bytes": (n_rays * (24 + 4 + 64 + 16)
+                           + GROUPS * (2 * 320 * 16 * 2 + 56 * 36))
+                 / PEAK_BYTES,
+                 "tensor cores": OPS_E_PRODUCTS * work / PEAK_BF16,
+                 "cuda cores": (OPS_MARGIN_TEST * 56 * work
+                                + OPS_TRI_FREE * 56 * 32 * passed_pairs)
+                 / PEAK_F32}
+        unit = max(parts, key=parts.get)
+        return {"bound_ms": 1e3 * parts[unit],
+                "bound_by": "bytes" if unit == "bytes" else "operations",
+                "bound_unit": unit, "passed_pairs": passed_pairs,
+                "bound_parts_ms": {k: 1e3 * v for k, v in parts.items()}}
+
     def plain_ms_of(fn):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
@@ -962,6 +1112,35 @@ def main() -> int:
                      group_bound(n, "split3"), form_parity, form_limits)
         check(rec["miss_exact"] and rec["t_rel_err"] <= 1e-4, f"D: t {rec}")
 
+        # row E: the scalar test on re-centred inputs behind the bf16 gate
+        tris_c = mxu_tri.recentre_tris(tris[:GROUPS * mxu_tri.GROUP_TRIS],
+                                       center)
+        o_c = mxu_tri.recentre_origins(o, center)
+
+        def run_e():
+            return mxu_group.run_prefilter(coef, tris_c, feats, o_c, d,
+                                           t_init, **kw)
+
+        passed = run_e()[4]
+        hits_a = outs["A"][3] >= 0
+
+        def prefilter_parity(out_k, out_p):
+            return {**scalar_parity(out_k[:4], out_p[:4]),
+                    "gate_eq": float((out_k[4] == out_p[4]).float().mean()),
+                    "gate_pass_share": float(out_k[4].sum())
+                    / (out_k[4].numel() * GROUPS),
+                    "hits_of_a_lost": int((hits_a & (out_k[3] < 0)).sum()),
+                    "margin_ratio": mxu_group.prefilter_margin(
+                        coef, feats, outs["A"][3])}
+
+        rec = record("E", "prefilter_kernel", run_e,
+                     lambda: mxu_group.prefilter_reference(
+                         coef, tris_c, feats, o_c, d, t_init, **kw),
+                     prefilter_bound(n, int(passed.sum())), prefilter_parity,
+                     {"hits_idx_eq": 0.999, "gate_eq": 0.999})
+        check(rec["max_abs_err"] <= 1e-5 and rec["hits_of_a_lost"] == 0
+              and rec["margin_ratio"] > 0.0, f"E {shape}: {rec}")
+
         # the products themselves, on the first 16,384 rays: the kernels'
         # against the plain float32 product of the same (rounded or split)
         # operands, relative to the sum of magnitudes |coef| |feats|
@@ -1023,10 +1202,89 @@ def main() -> int:
 
     library_ms = library_products()
 
+    def probe_bound(n_cols, reps, form, precision, dtype):
+        """Least time of one launch of mm_probe_kernel: bytes (the slices
+        of `a` it reads, b once, o out) or the `reps` whole products on the
+        tensor cores (bf16 one pass, "highest" three TF32 passes); the 8
+        rows the output needs are beside."""
+        size = 2 if dtype == torch.bfloat16 else 4
+        slices = min(reps, mm_probe.SLICES) if form.endswith("dyn") else 1
+        passes, rate = FORM_PASSES[precision]
+        per_col = 2 * mm_probe.M * mm_probe.K * reps * passes
+        parts = {"bytes": (slices * mm_probe.M * mm_probe.K * size
+                           + mm_probe.K * n_cols * size + 8 * n_cols * 4)
+                 / PEAK_BYTES,
+                 "tensor cores": per_col * n_cols / rate}
+        unit = max(parts, key=parts.get)
+        return {"bound_ms": 1e3 * parts[unit],
+                "bound_by": "bytes" if unit == "bytes" else "operations",
+                "bound_unit": unit,
+                "bound_parts_ms": {**{k: 1e3 * v for k, v in parts.items()},
+                                   "8 rows": 1e3 * parts["tensor cores"] * 8
+                                   / mm_probe.M}}
+
+    def compare_probe(n_cols):
+        """mm_probe_kernel against its plain version, every case of the
+        tool, on its operands at `n_cols` columns: at PROBE_CHECK_REPS reps
+        within 2^-20 of the sum of magnitudes |a| |b| (checked), and one
+        launch of one product timed with its plain version and bound."""
+        ops = diag_mxu_mm.operands(n_cols, "cuda")
+        recs = {}
+        for form, precision, dtype in diag_mxu_mm.cases():
+            a, b = ops[form.split("_")[0]].to(dtype), ops["b"].to(dtype)
+            kw = dict(form=form, precision=precision)
+            before = mm_probe.launches["mm_probe_kernel"]
+            got = mm_probe.run(a, b, reps=PROBE_CHECK_REPS, **kw)
+            torch.cuda.synchronize()
+            check(mm_probe.launches["mm_probe_kernel"] == before + 1,
+                  "mm_probe.run did not launch its kernel")
+            want = mm_probe.mm_probe_reference(a, b, reps=PROBE_CHECK_REPS,
+                                               **kw)
+            mag = mm_probe.magnitudes(a, b, reps=PROBE_CHECK_REPS, form=form)
+            err = (got.double() - want.double()).abs()
+            _, plain_ms = plain_ms_of(
+                lambda: mm_probe.mm_probe_reference(a, b, reps=1, **kw))
+            variant = f"{form} {precision} {str(dtype)[6:]}"
+            rec = {"phase": "kernel_vs_plain", "kernel": "mm_probe_kernel",
+                   "variant": variant, "n": n_cols,
+                   "check_reps": PROBE_CHECK_REPS,
+                   "err_over_magnitudes_x_2^20": float((err / mag).max())
+                   * 2.0 ** 20,
+                   "max_abs_err": float(err.max()),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "ms": cuda_ms(lambda: mm_probe.run(a, b, reps=1, **kw), 5),
+                   "ms_check_reps": cuda_ms(
+                       lambda: mm_probe.run(a, b, reps=PROBE_CHECK_REPS, **kw),
+                       5),
+                   "plain_ms": plain_ms,
+                   **probe_bound(n_cols, 1, form, precision, dtype),
+                   "card": card}
+            emit(rec, log)
+            check(rec["finite"] and rec["err_over_magnitudes_x_2^20"] <= 1.0,
+                  f"mm_probe {variant} at {n_cols}: {rec}")
+            recs[variant] = rec
+        # the library's figure: one torch.matmul of the whole product
+        lib = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            a = ops["std"][:mm_probe.M].to(dtype)
+            b = ops["b"].to(dtype)
+            out = torch.empty((mm_probe.M, n_cols), dtype=dtype, device=dev)
+            lib[str(dtype)[6:]] = cuda_ms(
+                lambda: torch.matmul(a, b, out=out), 5)
+        emit({"phase": "library", "call": "torch.matmul", "shape": [
+            mm_probe.M, mm_probe.K, n_cols], "library_ms": lib,
+            "card": card}, log)
+        return recs, lib
+
+    probe_recs = {n_cols: compare_probe(n_cols)
+                  for n_cols in (PROBE_N, PROBE_WIDE_N)}
+
     def zero_counts():
         frame.trace_frame.launches = 0
+        frame.trace_frame.refill_launches = 0
         fused.trace_block.launches = 0
-        for counts in (wavefront.launches, mxu_group.launches):
+        for counts in (wavefront.launches, mxu_group.launches,
+                       mm_probe.launches):
             for k in counts:
                 counts[k] = 0
 
@@ -1075,7 +1333,67 @@ def main() -> int:
         check(rec["finite"], f"config {n}: image not finite")
         check(rec["launches"] == 3, f"config {n}: launches {rec['launches']}")
     launches_main = frame.trace_frame.launches
-    check(launches_main > 0, "the main path never launched frame_kernel")
+    check(launches_main > 0 and frame.trace_frame.refill_launches == 0,
+          "the main path never launched frame_kernel, or took the refill "
+          "schedule unasked")
+
+    # the refill schedule on the frame path: Renderer with PT0_FUSED_REFILL=1,
+    # in turns with a Renderer of the default schedule on the same frames
+    # (default, refill, refill, default), so both are timed on one card state
+    zero_counts()
+
+    def schedule_frames(r, refill):
+        if refill:
+            os.environ["PT0_FUSED_REFILL"] = "1"
+        try:
+            return timed_frames(r, 1)
+        finally:
+            os.environ.pop("PT0_FUSED_REFILL", None)
+
+    for n, rec_refill in refill_full.items():
+        spp = MAIN[n][0]
+        sc, info = scenes.BUILDERS[n]().build(device="cuda")
+        cam, rot = scenes.CAMERAS[n]
+        cfg = RenderConfig(width=800, height=600, samples_per_frame=spp,
+                           max_bounces=BOUNCES, auto_focus=True)
+        runs = {k: Renderer(sc, info, cfg, cam_pos=cam, cam_rot=rot, seed=n,
+                            device="cuda") for k in ("default", "refill")}
+        turns = {"default": [], "refill": []}
+        before = frame.trace_frame.refill_launches
+        for schedule in ("default", "refill", "refill", "default"):
+            turns[schedule].append(schedule_frames(runs[schedule],
+                                                   schedule == "refill"))
+        walls, events = ([t[i][0] for t in turns["refill"]] for i in (0, 1))
+        queries = sum(t[2] for t in turns["refill"])
+        img = runs["refill"].display_image()
+        rec = {"phase": "main_path", "config": n, "schedule": "refill",
+               "width": 800, "height": 600, "spp": spp, "bounces": BOUNCES,
+               "wall_ms": walls, "cuda_ms": events, "queries": queries,
+               "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
+               "default_schedule": {
+                   "wall_ms": [t[0][0] for t in turns["default"]],
+                   "cuda_ms": [t[1][0] for t in turns["default"]],
+                   "queries": sum(t[2] for t in turns["default"])},
+               "kernel_ms": {"refill": rec_refill["ms"],
+                             "default": rec_refill["ms_default"]},
+               "lane_use": {k: v["lane_use"]
+                            for k, v in rec_refill["lanes"].items()},
+               "ptxas": {k: v for k, v in ptxas.get("frame_kernel", {})
+                         .items() if "ILb0E" in k},
+               "launches": frame.trace_frame.refill_launches - before,
+               "same_image": bool(torch.equal(
+                   img, runs["default"].display_image())),
+               "finite": bool(torch.isfinite(img).all()), "card": card}
+        main_rec[f"{n}_refill"] = rec
+        emit(rec, log)
+        check(rec["finite"], f"config {n} refill: image not finite")
+        # a warm-up and a timed frame in each of two turns
+        check(rec["launches"] == 4, f"config {n} refill: launches {rec}")
+        check(rec["default_schedule"]["queries"] == queries,
+              f"config {n} refill: queries against the default {rec}")
+    launches_refill = frame.trace_frame.refill_launches
+    check(launches_refill > 0 and frame.trace_frame.launches == 4 * 3,
+          "PT0_FUSED_REFILL=1 did not take the refill schedule")
 
     # the per-bounce route: terrain through Renderer, OBJ grid through
     # Renderer (fused="off") and render_rays (fused="on")
@@ -1224,12 +1542,15 @@ def main() -> int:
         tool_rows[shape] = rows
         emit({"phase": "main_path", "tool": "diag_mxu", "shape": shape,
               "rows": rows, "card": card}, log)
-        check([r["row"][0] for r in rows] == list("ABCCBCCD"),
+        check([r["row"][0] for r in rows] == list("ABCCBCCDE"),
               f"diag_mxu {shape}: rows {[r['row'] for r in rows]}")
         for r in rows:
             check(r["us_per_group_1024_rays"] > 0.0
                   and 2.5 < r["ms_4_reps"] / r["ms_reps"] < 5.5,
                   f"diag_mxu {shape}: 4 x reps against reps {r}")
+        check(rows[-1]["hits_of_a_lost"] == 0
+              and rows[-1]["idx_mismatch"] <= 0.001,
+              f"diag_mxu {shape}: row E against A {rows[-1]}")
     check(tool_rows["tool"][0]["rays"] == 16384
           and tool_rows["wide"][0]["rays"] == 480000,
           "diag_mxu ran at other widths")
@@ -1238,8 +1559,30 @@ def main() -> int:
           f"the diagnostic missed a kernel: {launches_tool}")
     check(not any(wavefront.launches.values())
           and frame.trace_frame.launches == 0
-          and fused.trace_block.launches == 0,
+          and fused.trace_block.launches == 0
+          and mm_probe.launches["mm_probe_kernel"] == 0,
           "the diagnostic launched a renderer kernel")
+
+    # the small-K product probe: the tool at its defaults and at 480,000
+    zero_counts()
+    probe_rows = {}
+    for n_cols, reps in ((PROBE_N, PROBE_REPS),
+                         (PROBE_WIDE_N, PROBE_WIDE_REPS)):
+        rows = diag_mxu_mm.main(n_cols, reps, device="cuda",
+                                out=lambda line: None)
+        probe_rows[n_cols] = rows
+        emit({"phase": "main_path", "tool": "diag_mxu_mm", "n": n_cols,
+              "reps": reps, "rows": rows, "card": card}, log)
+        cases = [r for r in rows if r["form"] != "torch.matmul"]
+        check(len(cases) == len(diag_mxu_mm.cases())
+              and all(r["us_per_product"] > 0.0
+                      and 2.5 < r["ms_4_reps"] / r["ms_reps"] < 5.5
+                      for r in cases),
+              f"diag_mxu_mm {n_cols}: 4 x reps against reps {cases}")
+    launches_probe = mm_probe.launches["mm_probe_kernel"]
+    check(launches_probe > 0 and not any(mxu_group.launches.values())
+          and frame.trace_frame.launches == 0,
+          "the probe missed its kernel or launched another")
 
     # ---- 4. routes against each other ------------------------------------
     route_cfg = RenderConfig(width=W_CMP, height=H_CMP,
@@ -1370,6 +1713,9 @@ def main() -> int:
                         key=lambda c: c["bound_ms"])["bound_by"],
         "library_ms": None,
         "state_eq": min(c["state_eq"] for c in full.values()),
+        # launches x (time - bound), cell by cell
+        "excess_ms": sum(main_rec[n]["launches"] * (c["ms"] - c["bound_ms"])
+                         for n, c in full.items()),
         "per_config": {str(k): {key: c[key] for key in keys}
                        for k, c in full.items()},
         "per_config_320x240": {str(k): {key: c[key] for key in keys}
@@ -1437,7 +1783,58 @@ def main() -> int:
         "mode": "mm_only", "torch.matmul_ms": library_ms,
         "mm_only_ms": {p: big["detail"]["wide"][f"C mm_only {p}"]["ms"]
                        for p in mxu_group.PRECISIONS}}
-    check(len(kernels["kernels"]) == 9
+    # row E: the card's width on the line, as rows A-D
+    kernels["kernels"].append(
+        group_entry("prefilter_kernel", "236 _prefilter_kernel", "E", ("E",)))
+    # the refill schedule: cells 2, 4, 6 at the main path's 16 spp
+    kernels["kernels"].append({
+        "name": "frame_kernel_refill", "route": "cuda",
+        "source": "pathtracer0_tpu_torch/csrc/frame_kernel.cu",
+        "replaces": "pathtracer0_tpu/kernels/fused.py:1187 _frame_kernel "
+                    "refill schedule (_trace_core, PT0_FUSED_REFILL)",
+        "launches": launches_refill,
+        "max_abs_err": max(c["max_abs_err"] for c in refill_full.values()),
+        **{key: sum(c[key] for c in refill_full.values())
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": max(refill_full.values(),
+                        key=lambda c: c["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "excess_ms": sum(main_rec[f"{n}_refill"]["launches"]
+                         * (c["ms"] - c["bound_ms"])
+                         for n, c in refill_full.items()),
+        "detail": {str(n): {k: v for k, v in c.items()
+                            if k not in ("phase", "card")}
+                   for n, c in refill_full.items()}})
+    # the probe: one product (reps 1) of std_fix "default" at N = 480,000;
+    # the library call multiplies the same product and writes all 320 rows
+    probe_main = probe_recs[PROBE_WIDE_N][0]["std_fix default float32"]
+    kernels["kernels"].append({
+        "name": "mm_probe_kernel", "route": "cuda",
+        "source": "pathtracer0_tpu_torch/csrc/mxu_group_kernel.cu",
+        "replaces": "tools/diag_mxu_mm.py:19 _kernel",
+        "launches": launches_probe,
+        "max_abs_err": max(r["max_abs_err"] for recs, _ in probe_recs.values()
+                           for r in recs.values()),
+        **{key: probe_main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+        "library_ms": probe_recs[PROBE_WIDE_N][1]["bfloat16"],
+        "detail": {"variant": probe_main["variant"], "n": PROBE_WIDE_N,
+                   "library_ms_all": {n: lib for n, (_, lib)
+                                      in probe_recs.items()},
+                   "cases": {n: {v: {k: x for k, x in r.items()
+                                     if k not in ("phase", "kernel", "card")}
+                                 for v, r in recs.items()}
+                             for n, (recs, _) in probe_recs.items()},
+                   "rows": probe_rows}})
+    # the order of work on the kernels: slower than the library's call for
+    # the same function first, then the time above the bound over the
+    # launches of the run (the frame entries sum ms and bound over cells,
+    # so theirs is taken cell by cell above)
+    for k in kernels["kernels"]:
+        k["slower_than_library"] = (k["library_ms"] is not None
+                                    and k["ms"] > k["library_ms"])
+        k.setdefault("excess_ms", k["launches"] * (k["ms"] - k["bound_ms"]))
+    check(len(kernels["kernels"]) == 12
           and all(k["launches"] > 0 for k in kernels["kernels"]),
           "a kernel of the paths was never launched")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

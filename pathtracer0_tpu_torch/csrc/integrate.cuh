@@ -1,6 +1,7 @@
 // The integrators of one ray, shared by the frame kernel
 // (frame_kernel.cu) and the block kernel (block_kernel.cu): the path
-// `trace_path` (frag.glsl:810-882) and the Whitted `direct_diffuse`
+// (frag.glsl:810-882: `PathState`, `path_begin`, `path_step` and the loop
+// over them, `trace_path`) and the Whitted `direct_diffuse`
 // (frag.glsl:655-681) over pathtrace.cuh's brute-force closest hit, the
 // scene arguments both launchers take, and the per-block sum of the
 // query count. Plain version: pathtracer0_tpu_torch/render/integrator.py
@@ -44,115 +45,156 @@ __device__ __forceinline__ float mat_col(const Scene& sc, int mat, int col) {
   return __ldg(sc.mats + mat * 48 + col);
 }
 
-// Path integrator for one ray (frag.glsl:810-882). Adds the radiance
+// The path integrator of one ray (frag.glsl:810-882), in three pieces that
+// both schedules of the frame kernel share: the state a path carries from
+// bounce to bounce, `path_begin` and `path_step` (one bounce). `trace_path`
+// is the per-sample loop over them; the refill schedule of
+// frame_kernel.cu runs one flat loop over (sample, bounce) instead.
+struct PathState {
+  V3 o, d, col;          // ray, throughput
+  float stk[MAX_STACK];  // refraction-index stack
+  int ssize;
+  bool inobj;
+  V3 enter;              // where the ray entered the medium
+  bool alive;
+  int bounce;            // bounces taken
+};
+
+__device__ __forceinline__ void path_begin(PathState& p, V3 o, V3 d) {
+  p.o = o;
+  p.d = d;
+  p.col = v3(1.0f, 1.0f, 1.0f);
+#pragma unroll
+  for (int i = 0; i < MAX_STACK; ++i) p.stk[i] = 0.0f;
+  p.stk[0] = AIR_IOR;
+  p.ssize = 1;
+  p.inobj = false;
+  p.enter = v3(0.0f, 0.0f, 0.0f);
+  p.alive = true;
+  p.bounce = 0;
+}
+
+// Whether the path takes another bounce (`ray_on` of fused.py:1207).
+__device__ __forceinline__ bool path_on(const PathState& p, int max_bounces) {
+  return p.alive && p.bounce < max_bounces;
+}
+
+// One bounce of a live path: one scene query. Adds the emission into inc
+// and, on a miss, the sky into skyc; a miss or the throughput cut-off ends
+// the path (alive = false).
+__device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_t& state, int S,
+                                          bool gate_ss, V3& inc, V3& skyc) {
+  const V3 o = p.o, d = p.d;
+  V3 col = p.col;
+  ++p.bounce;
+  V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
+  Hit h = closest_hit(sc, on, d);
+  if (!h.is_hit) {
+    V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
+    if (col.x > 0.0f) skyc.x += s.x * col.x;
+    if (col.y > 0.0f) skyc.y += s.y * col.y;
+    if (col.z > 0.0f) skyc.z += s.z * col.z;
+    p.alive = false;
+    return;
+  }
+  V3 hx = v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z);
+  int m = h.mat;
+  V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
+  V3 Ks = v3(mat_col(sc, m, 6), mat_col(sc, m, 7), mat_col(sc, m, 8));
+  V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
+  V3 Tf = v3(mat_col(sc, m, 12), mat_col(sc, m, 13), mat_col(sc, m, 14));
+  ShadeFields f;
+  f.Tr = mat_col(sc, m, 11);
+  f.Tf = Tf;
+  f.illum = mat_col(sc, m, 20);
+  f.Pm = mat_col(sc, m, 24);
+  f.Pr = mat_col(sc, m, 25);
+  f.Pc = mat_col(sc, m, 27);
+  f.Pcr = mat_col(sc, m, 28);
+  f.subsurface = mat_col(sc, m, 41);
+  float Ni = mat_col(sc, m, 15), Density = mat_col(sc, m, 19);
+  V3 n = h.n;
+  V3 s;
+  if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
+  if (map_sample(sc, m, MAP_PM, h.tu, h.tv, &s)) f.Pm = s.x;
+  if (map_sample(sc, m, MAP_PR, h.tu, h.tv, &s)) f.Pr = s.x;
+  if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
+  if (map_sample(sc, m, MAP_KS, h.tu, h.tv, &s)) Ks = s;
+  if (map_sample(sc, m, MAP_PC, h.tu, h.tv, &s)) f.Pc = s.x;
+  if (map_sample(sc, m, MAP_TR, h.tu, h.tv, &s)) f.Tr = s.x;
+  if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
+
+  // normal flip by sign(N.D) (frag.glsl:829-830)
+  float nd = dot(n, d);
+  float flip = nd > 0.0f ? -1.0f : 1.0f;
+  n = v3(n.x * flip, n.y * flip, n.z * flip);
+
+  // refraction-index stack (frag.glsl:832-841)
+  float(&stk)[MAX_STACK] = p.stk;
+  bool entering = nd < 0.0f;
+  float s0 = stk[0], s1 = stk[1];
+  bool do_push = entering && p.ssize < S;
+  if (do_push) {
+#pragma unroll
+    for (int i = MAX_STACK - 1; i >= 1; --i)
+      if (i < S) stk[i] = stk[i - 1];
+    stk[0] = Ni;
+    ++p.ssize;
+  }
+  float n1 = entering ? stk[1] : s0;
+  float n2 = entering ? stk[0] : s1;
+  if (!entering && p.ssize > 0) {
+#pragma unroll
+    for (int i = 0; i < MAX_STACK - 1; ++i)
+      if (i < S - 1) stk[i] = stk[i + 1];
+#pragma unroll
+    for (int i = 0; i < MAX_STACK; ++i)
+      if (i == S - 1) stk[i] = 0.0f;
+    --p.ssize;
+  }
+
+  Lobe lobe = choose_ray(f, n1, n2, n, d, state, gate_ss);
+
+  // medium bookkeeping (frag.glsl:847-863)
+  bool transmitted = lobe.win == 3;
+  V3 dd = v3(p.enter.x - hx.x, p.enter.y - hx.y, p.enter.z - hx.z);
+  float dist = sqrtf(dot(dd, dd));
+  bool apply_absorb = transmitted && (!entering || p.inobj);
+  if (transmitted) {
+    p.inobj = entering;
+    if (entering) p.enter = hx;
+  }
+
+  // transport (frag.glsl:865-874)
+  inc.x += Ke.x * col.x;
+  inc.y += Ke.y * col.y;
+  inc.z += Ke.z * col.z;
+  bool cutoff = sqrtf(dot(col, col)) < 0.1f;
+  if (apply_absorb) {
+    col = v3(col.x * expf(-Tf.x * dist * Density), col.y * expf(-Tf.y * dist * Density),
+             col.z * expf(-Tf.z * dist * Density));
+  } else if (lobe.win != 4) {
+    V3 k = lobe.win == 2 ? Ks : Kd;
+    col = v3(col.x * k.x, col.y * k.y, col.z * k.z);
+  }
+  p.col = col;
+  p.o = hx;
+  p.d = lobe.dir;
+  state = lobe.state;
+  p.alive = !cutoff;
+}
+
+// One sample's path from ray (o, d), bounce after bounce. Adds the radiance
 // without sky into inc and the sky into skyc; returns the queries made.
 __device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
                           int max_bounces, int S, bool gate_ss, V3& inc,
                           V3& skyc) {
-  V3 col = v3(1.0f, 1.0f, 1.0f);
-  float stk[MAX_STACK];
-#pragma unroll
-  for (int i = 0; i < MAX_STACK; ++i) stk[i] = 0.0f;
-  stk[0] = AIR_IOR;
-  int ssize = 1;
-  bool inobj = false;
-  V3 enter = v3(0.0f, 0.0f, 0.0f);
+  PathState p;
+  path_begin(p, o, d);
   int queries = 0;
-  bool alive = true;
-  for (int bounce = 0; bounce < max_bounces && alive; ++bounce) {
+  while (path_on(p, max_bounces)) {
     ++queries;
-    V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-    Hit h = closest_hit(sc, on, d);
-    if (!h.is_hit) {
-      V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
-      if (col.x > 0.0f) skyc.x += s.x * col.x;
-      if (col.y > 0.0f) skyc.y += s.y * col.y;
-      if (col.z > 0.0f) skyc.z += s.z * col.z;
-      break;
-    }
-    V3 hx = v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z);
-    int m = h.mat;
-    V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
-    V3 Ks = v3(mat_col(sc, m, 6), mat_col(sc, m, 7), mat_col(sc, m, 8));
-    V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
-    V3 Tf = v3(mat_col(sc, m, 12), mat_col(sc, m, 13), mat_col(sc, m, 14));
-    ShadeFields f;
-    f.Tr = mat_col(sc, m, 11);
-    f.Tf = Tf;
-    f.illum = mat_col(sc, m, 20);
-    f.Pm = mat_col(sc, m, 24);
-    f.Pr = mat_col(sc, m, 25);
-    f.Pc = mat_col(sc, m, 27);
-    f.Pcr = mat_col(sc, m, 28);
-    f.subsurface = mat_col(sc, m, 41);
-    float Ni = mat_col(sc, m, 15), Density = mat_col(sc, m, 19);
-    V3 n = h.n;
-    V3 s;
-    if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
-    if (map_sample(sc, m, MAP_PM, h.tu, h.tv, &s)) f.Pm = s.x;
-    if (map_sample(sc, m, MAP_PR, h.tu, h.tv, &s)) f.Pr = s.x;
-    if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
-    if (map_sample(sc, m, MAP_KS, h.tu, h.tv, &s)) Ks = s;
-    if (map_sample(sc, m, MAP_PC, h.tu, h.tv, &s)) f.Pc = s.x;
-    if (map_sample(sc, m, MAP_TR, h.tu, h.tv, &s)) f.Tr = s.x;
-    if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
-
-    // normal flip by sign(N.D) (frag.glsl:829-830)
-    float nd = dot(n, d);
-    float flip = nd > 0.0f ? -1.0f : 1.0f;
-    n = v3(n.x * flip, n.y * flip, n.z * flip);
-
-    // refraction-index stack (frag.glsl:832-841)
-    bool entering = nd < 0.0f;
-    float s0 = stk[0], s1 = stk[1];
-    bool do_push = entering && ssize < S;
-    if (do_push) {
-#pragma unroll
-      for (int i = MAX_STACK - 1; i >= 1; --i)
-        if (i < S) stk[i] = stk[i - 1];
-      stk[0] = Ni;
-      ++ssize;
-    }
-    float n1 = entering ? stk[1] : s0;
-    float n2 = entering ? stk[0] : s1;
-    if (!entering && ssize > 0) {
-#pragma unroll
-      for (int i = 0; i < MAX_STACK - 1; ++i)
-        if (i < S - 1) stk[i] = stk[i + 1];
-#pragma unroll
-      for (int i = 0; i < MAX_STACK; ++i)
-        if (i == S - 1) stk[i] = 0.0f;
-      --ssize;
-    }
-
-    Lobe lobe = choose_ray(f, n1, n2, n, d, state, gate_ss);
-
-    // medium bookkeeping (frag.glsl:847-863)
-    bool transmitted = lobe.win == 3;
-    V3 dd = v3(enter.x - hx.x, enter.y - hx.y, enter.z - hx.z);
-    float dist = sqrtf(dot(dd, dd));
-    bool apply_absorb = transmitted && (!entering || inobj);
-    if (transmitted) {
-      inobj = entering;
-      if (entering) enter = hx;
-    }
-
-    // transport (frag.glsl:865-874)
-    inc.x += Ke.x * col.x;
-    inc.y += Ke.y * col.y;
-    inc.z += Ke.z * col.z;
-    bool cutoff = sqrtf(dot(col, col)) < 0.1f;
-    if (apply_absorb) {
-      col = v3(col.x * expf(-Tf.x * dist * Density), col.y * expf(-Tf.y * dist * Density),
-               col.z * expf(-Tf.z * dist * Density));
-    } else if (lobe.win != 4) {
-      V3 k = lobe.win == 2 ? Ks : Kd;
-      col = v3(col.x * k.x, col.y * k.y, col.z * k.z);
-    }
-    o = hx;
-    d = lobe.dir;
-    state = lobe.state;
-    alive = !cutoff;
+    path_step(sc, p, state, S, gate_ss, inc, skyc);
   }
   return queries;
 }

@@ -10,6 +10,11 @@
 //   mxu_kernel         _mxu_kernel         (run_mxu)
 //   mxu_big_kernel     _mxu_big_kernel     (run_mxu_big, with mm_only)
 //   mxu_split3_kernel  _mxu_split3_kernel  (run_mxu_split3)
+//   prefilter_kernel   _prefilter_kernel   (run_prefilter)
+//
+// and the kernel of tools/diag_mxu_mm.py, the small-K product probe:
+//
+//   mm_probe_kernel    _kernel             (kernels/mm_probe.py run)
 //
 // Those work on blocks of 1,024 rays in (8, 128) tiles and call the matrix
 // unit through dot_general; none of that is carried over. What is kept is
@@ -65,19 +70,54 @@
 // lowest slot on a tie. `mm_only` skips the test and adds candidate 0 into
 // t, to price the product alone.
 //
+// prefilter_kernel (row E): the bf16 product as a conservative filter in
+// front of the scalar slot test. Per group a warp multiplies its 32 rays
+// (two M tiles of 16) by the group's D, U, V, W candidates twice, with
+// mxu_kernel's register-resident fragments: the bf16 product and the product
+// of magnitudes |coef| |features| (the sign bits of both bf16 operands
+// cleared), both in float32 accumulators. A candidate is plausible if its
+// four could share a sign within 2^-6 of their magnitudes
+// (tools/diag_mxu.py:320-322); __any_sync over the warp is the gate, so the
+// gate's unit is a warp of 32 consecutive rays (the TPU kernel's was a
+// block of 1,024). A warp that passes runs vpu_kernel's slot test
+// (tri_free.cuh) over the group's 56 slots on re-centred triangles and
+// origins, one ray a lane; the hits then equal row A's on those inputs as
+// long as the filter loses none. Lane 0 counts the groups its unit passed
+// in the first pass.
+//
+// mm_probe_kernel: o (8, N) = the sum over reps of rows 0-7 of one
+// (320, 16) x (16, N) product, to price the operand layouts rows B-E use.
+// The (320, 16) operand is slice s of `a`, s = rep % 8 ("dyn") or 0 ("fix"),
+// laid out K-major, a (128, 320) whose slice is (16, 320) and enters
+// transposed ("tlhs": a thread's fragment is four loads 320 apart), or
+// M-major, a (2560, 16) whose slice is (320, 16) ("std": contiguous
+// fragments). As in mxu_kernel the N side (b's columns) is the M side of
+// `mma.sync`: a warp keeps 16 columns of b in registers for the launch and
+// reads the slice's fragments from device memory (L1) every rep; a fixed
+// slice stays in L1, a dynamic one cycles through 8 x 20 KB. Precision
+// "default" (bf16 operands, one m16n8k16 pass; b and a may come in bf16) or
+// "highest" (the three-pass TF32 split). Only 8 of the 320 rows reach `o`, so
+// every other tile is folded into a per-thread sum written to `sink`, and
+// the compilers can delete none of the 40 tiles a warp multiplies a rep.
+//
 // Every product kernel also has a DUMP instantiation that writes each
 // group's product to `cand`, for the checks of its accuracy; it is launched
 // only when `cand` is given, so the timed kernels carry none of it.
 //
 // What bounds them: the test after the product (6 min/max and 2 compares on
 // each of 56 candidates) runs on the CUDA cores and outweighs the product's
-// tensor-core time; vpu_kernel is bound by its float32 operations.
+// tensor-core time; vpu_kernel is bound by its float32 operations, and so
+// is prefilter_kernel where most units pass the gate (the margin test is 8
+// compares and 4 products a candidate, 2 x 4 x 56 x 32 products on the
+// tensor cores a warp and group).
 //
 // Build with -fmad=false and no fast math. Plain versions:
 // pathtracer0_tpu_torch/kernels/mxu_group.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tri_free.cuh"
 
@@ -109,6 +149,33 @@ struct MxuArgs {
   int* idx;
   float* cand;           // null, or (n_groups, 320, n_rays): every product
   int n_rays, n_groups, reps, mm_only;
+};
+
+// kernels/mxu_group.py `_PrefilterArgs`, field for field.
+// kernels/mm_probe.py `_ProbeArgs`, field for field.
+struct ProbeArgs {
+  const void* a;         // (128, 320) "tlhs" or (2560, 16) "std", f32 or bf16
+  const float* feats;    // b (16, n_rays) f32, or null
+  const uint16_t* b16;   // b in bf16, or null
+  float* o;              // (8, n_rays)
+  float* sink;           // one float a thread: the other rows, folded
+  int n_rays, reps;
+};
+
+struct PrefilterArgs {
+  const uint16_t* ch;    // (n_groups, 320, 16) coef in bf16
+  const uint16_t* ca;    // |coef| in bf16
+  const float* feats;    // (16, n_rays) f32
+  const float* tris;     // (56 n_groups, 9) v1, e1, e2 by slot, re-centred
+  const float* o[3];     // re-centred origins
+  const float* d[3];
+  const float* t_init;
+  float* t;
+  float* u;
+  float* v;
+  int* idx;
+  int* passed;           // (ceil(n_rays / 32),) groups passed in one pass
+  int n_rays, n_groups, reps;
 };
 
 namespace {
@@ -237,8 +304,10 @@ struct Feats {
   // big of features 0-7 and 8-15, a[2], a[3] small of the same
   uint32_t a[MODE == MODE_BF16 ? 1 : (MODE == MODE_SPLIT3 ? 2 : 4)][4];
 
-  // `r_lo`, `r_hi`: the two rays, already clamped into the batch
-  __device__ __forceinline__ void load(const MxuArgs& p, int r_lo, int r_hi, int q) {
+  // `r_lo`, `r_hi`: the two rays, already clamped into the batch; `p`
+  // holds feats (and fh, fl for MODE_SPLIT3) and n_rays
+  template <typename P>
+  __device__ __forceinline__ void load(const P& p, int r_lo, int r_hi, int q) {
     const size_t n = p.n_rays;
     if constexpr (MODE == MODE_TF32X3) {
 #pragma unroll
@@ -505,6 +574,187 @@ __global__ void __launch_bounds__(BIG_THREADS) mxu_split3_kernel(MxuArgs a) {
   big_body<MODE_SPLIT3, DUMP>(a);
 }
 
+// ---- row E ------------------------------------------------------------------
+
+constexpr int PRE_WARPS = 4;                   // prefilter_kernel: warps a block
+constexpr int PRE_RAYS = PRE_WARPS * 32;
+constexpr int PRE_CAND = 4 * QUANT_PAD;        // D, U, V, W
+constexpr float MARGIN = 0.015625f;            // 2^-6
+
+// Whether D, U, V, W could share a sign within the margins mD, mU, mV, mW.
+__device__ __forceinline__ bool plausible(float D, float U, float V, float W, float mD, float mU,
+                                          float mV, float mW) {
+  const bool pos = D > -mD && U > -mU && V > -mV && W > -mW;
+  const bool neg = D < mD && U < mU && V < mV && W < mW;
+  return pos || neg;
+}
+
+__global__ void __launch_bounds__(PRE_RAYS) prefilter_kernel(PrefilterArgs a) {
+  // the group's D, U, V, W candidates in bf16: coef, then |coef|
+  __shared__ __align__(16) uint32_t cs[2 * PRE_CAND * 8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int base = blockIdx.x * PRE_RAYS + warp * 32;  // the warp's unit
+  const int last = a.n_rays - 1;
+  // past the batch's end the last ray stands in
+  const int ray = min(base + lane, last);
+  Feats<MODE_BF16> fh[2], fa[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    fh[mt].load(a, min(base + 16 * mt + g, last), min(base + 16 * mt + g + 8, last), q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fa[mt].a[0][i] = fh[mt].a[0][i] & 0x7fff7fffu;
+  }
+  const float ox = a.o[0][ray], oy = a.o[1][ray], oz = a.o[2][ray];
+  const float dx = a.d[0][ray], dy = a.d[1][ray], dz = a.d[2][ray];
+  float t = a.t_init[ray], td = 1.0f, u = 0.0f, v = 0.0f;
+  int idx = -1, passed = 0;
+  for (int rep = 0; rep < a.reps; ++rep) {
+    for (int grp = 0; grp < a.n_groups; ++grp) {
+      __syncthreads();  // everyone is done with the last group
+      {
+        const size_t at = static_cast<size_t>(grp) * N_CAND * 2;  // 2 uint4 a candidate
+        const uint4* src_h = reinterpret_cast<const uint4*>(a.ch) + at;
+        const uint4* src_a = reinterpret_cast<const uint4*>(a.ca) + at;
+        uint4* dst = reinterpret_cast<uint4*>(cs);
+        for (int i = threadIdx.x; i < PRE_CAND * 2; i += PRE_RAYS) {
+          dst[i] = __ldg(src_h + i);
+          dst[PRE_CAND * 2 + i] = __ldg(src_a + i);
+        }
+      }
+      __syncthreads();
+      bool plaus = false;
+#pragma unroll 1
+      for (int jt = 0; jt < GROUP_TRIS / 8; ++jt) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float c[4][4], m[4][4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            tile<MODE_BF16>(c[k], fh[mt], cs, k * QUANT_PAD + jt * 8, lane);
+            tile<MODE_BF16>(m[k], fa[mt], cs + PRE_CAND * 8, k * QUANT_PAD + jt * 8, lane);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            plaus |= plausible(c[0][e], c[1][e], c[2][e], c[3][e], m[0][e] * MARGIN, m[1][e] * MARGIN,
+                               m[2][e] * MARGIN, m[3][e] * MARGIN);
+          }
+        }
+      }
+      if (!__any_sync(FULL, plaus)) continue;
+      if (rep == 0) ++passed;
+      const float* p = a.tris + static_cast<size_t>(grp) * GROUP_TRIS * 9;
+      for (int j = 0; j < GROUP_TRIS; ++j, p += 9) {
+        if (trifree::accept(p, ox, oy, oz, dx, dy, dz, t, td, u, v)) idx = grp * GROUP_TRIS + j;
+      }
+    }
+  }
+  if (base + lane < a.n_rays) {
+    const float inv = 1.0f / td;
+    a.t[base + lane] = t * inv;
+    a.u[base + lane] = u * inv;
+    a.v[base + lane] = v * inv;
+    a.idx[base + lane] = idx;
+  }
+  if (lane == 0 && base < a.n_rays) a.passed[base / 32] = passed;
+}
+
+// ---- the small-K product probe ---------------------------------------------
+
+constexpr int PROBE_WARPS = 4;
+constexpr int PROBE_COLS = PROBE_WARPS * 16;
+constexpr int PROBE_M = 320, PROBE_K = 16, PROBE_SLICES = 8;
+
+// Element (m, k) of slice `s` of the probe's `a`.
+template <bool TLHS, typename T>
+__device__ __forceinline__ T probe_a(const T* a, int s, int m, int k) {
+  return TLHS ? __ldg(a + (s * PROBE_K + k) * PROBE_M + m) : __ldg(a + (s * PROBE_M + m) * PROBE_K + k);
+}
+
+__device__ __forceinline__ float bf16_value(uint16_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+template <int MODE, bool IN_BF16, bool TLHS, bool DYN>
+__global__ void __launch_bounds__(PROBE_WARPS * 32) mm_probe_kernel(ProbeArgs p) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int col0 = blockIdx.x * PROBE_COLS + warp * 16;
+  const int last = p.n_rays - 1;
+  const int r[2] = {col0 + g, col0 + g + 8};
+  Feats<MODE> f;
+  if constexpr (IN_BF16) {
+    const size_t n = p.n_rays;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 2 * q + (i >> 1) * 8;
+      const size_t c = min(r[i & 1], last);
+      f.a[0][i] = p.b16[k * n + c] | (static_cast<uint32_t>(p.b16[(k + 1) * n + c]) << 16);
+    }
+  } else {
+    f.load(p, min(r[0], last), min(r[1], last), q);
+  }
+  using T = typename std::conditional<IN_BF16, uint16_t, float>::type;
+  const T* a = static_cast<const T*>(p.a);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sink = 0.0f;
+  for (int rep = 0; rep < p.reps; ++rep) {
+    const int s = DYN ? rep % PROBE_SLICES : 0;
+#pragma unroll 2
+    for (int nt = 0; nt < PROBE_M / 8; ++nt) {
+      const int m = nt * 8 + g;  // the thread's row of the slice
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if constexpr (MODE == MODE_BF16) {
+        uint32_t b[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 2 * q + 8 * h;
+          if constexpr (IN_BF16) {
+            b[h] = probe_a<TLHS>(a, s, m, k) | (static_cast<uint32_t>(probe_a<TLHS>(a, s, m, k + 1)) << 16);
+          } else {
+            b[h] = pack_bf16(probe_a<TLHS>(a, s, m, k), probe_a<TLHS>(a, s, m, k + 1));
+          }
+        }
+        mma_bf16(c, f.a[0], b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t b_big[2], b_small[2];
+          split_tf32(probe_a<TLHS>(a, s, m, 8 * half + q), b_big[0], b_small[0]);
+          split_tf32(probe_a<TLHS>(a, s, m, 8 * half + q + 4), b_big[1], b_small[1]);
+          mma_tf32(c, f.a[2 + half], b_big[0], b_big[1]);
+          mma_tf32(c, f.a[half], b_small[0], b_small[1]);
+          mma_tf32(c, f.a[half], b_big[0], b_big[1]);
+        }
+      }
+      if (nt == 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += c[e];
+      } else {
+        sink += (c[0] + c[1]) + (c[2] + c[3]);
+      }
+    }
+  }
+  // accumulator e: column r[e / 2], row 2 q + e % 2
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (r[e >> 1] < p.n_rays) p.o[static_cast<size_t>(2 * q + (e & 1)) * p.n_rays + r[e >> 1]] = acc[e];
+  }
+  p.sink[blockIdx.x * PROBE_WARPS * 32 + threadIdx.x] = sink;
+}
+
+template <int MODE, bool IN_BF16, bool TLHS, bool DYN>
+int launch_probe(const ProbeArgs* p, void* stream) {
+  const dim3 grid((p->n_rays + PROBE_COLS - 1) / PROBE_COLS), block(PROBE_WARPS * 32);
+  mm_probe_kernel<MODE, IN_BF16, TLHS, DYN><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, bool IN_BF16>
+int launch_probe_form(const ProbeArgs* p, int tlhs, int dyn, void* stream) {
+  if (tlhs) return dyn ? launch_probe<MODE, IN_BF16, true, true>(p, stream) : launch_probe<MODE, IN_BF16, true, false>(p, stream);
+  return dyn ? launch_probe<MODE, IN_BF16, false, true>(p, stream) : launch_probe<MODE, IN_BF16, false, false>(p, stream);
+}
+
 template <int MODE>
 constexpr int big_smem() {
   return (N_CAND * BIG_STRIDE + Stage<MODE>::WORDS + BIG_PARTS * BIG_RAYS * 4 + BIG_RAYS) * 4;
@@ -533,6 +783,22 @@ int launch_big(Kernel kernel, int smem, const MxuArgs* a, void* stream) {
 extern "C" int pt_launch_vpu(const VpuArgs* a, void* stream) {
   const dim3 grid((a->n_rays + VPU_BLOCK - 1) / VPU_BLOCK), block(VPU_BLOCK);
   vpu_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `tlhs`: a is (128, 320), else (2560, 16); `dyn`: slice rep % 8, else 0;
+// `highest`: the TF32 split (f32 operands only); `in_bf16`: a and b in bf16.
+extern "C" int pt_launch_mm_probe(const ProbeArgs* p, int tlhs, int dyn, int highest, int in_bf16,
+                                  void* stream) {
+  if (in_bf16) return highest ? static_cast<int>(cudaErrorInvalidValue)
+                              : launch_probe_form<MODE_BF16, true>(p, tlhs, dyn, stream);
+  return highest ? launch_probe_form<MODE_TF32X3, false>(p, tlhs, dyn, stream)
+                 : launch_probe_form<MODE_BF16, false>(p, tlhs, dyn, stream);
+}
+
+extern "C" int pt_launch_prefilter(const PrefilterArgs* a, void* stream) {
+  const dim3 grid((a->n_rays + PRE_RAYS - 1) / PRE_RAYS), block(PRE_RAYS);
+  prefilter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,10 +10,20 @@ plain PyTorch version built on render/integrator.py's brute-force
 radiance summed over the samples WITH the sky (the TPU kernel deferred the
 sky to a second pass because Mosaic cannot gather), the RNG state carried
 across the samples, and the count of scene queries.
+
+`trace_frame(refill=True)` takes the refill schedule of the kernel (path
+mode, spp >= 2): one flat loop per thread over (sample, bounce) that draws
+a lane's next primary ray as soon as its path ends, the counterpart of the
+TPU kernel's run-ahead refill (PT0_FUSED_REFILL, read by
+`render_fused_frame` as the JAX package reads it). The result is the same
+bits either way, so its plain version is `trace_frame_reference` too.
+`lane_use` runs a check-only instantiation that counts how many of a
+warp's 32 lanes each bounce step keeps busy.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -31,12 +41,13 @@ class _FrameArgs(ctypes.Structure):
     """csrc/frame_kernel.cu `FrameArgs`, field for field."""
 
     _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
-        "scal", "state_in", "state_out", "rad_out", "rays_out")] + [
+        "scal", "state_in", "state_out", "rad_out", "rays_out",
+        "lanes_out")] + [
         (n, ctypes.c_int) for n in (
             "width", "height", "spp", "max_bounces", "stack_size")] + [
         (n, ctypes.c_float) for n in (
             "xs_scale", "ys_scale", "focal_length", "blur")] + [
-        ("whitted", ctypes.c_int)]
+        ("whitted", ctypes.c_int), ("refill", ctypes.c_int)]
 
 
 def eligible(info, *, whitted: bool = False) -> bool:
@@ -90,14 +101,51 @@ def trace_frame_reference(scene, info, cam_pos, cam_rot, ifd, state, *,
     return rad, state, rays
 
 
+def use_refill(refill: bool, whitted: bool, spp: int) -> bool:
+    """The schedule `trace_frame` takes: refill only in path mode and with
+    two samples or more to overlap (fused.py:1772-1774)."""
+    return bool(refill) and not whitted and spp >= 2
+
+
 def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
                 height: int, spp: int, max_bounces: int,
                 stack_size: int = 10, cam_size: float = 1.5,
                 focal_length: float = 1.0, blur: float = 0.0,
-                whitted: bool = False):
+                whitted: bool = False, refill: bool = False):
     """The frame on the card (csrc/frame_kernel.cu) for CUDA tensors, the
     plain version for CPU tensors. Same arguments and results as
-    `trace_frame_reference`. Raises on what the kernel does not take."""
+    `trace_frame_reference`; `refill` selects the kernel's refill schedule
+    where `use_refill` allows it (`trace_frame.refill_launches` counts
+    those launches, `trace_frame.launches` the others). Raises on what the
+    kernel does not take."""
+    return _launch_frame(scene, info, cam_pos, cam_rot, ifd, state,
+                         width=width, height=height, spp=spp,
+                         max_bounces=max_bounces, stack_size=stack_size,
+                         cam_size=cam_size, focal_length=focal_length,
+                         blur=blur, whitted=whitted, refill=refill)
+
+
+def lane_use(scene, info, cam_pos, cam_rot, ifd, state, *, refill: bool,
+             **kw):
+    """The path-mode frame on the card through the check-only counting
+    instantiation of either schedule: (radiance, state, queries, lanes)
+    where lanes = (lanes summed over the bounce steps, warp steps), both
+    int64 on the card. lanes[0] equals the queries; lanes[0] / (32
+    lanes[1]) is the share of a warp's lanes a bounce step keeps busy. A
+    measurement of the card: there is no plain version, and the launch is
+    counted in neither launch count."""
+    if state.device.type != "cuda":
+        raise ValueError("lane_use measures the card: it needs CUDA tensors")
+    if kw.get("whitted"):
+        raise ValueError("lane_use counts the bounce steps of path mode")
+    return _launch_frame(scene, info, cam_pos, cam_rot, ifd, state,
+                         refill=refill, count_lanes=True, **kw)
+
+
+def _launch_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width,
+                  height, spp, max_bounces, stack_size=10, cam_size=1.5,
+                  focal_length=1.0, blur=0.0, whitted=False, refill=False,
+                  count_lanes=False):
     dev = state.device
     kw = dict(width=width, height=height, spp=spp, max_bounces=max_bounces,
               stack_size=stack_size, cam_size=cam_size,
@@ -115,6 +163,7 @@ def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
         raise ValueError(f"stack_size {stack_size} not in [2, {MAX_STACK}]")
     if state.shape != (width * height,) or spp < 1 or max_bounces < 0:
         raise ValueError("state must hold one entry per pixel; spp >= 1")
+    refill = use_refill(refill, whitted, spp)
     lib = build.load("frame_kernel")
     lib.pt_launch_frame.argtypes = [ctypes.POINTER(_FrameArgs),
                                     ctypes.c_void_p]
@@ -126,25 +175,35 @@ def trace_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width: int,
     rad = torch.empty((width * height, 3), dtype=torch.float32, device=dev)
     state_out = torch.empty_like(state)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
+    lanes = torch.zeros(2, dtype=torch.int64, device=dev)
     args = _FrameArgs(
         scene_args(scene, info, dev), scal=ptr(scal, torch.float32, dev),
         state_in=ptr(state, torch.int64, dev),
         state_out=state_out.data_ptr(), rad_out=rad.data_ptr(),
-        rays_out=rays.data_ptr(), width=width, height=height, spp=spp,
+        rays_out=rays.data_ptr(),
+        lanes_out=lanes.data_ptr() if count_lanes else None,
+        width=width, height=height, spp=spp,
         max_bounces=max_bounces, stack_size=stack_size,
         xs_scale=float(np.float32(-cam_size)),
         ys_scale=float(np.float32(height / float(width) * cam_size)),
-        focal_length=focal_length, blur=blur, whitted=int(whitted))
+        focal_length=focal_length, blur=blur, whitted=int(whitted),
+        refill=int(refill))
     err = lib.pt_launch_frame(
         ctypes.byref(args),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"frame kernel launch failed: CUDA error {err}")
-    trace_frame.launches += 1
+    if count_lanes:
+        return rad, state_out, rays, lanes
+    if refill:
+        trace_frame.refill_launches += 1
+    else:
+        trace_frame.launches += 1
     return rad, state_out, rays
 
 
 trace_frame.launches = 0
+trace_frame.refill_launches = 0
 
 
 def render_fused_frame(scene, info, cam_pos, cam_rot, frame_seed: int, ifd,
@@ -154,7 +213,9 @@ def render_fused_frame(scene, info, cam_pos, cam_rot, frame_seed: int, ifd,
                        blur: float = 0.0, whitted: bool = False):
     """One frame through `trace_frame`: per-pixel streams seeded
     index + frame_seed and carried across the samples (frag.glsl:896-913).
-    Returns ((H*W, 3) mean over spp, queries (1,) int64)."""
+    PT0_FUSED_REFILL=1 in the environment selects the refill schedule
+    (fused.py:1965; off by default). Returns ((H*W, 3) mean over spp,
+    queries (1,) int64)."""
     dev = scene.device
     index = torch.arange(width * height, dtype=torch.int64, device=dev)
     state = vrng.seed(index, frame_seed)
@@ -162,5 +223,6 @@ def render_fused_frame(scene, info, cam_pos, cam_rot, frame_seed: int, ifd,
         scene, info, cam_pos, cam_rot, ifd, state, width=width,
         height=height, spp=spp, max_bounces=max_bounces,
         stack_size=stack_size, cam_size=cam_size,
-        focal_length=focal_length, blur=blur, whitted=whitted)
+        focal_length=focal_length, blur=blur, whitted=whitted,
+        refill=os.environ.get("PT0_FUSED_REFILL", "0") == "1")
     return rad / float(spp), rays

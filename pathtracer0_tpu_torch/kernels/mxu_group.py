@@ -20,6 +20,19 @@ their Pallas kernels:
   run_mxu_split3  `_mxu_split3_kernel`: the same with both operands split
                   into bf16 hi and lo parts (`split_bf16`) and the product
                   taken as ch fh + ch fl + cl fh
+  run_prefilter   `_prefilter_kernel`: a bf16 product as a conservative
+                  filter before the scalar slot test. Per group the bf16
+                  product of D, U, V, W and the product of magnitudes
+                  |coef| |features|; a candidate is plausible if its four
+                  could share a sign within MARGIN = 2^-6 of its magnitude
+                  (tools/diag_mxu.py:320-322). The gate's unit is a warp of
+                  GATE_RAYS = 32 consecutive rays (the TPU kernel's was a
+                  block of 1,024): if any candidate of a group is plausible
+                  for any ray of the unit, every ray of it runs run_vpu's
+                  slot test over the group's 56 slots, on re-centred
+                  triangles and origins (kernels/mxu_tri.py). While the
+                  filter is conservative the hits do not depend on the
+                  unit; the count of units that pass does
 
 Rays are flat (R,) tensors for any R; o and d are (x, y, z) tuples. The
 product forms take `precision`: "default" rounds both operands to bf16
@@ -27,11 +40,12 @@ product forms take `precision`: "default" rounds both operands to bf16
 error-compensated three-pass TF32 split). Every function returns (t, u, v,
 idx): t is `t_init` and idx -1 where nothing was hit closer. `reps` repeats
 the whole pass for timing; a repeated pass changes nothing (`mm_only` adds
-again).
+again). `run_prefilter` also returns how many groups each unit passed in
+one pass.
 
 CUDA tensors go through csrc/mxu_group_kernel.cu and nothing else, CPU
 tensors through the plain versions below (`vpu_reference`, `mxu_reference`,
-`mm_only_reference`, `split3_reference`). `launches` counts the kernels'
+`mm_only_reference`, `split3_reference`, `prefilter_reference`). `launches` counts the kernels'
 launches. `mxu_candidates` returns the products themselves, written out by
 a kernel's check-only instantiation, for checks of their accuracy.
 """
@@ -48,9 +62,11 @@ from .wavefront import group_accept
 
 BIG = 1e33
 PRECISIONS = ("highest", "default")
+GATE_RAYS = 32          # run_prefilter: the rays of one gate unit, a warp
+MARGIN = 2.0 ** -6      # tools/diag_mxu.py:253: >= bf16 eps x dot length
 
 launches = {"vpu_kernel": 0, "mxu_kernel": 0, "mxu_big_kernel": 0,
-            "mxu_split3_kernel": 0}
+            "mxu_split3_kernel": 0, "prefilter_kernel": 0}
 
 
 def split_bf16(x):
@@ -127,6 +143,17 @@ def _rounded(x, precision):
     return x
 
 
+def _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups):
+    n_rays = _check_tables(coef, feats, t_init, n_groups)
+    if tris_c.ndim != 2 or tris_c.shape[1] != 9 \
+            or tris_c.shape[0] < n_groups * GROUP_TRIS:
+        raise ValueError(f"tris_c must be (>= {n_groups * GROUP_TRIS}, 9), "
+                         f"not {tuple(tris_c.shape)}")
+    if any(c.shape != (n_rays,) for c in (*o_c, *d)):
+        raise ValueError("o_c, d and t_init must hold one entry per ray")
+    return n_rays
+
+
 def _check_tables(coef, feats, t_init, n_groups):
     if coef.ndim != 3 or tuple(coef.shape[1:]) != (N_CAND, N_FEATURES) \
             or coef.shape[0] < n_groups or n_groups < 1:
@@ -186,6 +213,92 @@ def split3_reference(coef, feats, t_init, *, n_groups, reps):
     return best
 
 
+def _bf16_tables(coef, feats):
+    """Row E's operands as its products see them: bf16 coef and |coef|,
+    bf16 features and |features|, all back in float32. |coef| |features|
+    is the sum of magnitudes, which bounds the rounding error of the
+    product of rounded operands."""
+    return [_rounded(x, "default") for x in (
+        coef, coef.abs(), feats, feats.abs())]
+
+
+def _plausible(out, mag):
+    """Row E's sign test with margin, (56, R) bool, of one group's bf16
+    products `out` and magnitudes `mag` (256, R): D, U, V, W could share a
+    sign within MARGIN of their magnitudes."""
+    D, U, V, W = (out[q * QUANT_PAD:q * QUANT_PAD + GROUP_TRIS]
+                  for q in range(4))
+    mD, mU, mV, mW = (mag[q * QUANT_PAD:q * QUANT_PAD + GROUP_TRIS] * MARGIN
+                      for q in range(4))
+    pos = (D > -mD) & (U > -mU) & (V > -mV) & (W > -mW)
+    neg = (D < mD) & (U < mU) & (V < mV) & (W < mW)
+    return pos | neg
+
+
+def prefilter_reference(coef, tris_c, feats, o_c, d, t_init, *, n_groups,
+                        reps):
+    """Plain version of `prefilter_kernel`: per group the gate of each unit
+    of GATE_RAYS rays from float32 products of the bf16-rounded operands,
+    then `vpu_reference`'s accept loop for the rays of the units that
+    passed. Returns (t, u, v, idx, passed): passed (n_units,) int32, the
+    groups each unit passed in one pass."""
+    n_rays = _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
+    ch, ca, fh, fa = _bf16_tables(coef, feats)
+    dev = t_init.device
+    n_units = -(-n_rays // GATE_RAYS)
+    best = [t_init.clone(), torch.ones_like(t_init), torch.zeros_like(t_init),
+            torch.zeros_like(t_init),
+            torch.full(t_init.shape, -1, dtype=torch.int32, device=dev),
+            t_init.clone()]
+    lanes = torch.arange(GROUP_TRIS, dtype=torch.int32, device=dev)
+    passed = torch.zeros(n_units, dtype=torch.int32, device=dev)
+    cand = 4 * QUANT_PAD
+    for rep in range(reps):
+        for g in range(n_groups):
+            plaus = _plausible(ch[g, :cand] @ fh, ca[g, :cand] @ fa).any(0)
+            unit = torch.zeros(n_units * GATE_RAYS, dtype=torch.bool,
+                               device=dev)
+            unit[:n_rays] = plaus
+            unit = unit.view(n_units, GATE_RAYS).any(1)
+            if rep == 0:
+                passed += unit.to(torch.int32)
+            sel = unit.repeat_interleave(GATE_RAYS)[:n_rays].nonzero()[:, 0]
+            if sel.numel() == 0:
+                continue
+            sub = group_accept(
+                tuple(c[sel] for c in o_c), tuple(c[sel] for c in d),
+                tris_c[g * GROUP_TRIS:(g + 1) * GROUP_TRIS],
+                g * GROUP_TRIS + lanes, [b[sel] for b in best])
+            for b, x in zip(best, sub):
+                b[sel] = x
+    t, td, u, v, idx, _ = best
+    inv = 1.0 / td
+    return t * inv, u * inv, v * inv, idx, passed
+
+
+def prefilter_margin(coef, feats, idx):
+    """How much of row E's margin the hits `idx` (R,) needed: for each ray
+    that hits, with X the bf16 products (float64 sums of the rounded
+    operands) of D, U, V, W of its triangle and m = MARGIN |coef| |feats|,
+    the larger of min (X + m) / m and min (m - X) / m over the four; the
+    least over the hits (inf if none). A hit passes the filter while this
+    is > 0; 1 or more means it needed no margin."""
+    hit = (idx >= 0).nonzero()[:, 0]
+    if hit.numel() == 0:
+        return float("inf")
+    g = (idx[hit] // GROUP_TRIS).long()
+    j = (idx[hit] % GROUP_TRIS).long()
+    ch, ca, fh, fa = (x.double() for x in _bf16_tables(coef, feats))
+    f, fm = fh[:, hit].T, fa[:, hit].T
+    x = torch.stack([(ch[g, q * QUANT_PAD + j] * f).sum(-1)
+                     for q in range(4)])
+    m = torch.stack([(ca[g, q * QUANT_PAD + j] * fm).sum(-1)
+                     for q in range(4)]) * MARGIN
+    pos = ((x + m) / m).amin(0)
+    neg = ((m - x) / m).amin(0)
+    return float(torch.maximum(pos, neg).min())
+
+
 def candidates_reference(coef, feats, *, n_groups, precision="default"):
     """Plain version of `mxu_candidates`: (n_groups, 320, R) float32.
     `precision` may also be "split3"."""
@@ -213,6 +326,15 @@ class _MxuArgs(ctypes.Structure):
         "coef", "ch", "cl", "feats", "fh", "fl", "t_init", "t", "u", "v",
         "idx", "cand")] + [(n, ctypes.c_int) for n in (
             "n_rays", "n_groups", "reps", "mm_only")]
+
+
+class _PrefilterArgs(ctypes.Structure):
+    """csrc/mxu_group_kernel.cu `PrefilterArgs`, field for field."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "ch", "ca", "feats", "tris", "ox", "oy", "oz", "dx", "dy", "dz",
+        "t_init", "t", "u", "v", "idx", "passed")] + [
+        (n, ctypes.c_int) for n in ("n_rays", "n_groups", "reps")]
 
 
 def _on_card(t_init) -> bool:
@@ -330,6 +452,35 @@ def run_mxu_split3(coef, feats, t_init, *, n_groups, reps):
     return _run_product("mxu_split3_kernel", "pt_launch_mxu_split3", coef,
                         feats, t_init, n_groups, reps,
                         precision="split3")[0]
+
+
+def run_prefilter(coef, tris_c, feats, o_c, d, t_init, *, n_groups, reps):
+    """Row E: the bf16 gate, then the scalar slot test for the units that
+    pass. `coef` (n_groups, 320, 16) and `feats` (16, R) as for run_mxu;
+    `tris_c` and `o_c` re-centred by the table's centre
+    (mxu_tri.recentre_tris, recentre_origins). Returns (t, u, v, idx,
+    passed) as `prefilter_reference`."""
+    n_rays = _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
+    if not _on_card(t_init):
+        return prefilter_reference(coef, tris_c, feats, o_c, d, t_init,
+                                   n_groups=n_groups, reps=reps)
+    dev, f32 = t_init.device, torch.float32
+    build.ptr(coef, f32, dev)
+    # the tables and copies live until after the launch
+    keep = [coef.to(torch.bfloat16),
+            coef.abs().to(torch.bfloat16),
+            feats.contiguous(), tris_c.contiguous(),
+            *(c.contiguous() for c in (*o_c, *d, t_init))]
+    out = _outputs(n_rays, dev)
+    passed = torch.empty(-(-n_rays // GATE_RAYS), dtype=torch.int32,
+                         device=dev)
+    args = _PrefilterArgs(
+        *(build.ptr(x, torch.bfloat16, dev) for x in keep[:2]),
+        *(build.ptr(x, f32, dev) for x in keep[2:]),
+        *(x.data_ptr() for x in (*out, passed)),
+        n_rays=n_rays, n_groups=n_groups, reps=reps)
+    _launch("prefilter_kernel", "pt_launch_prefilter", args, (), dev)
+    return (*out, passed)
 
 
 def mxu_candidates(coef, feats, *, n_groups, precision="default",

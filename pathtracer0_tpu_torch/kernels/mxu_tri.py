@@ -134,6 +134,23 @@ def coef_table(tris: torch.Tensor, center) -> torch.Tensor:
     return out.reshape(n_groups, N_CAND, N_FEATURES)
 
 
+def recentre_tris(tris, center):
+    """`tris` (slots, 9) float32 with v1 moved by -`center`, the frame the
+    features and the coefficient table use: what row E's scalar test reads
+    (tools/diag_mxu.py:646-650). Empty slots move too; their zero edges
+    still fail the test."""
+    out = tris.clone()
+    out[:, 0:3] -= torch.as_tensor(center, dtype=tris.dtype,
+                                   device=tris.device)
+    return out
+
+
+def recentre_origins(o, center):
+    """Ray origins o ((x, y, z) of (R,) tensors) moved by -`center`, as
+    `ray_features` moves them."""
+    return tuple(o[i] - float(center[i]) for i in range(3))
+
+
 def jax_layout(coef):
     """The table (n_groups, 320, 16), NumPy or torch, as the JAX package
     lays it out: (n_groups * 16, 320), group g in rows [16 g, 16 g + 16)."""

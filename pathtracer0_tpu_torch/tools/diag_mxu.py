@@ -1,7 +1,7 @@
 """Microbenchmark: the scalar slot test against the group test as a matrix
 product on the tensor cores.
 
-Counterpart of the JAX package's tools/diag_mxu.py, rows A to D. Four
+Counterpart of the JAX package's tools/diag_mxu.py, rows A to E. Five
 kernels with the same meaning, the closest hit of a batch of rays against
 G groups of 56 leaf-packed triangles (kernels/mxu_group.py):
 
@@ -13,11 +13,18 @@ G groups of 56 leaf-packed triangles (kernels/mxu_group.py):
                   shared memory before the test; also `mm_only`, the product
                   alone
   D  mxu split3   C with the manual three-pass bf16 split
+  E  prefilter    a bf16 product and its magnitudes as a conservative
+                  filter per warp of 32 rays, then A's slot test on
+                  re-centred inputs for the warps that pass
 
 For each row: microseconds per group and 1,024 rays, by the difference of
 a launch of 4 x reps and one of reps passes (CUDA events; launch, prologue
 and epilogue cancel), and against row A the share of rays that hit, the
-share whose idx differs and the largest |dt| where both hit.
+share whose idx differs and the largest |dt| where both hit. Row E also
+gives the share of (warp, group) pairs that passed its gate, the hits of A
+it lost (the filter must lose none) and how much of its margin A's hits
+needed (`mxu_group.prefilter_margin`: above 0 passes, 1 or more needed
+none).
 
 Run:  python -m pathtracer0_tpu_torch.tools.diag_mxu [n_groups] [reps]
                                     [--n-blocks 16] [--device cpu]
@@ -103,7 +110,7 @@ def _event_ms(fn):
 
 def main(n_groups=32, reps=64, *, n_blocks=16, device=None, data=None,
          out=print):
-    """Run rows A to D and return them as a list of dicts. `data`, if
+    """Run rows A to E and return them as a list of dicts. `data`, if
     given, replaces `synthetic(n_groups, n_blocks)`: a dict of `tris`
     (>= 56 n_groups, 9), `o`, `d` ((x, y, z) tuples of (R,) tensors) and
     `center`, on one device."""
@@ -118,7 +125,7 @@ def main(n_groups=32, reps=64, *, n_blocks=16, device=None, data=None,
     t_init = torch.full((n_rays,), T_INIT, dtype=torch.float32, device=dev)
     rows = []
 
-    def bench(label, fn, check_against=None, hits=True):
+    def bench(label, fn, check_against=None, hits=True, more=None):
         row = {"row": label, "n_groups": n_groups, "rays": n_rays,
                "reps": reps, "device": str(dev),
                "us_per_group_1024_rays": None}
@@ -141,6 +148,8 @@ def main(n_groups=32, reps=64, *, n_blocks=16, device=None, data=None,
                 idx_mismatch=float((ia != ib).float().mean()),
                 max_abs_dt=float((ta - tb).abs()[both].max())
                 if bool(both.any()) else 0.0)
+        if more is not None:
+            row.update(more(result))
         rows.append(row)
         out(json.dumps(row))
         return result
@@ -160,6 +169,21 @@ def main(n_groups=32, reps=64, *, n_blocks=16, device=None, data=None,
     bench("D mxu split3 (manual bf16 x 3)",
           lambda r: mxu_group.run_mxu_split3(coef, feats, t_init, reps=r,
                                              **kw), a)
+    # E reads the triangles and origins in the frame the features use
+    tris_c = mxu_tri.recentre_tris(tris[:n_groups * mxu_tri.GROUP_TRIS],
+                                   center)
+    o_c = mxu_tri.recentre_origins(o, center)
+
+    def gate(result):
+        passed = result[4]
+        return {"gate_pass_share": float(passed.sum())
+                / (passed.numel() * n_groups),
+                "hits_of_a_lost": int(((a[3] >= 0) & (result[3] < 0)).sum()),
+                "margin_ratio": mxu_group.prefilter_margin(coef, feats,
+                                                           a[3])}
+
+    bench("E bf16 prefilter + vpu", lambda r: mxu_group.run_prefilter(
+        coef, tris_c, feats, o_c, d, t_init, reps=r, **kw), a, more=gate)
     return rows
 
 

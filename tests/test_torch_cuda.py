@@ -1,7 +1,8 @@
-"""Card-only tests of the port: each CUDA kernel (frame, block, brute,
-traverse, streamed, the four of the group-test diagnostic) against its
-plain PyTorch version, the diagnostic end to end, the renderer's
-routes through the kernels, and the native LBVH builder built there.
+"""Card-only tests of the port: each CUDA kernel (frame in both schedules,
+block, brute, traverse, streamed, the five of the group-test diagnostic,
+the small-K product probe) against its plain PyTorch version, the
+diagnostic and the probe end to end, the renderer's routes through the
+kernels, and the native LBVH builder built there.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -555,7 +556,7 @@ def test_group_kernels_match_plain_on_card(n_rays, aimed):
     torch.cuda.synchronize()
     got = {k: mxu_group.launches[k] - before[k] for k in before}
     assert got == {"vpu_kernel": 1, "mxu_kernel": 2, "mxu_big_kernel": 4,
-                   "mxu_split3_kernel": 1}
+                   "mxu_split3_kernel": 1, "prefilter_kernel": 0}
 
 
 @pytest.mark.cuda
@@ -633,8 +634,167 @@ def test_diag_tool_on_card():
 
     before = dict(mxu_group.launches)
     rows = diag_mxu.main(4, 8, n_blocks=4, out=lambda line: None)
-    assert [r["row"][0] for r in rows] == list("ABCCBCCD")
+    assert [r["row"][0] for r in rows] == list("ABCCBCCDE")
     assert all(r["us_per_group_1024_rays"] > 0.0 for r in rows)
     assert all(mxu_group.launches[k] > before[k] for k in before)
     by = {r["row"]: r for r in rows}
     assert by["B mxu rows (highest)"]["idx_mismatch"] < 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_refill_matches_plain_and_default_on_card(n):
+    """The refill schedule: against the plain version at 2 spp to the
+    kernel-parity limits; against the default schedule at 16 spp the same
+    bits (state and radiance equal on >= 99.9% of pixels, queries equal);
+    the counting instantiations of both schedules count every query once
+    and render the same frame."""
+    _card()
+    sc, info = scenes.BUILDERS[n]().build(device="cuda")
+    cam, rot = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in scenes.CAMERAS[n])
+    state = trng.seed(torch.arange(W * H, device="cuda"), SEED)
+    ifd = torch.tensor(IFD, device="cuda")
+    kw = dict(width=W, height=H, max_bounces=6, blur=BLUR)
+    before = (tframe.trace_frame.launches, tframe.trace_frame.refill_launches)
+    rk, sk, qk = tframe.trace_frame(sc, info, cam, rot, ifd, state, spp=SPP,
+                                    refill=True, **kw)
+    assert (tframe.trace_frame.launches,
+            tframe.trace_frame.refill_launches) == (before[0], before[1] + 1)
+    rp, sp, qp = tframe.trace_frame_reference(sc, info, cam, rot, ifd,
+                                              state, spp=SPP, **kw)
+    diff = (rk - rp).abs().max(dim=-1).values
+    assert bool(torch.isfinite(rk).all())
+    assert float((sk == sp).float().mean()) >= 0.99
+    assert float((diff < 1e-4).float().mean()) >= 0.99
+    assert float((rk - rp).abs().mean()) < 5e-3
+    assert abs(int(qk) - int(qp)) <= 0.01 * int(qp) + 16
+    r16 = tframe.trace_frame(sc, info, cam, rot, ifd, state, spp=16,
+                             refill=True, **kw)
+    d16 = tframe.trace_frame(sc, info, cam, rot, ifd, state, spp=16, **kw)
+    assert float((r16[0] == d16[0]).all(-1).float().mean()) >= 0.999
+    assert float((r16[1] == d16[1]).float().mean()) >= 0.999
+    assert int(r16[2]) == int(d16[2])
+    use = {}
+    for refill in (False, True):
+        out = tframe.lane_use(sc, info, cam, rot, ifd, state, spp=16,
+                              refill=refill, **kw)
+        used, steps = out[3].tolist()
+        assert used == int(d16[2])
+        assert float((out[0] == d16[0]).all(-1).float().mean()) >= 0.999
+        use[refill] = used / (32.0 * steps)
+    assert 0.0 < use[False] <= use[True] <= 1.0
+
+
+@pytest.mark.cuda
+def test_renderer_takes_refill_on_card(monkeypatch):
+    """PT0_FUSED_REFILL=1 sends Renderer's frames through the refill
+    schedule; Whitted frames and one-sample frames keep the default."""
+    _card()
+    monkeypatch.setenv("PT0_FUSED_REFILL", "1")
+    cam, rot = scenes.CAMERAS[6]
+    sc, info = scenes.BUILDERS[6]().build()
+    for spp, raytracing, refilled in ((2, True, 3), (1, True, 0),
+                                      (2, False, 0)):
+        r = Renderer(sc, info, RenderConfig(width=W, height=H,
+                                            samples_per_frame=spp,
+                                            raytracing=raytracing),
+                     cam_pos=cam, cam_rot=rot)
+        before = (tframe.trace_frame.launches,
+                  tframe.trace_frame.refill_launches)
+        img = r.render(3)
+        assert (tframe.trace_frame.launches - before[0],
+                tframe.trace_frame.refill_launches - before[1]) \
+            == (3 - refilled, refilled)
+        assert bool(torch.isfinite(img).all())
+
+
+def _prefilter_inputs(n_groups, n_rays, aimed):
+    from pathtracer0_tpu_torch.kernels import mxu_tri
+
+    tris, o, d, coef, feats, t_init = _group_inputs(n_groups, n_rays, aimed)
+    return (tris, o, d, coef, feats, t_init,
+            mxu_tri.recentre_tris(tris, (150.0, 150.0, 150.0)),
+            mxu_tri.recentre_origins(o, (150.0, 150.0, 150.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays, aimed", [(16384, False), (1000, False),
+                                           (16384, True), (1000, True)])
+def test_prefilter_matches_plain_on_card(n_rays, aimed):
+    """Row E against its plain version: idx equal on >= 99.9% of the rays
+    that hit in either, t, u, v within 1e-5 where idx agrees, the groups
+    each warp passed equal on >= 99.9% of the warps; and no hit of row A
+    lost."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    tris, o, d, coef, feats, t_init, tris_c, o_c = _prefilter_inputs(
+        4, n_rays, aimed)
+    kw = dict(n_groups=4, reps=1)
+    before = mxu_group.launches["prefilter_kernel"]
+    e_k = mxu_group.run_prefilter(coef, tris_c, feats, o_c, d, t_init, **kw)
+    assert mxu_group.launches["prefilter_kernel"] == before + 1
+    e_p = mxu_group.prefilter_reference(coef, tris_c, feats, o_c, d, t_init,
+                                        **kw)
+    same = e_k[3] == e_p[3]
+    assert _hits_idx_eq(e_k, e_p) >= 0.999
+    for x, y in zip(e_k[:3], e_p[:3]):
+        assert float((x - y).abs()[same].max()) <= 1e-5
+    assert e_k[4].shape == (-(-n_rays // 32),)
+    assert float((e_k[4] == e_p[4]).float().mean()) >= 0.999
+    a = mxu_group.run_vpu(tris, o, d, t_init, **kw)
+    assert not bool(((a[3] >= 0) & (e_k[3] < 0)).any())
+    assert mxu_group.prefilter_margin(coef, feats, a[3]) > 0.0
+    # three passes find what one found; the gate counts one pass
+    e3 = mxu_group.run_prefilter(coef, tris_c, feats, o_c, d, t_init,
+                                 n_groups=4, reps=3)
+    for x, y in zip(e_k, e3):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_mm_probe_matches_plain_on_card(case):
+    """mm_probe_kernel against its plain version, each case of the tool, at
+    1,000 columns (no multiple of a block's 64) and 8 reps: within 2^-20 of
+    the sum of magnitudes |a| |b|."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mm_probe
+    from pathtracer0_tpu_torch.tools import diag_mxu_mm
+
+    form, precision, dtype = diag_mxu_mm.cases()[case]
+    ops = diag_mxu_mm.operands(1000, "cuda")
+    a, b = ops[form.split("_")[0]].to(dtype), ops["b"].to(dtype)
+    kw = dict(reps=8, form=form, precision=precision)
+    before = mm_probe.launches["mm_probe_kernel"]
+    got = mm_probe.run(a, b, **kw)
+    assert mm_probe.launches["mm_probe_kernel"] == before + 1
+    want = mm_probe.mm_probe_reference(a, b, **kw)
+    mag = mm_probe.magnitudes(a, b, reps=8, form=form)
+    assert got.shape == (8, 1000) and got.dtype == torch.float32
+    assert bool(((got.double() - want.double()).abs()
+                 <= 2.0 ** -20 * mag).all())
+    assert torch.equal(mm_probe.run(a, b, reps=0, form=form,
+                                    precision=precision),
+                       torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_probe_tool_on_card():
+    """The probe end to end at a small size: every case timed by the 4 x
+    reps against reps difference, and the library's two rows."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mm_probe
+    from pathtracer0_tpu_torch.tools import diag_mxu_mm
+
+    before = mm_probe.launches["mm_probe_kernel"]
+    rows = diag_mxu_mm.main(1024, 16, out=lambda line: None)
+    assert len(rows) == len(diag_mxu_mm.cases()) + 2
+    assert all(r["us_per_product"] > 0.0 for r in rows)
+    assert mm_probe.launches["mm_probe_kernel"] > before
+    with pytest.raises(ValueError, match="bf16"):
+        mm_probe.run(*(x.to(torch.bfloat16) for x in (
+            diag_mxu_mm.operands(64, "cuda")["std"],
+            diag_mxu_mm.operands(64, "cuda")["b"])), reps=1, form="std_fix",
+            precision="highest")

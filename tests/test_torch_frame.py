@@ -144,3 +144,62 @@ def test_cpu_wrapper_uses_plain_version():
     with pytest.raises(ValueError):
         tframe.trace_frame(sc, info, cam, rot, torch.tensor(IFD),
                            state.to("meta"), **kw)
+
+
+RW, RH, RSPP = 32, 16, 4
+
+
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_refill_frame_matches_jax_refill(n, monkeypatch):
+    """PT0_FUSED_REFILL=1 on both sides: the port's Renderer (its frame
+    path, on the CPU the plain version, whose function the refill schedule
+    does not change) against the JAX frame through the refill schedule of
+    the Pallas kernel in interpret mode, with depth of field on, at the
+    module's tolerances."""
+    from pathtracer0_tpu_torch import RenderConfig, Renderer
+
+    monkeypatch.setenv("PT0_FUSED_REFILL", "1")
+    dev, info, sc, pinfo = _pair(n)
+    cam, rot = jscenes.CAMERAS[n]
+    col_j, rays_j = fused.render_fused_frame(
+        dev, info, TraceParams(max_bounces=BOUNCES),
+        jnp.asarray(cam, jnp.float32), jnp.asarray(rot, jnp.float32), SEED,
+        jnp.float32(IFD), width=RW, height=RH, spp=RSPP, cam_size=1.5,
+        focal_length=1.0, blur=BLUR, interpret=True)
+    cfg = RenderConfig(width=RW, height=RH, samples_per_frame=RSPP,
+                       max_bounces=BOUNCES, blur=BLUR, auto_focus=False,
+                       focal_distance=IFD)
+    before = (tframe.trace_frame.launches, tframe.trace_frame.refill_launches)
+    r = Renderer(sc, pinfo, cfg, cam_pos=cam, cam_rot=rot, device="cpu")
+    img = r.step(frame_seed=SEED)
+    assert (tframe.trace_frame.launches,
+            tframe.trace_frame.refill_launches) == before
+    a, b = np.asarray(col_j), img.reshape(-1, 3).numpy()
+    assert np.isfinite(b).all()
+    diff = np.abs(a - b).max(axis=-1)
+    assert (diff < 1e-4).mean() >= 0.99, diff.max()
+    assert np.abs(a - b).mean() < 5e-3
+    assert abs(float(rays_j) - r.rays_traced) <= 0.01 * float(rays_j) + 16
+
+
+@pytest.mark.parametrize("whitted, spp, taken", [
+    (False, 4, True), (False, 2, True), (False, 1, False), (True, 4, False)])
+def test_refill_only_in_path_mode_from_two_samples(whitted, spp, taken,
+                                                   monkeypatch):
+    """As fused.py:1772-1774: refill in path mode with two samples or more,
+    ignored in Whitted mode and at one sample, where the frame is the
+    default schedule's whatever PT0_FUSED_REFILL says."""
+    assert tframe.use_refill(True, whitted, spp) is taken
+    assert tframe.use_refill(False, whitted, spp) is False
+    sc, info = tscenes.BUILDERS[2]().build(device="cpu")
+    cam, rot = (torch.tensor(v, dtype=torch.float32)
+                for v in tscenes.CAMERAS[2])
+    kw = dict(width=8, height=6, spp=spp, max_bounces=3, blur=BLUR,
+              whitted=whitted)
+    frames = []
+    for env in ("0", "1"):
+        monkeypatch.setenv("PT0_FUSED_REFILL", env)
+        frames.append(tframe.render_fused_frame(
+            sc, info, cam, rot, 3, torch.tensor(IFD), **kw))
+    for x, y in zip(*frames):
+        assert torch.equal(x, y)

@@ -94,12 +94,25 @@ def test_native_morton_matches_numpy_and_jax(t):
     _assert_same_forest(nat, jlbvh._build_streamed_numpy(*v))
 
 
+def _jax_native_available(monkeypatch) -> bool:
+    """The JAX package's native builder, loaded. Its loader compiles into
+    one shared path with no temporary file, so a process that loaded the
+    library while another was still writing it caches the failure; by the
+    time this test runs the library is whole, so one more try after
+    clearing that cache (in this test only) tells a failed build from the
+    race."""
+    if jnative.available():
+        return True
+    monkeypatch.setattr(jnative, "_LIB_FAILED", False)
+    return jnative.available()
+
+
 @pytest.mark.parametrize("t", SIZES)
-def test_native_median_matches_jax_native(t):
+def test_native_median_matches_jax_native(t, monkeypatch):
     """Mode 1, the default order: the port's copy of the builder against
     the JAX package's native/streambuild.cpp."""
     _need_gxx()
-    if not jnative.available():
+    if not _jax_native_available(monkeypatch):
         pytest.skip("the JAX package's native builder did not build")
     v = _soup(t, seed=t + 2)
     ref = jnative.build_streamed(

@@ -87,7 +87,13 @@ def _to_jax(case):
     tris128 = np.zeros((rows, 128), np.float32)
     tris128[:, :126] = tris.reshape(rows, 126)
     o3, d3 = case["o"].T.copy(), case["d"].T.copy()
-    return {"tris": tris128, "o3": o3, "d3": d3,
+    # row E's inputs, re-centred as the JAX tool does (:646-650)
+    center = np.asarray(CENTER, np.float32)
+    tris_c = tris128.copy()
+    for j in range(14):
+        tris_c[:, 9 * j:9 * j + 3] -= center[None, :]
+    return {"tris": tris128, "o3": o3, "d3": d3, "tris_c": tris_c,
+            "o_bc": (o3 - center[:, None]).reshape(3, n // 128, 128),
             "o_b": o3.reshape(3, n // 128, 128),
             "d_b": d3.reshape(3, n // 128, 128),
             "t_b": case["t_init"].reshape(n // 128, 128),
@@ -151,6 +157,8 @@ def jax_runs(jtool):
             "C mm_only": jtool.run_mxu_big(coef, feats, zero_b1, prec=highest,
                                            mm_only=True, **kw),
             "D": jtool.run_mxu_split3(coef, feats, j["t_b1"], **kw),
+            "E": jtool.run_prefilter(coef, j["tris_c"], feats, j["o_bc"],
+                                     j["d_b"], j["t_b"], **kw),
         }.items()}
         runs[name]["coef"], runs[name]["feats"] = coef, feats
     return runs
@@ -397,7 +405,8 @@ def test_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="56"):
         mxu_tri.coef_table_np(tris.numpy()[:100], CENTER)
     assert set(mxu_group.launches) == {"vpu_kernel", "mxu_kernel",
-                                       "mxu_big_kernel", "mxu_split3_kernel"}
+                                       "mxu_big_kernel", "mxu_split3_kernel",
+                                       "prefilter_kernel"}
 
 
 def test_tool_end_to_end_against_jax_rows(jax_runs, capsys):
@@ -405,9 +414,9 @@ def test_tool_end_to_end_against_jax_rows(jax_runs, capsys):
     the JAX tool's rows, computed from its launchers as its `check` does."""
     rows = diag_mxu.main(N_GROUPS, 1, n_blocks=1, device="cpu")
     printed = capsys.readouterr().out.strip().splitlines()
-    assert len(printed) == len(rows) == 8
+    assert len(printed) == len(rows) == 9
     by = {r["row"]: r for r in rows}
-    assert [r["row"][0] for r in rows] == list("ABCCBCCD")
+    assert [r["row"][0] for r in rows] == list("ABCCBCCDE")
     assert all(r["us_per_group_1024_rays"] is None and r["device"] == "cpu"
                for r in rows)                 # no time is measured on the CPU
     j = jax_runs["tool"]
@@ -417,7 +426,8 @@ def test_tool_end_to_end_against_jax_rows(jax_runs, capsys):
              "B mxu rows (default)": "B default",
              "C mxu big (highest)": "C highest",
              "C mxu big (default)": "C default",
-             "D mxu split3 (manual bf16 x 3)": "D"}
+             "D mxu split3 (manual bf16 x 3)": "D",
+             "E bf16 prefilter + vpu": "E"}
     for label, key in pairs.items():
         row, (tb, _, _, ib) = by[label], j[key]
         assert row["hits_a"] == float((ia >= 0).mean())
@@ -426,6 +436,9 @@ def test_tool_end_to_end_against_jax_rows(jax_runs, capsys):
         want_dt = float(np.abs(ta - tb)[both].max()) if both.any() else 0.0
         assert abs(row["max_abs_dt"] - want_dt) <= 1e-4 * (1.0 + want_dt)
     assert "hits" not in by["C mxu big mm-only (default)"]
+    e = by["E bf16 prefilter + vpu"]
+    assert e["hits_of_a_lost"] == 0 and e["margin_ratio"] > 0.0
+    assert 0.0 < e["gate_pass_share"] <= 1.0
 
 
 def test_tool_needs_the_card_unless_asked_for_the_cpu():
@@ -433,3 +446,105 @@ def test_tool_needs_the_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         diag_mxu.main(1, 1, n_blocks=1)
+
+
+def _prefilter_inputs(case):
+    """Row E's inputs of the port: the tables, then the triangles and
+    origins re-centred by the table's centre."""
+    tris, o, d, _ = _torch_inputs(case)
+    coef, feats, t_init = _tables(case)
+    return (coef, mxu_tri.recentre_tris(tris, CENTER), feats,
+            mxu_tri.recentre_origins(o, CENTER), d, t_init)
+
+
+def test_recentred_inputs_match_jax_tool():
+    """The re-centred triangles and origins bit-equal to the JAX tool's
+    (tools/diag_mxu.py:646-650)."""
+    case = _case("edge")
+    j = _to_jax(case)
+    _, tris_c, _, o_c, _, _ = _prefilter_inputs(case)
+    rows = tris_c.shape[0] // 14
+    assert np.array_equal(tris_c.numpy().reshape(rows, 126),
+                          j["tris_c"][:, :126])
+    assert np.array_equal(torch.stack(o_c).numpy(),
+                          j["o_bc"].reshape(3, -1))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_prefilter_reference_against_jax_kernel(name, jax_runs):
+    """Row E: the port (on the CPU its plain version, gate unit 32 rays)
+    against the JAX `_prefilter_kernel` (gate unit 1,024 rays): while the
+    filter is conservative both find every hit of the scalar test on the
+    re-centred inputs, so idx is equal and t, u, v within 1e-4 (1 + t)."""
+    before = dict(mxu_group.launches)
+    got = mxu_group.run_prefilter(*_prefilter_inputs(_case(name)),
+                                  n_groups=N_GROUPS, reps=1)
+    assert mxu_group.launches == before       # CPU tensors: the plain version
+    assert len(got) == 5 and got[4].shape == (N_RAYS // 32,)
+    assert got[4].dtype == torch.int32
+    assert bool((got[4] >= 0).all() and (got[4] <= N_GROUPS).all())
+    hits = _agree([x.numpy() for x in got[:4]], jax_runs[name]["E"], 0.999,
+                  1e-4, uv=1e-4)
+    assert hits > (0.4 if name != "tool" else 0.0)
+    if name == "edge":      # the all-padding group passes no gate
+        assert int(got[4].max()) <= 1
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_prefilter_loses_no_hit_of_the_scalar_test(name):
+    """Every ray that row A (run_vpu) finds a hit for, row E finds one for
+    too, at the triangle A found on >= 99.9% of them; the margin its hits
+    needed stays above 0 (the filter is conservative); three passes find
+    what one found, and the gate counts one pass."""
+    case = _case(name)
+    tris, o, d, t_init = _torch_inputs(case)
+    a = mxu_group.run_vpu(tris, o, d, t_init, n_groups=N_GROUPS, reps=1)
+    args = _prefilter_inputs(case)
+    e = mxu_group.run_prefilter(*args, n_groups=N_GROUPS, reps=1)
+    assert not bool(((a[3] >= 0) & (e[3] < 0)).any())
+    assert float((a[3] == e[3]).float().mean()) >= 0.999
+    coef, _, feats = args[:3]
+    assert mxu_group.prefilter_margin(coef, feats, a[3]) > 0.0
+    for x, y in zip(e, mxu_group.run_prefilter(*args, n_groups=N_GROUPS,
+                                               reps=3)):
+        assert torch.equal(x, y)
+
+
+def test_prefilter_gate_unit_is_a_warp():
+    """The gate passes a unit of 32 rays if any of its rays has a plausible
+    candidate: rays of a unit that passes are tested even where they alone
+    would not pass, and a closer start (t_init) prunes as in row A."""
+    coef, tris_c, feats, o_c, d, t_init = _prefilter_inputs(_case("aimed"))
+    ch, ca, fh, fa = mxu_group._bf16_tables(coef, feats)
+    want = torch.zeros(N_RAYS // 32, dtype=torch.int32)
+    for g in range(N_GROUPS):
+        plaus = mxu_group._plausible(ch[g, :256] @ fh, ca[g, :256] @ fa)
+        want += plaus.any(0).view(-1, 32).any(1).to(torch.int32)
+    e = mxu_group.run_prefilter(coef, tris_c, feats, o_c, d, t_init,
+                                n_groups=N_GROUPS, reps=1)
+    assert torch.equal(e[4], want)
+    short = torch.where(e[3] >= 0, e[0] * 0.5, t_init)
+    cut = mxu_group.run_prefilter(coef, tris_c, feats, o_c, d, short,
+                                  n_groups=N_GROUPS, reps=1)
+    assert bool((cut[3][e[3] >= 0] == -1).all())
+    assert torch.equal(cut[4], e[4])        # the gate reads no t
+
+
+def test_prefilter_refuses_what_it_does_not_take():
+    coef, tris_c, feats, o_c, d, t_init = _prefilter_inputs(_case("tool"))
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    with pytest.raises(ValueError, match="tris_c"):
+        mxu_group.run_prefilter(coef, tris_c[:100], feats, o_c, d, t_init,
+                                **kw)
+    with pytest.raises(ValueError, match="per ray"):
+        mxu_group.run_prefilter(coef, tris_c, feats, (o_c[0][:-1], *o_c[1:]),
+                                d, t_init, **kw)
+    with pytest.raises(ValueError, match="coef"):
+        mxu_group.run_prefilter(coef[:1], tris_c, feats, o_c, d, t_init,
+                                **kw)
+    with pytest.raises(ValueError, match="feats"):
+        mxu_group.run_prefilter(coef, tris_c, feats[:, :-1], o_c, d, t_init,
+                                **kw)
+    with pytest.raises(ValueError, match="no group-test kernel"):
+        mxu_group.run_prefilter(coef, tris_c, feats, o_c, d,
+                                t_init.to("meta"), **kw)

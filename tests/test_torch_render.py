@@ -133,8 +133,10 @@ def test_import_boundary():
         "from pathtracer0_tpu_torch.scene import packing, objparse\n"
         "from pathtracer0_tpu_torch.render import integrator, renderer\n"
         "from pathtracer0_tpu_torch.kernels import mxu_group, mxu_tri\n"
-        "from pathtracer0_tpu_torch.tools import diag_mxu\n"
+        "from pathtracer0_tpu_torch.kernels import mm_probe\n"
+        "from pathtracer0_tpu_torch.tools import diag_mxu, diag_mxu_mm\n"
         "diag_mxu.main(1, 1, n_blocks=1, device='cpu', out=lambda s: None)\n"
+        "diag_mxu_mm.main(8, 1, device='cpu', out=lambda s: None)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')]\n"

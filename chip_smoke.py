@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pathtracer0_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--parent LABEL=DIR ...]
 
 Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
@@ -11,7 +11,10 @@ non-zero:
                    together; each kernel instantiation's registers and
                    spills
   2. kernels       each kernel against its plain PyTorch version on the
-                   card, with kernel, plain and bound times:
+                   card, with kernel, plain and bound times (the render
+                   kernels' `ms` is the time of their launches alone, 20
+                   back to back between CUDA events, `wrapper_ms` the
+                   CUDA-event time of calls of their Python wrappers):
                    frame_kernel for configs 1 (Whitted), 2, 4 and 6 at
                    320x240, 2 spp, 6 bounces, and at 800x600: there
                    checked at 2 spp, then timed and checked again (looser,
@@ -47,7 +50,11 @@ non-zero:
                    warp's lanes a bounce step keeps busy in either schedule
                    (check-only counting instantiations);
                    mm_probe_kernel, every form and precision, at the
-                   probe's N = 1,024 and at 480,000
+                   probe's N = 1,024 and at 480,000;
+                   `phases`: the share of a warp's cycles that each part of
+                   a scene query takes in frame_kernel (the check-only
+                   PHASES instantiations), configs 1, 2, 4, 6 at 800x600 and
+                   the main path's spp, both schedules
   3. main paths    every launch counter is zeroed just before each and
                    read just after.
                    Frame path: Renderer at 800x600 with autofocus, config
@@ -88,6 +95,18 @@ With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
 busy time, its kernel count and the kernels that took most of it (phase
 `profile`).
+
+With `--parent LABEL=DIR` (repeatable) it also loads the package of another
+checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
+archive`, say), builds its frame, block and forest kernels beside this
+one's and holds them against this checkout's (phase `parent_vs_change`):
+frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp in
+both schedules, traverse_kernel on the terrain's 960,000 rays and
+block_kernel on the OBJ grid's rays, the same inputs through both, their
+outputs compared and their device times taken in turns (parent, change,
+change, parent, parent, change; the median of each side), with each
+build's registers, spills and local-memory instructions and, where the
+other package has it, its PHASES shares.
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
@@ -215,6 +234,129 @@ def ptxas_usage(text):
     return usage
 
 
+def parent_trees():
+    """{label: DIR} of the --parent LABEL=DIR arguments."""
+    args, trees = sys.argv[1:], {}
+    for i, arg in enumerate(args):
+        if arg == "--parent":
+            label, _, path = args[i + 1].partition("=")
+            trees[label] = os.path.abspath(path)
+    return trees
+
+
+def load_tree(label, path):
+    """The package pathtracer0_tpu_torch of the checkout at `path`, loaded
+    beside this one as `tree_<label>` (it builds into its own _build/):
+    {"build": ..., "frame": ..., "fused": ..., "wavefront": ...}."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(path, "pathtracer0_tpu_torch")
+    name = f"tree_{label}"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return {k: importlib.import_module(f"{name}.kernels.{k}")
+            for k in ("build", "frame", "fused", "wavefront")}
+
+
+# the libraries whose kernels `parent_vs_change` holds against another
+# checkout's
+COMPARED = ("frame_kernel", "block_kernel", "forest_kernel")
+
+
+def differs(tree, build, lib):
+    """Whether another checkout's sources of library `lib` differ from
+    this checkout's (only those are built and compared)."""
+    theirs, ours = tree["build"].LIBS[lib], build.LIBS[lib]
+    return theirs != ours or any(
+        (tree["build"].CSRC / f).read_bytes() != (build.CSRC / f).read_bytes()
+        for f in ours)
+
+
+# kernel -> (library, launch function) of the render kernels timed by
+# device_ms
+LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
+             "block_kernel": ("block_kernel", "pt_launch_block"),
+             "brute_kernel": ("forest_kernel", "pt_launch_brute"),
+             "traverse_kernel": ("forest_kernel", "pt_launch_traverse"),
+             "streamed_kernel": ("streamed_kernel", "pt_launch_streamed")}
+
+
+class KernelRepeat:
+    """A loaded kernel library whose launch function `launcher`, called
+    once, launches its kernel once and then `reps` times more between two
+    CUDA events on the current stream, and keeps the mean in `ms`. The host
+    enqueues each launch while the one before runs, so the events time the
+    kernels alone."""
+
+    def __init__(self, torch, lib, launcher, reps):
+        self.torch, self.lib, self.launcher, self.reps = torch, lib, launcher, reps
+        self.ms = None
+
+    def __getattr__(self, name):
+        real = getattr(self.lib, name)
+        return _Repeated(real, self) if name == self.launcher else real
+
+
+class _Repeated:
+    """The launch function of a KernelRepeat; its ctypes attributes
+    (argtypes, restype) go to the real one."""
+
+    def __init__(self, real, owner):
+        object.__setattr__(self, "real", real)
+        object.__setattr__(self, "owner", owner)
+
+    def __setattr__(self, name, value):
+        setattr(self.real, name, value)
+
+    def __call__(self, *args):
+        err = self.real(*args)
+        torch, owner = self.owner.torch, self.owner
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(owner.reps):
+            err = err or self.real(*args)
+        b.record()
+        torch.cuda.synchronize()
+        if not err:
+            owner.ms = a.elapsed_time(b) / owner.reps
+        return err
+
+
+def sass_counts(build, lib):
+    """{function: instructions, local loads (LDL), local stores (STL),
+    calls (CALL) and their distinct targets} of a built library's SASS
+    (cuobjdump from the toolkit of nvcc), or None without cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._target(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            counts[name] = {"instructions": 0, "LDL": 0, "STL": 0,
+                            "CALL": 0, "call_targets": set()}
+        elif name and "/*" in ln and ";" in ln:
+            c = counts[name]
+            c["instructions"] += 1
+            op = ln.split("*/", 1)[1].split(";")[0].split()
+            op = [w for w in op if not w.startswith("@")]
+            if op and op[0].split(".")[0] in ("LDL", "STL", "CALL"):
+                c[op[0].split(".")[0]] += 1
+                if op[0].startswith("CALL"):
+                    c["call_targets"].add(op[-1])
+    for c in counts.values():
+        c["call_targets"] = len(c["call_targets"])
+    return counts
+
+
 def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
     """One 800x600 frame of the per-bounce route under torch.profiler:
     how busy the card is (its device time over an untraced frame's wall
@@ -290,12 +432,43 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. environment + build --------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    trees = {label: load_tree(label, path)
+             for label, path in parent_trees().items()}
     t0 = time.perf_counter()
-    build.build_all()
+    capped = os.path.join(tempfile.mkdtemp(), "frame_cap128.so")
+
+    def build_capped():
+        """With other checkouts to compare: frame_kernel.cu once more under
+        -maxrregcount=128, for the registers and spills ptxas then picks."""
+        out = subprocess.run(
+            [build.nvcc(), *build.FLAGS, "-maxrregcount=128", "-o", capped,
+             str(build.CSRC / "frame_kernel.cu")], capture_output=True,
+            text=True, check=True)
+        return ptxas_usage(out.stdout + out.stderr)
+
+    with ThreadPoolExecutor() as pool:   # every compiler at once
+        cap = pool.submit(build_capped) if trees else None
+        jobs = [pool.submit(build.build_all)] + [
+            pool.submit(tree["build"].build_all,
+                        [lib for lib in COMPARED
+                         if differs(tree, build, lib)])
+            for tree in trees.values()]
+        for job in jobs:
+            job.result()
     ptxas = {lib: ptxas_usage(text) for lib, text in build.ptxas_log.items()}
     emit({"phase": "environment", "card": card, "device": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas},
+          "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas,
+          "sass": {lib: sass_counts(build, lib)
+                   for lib in ("frame_kernel", "block_kernel",
+                               "forest_kernel")},
+          "frame_kernel_maxrregcount_128": cap.result() if cap else None,
+          "parents": {label: {lib: {"ptxas": ptxas_usage(text),
+                                    "sass": sass_counts(tree["build"], lib)}
+                              for lib, text in tree["build"].ptxas_log.items()}
+                      for label, tree in trees.items()}},
          log)
 
     def cuda_ms(fn, reps):
@@ -308,6 +481,25 @@ def main() -> int:
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
+
+    def device_ms(fn, key, reps=20, lib_of=build):
+        """The device time of one launch of kernel `key`, which one call of
+        fn launches once through `lib_of` (this package's kernels/build.py
+        or another checkout's): the call's launch runs once, then `reps`
+        times more back to back between two CUDA events (KernelRepeat), so
+        the wrapper's host time is not in it."""
+        lib_name, launcher = LAUNCHERS[key]
+        real = lib_of.load(lib_name)
+        fn()
+        torch.cuda.synchronize()
+        repeat = KernelRepeat(torch, real, launcher, reps)
+        lib_of._libs[lib_name] = repeat
+        try:
+            fn()
+        finally:
+            lib_of._libs[lib_name] = real
+        check(repeat.ms is not None, f"{key}: the call launched no kernel")
+        return repeat.ms
 
     def table_bytes(sc, names):
         return sum(getattr(sc, k).numel() * getattr(sc, k).element_size()
@@ -365,8 +557,11 @@ def main() -> int:
         kw["spp"] = spp_time
         out_k = frame.trace_frame(sc, info, cam, rot, ifd, state, **kw)
         q_time = int(out_k[2].item())
-        ms = cuda_ms(lambda: frame.trace_frame(sc, info, cam, rot, ifd,
-                                               state, **kw), 5)
+
+        def run():
+            return frame.trace_frame(sc, info, cam, rot, ifd, state, **kw)
+
+        ms, wrapper_ms = device_ms(run, "frame_kernel"), cuda_ms(run, 5)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         out_p = frame.trace_frame_reference(sc, info, cam, rot, ifd, state,
@@ -389,7 +584,7 @@ def main() -> int:
                "state_eq": state_eq, "frac_within_1e-4": within,
                "mean_abs": mean_abs, "max_abs_err": float(diff.max()),
                "queries_kernel": qk, "queries_plain": qp,
-               "ms": ms, "plain_ms": plain_ms,
+               "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                **bound(sc, info, width * height, q_time), "card": card}
         emit(rec, log)
         check(rec["finite"], f"config {n}: kernel output not finite")
@@ -453,10 +648,10 @@ def main() -> int:
         out_d = frame.trace_frame(sc, info, cam, rot, ifd, state, **kw)
         times = {"default": [], "refill": []}
         for schedule in ("default", "refill", "refill", "default"):
-            times[schedule].append(cuda_ms(
+            times[schedule].append(device_ms(
                 lambda: frame.trace_frame(sc, info, cam, rot, ifd, state,
                                           refill=schedule == "refill", **kw),
-                5))
+                "frame_kernel"))
         lanes = {}
         for schedule in ("default", "refill"):
             out = frame.lane_use(sc, info, cam, rot, ifd, state,
@@ -646,8 +841,10 @@ def main() -> int:
         b.record()
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
-        ms = cuda_ms(lambda: wavefront.trace_forest(o, d, t_init, sc, info),
-                     5)
+        ms = device_ms(lambda: wavefront.trace_forest(o, d, t_init, sc, info),
+                       kernel)
+        wrapper_ms = cuda_ms(
+            lambda: wavefront.trace_forest(o, d, t_init, sc, info), 5)
         tk, uk, vk, ik, bk, lk = out_k
         tp, up, vp, ip, bp, lp = out_p
         same = ik == ip
@@ -671,7 +868,7 @@ def main() -> int:
                                    & (lk == 0))[~live].all()),
                "box_tests": box, "leaf_visits": leaf,
                "tri_tests_at_least": tri_tests, "ms": ms,
-               "plain_ms": plain_ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                **least(n * (28 + 24) + table_bytes(sc, FOREST_TABLES),
                        box * OPS_BOX + tri_tests * OPS_TRI_DIV),
                "card": card}
@@ -707,8 +904,10 @@ def main() -> int:
         b.record()
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
-        ms = cuda_ms(lambda: fused.trace_block(sc, info, o, d, alive, state,
-                                               **kw), 5)
+        ms = device_ms(lambda: fused.trace_block(sc, info, o, d, alive,
+                                                 state, **kw), "block_kernel")
+        wrapper_ms = cuda_ms(lambda: fused.trace_block(sc, info, o, d, alive,
+                                                       state, **kw), 5)
         rk = torch.stack(list(rad_k), -1)
         rp = torch.stack([inc[i] + skyc[i] for i in range(3)], -1)
         diff = (rk - rp).abs().amax(-1)
@@ -720,7 +919,8 @@ def main() -> int:
                "frac_within_1e-4": float((diff < 1e-4).float().mean()),
                "mean_abs": float((rk - rp).abs().mean()),
                "max_abs_err": float(diff.max()), "queries_kernel": qk,
-               "queries_plain": qp, "ms": ms, "plain_ms": plain_ms,
+               "queries_plain": qp, "ms": ms, "wrapper_ms": wrapper_ms,
+               "plain_ms": plain_ms,
                **bound(sc, info, int(state.numel()), qk,
                        ray_bytes=24 + 1 + 8 + 8 + 12), "card": card}
         emit(rec, log)
@@ -801,8 +1001,11 @@ def main() -> int:
         b.record()
         torch.cuda.synchronize()
         plain_ms = a.elapsed_time(b)
-        ms = cuda_ms(lambda: wavefront.trace_streamed(o, d, t_init, sc, info),
-                     5)
+        ms = device_ms(lambda: wavefront.trace_streamed(o, d, t_init, sc,
+                                                        info),
+                       "streamed_kernel")
+        wrapper_ms = cuda_ms(
+            lambda: wavefront.trace_streamed(o, d, t_init, sc, info), 5)
         tk, _, _, ik, bk, rk = out_k
         tp, _, _, ip, bp, rp = out_p
         same = ik == ip
@@ -838,7 +1041,7 @@ def main() -> int:
                "table_bytes_read": visited,
                "box_tests_per_live_ray": box / max(int(live.sum()), 1),
                "row_visits_per_live_ray": rows / max(int(live.sum()), 1),
-               "ms": ms, "plain_ms": plain_ms,
+               "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                **least(n * (28 + 24) + visited,
                        box * OPS_BOX + tri_tests * OPS_TRI_FREE),
                "card": card}
@@ -878,10 +1081,11 @@ def main() -> int:
                "max_abs_err": t_err, "t_max_abs_err": t_abs,
                "uv_max_abs_err": uv_err,
                "hit_share": float((tri_s >= 0).float().mean()),
-               "streamed_ms": cuda_ms(lambda: wavefront.trace_streamed(
-                   o, d, t_init, terrain_st, terrain_st_info), 5),
-               "walk_ms": cuda_ms(lambda: wavefront.trace_forest(
-                   o, d, t_init, terrain, terrain_info), 5),
+               "streamed_ms": device_ms(lambda: wavefront.trace_streamed(
+                   o, d, t_init, terrain_st, terrain_st_info),
+                   "streamed_kernel"),
+               "walk_ms": device_ms(lambda: wavefront.trace_forest(
+                   o, d, t_init, terrain, terrain_info), "traverse_kernel"),
                "card": card}
         emit(rec, log)
         check(rec["tri_eq"] >= 0.999, f"streamed against the walk: {rec}")
@@ -894,6 +1098,134 @@ def main() -> int:
     streamed_rec = compare_streamed("terrain_1m_primary", big, big_info,
                                     *big_cam, False)
     compare_streamed_with_walk()
+
+    # frame_kernel's cycles by part of a scene query, and the parents
+    def frame_cells():
+        """(config, refill, (scene, info, cam, rot, ifd, state), kwargs) of
+        the frame path's cells at 800x600 and the main path's spp, both
+        schedules in path mode."""
+        for n, (spp, raytracing) in MAIN.items():
+            sc, info = scenes.BUILDERS[n]().build(device="cuda")
+            cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
+                        for v in scenes.CAMERAS[n])
+            ifd = autofocus_distance(sc, info, cam, rot, 1.0, True)
+            state = vrng.seed(torch.arange(800 * 600, device=dev), 4321)
+            for refill in (False, True) if raytracing else (False,):
+                yield n, refill, (sc, info, cam, rot, ifd, state), dict(
+                    width=800, height=600, spp=spp, max_bounces=BOUNCES,
+                    blur=0.001, whitted=not raytracing, refill=refill)
+
+    def phase_shares(module, args, kw):
+        """(output, {part: share of the warps' cycles}) of a frame through
+        `module`'s check-only PHASES instantiation."""
+        out = module.phase_cycles(*args, **kw)
+        cyc = out[3]
+        return out, {k: v / cyc["warp"] for k, v in cyc.items()
+                     if k != "warp"}
+
+    def same_frame(a, b):
+        return float(((a[0] == b[0]).all(-1) & (a[1] == b[1])).float()
+                     .mean())
+
+    phases_rec = {}
+    for n, refill, args, kw in frame_cells():
+        out, shares = phase_shares(frame, args, kw)
+        cell = f"{n} refill" if refill else str(n)
+        rec = {"phase": "phases", "config": n,
+               "schedule": "refill" if refill else "default",
+               "shape": [800, 600, kw["spp"], BOUNCES], "shares": shares,
+               "rest": 1.0 - sum(shares.values()), "cycles": out[3],
+               "same_frame": same_frame(out, frame.trace_frame(*args, **kw)),
+               "card": card}
+        phases_rec[cell] = rec
+        emit(rec, log)
+        check(rec["same_frame"] >= 0.999 and out[3]["warp"] > 0,
+              f"PHASES {cell}: {rec}")
+
+    def vs_tree(label, tree):
+        """This checkout's frame, traverse and block kernels against
+        another checkout's on the same inputs: outputs compared, device
+        times in turns."""
+        rec = {"phase": "parent_vs_change", "parent": label, "frame": {},
+               "card": card}
+
+        def turns(fn_parent, fn_change, key):
+            """Device ms of each in turns: the median of three each."""
+            times = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent", "parent",
+                        "change"):
+                times[who].append(
+                    device_ms(fn_parent, key, lib_of=tree["build"])
+                    if who == "parent" else device_ms(fn_change, key))
+            return {"ms_parent": sorted(times["parent"])[1],
+                    "ms_change": sorted(times["change"])[1],
+                    "ms_turns": times}
+
+        tf = tree["frame"]
+        for n, refill, args, kw in (frame_cells() if differs(
+                tree, build, "frame_kernel") else ()):
+            out_p, out_c = tf.trace_frame(*args, **kw), frame.trace_frame(
+                *args, **kw)
+            cell = {"state_eq": float((out_p[1] == out_c[1]).float().mean()),
+                    "radiance_eq": float((out_p[0] == out_c[0]).all(-1)
+                                         .float().mean()),
+                    "queries": [int(out_p[2]), int(out_c[2])],
+                    **turns(lambda: tf.trace_frame(*args, **kw),
+                            lambda: frame.trace_frame(*args, **kw),
+                            "frame_kernel")}
+            if hasattr(tf, "phase_cycles"):
+                cell["phases_parent"] = phase_shares(tf, args, kw)[1]
+            name_ = f"{n} refill" if refill else str(n)
+            rec["frame"][name_] = cell
+            check(cell["state_eq"] >= 0.999 and cell["radiance_eq"] >= 0.999
+                  and cell["queries"][0] == cell["queries"][1],
+                  f"{label} against the change, frame {name_}: {cell}")
+        if not differs(tree, build, "forest_kernel"):
+            emit(rec, log)
+            return rec
+        o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain), True)
+        tw = tree["wavefront"]
+        out_p = tw.trace_forest(o, d, t_init, terrain, terrain_info)
+        out_c = wavefront.trace_forest(o, d, t_init, terrain, terrain_info)
+        rec["traverse"] = {
+            "rays": int(t_init.shape[0]),
+            "equal": {k: float((a == b).float().mean()) for k, a, b in zip(
+                ("t", "u", "v", "idx", "box", "leaf"), out_p, out_c)},
+            **turns(lambda: tw.trace_forest(o, d, t_init, terrain,
+                                            terrain_info),
+                    lambda: wavefront.trace_forest(o, d, t_init, terrain,
+                                                   terrain_info),
+                    "traverse_kernel")}
+        check(min(rec["traverse"]["equal"].values()) >= 0.999,
+              f"{label} against the change, traverse: {rec['traverse']}")
+        if not differs(tree, build, "block_kernel"):
+            emit(rec, log)
+            return rec
+        o, d, state = sample_rays(*grid_cam, 800, 600)
+        alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+        tb = tree["fused"]
+        out_p = tb.trace_block(grid, grid_info, o, d, alive, state,
+                               max_bounces=BOUNCES)
+        out_c = fused.trace_block(grid, grid_info, o, d, alive, state,
+                                  max_bounces=BOUNCES)
+        rec["block"] = {
+            "rays": int(state.numel()),
+            "state_eq": float((out_p[1] == out_c[1]).float().mean()),
+            "radiance_eq": float((torch.stack(out_p[0]) == torch.stack(
+                out_c[0])).all(0).float().mean()),
+            **turns(lambda: tb.trace_block(grid, grid_info, o, d, alive,
+                                           state, max_bounces=BOUNCES),
+                    lambda: fused.trace_block(grid, grid_info, o, d, alive,
+                                              state, max_bounces=BOUNCES),
+                    "block_kernel")}
+        check(rec["block"]["state_eq"] >= 0.999
+              and rec["block"]["radiance_eq"] >= 0.999,
+              f"{label} against the change, block: {rec['block']}")
+        emit(rec, log)
+        return rec
+
+    parent_recs = {label: vs_tree(label, tree) for label, tree in
+                   trees.items()}
 
     # the group-test diagnostic's data: its own synthetic shape, and the
     # card's width on real data
@@ -1720,6 +2052,8 @@ def main() -> int:
                        for k, c in full.items()},
         "per_config_320x240": {str(k): {key: c[key] for key in keys}
                                for k, c in small.items()},
+        "phases": {k: r["shares"] for k, r in phases_rec.items()},
+        "parents": {label: r["frame"] for label, r in parent_recs.items()},
     }] + [{
         "name": kname, "route": "cuda",
         "source": f"pathtracer0_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -1729,6 +2063,9 @@ def main() -> int:
         "library_ms": None,
         "detail": {k: v for k, v in rec.items()
                    if k not in ("phase", "kernel", "card")},
+        "parents": {label: r[part] for label, r in parent_recs.items()
+                    for part in ("block", "traverse")
+                    if kname.startswith(part) and part in r},
     } for kname, src, replaces, rec, count in (
         ("block_kernel", "block_kernel.cu",
          "pathtracer0_tpu/kernels/fused.py:1353 _fused_kernel", block_rec,

@@ -8,7 +8,8 @@
 //
 // Design: one thread per ray runs integrate.cuh `trace_path`, the loop
 // the frame kernel runs per sample, so the two kernels share every
-// per-ray function. The sky is sampled here on a miss and the radiance
+// per-ray function, the 32-bit texel indices, the per-function march and
+// the refraction stacks in shared memory among them. The sky is sampled here on a miss and the radiance
 // comes back with it; the TPU kernel returned the throughput at the miss
 // and the final direction for a second pass because Mosaic cannot gather.
 // Rays arrive and radiance leaves as one array per component, so a warp's
@@ -36,6 +37,7 @@ struct BlockArgs {
 };
 
 __global__ void __launch_bounds__(BLOCK) block_kernel(BlockArgs a) {
+  __shared__ float stacks[MAX_STACK * BLOCK];
   const Scene sc = make_scene(a.scene);
   const int r = blockIdx.x * BLOCK + threadIdx.x;
   unsigned long long queries = 0;
@@ -46,7 +48,7 @@ __global__ void __launch_bounds__(BLOCK) block_kernel(BlockArgs a) {
       const V3 o = v3(a.o[0][r], a.o[1][r], a.o[2][r]);
       const V3 d = v3(a.d[0][r], a.d[1][r], a.d[2][r]);
       queries = trace_path(sc, o, d, state, a.max_bounces, a.stack_size,
-                           a.scene.gate_ss != 0, inc, skyc);
+                           a.scene.gate_ss != 0, inc, skyc, stacks + threadIdx.x);
     }
     a.rad_out[r] = inc.x + skyc.x;
     a.rad_out[a.n_rays + r] = inc.y + skyc.y;

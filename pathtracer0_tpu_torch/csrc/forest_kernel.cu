@@ -23,6 +23,17 @@
 //                    the entries its walk reaches, so one size serves every
 //                    depth. Counters: 2 box tests for each internal node
 //                    visited, 1 for each leaf.
+//                    For Hopper, the walk descends inner nodes in a loop of
+//                    its own (the near child is taken at once, as a push
+//                    and a pop would), then tests a leaf (while-while), so
+//                    a warp's lanes that are all between inner nodes step
+//                    together. The order of visits, the pruning and the
+//                    counters are those of a stack that pushes far, then
+//                    near, and pops. Persistent warps that take rays from
+//                    an atomic counter, the stack's top in shared memory
+//                    and 16-byte loads of a padded triangle table were
+//                    measured and not kept: none was faster on the
+//                    terrain's rays.
 // The triangle test is the dividing Möller-Trumbore of the TPU kernels
 // (inv_det = 1/det, then multiply; strict t < closest, so the first row
 // wins a tie), not the division-free test of pathtrace.cuh. The slab test
@@ -160,15 +171,10 @@ __global__ void __launch_bounds__(BLOCK) traverse_kernel(ForestArgs a) {
     for (int k = 0; k < a.n_roots; ++k) {
       const int root = __ldg(a.roots + k);
       if (entry(a.nodes_f, root, ray, ix, iy, iz) > best.t) continue;
-      int sp = 1;
-      stack[0] = root;
-      while (sp > 0) {
-        const int node = stack[--sp];
-        const int4 n = __ldg(reinterpret_cast<const int4*>(a.nodes_i) + node);
-        if (n.x < 0) {
-          ++leaf;
-          for (int j = 0; j < n.w; ++j) tri_test(a.tris, n.z + j, ray, best);
-        } else {
+      int sp = 0, node = root;
+      for (;;) {
+        int4 n = __ldg(reinterpret_cast<const int4*>(a.nodes_i) + node);
+        while (n.x >= 0) {  // an inner node: on to the near child
           box += 2;
           const float dl = entry(a.nodes_f, n.x, ray, ix, iy, iz);
           const float dr = entry(a.nodes_f, n.y, ray, ix, iy, iz);
@@ -176,8 +182,21 @@ __global__ void __launch_bounds__(BLOCK) traverse_kernel(ForestArgs a) {
           const int far_id = swap ? n.x : n.y, near_id = swap ? n.y : n.x;
           const float far_d = swap ? dl : dr, near_d = swap ? dr : dl;
           if (far_d < best.t && sp < STACK) stack[sp++] = far_id;
-          if (near_d < best.t && sp < STACK) stack[sp++] = near_id;
+          if (near_d < best.t && sp < STACK) {
+            node = near_id;
+          } else if (sp > 0) {
+            node = stack[--sp];
+          } else {
+            node = -1;
+            break;
+          }
+          n = __ldg(reinterpret_cast<const int4*>(a.nodes_i) + node);
         }
+        if (node < 0) break;
+        ++leaf;
+        for (int j = 0; j < n.w; ++j) tri_test(a.tris, n.z + j, ray, best);
+        if (sp == 0) break;
+        node = stack[--sp];
       }
     }
   }

@@ -12,14 +12,25 @@
 // register from sample to sample (the TPU kernel carried it through
 // `state_ref` across the sample grid axis). A per-thread
 // `while (bounce < max_bounces && alive)` replaces the TPU's per-block
-// termination, and the refraction stack is a per-thread register array.
+// termination.
 //
-// What bounds it on this card: arithmetic and divergence. The scene
-// tables are a few KB and stay in L1 / the read-only cache; device memory
-// sees one state read and one radiance + state write per pixel. The
-// per-thread implicit march keeps the TPU kernel's bounding-sphere window
-// (now per ray rather than per block). Staging the tables in shared
-// memory and regrouping rays for coherence are left for later work.
+// What bounds it on this card: the instructions each active lane runs for
+// a scene query, and divergence; device memory sees one state read and one
+// radiance + state write per pixel, and the scene tables (a few KB) stay in
+// L1 and the read-only cache. What the design does about the instructions
+// (measured part by part with the PHASES instantiation below):
+//   - texel indices in 32-bit arithmetic (pathtrace.cuh wrap2): every
+//     miss samples the sky, and the 64-bit remainders of the bilinear
+//     lookup were software routines of tens of instructions each;
+//   - the refraction-index stack in shared memory (integrate.cuh
+//     PathState), read at its top and pushed or popped in place, where a
+//     16-float array was shifted at every push and pop;
+//   - the implicit march chosen once per function id (pathtrace.cuh
+//     march_fn), not a switch at every lattice step and bisection.
+// A persistent grid whose warps take pixels from an atomic counter, with
+// the small tables staged in shared memory per block, was measured and
+// not kept: it made config 1 and the refill frames of configs 4 and 6
+// slower than this one-thread-per-pixel grid (PERF.md, findings).
 //
 // The refill schedule (REFILL, path mode only) replaces the run-ahead
 // refill of the TPU kernel (`_trace_core` with refill > 0, fused.py:1187-1263,
@@ -35,11 +46,18 @@
 // sky is sampled here, so there are no banks and no cap on the samples a
 // launch takes.
 //
-// COUNT (check-only instantiations of both path schedules) adds, for each
-// group of lanes that runs a bounce together, the lanes in it
-// (__popc(__activemask())) and one warp step, so the share of the 32 lanes
-// that a bounce step keeps busy can be read; the main path's
-// instantiations count nothing.
+// Two kinds of check-only instantiations, never launched on the main path
+// (whose instantiations count nothing):
+//   LANES   (both path schedules) adds, for each group of lanes that runs a
+//           bounce together, the lanes in it (__popc(__activemask())) and
+//           one warp step, so the share of the 32 lanes that a bounce step
+//           keeps busy can be read;
+//   PHASES  (every schedule) adds the clock64() cycles of each part of a
+//           scene query per warp (pathtrace.cuh PH_*: the triangles, the
+//           implicit march and the ellipsoids of the closest hit, the
+//           material decode with its maps, the sky, the lobe choice with the
+//           refraction stack) and each warp's cycles from start to end, so
+//           the share of a warp's time each part takes can be read.
 //
 // The per-ray integrators are in integrate.cuh. Plain version:
 // pathtracer0_tpu_torch/kernels/frame.py `trace_frame_reference` (for both
@@ -55,11 +73,14 @@ struct FrameArgs {
   long long* state_out;
   float* rad_out;                    // (H*W, 3) summed over spp, sky included
   unsigned long long* rays_out;      // scene queries, accumulated
-  unsigned long long* lanes_out;     // COUNT: lanes of bounce steps, warp steps
+  unsigned long long* check_out;     // LANES: lanes of bounce steps, warp
+                                     // steps; PHASES: N_PHASES cycle sums
   int width, height, spp, max_bounces, stack_size;
   float xs_scale, ys_scale, focal_length, blur;
-  int whitted, refill;
+  int whitted, refill, check;
 };
+
+enum { NO_CHECK, LANES, PHASES };
 
 // The camera of one pixel: where its samples' rays start and aim.
 struct PixelCamera {
@@ -86,12 +107,12 @@ struct PixelCamera {
   }
 };
 
-// COUNT: the lanes that run this bounce step together, counted once by the
+// LANES: the lanes that run this bounce step together, counted once by the
 // lowest of them.
-template <bool COUNT>
+template <int CHECK>
 __device__ __forceinline__ void count_lanes(unsigned long long& used,
                                             unsigned long long& steps) {
-  if (COUNT) {
+  if (CHECK == LANES) {
     const unsigned mask = __activemask();
     if ((threadIdx.x & 31) == __ffs(mask) - 1) {
       used += __popc(mask);
@@ -100,12 +121,17 @@ __device__ __forceinline__ void count_lanes(unsigned long long& used,
   }
 }
 
-template <bool WHITTED, bool REFILL, bool COUNT>
+template <bool WHITTED, bool REFILL, int CHECK>
 __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
+  constexpr bool PH = CHECK == PHASES;
+  __shared__ float stacks[WHITTED ? 1 : MAX_STACK * BLOCK];
+  float* const stk = stacks + threadIdx.x;
   const Scene sc = make_scene(a.scene);
   const int n_pix = a.width * a.height;
   const int pix = blockIdx.x * BLOCK + threadIdx.x;
   unsigned long long queries = 0, used = 0, steps = 0;
+  unsigned long long cyc[N_PHASES] = {};
+  const long long t_start = PH ? tick() : 0;
   if (pix < n_pix) {
     const int px = pix % a.width, py = pix / a.width;
     PixelCamera cam;
@@ -132,21 +158,21 @@ __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
       PathState p;
       V3 o, d;
       cam.ray(state, o, d);
-      path_begin(p, o, d);
+      path_begin(p, o, d, stk);
       V3 ci = v3(0.0f, 0.0f, 0.0f), cs = v3(0.0f, 0.0f, 0.0f);
       int s = 0;
       for (;;) {
         if (path_on(p, a.max_bounces)) {
-          count_lanes<COUNT>(used, steps);
+          count_lanes<CHECK>(used, steps);
           ++queries;
-          path_step(sc, p, state, a.stack_size, gate_ss, ci, cs);
+          path_step<PH>(sc, p, state, a.stack_size, gate_ss, ci, cs, cyc);
         }
         if (!path_on(p, a.max_bounces)) {
           inc = v3(inc.x + ci.x, inc.y + ci.y, inc.z + ci.z);
           skyc = v3(skyc.x + cs.x, skyc.y + cs.y, skyc.z + cs.z);
           if (++s == a.spp) break;
           cam.ray(state, o, d);
-          path_begin(p, o, d);
+          path_begin(p, o, d, stk);
           ci = cs = v3(0.0f, 0.0f, 0.0f);
         }
       }
@@ -155,17 +181,17 @@ __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
         V3 o, d;
         cam.ray(state, o, d);
         if (WHITTED) {
-          V3 col = direct_diffuse(sc, o, d);
+          V3 col = direct_diffuse<PH>(sc, o, d, cyc);
           inc = v3(inc.x + col.x, inc.y + col.y, inc.z + col.z);
           ++queries;
         } else {
           V3 ci = v3(0.0f, 0.0f, 0.0f), cs = v3(0.0f, 0.0f, 0.0f);
           PathState p;
-          path_begin(p, o, d);
+          path_begin(p, o, d, stk);
           while (path_on(p, a.max_bounces)) {
-            count_lanes<COUNT>(used, steps);
+            count_lanes<CHECK>(used, steps);
             ++queries;
-            path_step(sc, p, state, a.stack_size, gate_ss, ci, cs);
+            path_step<PH>(sc, p, state, a.stack_size, gate_ss, ci, cs, cyc);
           }
           inc = v3(inc.x + ci.x, inc.y + ci.y, inc.z + ci.z);
           skyc = v3(skyc.x + cs.x, skyc.y + cs.y, skyc.z + cs.z);
@@ -177,30 +203,48 @@ __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
     a.rad_out[3 * pix + 2] = inc.z + skyc.z;
     a.state_out[pix] = (long long)state;
   }
+  if (PH) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) cyc[PH_WARP] = (unsigned long long)(tick() - t_start);
+  }
   block_sum_add(queries, a.rays_out);
-  if (COUNT) {
+  if (CHECK == LANES) {
     __syncthreads();  // block_sum_add's partial sums have been read
-    block_sum_add(used, a.lanes_out);
+    block_sum_add(used, a.check_out);
     __syncthreads();
-    block_sum_add(steps, a.lanes_out + 1);
+    block_sum_add(steps, a.check_out + 1);
+  }
+  if (PH) {
+#pragma unroll
+    for (int k = 0; k < N_PHASES; ++k) {
+      __syncthreads();
+      block_sum_add(cyc[k], a.check_out + k);
+    }
   }
 }
 
-template <bool WHITTED, bool REFILL, bool COUNT>
+template <bool WHITTED, bool REFILL, int CHECK>
 static int launch(const FrameArgs* a, void* stream) {
   const int n_pix = a->width * a->height;
   const dim3 grid((n_pix + BLOCK - 1) / BLOCK), block(BLOCK);
-  frame_kernel<WHITTED, REFILL, COUNT><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  frame_kernel<WHITTED, REFILL, CHECK><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int CHECK>
+static int launch_mode(const FrameArgs* a, void* stream) {
+  if (a->whitted) return launch<true, false, CHECK>(a, stream);
+  return a->refill ? launch<false, true, CHECK>(a, stream) : launch<false, false, CHECK>(a, stream);
+}
+
 // The launch of a frame: Whitted, or path mode in the default or the refill
-// schedule; `lanes_out` given selects the check-only COUNT instantiation of
-// path mode. Returns the CUDA error of the launch, 0 for none.
+// schedule; `check` selects a check-only instantiation (LANES: path mode
+// only). Returns the CUDA error of the launch, 0 for none.
 extern "C" int pt_launch_frame(const FrameArgs* a, void* stream) {
-  if (a->whitted) return launch<true, false, false>(a, stream);
-  if (a->lanes_out != nullptr) {
-    return a->refill ? launch<false, true, true>(a, stream) : launch<false, false, true>(a, stream);
+  if (a->check == LANES) {
+    if (a->whitted) return static_cast<int>(cudaErrorInvalidValue);
+    return a->refill ? launch<false, true, LANES>(a, stream) : launch<false, false, LANES>(a, stream);
   }
-  return a->refill ? launch<false, true, false>(a, stream) : launch<false, false, false>(a, stream);
+  if (a->check == PHASES) return launch_mode<PHASES>(a, stream);
+  return launch_mode<NO_CHECK>(a, stream);
 }

@@ -34,6 +34,8 @@ struct SceneArgs {
   int gate_ss;
 };
 
+constexpr int BLOCK = 128;
+
 __device__ __forceinline__ Scene make_scene(const SceneArgs& a) {
   return Scene{a.mats, a.ell, a.imp, a.ell_flags, a.imp_info, a.tris, a.attr,
                a.uvt, a.atlas, a.slots, a.mat_maps, a.sky, a.n_mats, a.n_ell,
@@ -50,9 +52,15 @@ __device__ __forceinline__ float mat_col(const Scene& sc, int mat, int col) {
 // bounce to bounce, `path_begin` and `path_step` (one bounce). `trace_path`
 // is the per-sample loop over them; the refill schedule of
 // frame_kernel.cu runs one flat loop over (sample, bounce) instead.
+//
+// The refraction-index stack lives in shared memory, bottom first: entry j
+// of a thread's stack at stk[j * BLOCK] (a warp's lanes on 32 banks at any
+// depths). A bounce reads the top two entries and pushes or pops one, so
+// nothing is shifted and the stack holds no registers. Entries at and past
+// `ssize` read as 0, as those of a stack shifted in place.
 struct PathState {
   V3 o, d, col;          // ray, throughput
-  float stk[MAX_STACK];  // refraction-index stack
+  float* stk;            // this thread's refraction-index stack
   int ssize;
   bool inobj;
   V3 enter;              // where the ray entered the medium
@@ -60,13 +68,13 @@ struct PathState {
   int bounce;            // bounces taken
 };
 
-__device__ __forceinline__ void path_begin(PathState& p, V3 o, V3 d) {
+// `stk`: the thread's stack, MAX_STACK entries BLOCK floats apart.
+__device__ __forceinline__ void path_begin(PathState& p, V3 o, V3 d, float* stk) {
   p.o = o;
   p.d = d;
   p.col = v3(1.0f, 1.0f, 1.0f);
-#pragma unroll
-  for (int i = 0; i < MAX_STACK; ++i) p.stk[i] = 0.0f;
-  p.stk[0] = AIR_IOR;
+  p.stk = stk;
+  stk[0] = AIR_IOR;
   p.ssize = 1;
   p.inobj = false;
   p.enter = v3(0.0f, 0.0f, 0.0f);
@@ -81,20 +89,26 @@ __device__ __forceinline__ bool path_on(const PathState& p, int max_bounces) {
 
 // One bounce of a live path: one scene query. Adds the emission into inc
 // and, on a miss, the sky into skyc; a miss or the throughput cut-off ends
-// the path (alive = false).
+// the path (alive = false). PH: add the cycles of the closest hit, the
+// material decode with its maps, the sky and the lobe choice with the
+// refraction stack into cyc.
+template <bool PH = false>
 __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_t& state, int S,
-                                          bool gate_ss, V3& inc, V3& skyc) {
+                                          bool gate_ss, V3& inc, V3& skyc,
+                                          unsigned long long* cyc = nullptr) {
   const V3 o = p.o, d = p.d;
   V3 col = p.col;
   ++p.bounce;
   V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-  Hit h = closest_hit(sc, on, d);
+  Hit h = closest_hit<PH>(sc, on, d, cyc);
+  long long t0 = PH ? tick() : 0;
   if (!h.is_hit) {
     V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
     if (col.x > 0.0f) skyc.x += s.x * col.x;
     if (col.y > 0.0f) skyc.y += s.y * col.y;
     if (col.z > 0.0f) skyc.z += s.z * col.z;
     p.alive = false;
+    if (PH) tock(cyc, PH_SKY, t0);
     return;
   }
   V3 hx = v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z);
@@ -123,37 +137,40 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   if (map_sample(sc, m, MAP_PC, h.tu, h.tv, &s)) f.Pc = s.x;
   if (map_sample(sc, m, MAP_TR, h.tu, h.tv, &s)) f.Tr = s.x;
   if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
+  if (PH) {
+    tock(cyc, PH_DECODE, t0);
+    t0 = tick();
+  }
 
   // normal flip by sign(N.D) (frag.glsl:829-830)
   float nd = dot(n, d);
   float flip = nd > 0.0f ? -1.0f : 1.0f;
   n = v3(n.x * flip, n.y * flip, n.z * flip);
 
-  // refraction-index stack (frag.glsl:832-841)
-  float(&stk)[MAX_STACK] = p.stk;
-  bool entering = nd < 0.0f;
-  float s0 = stk[0], s1 = stk[1];
-  bool do_push = entering && p.ssize < S;
-  if (do_push) {
-#pragma unroll
-    for (int i = MAX_STACK - 1; i >= 1; --i)
-      if (i < S) stk[i] = stk[i - 1];
-    stk[0] = Ni;
-    ++p.ssize;
-  }
-  float n1 = entering ? stk[1] : s0;
-  float n2 = entering ? stk[0] : s1;
-  if (!entering && p.ssize > 0) {
-#pragma unroll
-    for (int i = 0; i < MAX_STACK - 1; ++i)
-      if (i < S - 1) stk[i] = stk[i + 1];
-#pragma unroll
-    for (int i = 0; i < MAX_STACK; ++i)
-      if (i == S - 1) stk[i] = 0.0f;
-    --p.ssize;
+  // refraction-index stack (frag.glsl:832-841): entering pushes Ni
+  // (n1 = the old top, n2 = Ni) unless the stack holds S entries (then n1,
+  // n2 = the second and the top); leaving reads n1, n2 = the top and the
+  // second and pops
+  const bool entering = nd < 0.0f;
+  const int ns = p.ssize;
+  const float s0 = ns >= 1 ? p.stk[(ns - 1) * BLOCK] : 0.0f;
+  const float s1 = ns >= 2 ? p.stk[(ns - 2) * BLOCK] : 0.0f;
+  float n1 = s0, n2 = s1;
+  if (entering) {
+    if (ns < S) {
+      p.stk[ns * BLOCK] = Ni;
+      p.ssize = ns + 1;
+      n2 = Ni;
+    } else {
+      n1 = s1;
+      n2 = s0;
+    }
+  } else if (ns > 0) {
+    p.ssize = ns - 1;
   }
 
   Lobe lobe = choose_ray(f, n1, n2, n, d, state, gate_ss);
+  if (PH) tock(cyc, PH_CHOOSE, t0);
 
   // medium bookkeeping (frag.glsl:847-863)
   bool transmitted = lobe.win == 3;
@@ -184,13 +201,14 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   p.alive = !cutoff;
 }
 
-// One sample's path from ray (o, d), bounce after bounce. Adds the radiance
-// without sky into inc and the sky into skyc; returns the queries made.
+// One sample's path from ray (o, d), bounce after bounce, with the
+// refraction stack `stk`. Adds the radiance without sky into inc and the
+// sky into skyc; returns the queries made.
 __device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
                           int max_bounces, int S, bool gate_ss, V3& inc,
-                          V3& skyc) {
+                          V3& skyc, float* stk) {
   PathState p;
-  path_begin(p, o, d);
+  path_begin(p, o, d, stk);
   int queries = 0;
   while (path_on(p, max_bounces)) {
     ++queries;
@@ -200,11 +218,17 @@ __device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
 }
 
 // Whitted shade (frag.glsl:655-681): Ka + Kd (0.2 + N.y) + Ke on a hit
-// with the unflipped normal, the sky on a miss.
-__device__ V3 direct_diffuse(const Scene& sc, V3 o, V3 d) {
+// with the unflipped normal, the sky on a miss. PH: as path_step.
+template <bool PH = false>
+__device__ V3 direct_diffuse(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
   V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-  Hit h = closest_hit(sc, on, d);
-  if (!h.is_hit) return sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
+  Hit h = closest_hit<PH>(sc, on, d, cyc);
+  const long long t0 = PH ? tick() : 0;
+  if (!h.is_hit) {
+    const V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
+    if (PH) tock(cyc, PH_SKY, t0);
+    return s;
+  }
   int m = h.mat;
   V3 Ka = v3(mat_col(sc, m, 0), mat_col(sc, m, 1), mat_col(sc, m, 2));
   V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
@@ -214,11 +238,10 @@ __device__ V3 direct_diffuse(const Scene& sc, V3 o, V3 d) {
   if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
   if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
   if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
+  if (PH) tock(cyc, PH_DECODE, t0);
   return v3(Ka.x + Kd.x * (0.2f + n.y) + Ke.x, Ka.y + Kd.y * (0.2f + n.y) + Ke.y,
             Ka.z + Kd.z * (0.2f + n.y) + Ke.z);
 }
-
-constexpr int BLOCK = 128;
 
 // Add every thread's `value` of a BLOCK-wide block into *total with one
 // atomic. Every thread of the block must call it.

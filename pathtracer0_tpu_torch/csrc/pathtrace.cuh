@@ -41,6 +41,26 @@ constexpr int N_MAP_CH = 9;
 enum { MAP_KA, MAP_KD, MAP_KS, MAP_KE, MAP_TR, MAP_PM, MAP_PR, MAP_PC,
        MAP_NORM };
 
+// ---- PHASES: clock64() cycles of the parts of a scene query, per warp ----
+// (check-only instantiations of the frame kernel; never on the main path).
+// The lowest lane of the lanes that run a part together adds the part's
+// cycles once for them.
+enum { PH_TRI, PH_IMP, PH_ELL, PH_DECODE, PH_SKY, PH_CHOOSE, PH_WARP, N_PHASES };
+PT_HD long long tick() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+PT_HD void tock(unsigned long long* cyc, int k, long long t0) {
+#ifdef __CUDA_ARCH__
+  const long long dt = clock64() - t0;
+  const unsigned mask = __activemask();
+  if ((threadIdx.x & 31) == __ffs(mask) - 1) cyc[k] += (unsigned long long)dt;
+#endif
+}
+
 // ---- small float helpers that propagate NaN like torch ----------------
 PT_HD float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
 PT_HD float nan_min(float a, float b) { return (a != a || a < b) ? a : b; }
@@ -112,19 +132,39 @@ PT_HD long long pmod(long long a, long long m) {
   long long r = a % m;
   return r < 0 ? r + m : r;
 }
+// The texel indices f mod n and (f + 1) mod n of an integral float f. The
+// card has no 64-bit integer divider (a remainder is a software routine of
+// tens of instructions), so where f lies within one image size of [0, n),
+// which every uv in [-1, 2) gives, the indices come from 32-bit compares and
+// adds; elsewhere from the 64-bit remainder. The same indices either way.
+PT_HD void wrap2(float f, int n, int& i0, int& i1) {
+  const float nf = (float)n;
+  if (f >= 0.0f && f < nf) {
+    i0 = (int)f;
+  } else if (f >= -nf && f < 0.0f) {
+    i0 = (int)f + n;
+  } else {
+    const long long l = (long long)f;
+    i0 = (int)pmod(l, n);
+    i1 = (int)pmod(l + 1, n);
+    return;
+  }
+  i1 = i0 + 1 == n ? 0 : i0 + 1;
+}
 // texel (y, x) of an image at flat[(base + y*w + x)*3 + c]
 PT_HD V3 bilinear(const float* flat, long long base, int h, int w, float u, float v) {
   float x = u * (float)w - 0.5f;
   float y = v * (float)h - 0.5f;
   float x0 = floorf(x), y0 = floorf(y);
   float fx = x - x0, fy = y - y0;
-  long long x0l = (long long)x0, y0l = (long long)y0;
-  long long x0i = pmod(x0l, w), x1i = pmod(x0l + 1, w);
-  long long y0i = pmod(y0l, h), y1i = pmod(y0l + 1, h);
-  const float* c00 = flat + (base + y0i * w + x0i) * 3;
-  const float* c01 = flat + (base + y0i * w + x1i) * 3;
-  const float* c10 = flat + (base + y1i * w + x0i) * 3;
-  const float* c11 = flat + (base + y1i * w + x1i) * 3;
+  int x0i, x1i, y0i, y1i;
+  wrap2(x0, w, x0i, x1i);
+  wrap2(y0, h, y0i, y1i);
+  const float* img = flat + base * 3;
+  const float* c00 = img + 3 * (size_t)(y0i * w + x0i);
+  const float* c01 = img + 3 * (size_t)(y0i * w + x1i);
+  const float* c10 = img + 3 * (size_t)(y1i * w + x0i);
+  const float* c11 = img + 3 * (size_t)(y1i * w + x1i);
   float out[3];
   for (int c = 0; c < 3; ++c) {
     float top = c00[c] * (1.0f - fx) + c01[c] * fx;
@@ -147,55 +187,68 @@ constexpr float GR_K = (float)(1.0 + 2.0 * GR_D);
 PT_HD float ipow4(float x) { float x2 = x * x; return x2 * x2; }
 PT_HD float ipow10(float x) { float x2 = x * x, x4 = x2 * x2, x8 = x4 * x4; return x8 * x2; }
 
-PT_HD float implicit_f(int fn, float x, float y, float z) {
+// Surface FN at (x, y, z); FN is a template argument so that a march
+// evaluates one function and no switch.
+template <int FN>
+PT_HD float implicit_fn(float x, float y, float z) {
   const float nan = NAN;
-  float x2 = x * x, y2 = y * y, z2 = z * z, fx;
-  switch (fn) {
-    case 1: return x2 + y2 + z2 - 15.0f;
-    case 2: return sinf(x / 2.0f) + sinf(z / 2.0f) + y / 2.0f + 10.0f;
-    case 3: return 2.0f * x2 + y2 + 2.0f * z2 - 3.0f;
-    case 4: fx = y < -0.63f ? 0.2f * (y - 5.0f) : nan; break;
-    case 5: {
-      float s = x2 + y2 + z2 - 1.0f;
-      return 4.0f * (GR2 * x2 - y2) * (GR2 * y2 - z2) * (GR2 * z2 - x2)
-             - GR_K * (s * s) * 1.0f;
-    }
-    case 6:
-      fx = y > -0.7417f
-               ? (y > 0.0f ? (y < 1.3f ? y * y * y - 3.0f : nan)
-                           : (y > -2.0f ? 10.0f * sinf(y + 4.7f) + 7.0f : nan))
-               : nan;
-      break;
-    case 7: fx = -1.047f * sqrtf(-(y - 1.25f) * (y - 1.25f) + 1.0f); break;
-    case 8:
-      fx = (y > 7.6f || y < 0.0f)
-               ? nan
-               : (y < 0.196f ? 0.5625f * cosf(17.0f * y) + 0.6875f
-                             : 0.125f + ipow10(sinf(0.9f * powf(fabsf(y / 2.5f), 0.6f))));
-      break;
-    case 9: {
-      float yy = -y;
-      fx = (yy < 2.0f || yy > 8.0f) ? nan
-         : yy > 7.0f ? -ipow10(fabsf(yy - 7.0f)) + 1.0f
-         : yy > 5.0f ? 1.0f
-         : yy > 4.1f ? sinf(yy - 0.27f)
-         : yy > 2.5f ? (yy + 0.9826f) / 8.0f
-         : yy > 2.0f ? sinf(40.0f * yy) / 40.0f + 0.45f
-         : 0.0f;
-      break;
-    }
-    case 10:
-      fx = !(y > 0.0f) ? nan
-         : y < 5.488f ? -powf(10.0f, -5.0f * y) + 1.04f
-         : y < 6.74f ? 0.34f * sinf(2.5f * y + 6.7f) + 0.7f
-         : y < 8.43f ? 0.36f
-         : y < 8.76f ? -50.0f * ipow4(y - 8.6f) + 0.4f
-         : y < 9.0f ? 0.36f
-         : nan;
-      break;
-    default: return nan;
+  float x2 = x * x, y2 = y * y, z2 = z * z, fx = 0.0f;
+  if (FN == 1) return x2 + y2 + z2 - 15.0f;
+  if (FN == 2) return sinf(x / 2.0f) + sinf(z / 2.0f) + y / 2.0f + 10.0f;
+  if (FN == 3) return 2.0f * x2 + y2 + 2.0f * z2 - 3.0f;
+  if (FN == 4) fx = y < -0.63f ? 0.2f * (y - 5.0f) : nan;
+  if (FN == 5) {
+    float s = x2 + y2 + z2 - 1.0f;
+    return 4.0f * (GR2 * x2 - y2) * (GR2 * y2 - z2) * (GR2 * z2 - x2)
+           - GR_K * (s * s) * 1.0f;
   }
+  if (FN == 6)
+    fx = y > -0.7417f
+             ? (y > 0.0f ? (y < 1.3f ? y * y * y - 3.0f : nan)
+                         : (y > -2.0f ? 10.0f * sinf(y + 4.7f) + 7.0f : nan))
+             : nan;
+  if (FN == 7) fx = -1.047f * sqrtf(-(y - 1.25f) * (y - 1.25f) + 1.0f);
+  if (FN == 8)
+    fx = (y > 7.6f || y < 0.0f)
+             ? nan
+             : (y < 0.196f ? 0.5625f * cosf(17.0f * y) + 0.6875f
+                           : 0.125f + ipow10(sinf(0.9f * powf(fabsf(y / 2.5f), 0.6f))));
+  if (FN == 9) {
+    float yy = -y;
+    fx = (yy < 2.0f || yy > 8.0f) ? nan
+       : yy > 7.0f ? -ipow10(fabsf(yy - 7.0f)) + 1.0f
+       : yy > 5.0f ? 1.0f
+       : yy > 4.1f ? sinf(yy - 0.27f)
+       : yy > 2.5f ? (yy + 0.9826f) / 8.0f
+       : yy > 2.0f ? sinf(40.0f * yy) / 40.0f + 0.45f
+       : 0.0f;
+  }
+  if (FN == 10)
+    fx = !(y > 0.0f) ? nan
+       : y < 5.488f ? -powf(10.0f, -5.0f * y) + 1.04f
+       : y < 6.74f ? 0.34f * sinf(2.5f * y + 6.7f) + 0.7f
+       : y < 8.43f ? 0.36f
+       : y < 8.76f ? -50.0f * ipow4(y - 8.6f) + 0.4f
+       : y < 9.0f ? 0.36f
+       : nan;
+  if (FN < 1 || FN > 10) return nan;
   return x2 + z2 - fx * fx;
+}
+
+PT_HD float implicit_f(int fn, float x, float y, float z) {
+  switch (fn) {
+    case 1: return implicit_fn<1>(x, y, z);
+    case 2: return implicit_fn<2>(x, y, z);
+    case 3: return implicit_fn<3>(x, y, z);
+    case 4: return implicit_fn<4>(x, y, z);
+    case 5: return implicit_fn<5>(x, y, z);
+    case 6: return implicit_fn<6>(x, y, z);
+    case 7: return implicit_fn<7>(x, y, z);
+    case 8: return implicit_fn<8>(x, y, z);
+    case 9: return implicit_fn<9>(x, y, z);
+    case 10: return implicit_fn<10>(x, y, z);
+    default: return NAN;
+  }
 }
 
 // local-frame bounding radius of a bounded surface, 0 if unbounded
@@ -212,16 +265,16 @@ PT_HD float bound_radius(int fn) {
   }
 }
 
-// First root of surface fn along O + t D on the lattice t = k*dt,
+// First root of surface FN along O + t D on the lattice t = k*dt,
 // k = 0..steps, then bisection. A bounded surface has every root inside
 // its bounding sphere, so the march covers only the lattice indices
 // around the sphere's chord (with one margin step each side); the
 // samples it takes are exactly those of the full march there.
-PT_HD bool march_implicit(int fn, V3 O, V3 D, int steps, int bisect_iters,
-                          float t_max, float* t_out) {
+template <int FN>
+PT_HD bool march_fn(V3 O, V3 D, int steps, int bisect_iters, float t_max, float* t_out) {
   float dt = t_max / (float)steps;
   int k0 = 0, k1 = steps;
-  float br = bound_radius(fn);
+  float br = bound_radius(FN);
   if (br > 0.0f) {
     float sa = D.x * D.x + D.y * D.y + D.z * D.z;
     float sb = 2.0f * (O.x * D.x + O.y * D.y + O.z * D.z);
@@ -236,12 +289,12 @@ PT_HD bool march_implicit(int fn, V3 O, V3 D, int steps, int bisect_iters,
     k1 = (int)nan_min(ceilf(s_exit / dt) + 1.0f, (float)steps);
   }
   float tk0 = dt * (float)k0;
-  float f_prev = implicit_f(fn, O.x + D.x * tk0, O.y + D.y * tk0, O.z + D.z * tk0);
+  float f_prev = implicit_fn<FN>(O.x + D.x * tk0, O.y + D.y * tk0, O.z + D.z * tk0);
   float t_lo = 0.0f, t_hi = t_max;
   bool found = false;
   for (int k = k0 + 1; k <= k1; ++k) {
     float tc = dt * (float)k;
-    float f = implicit_f(fn, O.x + D.x * tc, O.y + D.y * tc, O.z + D.z * tc);
+    float f = implicit_fn<FN>(O.x + D.x * tc, O.y + D.y * tc, O.z + D.z * tc);
     if (f_prev * f < 0.0f) {
       t_lo = tc - dt;
       t_hi = tc;
@@ -251,10 +304,10 @@ PT_HD bool march_implicit(int fn, V3 O, V3 D, int steps, int bisect_iters,
     f_prev = f;
   }
   if (!found) return false;
-  float f_lo = implicit_f(fn, O.x + D.x * t_lo, O.y + D.y * t_lo, O.z + D.z * t_lo);
+  float f_lo = implicit_fn<FN>(O.x + D.x * t_lo, O.y + D.y * t_lo, O.z + D.z * t_lo);
   for (int i = 0; i < bisect_iters; ++i) {
     float t_mid = 0.5f * (t_lo + t_hi);
-    float f_mid = implicit_f(fn, O.x + D.x * t_mid, O.y + D.y * t_mid, O.z + D.z * t_mid);
+    float f_mid = implicit_fn<FN>(O.x + D.x * t_mid, O.y + D.y * t_mid, O.z + D.z * t_mid);
     if (f_lo * f_mid < 0.0f) {
       t_hi = t_mid;
     } else {
@@ -264,6 +317,26 @@ PT_HD bool march_implicit(int fn, V3 O, V3 D, int steps, int bisect_iters,
   }
   *t_out = 0.5f * (t_lo + t_hi);
   return true;
+}
+
+// The march of surface fn, its function chosen once per implicit: an id
+// outside 1..10 (a NaN surface, which the full march never finds) gives no
+// root.
+PT_HD bool march_implicit(int fn, V3 O, V3 D, int steps, int bisect_iters,
+                          float t_max, float* t_out) {
+  switch (fn) {
+    case 1: return march_fn<1>(O, D, steps, bisect_iters, t_max, t_out);
+    case 2: return march_fn<2>(O, D, steps, bisect_iters, t_max, t_out);
+    case 3: return march_fn<3>(O, D, steps, bisect_iters, t_max, t_out);
+    case 4: return march_fn<4>(O, D, steps, bisect_iters, t_max, t_out);
+    case 5: return march_fn<5>(O, D, steps, bisect_iters, t_max, t_out);
+    case 6: return march_fn<6>(O, D, steps, bisect_iters, t_max, t_out);
+    case 7: return march_fn<7>(O, D, steps, bisect_iters, t_max, t_out);
+    case 8: return march_fn<8>(O, D, steps, bisect_iters, t_max, t_out);
+    case 9: return march_fn<9>(O, D, steps, bisect_iters, t_max, t_out);
+    case 10: return march_fn<10>(O, D, steps, bisect_iters, t_max, t_out);
+    default: return false;
+  }
 }
 
 PT_HD V3 implicit_normal(int fn, V3 p) {
@@ -305,7 +378,10 @@ struct Hit {
 
 // Closest hit from the nudged origin o: triangles (division-free
 // Möller-Trumbore, first closest in table order), implicits, ellipsoids.
-PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d) {
+// PH: add each part's cycles into cyc (PH_TRI, PH_IMP, PH_ELL).
+template <bool PH = false>
+PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
+  long long t0 = PH ? tick() : 0;
   Hit h;
   h.n = v3(0.0f, 0.0f, 0.0f);
   h.mat = 0;
@@ -364,6 +440,10 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d) {
       }
     }
   }
+  if (PH) {
+    tock(cyc, PH_TRI, t0);
+    t0 = tick();
+  }
   for (int k = 0; k < sc.n_imp; ++k) {
     const float* r = sc.imp + 17 * k;
     int fn = sc.imp_info[2 * k];
@@ -385,6 +465,10 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d) {
       h.mat = (int)r[7];
       kind = 2;
     }
+  }
+  if (PH) {
+    tock(cyc, PH_IMP, t0);
+    t0 = tick();
   }
   for (int e = 0; e < sc.n_ell; ++e) {
     const float* r = sc.ell + 17 * e;
@@ -412,6 +496,7 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d) {
       kind = 3;
     }
   }
+  if (PH) tock(cyc, PH_ELL, t0);
   h.t = t;
   h.is_hit = t < HIT_T;
   if (kind != 1) {

@@ -18,7 +18,8 @@ TPU kernel's run-ahead refill (PT0_FUSED_REFILL, read by
 `render_fused_frame` as the JAX package reads it). The result is the same
 bits either way, so its plain version is `trace_frame_reference` too.
 `lane_use` runs a check-only instantiation that counts how many of a
-warp's 32 lanes each bounce step keeps busy.
+warp's 32 lanes each bounce step keeps busy, `phase_cycles` one that counts
+the cycles each part of a scene query takes.
 """
 from __future__ import annotations
 
@@ -42,12 +43,22 @@ class _FrameArgs(ctypes.Structure):
 
     _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
         "scal", "state_in", "state_out", "rad_out", "rays_out",
-        "lanes_out")] + [
+        "check_out")] + [
         (n, ctypes.c_int) for n in (
             "width", "height", "spp", "max_bounces", "stack_size")] + [
         (n, ctypes.c_float) for n in (
             "xs_scale", "ys_scale", "focal_length", "blur")] + [
-        ("whitted", ctypes.c_int), ("refill", ctypes.c_int)]
+        ("whitted", ctypes.c_int), ("refill", ctypes.c_int),
+        ("check", ctypes.c_int)]
+
+
+# the check-only instantiations of csrc/frame_kernel.cu, and what each
+# writes to `check_out`
+_CHECKS = {"lanes": (1, 2), "phases": (2, 7)}
+# csrc/pathtrace.cuh PH_*: the parts of a scene query, then the warps' own
+# cycles from start to end
+PHASES = ("triangles", "implicits", "ellipsoids", "decode", "sky", "choose",
+          "warp")
 
 
 def eligible(info, *, whitted: bool = False) -> bool:
@@ -139,13 +150,30 @@ def lane_use(scene, info, cam_pos, cam_rot, ifd, state, *, refill: bool,
     if kw.get("whitted"):
         raise ValueError("lane_use counts the bounce steps of path mode")
     return _launch_frame(scene, info, cam_pos, cam_rot, ifd, state,
-                         refill=refill, count_lanes=True, **kw)
+                         refill=refill, check="lanes", **kw)
+
+
+def phase_cycles(scene, info, cam_pos, cam_rot, ifd, state, *,
+                 refill: bool = False, **kw):
+    """The frame on the card through the check-only instantiation that
+    reads clock64() around the parts of every scene query: (radiance,
+    state, queries, cycles) where cycles maps each of PHASES to the cycles
+    summed over the warps (each part counted once for the lanes that run
+    it together; "warp": each warp's cycles from start to end, so
+    part / warp is the share of a warp's time the part takes). A
+    measurement of the card, counted in neither launch count."""
+    if state.device.type != "cuda":
+        raise ValueError("phase_cycles measures the card: it needs CUDA "
+                         "tensors")
+    *out, cyc = _launch_frame(scene, info, cam_pos, cam_rot, ifd, state,
+                              refill=refill, check="phases", **kw)
+    return (*out, dict(zip(PHASES, cyc.tolist())))
 
 
 def _launch_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width,
                   height, spp, max_bounces, stack_size=10, cam_size=1.5,
                   focal_length=1.0, blur=0.0, whitted=False, refill=False,
-                  count_lanes=False):
+                  check=None):
     dev = state.device
     kw = dict(width=width, height=height, spp=spp, max_bounces=max_bounces,
               stack_size=stack_size, cam_size=cam_size,
@@ -175,26 +203,27 @@ def _launch_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width,
     rad = torch.empty((width * height, 3), dtype=torch.float32, device=dev)
     state_out = torch.empty_like(state)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
-    lanes = torch.zeros(2, dtype=torch.int64, device=dev)
+    mode, n_out = _CHECKS[check] if check else (0, 0)
+    checked = torch.zeros(n_out, dtype=torch.int64, device=dev)
     args = _FrameArgs(
         scene_args(scene, info, dev), scal=ptr(scal, torch.float32, dev),
         state_in=ptr(state, torch.int64, dev),
         state_out=state_out.data_ptr(), rad_out=rad.data_ptr(),
         rays_out=rays.data_ptr(),
-        lanes_out=lanes.data_ptr() if count_lanes else None,
+        check_out=checked.data_ptr() if check else None,
         width=width, height=height, spp=spp,
         max_bounces=max_bounces, stack_size=stack_size,
         xs_scale=float(np.float32(-cam_size)),
         ys_scale=float(np.float32(height / float(width) * cam_size)),
         focal_length=focal_length, blur=blur, whitted=int(whitted),
-        refill=int(refill))
+        refill=int(refill), check=mode)
     err = lib.pt_launch_frame(
         ctypes.byref(args),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"frame kernel launch failed: CUDA error {err}")
-    if count_lanes:
-        return rad, state_out, rays, lanes
+    if check:
+        return rad, state_out, rays, checked
     if refill:
         trace_frame.refill_launches += 1
     else:

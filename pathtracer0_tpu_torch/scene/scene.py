@@ -25,6 +25,7 @@ from .material import Material, parse_mtl
 from .objparse import TriangleSoA, parse_obj
 from .packing import pack_scene
 from .texture import TextureRegistry
+from .validate import validate_scene
 
 
 class Scene:
@@ -124,6 +125,8 @@ class Scene:
 
         self.add_mesh(*corners(verts), m, normals=corners(normals),
                       uvs=corners(uvs))
+        # the compact payload, which validation checks as the reference does
+        self.bulk_meshes[-1]["indexed"] = (verts, normals, uvs, int(m))
 
     def add_tri(self, v1, v2, v3, m: int):
         """One flat-shaded triangle without UVs (dispatch.java:1013-1015),
@@ -180,9 +183,8 @@ class Scene:
                            radius, m)
 
     def add_implicit(self, fn: int, shift, scale, rot, m: int):
-        """Implicit surface `fn` in 1..10 (shade/implicits.py)."""
-        if not 1 <= int(fn) <= 10:
-            raise ValueError(f"implicit function id {fn} is not in 1..10")
+        """Implicit surface `fn` in 1..10 (shade/implicits.py); `build`
+        refuses any other id."""
         self.imp_fn.append(int(fn))
         self.imp_shift.append(tuple(shift))
         self.imp_scale.append(tuple(scale))
@@ -191,10 +193,16 @@ class Scene:
 
     # -- packing -------------------------------------------------------------
     def build(self, device=None, config: Optional[RenderConfig] = None,
-              max_leaf: Optional[int] = None):
+              max_leaf: Optional[int] = None, validate: bool = True):
         """Build the forest (`config.sah_planes`, `max_bvh_depth`,
         `max_tris_in_leaf` or `max_leaf`), or the streamed LBVH for more
         than `config.stream_threshold` triangles, and pack onto `device`
-        (default: the card). Returns (PackedScene, SceneInfo)."""
+        (default: the card). Returns (PackedScene, SceneInfo).
+
+        validate=True (default) first runs scene/validate.py: bad material
+        or texture indices, non-finite geometry and degenerate primitives
+        raise SceneValidationError here, with the entity named."""
+        if validate:
+            validate_scene(self)
         return pack_scene(self, resolve_device(device),
                           config or RenderConfig(), max_leaf=max_leaf)

@@ -687,6 +687,34 @@ def test_refill_matches_plain_and_default_on_card(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, refill", [(1, False), (2, False), (2, True),
+                                       (4, False), (4, True), (6, True)])
+def test_phase_cycles_on_card(n, refill):
+    """The PHASES instantiation renders the frame of the main one and adds
+    the cycles of every part of a scene query; its launch is counted in
+    neither launch count."""
+    _card()
+    sc, info = scenes.BUILDERS[n]().build(device="cuda")
+    cam, rot = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in scenes.CAMERAS[n])
+    state = trng.seed(torch.arange(W * H, device="cuda"), SEED)
+    ifd = torch.tensor(IFD, device="cuda")
+    kw = dict(width=W, height=H, spp=4, max_bounces=6, blur=BLUR,
+              whitted=n == 1, refill=refill)
+    ref = tframe.trace_frame(sc, info, cam, rot, ifd, state, **kw)
+    before = (tframe.trace_frame.launches, tframe.trace_frame.refill_launches)
+    rad, st, q, cyc = tframe.phase_cycles(sc, info, cam, rot, ifd, state,
+                                          **kw)
+    assert (tframe.trace_frame.launches,
+            tframe.trace_frame.refill_launches) == before
+    assert torch.equal(rad, ref[0]) and torch.equal(st, ref[1])
+    assert int(q) == int(ref[2])
+    assert set(cyc) == set(tframe.PHASES) and cyc["warp"] > 0
+    assert cyc["ellipsoids"] > 0 and cyc["sky"] > 0
+    assert (cyc["choose"] == 0) == (n == 1)
+
+
+@pytest.mark.cuda
 def test_renderer_takes_refill_on_card(monkeypatch):
     """PT0_FUSED_REFILL=1 sends Renderer's frames through the refill
     schedule; Whitted frames and one-sample frames keep the default."""

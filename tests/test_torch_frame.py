@@ -146,6 +146,22 @@ def test_cpu_wrapper_uses_plain_version():
                            state.to("meta"), **kw)
 
 
+@pytest.mark.parametrize("check", ["lane_use", "phase_cycles"])
+def test_check_instantiations_measure_the_card(check):
+    """The check-only instantiations (lanes of a bounce step, cycles by part
+    of a scene query) are measurements of the card: they have no plain
+    version and refuse CPU tensors; lane_use refuses Whitted mode."""
+    sc, info = tscenes.BUILDERS[2]().build(device="cpu")
+    cam, rot = (torch.tensor(v, dtype=torch.float32)
+                for v in tscenes.CAMERAS[2])
+    state = trng.seed(torch.arange(8 * 6), 5)
+    with pytest.raises(ValueError, match="card"):
+        getattr(tframe, check)(sc, info, cam, rot, torch.tensor(IFD), state,
+                               width=8, height=6, spp=1, max_bounces=2,
+                               refill=False)
+    assert tframe.PHASES[-1] == "warp" and len(set(tframe.PHASES)) == 7
+
+
 RW, RH, RSPP = 32, 16, 4
 
 

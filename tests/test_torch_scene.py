@@ -12,6 +12,7 @@ from pathtracer0_tpu_torch import RenderConfig
 from pathtracer0_tpu_torch import scenes as tscenes
 from pathtracer0_tpu_torch.scene import packing
 from pathtracer0_tpu_torch.scene.scene import Scene
+from pathtracer0_tpu_torch.scene.validate import SceneValidationError
 
 torch.set_num_threads(1)
 
@@ -103,11 +104,17 @@ def test_scene_api_limits():
     with pytest.raises(ValueError, match="per-vertex"):
         sc.add_mesh_indexed(np.zeros((3, 3)), np.array([[0, 1, 2]]), 0,
                             normals=np.ones((2, 3)))
-    with pytest.raises(ValueError):
-        sc.add_implicit(11, (0, 0, 0), (1, 1, 1), (0, 0, 0), 0)
+    bad_fn = Scene()
+    bad_fn.add_material("a")
+    bad_fn.add_implicit(11, (0, 0, 0), (1, 1, 1), (0, 0, 0), 0)
+    with pytest.raises(SceneValidationError, match="function id"):
+        bad_fn.build(device="cpu")
     sc.add_sphere((0, 0, 3), 1.0, m=1)
-    with pytest.raises(ValueError, match="material id"):
+    with pytest.raises(SceneValidationError, match="material 1"):
         sc.build(device="cpu")
+    # packing's own check stays the last guard
+    with pytest.raises(ValueError, match="material id"):
+        sc.build(device="cpu", validate=False)
     big = Scene()
     big.add_material("a")
     v = np.random.RandomState(0).rand(65, 3)

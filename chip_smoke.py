@@ -7,7 +7,8 @@ Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
   1. environment   card name and power limit; the five CUDA sources (one
-                   nvcc each) and the host LBVH builder (g++) are built
+                   nvcc each) and the two host libraries (g++: the LBVH
+                   build, the forest kernels' triangle test) are built
                    together; each kernel instantiation's registers and
                    spills
   2. kernels       each kernel against its plain PyTorch version on the
@@ -29,10 +30,16 @@ non-zero:
                    and of the OBJ grid;
                    streamed_kernel on the 999,698-triangle terrain
                    (scenes.terrain(708)): the 480,000 primary rays of its
-                   camera, the batch the main path gives it, and 960,000
-                   rays (primary + random, one in seven switched off); and
-                   against traverse_kernel on the n = 181 terrain built
-                   both ways (stream_threshold=0 against the SAH forest);
+                   camera and 960,000 rays (primary + random, one in seven
+                   switched off), each as given and in the order the
+                   route sorts them (the sorted primary rays are the batch
+                   the main path gives it), with the sort's own cost; where
+                   a warp's cycles go on each (`streamed_phases`: the
+                   check-only PHASES instantiation, with the lanes that
+                   test a group together and the distinct groups among
+                   them); and against traverse_kernel on the n = 181
+                   terrain built both ways (stream_threshold=0 against the
+                   SAH forest);
                    the group-test kernels (vpu_kernel, mxu_kernel and
                    mxu_big_kernel at both precisions, mxu_big_kernel with
                    mm_only, mxu_split3_kernel) at the diagnostic's own shape
@@ -98,15 +105,18 @@ busy time, its kernel count and the kernels that took most of it (phase
 
 With `--parent LABEL=DIR` (repeatable) it also loads the package of another
 checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
-archive`, say), builds its frame, block and forest kernels beside this
-one's and holds them against this checkout's (phase `parent_vs_change`):
+archive`, say), builds those of its frame, block, forest and streamed
+kernels whose sources differ from this one's, and holds each against this
+checkout's (phase `parent_vs_change`), whatever the others do:
 frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp in
-both schedules, traverse_kernel on the terrain's 960,000 rays and
-block_kernel on the OBJ grid's rays, the same inputs through both, their
-outputs compared and their device times taken in turns (parent, change,
-change, parent, parent, change; the median of each side), with each
-build's registers, spills and local-memory instructions and, where the
-other package has it, its PHASES shares.
+both schedules, traverse_kernel on the terrain's 960,000 rays,
+brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
+block_kernel on the OBJ grid's rays and streamed_kernel on the 1M
+terrain's four populations, the same inputs through both, their outputs
+compared and their device times taken in turns (parent, change, change,
+parent, parent, change; the median of each side), with each build's
+registers, spills and local-memory instructions and, where the other
+package has it, its PHASES shares.
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
@@ -265,7 +275,8 @@ def load_tree(label, path):
 
 # the libraries whose kernels `parent_vs_change` holds against another
 # checkout's
-COMPARED = ("frame_kernel", "block_kernel", "forest_kernel")
+COMPARED = ("frame_kernel", "block_kernel", "forest_kernel",
+            "streamed_kernel")
 
 
 def differs(tree, build, lib):
@@ -415,7 +426,8 @@ def main() -> int:
     from pathtracer0_tpu_torch.core import rng as vrng
     from pathtracer0_tpu_torch.accel import lbvh
     from pathtracer0_tpu_torch.kernels import (build, frame, fused, mm_probe,
-                                               mxu_group, mxu_tri, wavefront)
+                                               mxu_group, mxu_tri, traverse,
+                                               wavefront)
     from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
                                                        render_frame,
@@ -461,9 +473,7 @@ def main() -> int:
     emit({"phase": "environment", "card": card, "device": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas,
-          "sass": {lib: sass_counts(build, lib)
-                   for lib in ("frame_kernel", "block_kernel",
-                               "forest_kernel")},
+          "sass": {lib: sass_counts(build, lib) for lib in COMPARED},
           "frame_kernel_maxrregcount_128": cap.result() if cap else None,
           "parents": {label: {lib: {"ptxas": ptxas_usage(text),
                                     "sass": sass_counts(tree["build"], lib)}
@@ -984,10 +994,71 @@ def main() -> int:
           and terrain_st_info.num_tris == terrain_info.num_tris,
           "the n = 181 terrain must build streamed too")
 
-    def compare_streamed(label, sc, info, cam, rot, random_rays):
-        """streamed_kernel against streamed_reference on `query_rays`."""
+    def streamed_population(sc, cam, rot, random_rays, sort):
+        """`query_rays` of a streamed scene, with `sort` in the order the
+        route hands them to the kernel (traverse.streamed_order)."""
         top = sc.st_top[0].cpu()
         o, d, t_init = query_rays(cam, rot, top[0:3], top[3:6], random_rays)
+        if sort:
+            order = traverse.streamed_order(o, d, t_init, sc)
+            o, d = (tuple(c[order].contiguous() for c in v) for v in (o, d))
+            t_init = t_init[order].contiguous()
+        return o, d, t_init
+
+    # the 1M terrain's rays: the camera's 480,000 primary rays and 960,000
+    # mixed ones, each as given and as the route sorts them
+    streamed_pops = {
+        f"{'mixed' if mixed else 'primary'}{'_sorted' if srt else ''}":
+            streamed_population(big, *big_cam, mixed, srt)
+        for mixed in (True, False) for srt in (False, True)}
+
+    def sort_cost(sc, info, o, d, t_init):
+        """ms of the route's sort of a query on the card (events around 5
+        calls): the key alone, the argsort alone, the order (key, root box
+        test, argsort), and the order with the gathers before the kernel
+        and the scatters after it (the kernel left out)."""
+        outs = wavefront.trace_streamed(o, d, t_init, sc, info)
+        o3, d3 = torch.stack(o, -1), torch.stack(d, -1)
+        lo, hi = sc.st_top[0, 0:3], sc.st_top[0, 3:6]
+        key = traverse.spatial_sort_key(o3, d3, lo, hi)
+        return {"key_ms": cuda_ms(
+                    lambda: traverse.spatial_sort_key(o3, d3, lo, hi), 5),
+                "argsort_ms": cuda_ms(
+                    lambda: torch.argsort(key, stable=True), 5),
+                "order_ms": cuda_ms(
+                    lambda: traverse.streamed_order(o, d, t_init, sc), 5),
+                "sort_ms": cuda_ms(lambda: traverse.sorted_query(
+                    lambda *_: outs, o, d, t_init, sc, info), 5)}
+
+    def streamed_phases(label, sc, info, o, d, t_init):
+        """Where a warp's cycles go in streamed_kernel (the check-only
+        PHASES instantiation), and how many distinct groups the lanes of a
+        warp test at once."""
+        *out, cyc = wavefront.streamed_phase_cycles(o, d, t_init, sc, info)
+        ref = wavefront.trace_streamed(o, d, t_init, sc, info)
+        live = max(int((t_init > 0.0).sum()), 1)
+        tests = max(cyc["group_tests"], 1)
+        shares = {k: cyc[k] / cyc["warp"]
+                  for k in ("top_box", "sub_box", "group", "stack")}
+        rec = {"phase": "streamed_phases", "population": label,
+               "rays": int(t_init.shape[0]), "live_rays": live,
+               "shares": shares, "rest": 1.0 - sum(shares.values()),
+               "cycles": cyc,
+               "lanes_per_group_test": cyc["group_lanes"] / tests,
+               "distinct_groups_per_group_test":
+                   cyc["group_distinct"] / tests,
+               "box_tests_per_live_ray": int(out[4].sum()) / live,
+               "row_visits_per_live_ray": int(out[5].sum()) / live,
+               "same_outputs": all(bool(torch.equal(a, b))
+                                   for a, b in zip(out, ref)),
+               "card": card}
+        emit(rec, log)
+        check(rec["same_outputs"] and cyc["warp"] > 0,
+              f"streamed PHASES {label}: {rec}")
+        return rec
+
+    def compare_streamed(label, sc, info, o, d, t_init):
+        """streamed_kernel against streamed_reference on the rays o, d."""
         n = t_init.shape[0]
         live = t_init > 0.0
         before = wavefront.launches["streamed_kernel"]
@@ -1093,10 +1164,20 @@ def main() -> int:
         check(0.02 < rec["hit_share"] < 0.95,
               f"streamed against the walk: {rec}")
 
-    compare_streamed("terrain_1m_mixed", big, big_info, *big_cam, True)
-    # the record of the `kernels` line: the batch the main path launches
-    streamed_rec = compare_streamed("terrain_1m_primary", big, big_info,
-                                    *big_cam, False)
+    streamed_recs = {pop: compare_streamed(f"terrain_1m_{pop}", big,
+                                           big_info, *rays)
+                     for pop, rays in streamed_pops.items()}
+    for pop in ("primary", "mixed"):
+        streamed_recs[f"{pop}_sorted"].update(
+            sort_cost(big, big_info, *streamed_pops[pop]))
+    # the record of the `kernels` line: the batch the main path launches,
+    # its primary rays as the route sorts them
+    streamed_rec = streamed_recs["primary_sorted"]
+    streamed_rec["unsorted"] = {k: streamed_recs["primary"][k] for k in (
+        "ms", "wrapper_ms", "box_tests_per_live_ray",
+        "row_visits_per_live_ray")}
+    streamed_phases_rec = {pop: streamed_phases(pop, big, big_info, *rays)
+                           for pop, rays in streamed_pops.items()}
     compare_streamed_with_walk()
 
     # frame_kernel's cycles by part of a scene query, and the parents
@@ -1142,10 +1223,15 @@ def main() -> int:
         check(rec["same_frame"] >= 0.999 and out[3]["warp"] > 0,
               f"PHASES {cell}: {rec}")
 
+    def same_share(out_p, out_c, names):
+        """{output: share of the rays on which the two are equal}."""
+        return {k: float((a == b).float().mean())
+                for k, a, b in zip(names, out_p, out_c)}
+
     def vs_tree(label, tree):
-        """This checkout's frame, traverse and block kernels against
-        another checkout's on the same inputs: outputs compared, device
-        times in turns."""
+        """This checkout's render kernels against another checkout's on the
+        same inputs: outputs compared, device times in turns. Each library
+        is compared where its sources differ, whatever the others do."""
         rec = {"phase": "parent_vs_change", "parent": label, "frame": {},
                "card": card}
 
@@ -1180,47 +1266,95 @@ def main() -> int:
             check(cell["state_eq"] >= 0.999 and cell["radiance_eq"] >= 0.999
                   and cell["queries"][0] == cell["queries"][1],
                   f"{label} against the change, frame {name_}: {cell}")
-        if not differs(tree, build, "forest_kernel"):
-            emit(rec, log)
-            return rec
-        o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain), True)
         tw = tree["wavefront"]
-        out_p = tw.trace_forest(o, d, t_init, terrain, terrain_info)
-        out_c = wavefront.trace_forest(o, d, t_init, terrain, terrain_info)
-        rec["traverse"] = {
-            "rays": int(t_init.shape[0]),
-            "equal": {k: float((a == b).float().mean()) for k, a, b in zip(
-                ("t", "u", "v", "idx", "box", "leaf"), out_p, out_c)},
-            **turns(lambda: tw.trace_forest(o, d, t_init, terrain,
-                                            terrain_info),
-                    lambda: wavefront.trace_forest(o, d, t_init, terrain,
-                                                   terrain_info),
-                    "traverse_kernel")}
-        check(min(rec["traverse"]["equal"].values()) >= 0.999,
-              f"{label} against the change, traverse: {rec['traverse']}")
-        if not differs(tree, build, "block_kernel"):
-            emit(rec, log)
-            return rec
-        o, d, state = sample_rays(*grid_cam, 800, 600)
-        alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
-        tb = tree["fused"]
-        out_p = tb.trace_block(grid, grid_info, o, d, alive, state,
-                               max_bounces=BOUNCES)
-        out_c = fused.trace_block(grid, grid_info, o, d, alive, state,
-                                  max_bounces=BOUNCES)
-        rec["block"] = {
-            "rays": int(state.numel()),
-            "state_eq": float((out_p[1] == out_c[1]).float().mean()),
-            "radiance_eq": float((torch.stack(out_p[0]) == torch.stack(
-                out_c[0])).all(0).float().mean()),
-            **turns(lambda: tb.trace_block(grid, grid_info, o, d, alive,
-                                           state, max_bounces=BOUNCES),
-                    lambda: fused.trace_block(grid, grid_info, o, d, alive,
-                                              state, max_bounces=BOUNCES),
-                    "block_kernel")}
-        check(rec["block"]["state_eq"] >= 0.999
-              and rec["block"]["radiance_eq"] >= 0.999,
-              f"{label} against the change, block: {rec['block']}")
+        if differs(tree, build, "forest_kernel"):
+            o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain),
+                                      True)
+            out_p = tw.trace_forest(o, d, t_init, terrain, terrain_info)
+            out_c = wavefront.trace_forest(o, d, t_init, terrain,
+                                           terrain_info)
+            rec["traverse"] = {
+                "rays": int(t_init.shape[0]),
+                "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
+                                                   "box", "leaf")),
+                **turns(lambda: tw.trace_forest(o, d, t_init, terrain,
+                                                terrain_info),
+                        lambda: wavefront.trace_forest(o, d, t_init, terrain,
+                                                       terrain_info),
+                        "traverse_kernel")}
+            check(min(rec["traverse"]["equal"].values()) >= 0.999,
+                  f"{label} against the change, traverse: {rec['traverse']}")
+            # brute_kernel: the OBJ grid's 480,000 primary rays (the main
+            # path's batch) and 960,000 mixed ones
+            rec["brute"] = {}
+            for pop, mixed in (("primary", False), ("mixed", True)):
+                o, d, t_init = query_rays(*grid_cam, *forest_box(grid), mixed)
+                out_p = tw.trace_forest(o, d, t_init, grid, grid_info)
+                out_c = wavefront.trace_forest(o, d, t_init, grid, grid_info)
+                dead = t_init == 0.0
+                cell = {
+                    "rays": int(t_init.shape[0]),
+                    "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
+                                                       "box", "leaf")),
+                    "dead_exact": all(bool(torch.equal(a[dead], b[dead]))
+                                      for a, b in zip(out_p, out_c)),
+                    **turns(lambda: tw.trace_forest(o, d, t_init, grid,
+                                                    grid_info),
+                            lambda: wavefront.trace_forest(o, d, t_init, grid,
+                                                           grid_info),
+                            "brute_kernel")}
+                rec["brute"][pop] = cell
+                check(min(cell["equal"].values()) >= 0.999
+                      and cell["dead_exact"],
+                      f"{label} against the change, brute {pop}: {cell}")
+        if differs(tree, build, "block_kernel"):
+            o, d, state = sample_rays(*grid_cam, 800, 600)
+            alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+            tb = tree["fused"]
+            out_p = tb.trace_block(grid, grid_info, o, d, alive, state,
+                                   max_bounces=BOUNCES)
+            out_c = fused.trace_block(grid, grid_info, o, d, alive, state,
+                                      max_bounces=BOUNCES)
+            rec["block"] = {
+                "rays": int(state.numel()),
+                "state_eq": float((out_p[1] == out_c[1]).float().mean()),
+                "radiance_eq": float((torch.stack(out_p[0]) == torch.stack(
+                    out_c[0])).all(0).float().mean()),
+                **turns(lambda: tb.trace_block(grid, grid_info, o, d, alive,
+                                               state, max_bounces=BOUNCES),
+                        lambda: fused.trace_block(grid, grid_info, o, d,
+                                                  alive, state,
+                                                  max_bounces=BOUNCES),
+                        "block_kernel")}
+            check(rec["block"]["state_eq"] >= 0.999
+                  and rec["block"]["radiance_eq"] >= 0.999,
+                  f"{label} against the change, block: {rec['block']}")
+        if differs(tree, build, "streamed_kernel"):
+            # the 1M terrain's primary and mixed rays, as given and sorted
+            rec["streamed"] = {}
+            for pop, (o, d, t_init) in streamed_pops.items():
+                out_p = tw.trace_streamed(o, d, t_init, big, big_info)
+                out_c = wavefront.trace_streamed(o, d, t_init, big, big_info)
+                cell = {
+                    "rays": int(t_init.shape[0]),
+                    "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
+                                                       "box", "rows")),
+                    **turns(lambda: tw.trace_streamed(o, d, t_init, big,
+                                                      big_info),
+                            lambda: wavefront.trace_streamed(o, d, t_init,
+                                                             big, big_info),
+                            "streamed_kernel")}
+                if hasattr(tw, "streamed_phase_cycles"):
+                    cyc = tw.streamed_phase_cycles(o, d, t_init, big,
+                                                   big_info)[-1]
+                    cell["phases_parent"] = {
+                        k: cyc[k] / cyc["warp"]
+                        for k in ("top_box", "sub_box", "group", "stack")}
+                    cell["distinct_groups_parent"] = (
+                        cyc["group_distinct"] / max(cyc["group_tests"], 1))
+                rec["streamed"][pop] = cell
+                check(min(cell["equal"].values()) >= 0.999,
+                      f"{label} against the change, streamed {pop}: {cell}")
         emit(rec, log)
         return rec
 
@@ -2063,9 +2197,9 @@ def main() -> int:
         "library_ms": None,
         "detail": {k: v for k, v in rec.items()
                    if k not in ("phase", "kernel", "card")},
-        "parents": {label: r[part] for label, r in parent_recs.items()
-                    for part in ("block", "traverse")
-                    if kname.startswith(part) and part in r},
+        "parents": {label: r[kname.split("_")[0]]
+                    for label, r in parent_recs.items()
+                    if kname.split("_")[0] in r},
     } for kname, src, replaces, rec, count in (
         ("block_kernel", "block_kernel.cu",
          "pathtracer0_tpu/kernels/fused.py:1353 _fused_kernel", block_rec,
@@ -2079,6 +2213,20 @@ def main() -> int:
         ("streamed_kernel", "streamed_kernel.cu",
          "pathtracer0_tpu/kernels/wavefront.py:151 _streamed_kernel",
          streamed_rec, launches_streamed))]}
+    # streamed_kernel on every population, and where its warps' cycles go
+    streamed_entry = kernels["kernels"][-1]
+    streamed_entry["populations"] = {
+        pop: {k: r[k] for k in ("ms", "wrapper_ms", "box_tests_per_live_ray",
+                                "row_visits_per_live_ray", "key_ms",
+                                "argsort_ms", "order_ms", "sort_ms")
+              if k in r}
+        for pop, r in streamed_recs.items()}
+    streamed_entry["phases"] = {
+        pop: {**r["shares"], "rest": r["rest"],
+              "lanes_per_group_test": r["lanes_per_group_test"],
+              "distinct_groups_per_group_test":
+                  r["distinct_groups_per_group_test"]}
+        for pop, r in streamed_phases_rec.items()}
     # the group-test kernels: the card's width (480,000 rays, one pass over
     # 32 groups) on the line, the diagnostic's own shape and rows in `detail`
     def group_entry(kernel, replaces, main, variants):

@@ -9,10 +9,21 @@
 //
 // Design: one thread per ray, not a packet of rays sharing one stack: a
 // GPU thread gathers freely, so each ray walks only the nodes it needs.
-//   brute_kernel     every wf_tris row in order; the rows are the same
-//                    for a whole warp, so they come through the read-only
-//                    cache as broadcasts. Box tests 0, leaf visits =
-//                    n_leaves.
+//   brute_kernel     every wf_tris row in order. The block stages the
+//                    table in shared memory, BRUTE_TILE rows at a time, as
+//                    12-float rows: three 16-byte broadcast loads a row,
+//                    not nine from the read-only cache. A pair is first
+//                    put to csrc/tri_divide.cuh's division-free
+//                    pre-reject, which drops pairs whose u is surely
+//                    outside [0, 1] before the reciprocal and the second
+//                    cross product: a warp whose rays all miss a row skips
+//                    both. A switched-off or missing ray is tested like
+//                    the others with t = 0 and o = d = 0, which the
+//                    pre-reject drops, so every thread reaches the
+//                    block's barriers. Two rays a thread (one staged row
+//                    for both) was measured and not kept: 63 registers
+//                    against 37, and slower on the mixed rays.
+//                    Box tests 0, leaf visits = n_leaves.
 //   traverse_kernel  the objects in order, each pruned by the closest hit
 //                    so far (frag.glsl:563-577); inside one, a stack in
 //                    local memory, children ordered by entry distance, far
@@ -36,19 +47,25 @@
 //                    terrain's rays.
 // The triangle test is the dividing Möller-Trumbore of the TPU kernels
 // (inv_det = 1/det, then multiply; strict t < closest, so the first row
-// wins a tie), not the division-free test of pathtrace.cuh. The slab test
-// uses a reciprocal direction clamped to +-1e30 so 0 * inf never happens.
+// wins a tie), not the division-free test of pathtrace.cuh:
+// csrc/tri_divide.cuh `test`. The slab test uses a reciprocal direction
+// clamped to +-1e30 so 0 * inf never happens.
 //
-// What bounds them: brute_kernel arithmetic (a whole triangle test is 46
-// float operations: two cross products, four dot products, the edge
-// vector, the reciprocal, three products by it and u + v); traverse_kernel the latency of dependent node and triangle
-// loads from L2 and divergence between the rays of a warp. Sorting rays
-// for coherence and wider nodes are left for later work.
+// What bounds them: brute_kernel its instruction throughput (a whole
+// triangle test is 46 float operations: two cross products, four dot
+// products, the edge vector, the reciprocal, three products by it and u +
+// v; the part before the pre-reject is 22 of them); the staged rows and
+// the pre-reject cut the loads and the operations a pair executes.
+// traverse_kernel the latency of dependent node and triangle loads from
+// L2 and divergence between the rays of a warp. Wider nodes are left for
+// later work.
 //
 // Build with -fmad=false and no fast math. Plain versions:
 // pathtracer0_tpu_torch/kernels/wavefront.py `brute_reference` and
 // `traverse_reference`.
 #include <cuda_runtime.h>
+
+#include "tri_divide.cuh"
 
 // kernels/wavefront.py `_ForestArgs`, field for field.
 struct ForestArgs {
@@ -71,9 +88,9 @@ struct ForestArgs {
 namespace {
 
 constexpr float MISS = 1e30f;
-constexpr float EPSILON = 1e-10f;  // frag.glsl:228
 constexpr int BLOCK = 128;
-constexpr int STACK = 264;  // scene/packing.py TRAVERSE_MAX_STACK
+constexpr int STACK = 264;       // scene/packing.py TRAVERSE_MAX_STACK
+constexpr int BRUTE_TILE = 256;  // wf_tris rows staged at once (12 KB)
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -98,27 +115,27 @@ __device__ __forceinline__ void store(const ForestArgs& a, int r, const Best& b,
   a.leaf[r] = leaf;
 }
 
-// One wf_tris row against the ray.
+// One wf_tris row against the ray (the walk's loads from the read-only
+// cache).
 __device__ __forceinline__ void tri_test(const float* __restrict__ tris, int row,
                                          const Ray& r, Best& best) {
   const float* p = tris + 9 * row;
-  const float v1x = __ldg(p), v1y = __ldg(p + 1), v1z = __ldg(p + 2);
-  const float e1x = __ldg(p + 3), e1y = __ldg(p + 4), e1z = __ldg(p + 5);
-  const float e2x = __ldg(p + 6), e2y = __ldg(p + 7), e2z = __ldg(p + 8);
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = 1.0f / det;
-  const float sx = r.ox - v1x, sy = r.oy - v1y, sz = r.oz - v1z;
-  const float u = (sx * px + sy * py + sz * pz) * inv_det;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  if (fabsf(det) >= EPSILON && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-      u + v <= 1.0f && t > EPSILON && t < best.t) {
+  const tridiv::Tri tri{__ldg(p),     __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
+                        __ldg(p + 5), __ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
+  float t, u, v;
+  if (tridiv::test<false>(tri, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t, u, v) && t < best.t) {
+    best.t = t;
+    best.u = u;
+    best.v = v;
+    best.idx = row;
+  }
+}
+
+// brute_kernel's test of a staged row, after the pre-reject.
+__device__ __forceinline__ void row_test(const tridiv::Tri& tri, int row, const Ray& r,
+                                         Best& best) {
+  float t, u, v;
+  if (tridiv::test<true>(tri, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t, u, v) && t < best.t) {
     best.t = t;
     best.u = u;
     best.v = v;
@@ -147,16 +164,29 @@ __device__ __forceinline__ float entry(const float* __restrict__ nodes_f, int no
 }
 
 __global__ void __launch_bounds__(BLOCK) brute_kernel(ForestArgs a) {
+  // rows as 12 floats: (v1, e1x), (e1y, e1z, e2x, e2y), (e2z, pad)
+  __shared__ float4 tile[3 * BRUTE_TILE];
   const int r = blockIdx.x * BLOCK + threadIdx.x;
-  if (r >= a.n_rays) return;
-  Best best{a.t_init[r], 0.0f, 0.0f, -1};
-  int leaf = 0;
-  if (best.t > 0.0f) {
-    const Ray ray = load_ray(a, r);
-    for (int k = 0; k < a.n_tris; ++k) tri_test(a.tris, k, ray, best);
-    leaf = a.n_leaves;
+  const bool in_range = r < a.n_rays;
+  Best best{in_range ? a.t_init[r] : 0.0f, 0.0f, 0.0f, -1};
+  const bool live = best.t > 0.0f;
+  const Ray ray = live ? load_ray(a, r) : Ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int base = 0; base < a.n_tris; base += BRUTE_TILE) {
+    const int rows = min(BRUTE_TILE, a.n_tris - base);
+    __syncthreads();  // the tile before has been read
+    for (int i = threadIdx.x; i < 3 * rows; i += BLOCK) {
+      const float* p = a.tris + 9 * (base + i / 3) + 4 * (i % 3);
+      tile[i] = i % 3 < 2 ? make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3))
+                          : make_float4(__ldg(p), 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    for (int j = 0; j < rows; ++j) {
+      const float4 q0 = tile[3 * j], q1 = tile[3 * j + 1], q2 = tile[3 * j + 2];
+      const tridiv::Tri tri{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+      row_test(tri, base + j, ray, best);
+    }
   }
-  store(a, r, best, 0, leaf);
+  if (in_range) store(a, r, best, 0, live ? a.n_leaves : 0);
 }
 
 __global__ void __launch_bounds__(BLOCK) traverse_kernel(ForestArgs a) {

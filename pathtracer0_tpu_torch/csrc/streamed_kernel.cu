@@ -41,10 +41,25 @@
 // when the scene is packed (scene/packing.py STREAM_MAX_STACK) and again by
 // the wrapper before it launches, so no push is ever dropped.
 //
-// What bounds it: the latency of dependent box and triangle loads from L2
-// (a group is 2,016 contiguous bytes, read by one thread as scalars) and
-// the divergence of a warp's rays. Staging treelets in shared memory,
-// regrouping rays and wider loads are left for later work.
+// What bounds it, and what the design does (measured with the check-only
+// PHASES instantiation on the 1M terrain, PERF.md section 6): the group tests
+// took 76-82% of a warp's cycles while only 3-5 of its lanes tested a
+// group at a time, since each lane tested a group as soon as its own walk
+// reached one. So:
+//   - the walk is while-while: a lane descends internal nodes (taking the
+//     near child at once, where the stack would push and pop it) until it
+//     has a group to test or is done, and the lanes that have one test
+//     their groups together. A lane's own order of visits, its pruning and
+//     its counters are those of the stack walk, so its bits are too;
+//   - a group's 56 slots, 2,016 contiguous bytes on a 16-byte boundary,
+//     are read four slots at a time as nine 16-byte loads (a load of lanes
+//     on k groups costs k passes of L1, whatever its width);
+//   - the slot test rejects a slot whose |det| or u already fails before it
+//     forms q, v and t (csrc/tri_free.cuh), so a warp whose lanes all fail
+//     there skips the rest.
+// The route sorts the rays of a query (kernels/traverse.py) so that the
+// lanes of a warp walk the same part of the tree. The box tests and the
+// walk's loads from L2 are the rest.
 //
 // The slot test is csrc/tri_free.cuh's, which the group-test diagnostic
 // (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
@@ -68,7 +83,8 @@ struct StreamArgs {
   int* idx;
   int* box;
   int* rows;
-  int n_rays, n_treelets;
+  unsigned long long* check_out;  // PHASES: N_CHECK sums over the warps
+  int n_rays, n_treelets, check;
 };
 
 namespace {
@@ -84,6 +100,63 @@ constexpr int GROUP_TRIS = GROUP_ROWS * TRIS_PER_ROW;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// ---- PHASES: where a warp's cycles go (check-only instantiation) ---------
+// clock64() cycles of each part of the walk, added once for the lanes
+// that run the part together (by the lowest of them), the warp's cycles
+// from start to end, and at each group test of a warp: the lanes that
+// test a group and how many distinct groups they test. The timed
+// instantiation (NO_CHECK) compiles none of it.
+enum { NO_CHECK, PHASES };
+enum { PH_TOP, PH_SUB, PH_GROUP, PH_STACK, PH_WARP, PH_GROUP_TESTS, PH_GROUP_LANES,
+       PH_GROUP_DISTINCT, N_CHECK };
+
+template <int CHECK>
+struct Probe {
+  unsigned long long c[N_CHECK];
+  long long start;
+  __device__ __forceinline__ Probe() {
+    if (CHECK == PHASES) {
+      for (int k = 0; k < N_CHECK; ++k) c[k] = 0;
+      start = clock64();
+    }
+  }
+  __device__ __forceinline__ long long tick() const { return CHECK == PHASES ? clock64() : 0; }
+  __device__ __forceinline__ void tock(int k, long long t0) {
+    if (CHECK == PHASES) {
+      const long long dt = clock64() - t0;
+      if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) c[k] += (unsigned long long)dt;
+    }
+  }
+  // the lanes here test groups `code` together
+  __device__ __forceinline__ void group_test(int code) {
+    if (CHECK == PHASES) {
+      const unsigned m = __activemask();
+      const unsigned same = __match_any_sync(m, code);
+      const unsigned lane = threadIdx.x & 31;
+      const unsigned firsts = __ballot_sync(m, lane == __ffs(same) - 1);
+      if (lane == __ffs(m) - 1) {
+        c[PH_GROUP_TESTS] += 1;
+        c[PH_GROUP_LANES] += __popc(m);
+        c[PH_GROUP_DISTINCT] += __popc(firsts);
+      }
+    }
+  }
+  // the warp's cycles, then every sum added to `out` once per warp; every
+  // lane of the warp calls it (BLOCK is a multiple of 32)
+  __device__ __forceinline__ void finish(unsigned long long* out) {
+    if (CHECK == PHASES) {
+      __syncwarp();
+      const unsigned lane = threadIdx.x & 31;
+      if (lane == 0) c[PH_WARP] = (unsigned long long)(clock64() - start);
+      for (int k = 0; k < N_CHECK; ++k) {
+        unsigned long long v = c[k];
+        for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+        if (lane == 0) atomicAdd(out + k, v);
+      }
+    }
+  }
 };
 
 __device__ __forceinline__ float safe_inv(float d) {
@@ -105,10 +178,25 @@ __device__ __forceinline__ float entry(const float* __restrict__ b, const Ray& r
   return (t_far >= t_near && t_far > 0.0f && lo.x <= lo.w) ? fmaxf(t_near, 0.0f) : MISS;
 }
 
+// The next node of the walk from the stack: the top entry whose entry
+// distance is still below the pruning distance (the others are dropped),
+// or -1 when the stack is empty.
+__device__ __forceinline__ int pop(const int* stack_n, const float* stack_d, int& sp,
+                                   float tcur) {
+  while (sp > 0) {
+    --sp;
+    if (stack_d[sp] < tcur) return stack_n[sp];
+  }
+  return -1;
+}
+
+template <int CHECK>
 __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
   const int r = blockIdx.x * BLOCK + threadIdx.x;
-  if (r >= a.n_rays) return;
-  float t = a.t_init[r], td = 1.0f, u = 0.0f, v = 0.0f;
+  const bool in_range = r < a.n_rays;
+  if (CHECK == NO_CHECK && !in_range) return;
+  Probe<CHECK> probe;
+  float t = in_range ? a.t_init[r] : 0.0f, td = 1.0f, u = 0.0f, v = 0.0f;
   int idx = -1, box = 0, rows = 0;
   if (t > 0.0f) {
     Ray ray{a.o[0][r], a.o[1][r], a.o[2][r], a.d[0][r], a.d[1][r], a.d[2][r], 0.0f, 0.0f, 0.0f};
@@ -120,31 +208,18 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
     float tcur = t;                           // t / td, the pruning distance
     int stack_n[STACK];
     float stack_d[STACK];
-    int sp = 1;
-    stack_n[0] = n_top > 0 ? 0 : sub0;
-    stack_d[0] = 0.0f;
-    while (sp > 0) {
-      --sp;
-      const int node = stack_n[sp];
-      if (!(stack_d[sp] < tcur)) continue;
-      const bool in_sub = node >= sub0;
-      const int k = (node - sub0) & (SUB_STRIDE - 1);
-      if (in_sub && k >= GROUPS - 1) {
-        // a group of the treelet: its 56 slots in order
-        rows += GROUP_ROWS;
-        const int treelet = (node - sub0) / SUB_STRIDE;
-        const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
-        const float* p = a.tris + static_cast<size_t>(slot0) * 9;
-        for (int j = 0; j < GROUP_TRIS; ++j, p += 9) {
-          if (trifree::accept(p, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t, td, u, v)) {
-            idx = slot0 + j;
-            tcur = t / td;
-          }
-        }
-      } else {
+    int sp = 0;
+    int node = n_top > 0 ? 0 : sub0;          // the root, entered at 0 < tcur
+    while (node >= 0) {
+      // descend through internal nodes until a group is to be tested (the
+      // near child is taken at once, as a push and a pop would)
+      int k = (node - sub0) & (SUB_STRIDE - 1);
+      while (node < sub0 || k < GROUPS - 1) {
+        long long t0 = probe.tick();
+        const bool in_sub = node >= sub0;
         box += 2;
         // children: of top node i the top nodes 2i+1, 2i+2 (a top leaf is
-        // pushed as its treelet's subtree root); of subtree node k the
+        // entered as its treelet's subtree root); of subtree node k the
         // subtree nodes 2k+1, 2k+2, whose code is node + k + 1
         int c0, c1;
         const float* b0;
@@ -167,35 +242,80 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
         const bool swap = d0 > d1;
         const int far_n = swap ? c0 : c1, near_n = swap ? c1 : c0;
         const float far_d = swap ? d0 : d1, near_d = swap ? d1 : d0;
+        probe.tock(in_sub ? PH_SUB : PH_TOP, t0);
+        t0 = probe.tick();
         if (far_d < tcur) {
           stack_n[sp] = far_n;
           stack_d[sp++] = far_d;
         }
-        if (near_d < tcur) {
-          stack_n[sp] = near_n;
-          stack_d[sp++] = near_d;
+        node = near_d < tcur ? near_n : pop(stack_n, stack_d, sp, tcur);
+        probe.tock(PH_STACK, t0);
+        if (node < 0) break;
+        k = (node - sub0) & (SUB_STRIDE - 1);
+      }
+      if (node < 0) break;
+      // the group's 56 slots in order, with the other lanes that have
+      // reached a group; four slots are 36 floats, nine 16-byte loads
+      probe.group_test(node);
+      long long t0 = probe.tick();
+      rows += GROUP_ROWS;
+      const int treelet = (node - sub0) / SUB_STRIDE;
+      const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
+      const float4* q = reinterpret_cast<const float4*>(a.tris + static_cast<size_t>(slot0) * 9);
+#pragma unroll 1
+      for (int j = 0; j < GROUP_TRIS; j += 4, q += 9) {
+        float f[36];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          const float4 x = __ldg(q + i);
+          f[4 * i] = x.x;
+          f[4 * i + 1] = x.y;
+          f[4 * i + 2] = x.z;
+          f[4 * i + 3] = x.w;
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const float* g = f + 9 * s;
+          const trifree::Tri tri{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[8]};
+          if (trifree::accept(tri, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t, td, u, v)) {
+            idx = slot0 + j + s;
+            tcur = t / td;
+          }
         }
       }
+      probe.tock(PH_GROUP, t0);
+      t0 = probe.tick();
+      node = pop(stack_n, stack_d, sp, tcur);
+      probe.tock(PH_STACK, t0);
     }
     const float inv = 1.0f / td;
     t *= inv;
     u *= inv;
     v *= inv;
   }
-  a.t[r] = t;
-  a.u[r] = u;
-  a.v[r] = v;
-  a.idx[r] = idx;
-  a.box[r] = box;
-  a.rows[r] = rows;
+  if (in_range) {
+    a.t[r] = t;
+    a.u[r] = u;
+    a.v[r] = v;
+    a.idx[r] = idx;
+    a.box[r] = box;
+    a.rows[r] = rows;
+  }
+  probe.finish(a.check_out);
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch, 0 for none. The caller has checked
 // that the tree fits the stack (kernels/wavefront.py `_check_streamed`).
+// `check` = PHASES launches the check-only instantiation.
 extern "C" int pt_launch_streamed(const StreamArgs* a, void* stream) {
   const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
-  streamed_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->check == PHASES) {
+    streamed_kernel<PHASES><<<grid, block, 0, s>>>(*a);
+  } else {
+    streamed_kernel<NO_CHECK><<<grid, block, 0, s>>>(*a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

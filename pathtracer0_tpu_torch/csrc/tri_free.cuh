@@ -16,30 +16,41 @@ namespace trifree {
 
 constexpr float EPSILON = 1e-10f;  // frag.glsl:228
 
-// Tests the triangle whose 9 floats (v1, e1, e2) start at `p` against the
-// ray o + s d. If it is hit closer than t / td, replaces t, td, u, v by
-// the hit's numerators and |det| and returns true.
-__device__ __forceinline__ bool accept(const float* __restrict__ p, float ox, float oy, float oz,
-                                       float dx, float dy, float dz, float& t, float& td, float& u,
+// A slot: v1, e1 = v2 - v1, e2 = v3 - v1.
+struct Tri {
+  float v1x, v1y, v1z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+__device__ __forceinline__ Tri load(const float* __restrict__ p) {
+  return Tri{__ldg(p),     __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
+             __ldg(p + 5), __ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
+}
+
+// Tests the slot `p` against the ray o + s d. If it is hit closer than
+// t / td, replaces t, td, u, v by the hit's numerators and |det| and
+// returns true. A slot with |det| < 1e-10 or u outside [0, |det|] is
+// rejected before q and the v and t numerators are formed (a hit needs v
+// >= 0 and u + v <= |det|, so u <= |det|): no result changes, and a warp
+// whose lanes all fail there skips the rest.
+__device__ __forceinline__ bool accept(const Tri& p, float ox, float oy, float oz, float dx,
+                                       float dy, float dz, float& t, float& td, float& u,
                                        float& v) {
-  const float v1x = __ldg(p), v1y = __ldg(p + 1), v1z = __ldg(p + 2);
-  const float e1x = __ldg(p + 3), e1y = __ldg(p + 4), e1z = __ldg(p + 5);
-  const float e2x = __ldg(p + 6), e2y = __ldg(p + 7), e2z = __ldg(p + 8);
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float sx = ox - v1x, sy = oy - v1y, sz = oz - v1z;
+  const float px = dy * p.e2z - dz * p.e2y;
+  const float py = dz * p.e2x - dx * p.e2z;
+  const float pz = dx * p.e2y - dy * p.e2x;
+  const float det = p.e1x * px + p.e1y * py + p.e1z * pz;
+  const float sx = ox - p.v1x, sy = oy - p.v1y, sz = oz - p.v1z;
   const float ur = sx * px + sy * py + sz * pz;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float vr = dx * qx + dy * qy + dz * qz;
-  const float tr = e2x * qx + e2y * qy + e2z * qz;
   const float sg = det >= 0.0f ? 1.0f : -1.0f;
-  const float adet = det * sg, uc = ur * sg, vc = vr * sg, tc = tr * sg;
-  if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet && tc > EPSILON * adet &&
-      tc * td < t * adet) {
+  const float adet = det * sg, uc = ur * sg;
+  if (!(adet >= EPSILON && uc >= 0.0f && uc <= adet)) return false;
+  const float qx = sy * p.e1z - sz * p.e1y;
+  const float qy = sz * p.e1x - sx * p.e1z;
+  const float qz = sx * p.e1y - sy * p.e1x;
+  const float vr = dx * qx + dy * qy + dz * qz;
+  const float tr = p.e2x * qx + p.e2y * qy + p.e2z * qz;
+  const float vc = vr * sg, tc = tr * sg;
+  if (vc >= 0.0f && uc + vc <= adet && tc > EPSILON * adet && tc * td < t * adet) {
     t = tc;
     td = adet;
     u = uc;
@@ -47,6 +58,14 @@ __device__ __forceinline__ bool accept(const float* __restrict__ p, float ox, fl
     return true;
   }
   return false;
+}
+
+// The same for the 9 floats (v1, e1, e2) at `p`, read from the read-only
+// cache.
+__device__ __forceinline__ bool accept(const float* __restrict__ p, float ox, float oy, float oz,
+                                       float dx, float dy, float dz, float& t, float& td, float& u,
+                                       float& v) {
+  return accept(load(p), ox, oy, oz, dx, dy, dz, t, td, u, v);
 }
 
 }  // namespace trifree

@@ -1,10 +1,11 @@
 """Build the sources under csrc/ and load them with ctypes.
 
 Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
-nvcc for Hopper (sm_90a), the host one (HOST_LIBS, the LBVH builder) by
-g++, into `_build/` at first use, and cached there under a hash of their
-sources and the flags; `build_all` starts one compiler per library
-together, so a fresh checkout pays the slowest build and not their sum.
+nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, and
+the forest kernels' triangle test for the CPU tests) by g++, into
+`_build/` at first use, and cached there under a hash of their sources
+and the flags; `build_all` starts one compiler per library together, so
+a fresh checkout pays the slowest build and not their sum.
 Nothing here runs at import time.
 
 Numerics: no --use_fast_math, and -fmad=false so that no multiply-add is
@@ -27,15 +28,17 @@ BUILD = PKG / "_build"
 LIBS = {
     "frame_kernel": ("frame_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
-    "forest_kernel": ("forest_kernel.cu",),
+    "forest_kernel": ("forest_kernel.cu", "tri_divide.cuh"),
     "streamed_kernel": ("streamed_kernel.cu", "tri_free.cuh"),
     "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh"),
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# built by g++ for the host; no contraction here either, so the builder's
-# float32 boxes equal the NumPy builder's bit for bit
-HOST_LIBS = {"streambuild": ("streambuild.cpp",)}
+# built by g++ for the host; no contraction here either, so the LBVH
+# build's float32 boxes equal the NumPy build's bit for bit, and the
+# forest kernels' triangle test (tri_divide.cuh) equals the plain version's
+HOST_LIBS = {"streambuild": ("streambuild.cpp",),
+             "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh")}
 HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs = {}

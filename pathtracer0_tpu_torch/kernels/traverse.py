@@ -15,11 +15,16 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
   probe_forest_t  closest triangle distance only (the Whitted subsurface
                   thickness probe, frag.glsl:662-676)
   heat_counts     the per-ray traversal counters
-  spatial_sort_key  the JAX package's ray-coherence key. That package sorts
-                  the rays of a streamed query by it, because its kernel
-                  culls by the frustum of a block of rays; the results do
-                  not depend on the order, and a kernel that walks per ray
-                  is right without it, so the route here does not sort.
+  spatial_sort_key  the JAX package's ray-coherence key. A streamed query
+                  of at least SORT_MIN_RAYS rays is sorted by it, as that
+                  package's `_ray_scene_streamed(sort_rays=True)` does
+                  (`streamed_order`): rays that miss the LBVH's root box,
+                  then switched-off rays, go to the back, in a stable
+                  order; the kernel (or its plain version) walks the
+                  sorted rays and its outputs are scattered back. The
+                  walk is per ray, so the results are those of the rays
+                  as given, bit for bit; the sort makes neighbouring
+                  lanes of a warp walk the same part of the tree.
 
 Reference quirks kept: an implicit surface's hit parameter is measured in
 its local frame and compared with world distances as it is, and every hit
@@ -34,10 +39,12 @@ import torch
 
 from ..shade import bsdf, implicits
 from . import wavefront
-from .intersect import MISS, ellipsoid_soa
+from .intersect import MISS, ellipsoid_soa, safe_inv_dir
 
 NUDGE = float(np.float32(1e-4))       # frag.glsl:549
 HIT_T = 1e25                          # t below this is a hit (frag.glsl:634)
+# the JAX package sorts a streamed query that fills one block of 1,024 rays
+SORT_MIN_RAYS = 1024
 
 
 class Hit(NamedTuple):
@@ -148,8 +155,10 @@ def _forest_fn(pallas: str, info):
             f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
     plain = pallas == "off"
     if info.streamed:
-        return (wavefront.streamed_reference if plain
-                else wavefront.trace_streamed), "st_perm"
+        query = (wavefront.streamed_reference if plain
+                 else wavefront.trace_streamed)
+        return (lambda o, d, t_init, scene, info:
+                sorted_query(query, o, d, t_init, scene, info)), "st_perm"
     return (wavefront.trace_forest_reference if plain
             else wavefront.trace_forest), "wf_perm"
 
@@ -211,29 +220,79 @@ def _morton_spread(v):
     return v
 
 
+_KEY_CONSTANTS = {}
+
+
+def _key_constants(device, o_bits, d_bits):
+    """(largest cell per column, shift of each column's spread bits, shift
+    of each direction-sign bit) of `spatial_sort_key` on `device`, made
+    once: a tensor made from a list on the card is a synchronous copy."""
+    k = (device, o_bits, d_bits)
+    if k not in _KEY_CONSTANTS:
+        _KEY_CONSTANTS[k] = tuple(torch.tensor(v, dtype=torch.int32,
+                                               device=device) for v in (
+            [2 ** o_bits - 1] * 3 + [2 ** d_bits - 1] * 3,
+            [2 + 3 * d_bits, 1 + 3 * d_bits, 3 * d_bits, 2, 1, 0],
+            [2, 1, 0]))
+    return _KEY_CONSTANTS[k]
+
+
 def spatial_sort_key(o, d, scene_lo, scene_hi, o_bits: int = 5,
                      d_bits: int = 4):
     """Ray-coherence sort key of rays o, d (R, 3) inside the box scene_lo,
     scene_hi (3,), int32, octant-major: the three direction-sign bits
     lead, then the Morton code of the origin's cell, then that of the unit
-    direction's. Bit-equal to the JAX package's `_spatial_sort_key`."""
-    def quantize(x, bits):
-        top = 2 ** bits - 1
-        return torch.clamp((x * top).to(torch.int32), 0, top)
-
-    def morton(q):
-        return ((_morton_spread(q[:, 0]) << 2)
-                | (_morton_spread(q[:, 1]) << 1) | _morton_spread(q[:, 2]))
-
+    direction's. Bit-equal to the JAX package's `_spatial_sort_key`. The
+    six cells are spread in one pass and their bits, which do not overlap,
+    summed into place, so a query costs a few dozen small launches."""
+    top, shift, sign_shift = _key_constants(o.device, o_bits, d_bits)
     span = torch.clamp(scene_hi - scene_lo, min=1e-6)
-    qo = quantize((o - scene_lo) / span, o_bits)
     dn = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)),
                          min=1e-20)
-    qd = quantize(dn * 0.5 + 0.5, d_bits)
-    pos = (d >= 0).to(torch.int32)
-    octant = (pos[:, 0] << 2) | (pos[:, 1] << 1) | pos[:, 2]
-    return ((octant << (3 * (o_bits + d_bits))) | (morton(qo) << (3 * d_bits))
-            | morton(qd))
+    x = torch.cat([(o - scene_lo) / span * (2 ** o_bits - 1),
+                   (dn * 0.5 + 0.5) * (2 ** d_bits - 1)], dim=-1)
+    q = torch.minimum(torch.clamp(x.to(torch.int32), min=0), top)
+    pos = (d >= 0).to(torch.int32) << sign_shift
+    return (torch.sum(_morton_spread(q) << shift, dim=-1, dtype=torch.int32)
+            | (torch.sum(pos, dim=-1, dtype=torch.int32)
+               << (3 * (o_bits + d_bits))))
+
+
+def streamed_order(o, d, t_init, scene):
+    """The order in which the JAX package's `_ray_scene_streamed` hands
+    the rays o, d ((x, y, z) tuples of (R,), o nudged) to its kernel:
+    a stable argsort of `spatial_sort_key` in the LBVH's root box, the
+    rays that miss that box keyed 2^30 and the switched-off ones
+    (t_init = 0) 2^30 + 1. Returns (R,) int64."""
+    lo, hi = scene.st_top[0, 0:3], scene.st_top[0, 3:6]
+    o3, d3 = torch.stack(o, -1), torch.stack(d, -1)
+    key = spatial_sort_key(o3, d3, lo, hi)
+    inv = safe_inv_dir(d3)
+    ta, tb = (lo - o3) * inv, (hi - o3) * inv
+    near = torch.amax(torch.minimum(ta, tb), dim=-1)
+    far = torch.amin(torch.maximum(ta, tb), dim=-1)
+    key = torch.where((far >= near) & (far > 0.0), key, 2 ** 30)
+    key = torch.where(t_init > 0.0, key, 2 ** 30 + 1)
+    return torch.argsort(key, stable=True)
+
+
+def sorted_query(query, o, d, t_init, scene, info):
+    """`query` (wavefront.trace_streamed or streamed_reference) over the
+    rays in `streamed_order` when there are at least SORT_MIN_RAYS of
+    them, its outputs scattered back to the rays' own order; otherwise
+    over the rays as given. The rays are gathered, and the outputs
+    scattered, as one tensor of each type."""
+    if t_init.shape[0] < SORT_MIN_RAYS:
+        return query(o, d, t_init, scene, info)
+    order = streamed_order(o, d, t_init, scene)
+    rays = torch.stack([*o, *d, t_init])[:, order]
+    t, u, v, idx, box, rows = query(tuple(rays[0:3]), tuple(rays[3:6]),
+                                    rays[6], scene, info)
+    floats, ints = torch.stack([t, u, v]), torch.stack([idx, box, rows])
+    back_f, back_i = torch.empty_like(floats), torch.empty_like(ints)
+    back_f[:, order] = floats
+    back_i[:, order] = ints
+    return (*back_f, *back_i)
 
 
 def surface_sample(hit: Hit, o, d, scene, info) -> SurfaceSample:

@@ -5,8 +5,10 @@ Counterpart of the JAX package's kernels/wavefront.py `trace_forest` and
 its two Pallas kernels: `_brute_kernel` (every triangle against every
 ray, for forests of at most BRUTE_MAX_ROWS leaves) and `_traverse_kernel`
 (the stack walk). On the card `trace_forest` launches
-csrc/forest_kernel.cu `brute_kernel` or `traverse_kernel`, one thread per
-ray; on CPU tensors it runs the plain PyTorch versions below, which are
+csrc/forest_kernel.cu `brute_kernel` (the table staged in shared memory,
+a division-free pre-reject that changes no result: csrc/tri_divide.cuh)
+or `traverse_kernel`, one thread per ray; on CPU tensors it runs the
+plain PyTorch versions below, which are
 batched over the rays and follow the kernels' arithmetic operation for
 operation.
 
@@ -45,7 +47,13 @@ below its entry distance. A box whose min exceeds its max (an empty row,
 group or treelet: +inf, -inf) is refused before the slab test, which an
 infinite inverted box would pass. Counters per ray: 2 box tests for each
 internal node visited, 4 row visits for each group entered. idx is
-row * 14 + slot; scene.st_perm gives the triangle id.
+row * 14 + slot; scene.st_perm gives the triangle id. On the card the
+walk is while-while (a lane descends to its next group, then the lanes
+that have one test their groups together) and reads a group 16 bytes at a
+time, so st_tris must start on a 16-byte boundary; a lane's order of
+visits, and so its bits, are the stack walk's. `streamed_phase_cycles`
+runs the kernel's check-only instantiation that says where a warp's
+cycles go. The route (kernels/traverse.py) sorts a query's rays first.
 """
 from __future__ import annotations
 
@@ -236,8 +244,17 @@ class _StreamArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "top", "sub", "tris",
-        "t", "u", "v", "idx", "box", "rows")] + [
-        (n, ctypes.c_int) for n in ("n_rays", "n_treelets")]
+        "t", "u", "v", "idx", "box", "rows", "check_out")] + [
+        (n, ctypes.c_int) for n in ("n_rays", "n_treelets", "check")]
+
+
+# the sums of csrc/streamed_kernel.cu's check-only PHASES instantiation, in
+# its order: cycles of the top-tree box tests, the subtree box tests, the
+# group tests, the stack's pushes and pops, and each warp from start to end;
+# then the group tests of a warp (lanes that test groups together), the
+# lanes in them and the distinct groups among those lanes
+STREAMED_PHASES = ("top_box", "sub_box", "group", "stack", "warp",
+                   "group_tests", "group_lanes", "group_distinct")
 
 
 def _check_streamed(scene, info):
@@ -389,7 +406,31 @@ def trace_streamed(o, d, t_init, scene, info):
         return streamed_reference(o, d, t_init, scene, info)
     if dev.type != "cuda":
         raise ValueError(f"no streamed kernel for device {dev}")
+    out = _launch_streamed(o, d, t_init, scene, info)
+    launches["streamed_kernel"] += 1
+    return out
+
+
+def streamed_phase_cycles(o, d, t_init, scene, info):
+    """`trace_streamed` on the card through the kernel's check-only PHASES
+    instantiation: (t, u, v, idx, box tests, row visits, sums), sums
+    mapping each of STREAMED_PHASES to its sum over the warps. A
+    measurement of the card, counted in no launch count."""
+    if t_init.device.type != "cuda":
+        raise ValueError("streamed_phase_cycles measures the card: it needs "
+                         "CUDA tensors")
+    sums = torch.zeros(len(STREAMED_PHASES), dtype=torch.int64,
+                       device=t_init.device)
+    out = _launch_streamed(o, d, t_init, scene, info, sums)
+    return (*out, dict(zip(STREAMED_PHASES, sums.tolist())))
+
+
+def _launch_streamed(o, d, t_init, scene, info, check_out=None):
+    dev = t_init.device
     _check_streamed(scene, info)
+    if scene.st_tris.data_ptr() % 16:
+        raise ValueError("st_tris must start on a 16-byte boundary: the "
+                         "kernel reads a group's slots 16 bytes at a time")
     n_rays = t_init.shape[0]
     f32, i32 = torch.float32, torch.int32
     rays = [c.contiguous() for c in (*o, *d, t_init)]
@@ -405,8 +446,10 @@ def trace_streamed(o, d, t_init, scene, info):
         sub=build.ptr(scene.st_sub, f32, dev),
         tris=build.ptr(scene.st_tris, f32, dev),
         t=t.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), idx=idx.data_ptr(),
-        box=box.data_ptr(), rows=rows.data_ptr(), n_rays=n_rays,
-        n_treelets=info.st_n_treelets)
+        box=box.data_ptr(), rows=rows.data_ptr(),
+        check_out=None if check_out is None else check_out.data_ptr(),
+        n_rays=n_rays, n_treelets=info.st_n_treelets,
+        check=int(check_out is not None))
     launch = build.load("streamed_kernel").pt_launch_streamed
     launch.argtypes = [ctypes.POINTER(_StreamArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
@@ -414,5 +457,4 @@ def trace_streamed(o, d, t_init, scene, info):
                  ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"streamed_kernel launch failed: CUDA error {err}")
-    launches["streamed_kernel"] += 1
     return t, u, v, idx, box, rows

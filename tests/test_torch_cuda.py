@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel (frame in both schedules,
-block, brute, traverse, streamed, the five of the group-test diagnostic,
+block, brute, traverse, streamed with the route's ray sort, the five of
+the group-test diagnostic,
 the small-K product probe) against its plain PyTorch version, the
 diagnostic and the probe end to end, the renderer's routes through the
 kernels, and the native LBVH builder built there.
@@ -447,6 +448,85 @@ def test_streamed_route_goes_through_its_kernel():
     with pytest.raises(ValueError, match="streamed"):
         Renderer(sc, info, RenderConfig(width=W, height=H, fused="on"),
                  cam_pos=cam, cam_rot=rot).render(1)
+
+
+@pytest.mark.cuda
+def test_brute_kernel_tiles_and_pairs_on_card():
+    """brute_kernel over a table of 1,058 rows (more than one staged tile
+    of 256), at odd ray counts (a block's second ray past the end), one
+    ray in seven switched off: every output equal to the plain version's,
+    switched-off rays exact."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    sc, info = _terrain_scene(24, 8)
+    assert wavefront.use_brute(info) and info.num_tris > 4 * 256
+    o, d, t_init = _forest_rays(8192)
+    for n in (8191, 8000, 257, 129, 1):
+        args = (tuple(c[:n] for c in o), tuple(c[:n] for c in d),
+                t_init[:n], sc, info)
+        before = wavefront.launches["brute_kernel"]
+        out_k = wavefront.trace_forest(*args)
+        torch.cuda.synchronize()
+        assert wavefront.launches["brute_kernel"] == before + 1
+        out_p = wavefront.brute_reference(*args)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b), n
+        dead = t_init[:n] == 0.0
+        assert bool((out_k[3][dead] == -1).all())
+        assert bool((out_k[5][dead] == 0).all())
+        assert bool((out_k[5][~dead] == info.num_leaves).all())
+        if n == 8191:
+            assert 0.1 < float((out_k[3] >= 0).float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+def test_streamed_kernel_on_sorted_rays_on_card():
+    """streamed_kernel on rays in the route's order (traverse.streamed_order)
+    against its plain version, and the sorted query against the rays as
+    given: the same bits on every ray."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import traverse, wavefront
+
+    sc, info = _terrain_scene(68, 4, stream_threshold=0)
+    o, d, t_init = _forest_rays(8192)
+    order = traverse.streamed_order(o, d, t_init, sc)
+    so, sd = (tuple(c[order].contiguous() for c in v) for v in (o, d))
+    st = t_init[order].contiguous()
+    out_k = wavefront.trace_streamed(so, sd, st, sc, info)
+    out_p = wavefront.streamed_reference(so, sd, st, sc, info)
+    _assert_streamed(out_k, out_p, st)
+    given = wavefront.trace_streamed(o, d, t_init, sc, info)
+    sorted_ = traverse.sorted_query(wavefront.trace_streamed, o, d, t_init,
+                                    sc, info)
+    for a, b in zip(given, sorted_):
+        assert torch.equal(a, b)
+    # switched-off rays sort to the back
+    assert bool((st[-int((t_init == 0.0).sum()):] == 0.0).all())
+
+
+@pytest.mark.cuda
+def test_streamed_query_launches_once_on_card():
+    """ray_scene, probe_forest_t and heat_counts of a streamed scene sort
+    their >= 1,024 rays and launch streamed_kernel once each; the check-only
+    PHASES instantiation gives the same outputs and counts no launch."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import traverse, wavefront
+
+    sc, info = _terrain_scene(40, 4, stream_threshold=0)
+    o, d, t_init = _forest_rays(4096)
+    for fn in (traverse.ray_scene, traverse.probe_forest_t,
+               traverse.heat_counts):
+        before = wavefront.launches["streamed_kernel"]
+        fn(o, d, sc, info)
+        assert wavefront.launches["streamed_kernel"] == before + 1
+    before = wavefront.launches["streamed_kernel"]
+    *out, cyc = wavefront.streamed_phase_cycles(o, d, t_init, sc, info)
+    assert wavefront.launches["streamed_kernel"] == before
+    for a, b in zip(out, wavefront.trace_streamed(o, d, t_init, sc, info)):
+        assert torch.equal(a, b)
+    assert cyc["warp"] > cyc["group"] > 0 and cyc["group_tests"] > 0
+    assert cyc["group_lanes"] >= cyc["group_distinct"] >= cyc["group_tests"]
 
 
 @pytest.mark.cuda

@@ -293,6 +293,101 @@ def test_ray_scene_streamed_matches_jax_and_the_sah_route(pair, n):
     assert int(box.min()) >= 2 and int(rows.max()) > 0
 
 
+def test_streamed_route_sorts_its_rays_as_jax(pair, monkeypatch):
+    """A streamed query of >= 1,024 rays, some switched off and some that
+    miss the LBVH's root box: the port hands its kernel the rays the JAX
+    package hands its `_streamed_kernel`, in the same order (rays that
+    miss the root, then switched-off ones, at the back); sorted and
+    unsorted give the same bits; `ray_scene` matches the JAX one (which
+    sorts) at the tolerances above; `probe_forest_t` and `heat_counts`
+    walk the sorted rays too."""
+    dev, info, sc, pinfo = pair(12)
+    n_rays = 1536
+    o, d = _rays(n_rays, 12, seed=5)
+    d[::11, 1] = np.abs(d[::11, 1])          # upwards: these miss the root
+    o[3::13, 0] -= 40.0                      # beside the grid, and away
+    d[3::13, 0] = -np.abs(d[3::13, 0])
+    active = np.arange(n_rays) % 6 != 0
+    seen = {}
+    real = jwavefront.trace_streamed
+
+    def spy(o3, d3, t_init, *args, **kw):
+        seen.update(o=np.asarray(o3), d=np.asarray(d3),
+                    t=np.asarray(t_init))
+        return real(o3, d3, t_init, *args, **kw)
+
+    monkeypatch.setattr(jwavefront, "trace_streamed", spy)
+    hit_j, _ = jtraverse.ray_scene(jnp.asarray(o), jnp.asarray(d), dev, info,
+                                   active=jnp.asarray(active))
+    on = ttraverse.nudged(_soa(o), _soa(d))
+    t_init = torch.where(torch.tensor(active), 1e30, 0.0)
+    order = ttraverse.streamed_order(on, _soa(d), t_init, sc)
+    assert sorted(order.tolist()) == list(range(n_rays))
+    np.testing.assert_array_equal(
+        torch.stack([c[order] for c in on]).numpy(), seen["o"][:, :n_rays])
+    np.testing.assert_array_equal(
+        torch.stack([c[order] for c in _soa(d)]).numpy(),
+        seen["d"][:, :n_rays])
+    np.testing.assert_array_equal(t_init[order].numpy(), seen["t"][:n_rays])
+    # the back of the order: root misses, then the switched-off rays
+    walked = twavefront.streamed_reference(on, _soa(d), t_init, sc, pinfo)
+    dead = ~torch.tensor(active)
+    n_dead = int(dead.sum())
+    assert bool(dead[order[-n_dead:]].all())
+    assert not bool(dead[order[:-n_dead]].any())
+    box = sc.st_top[0].numpy()
+    on_np = torch.stack(on, -1).numpy()
+    with np.errstate(divide="ignore"):
+        inv = np.clip(1.0 / np.where(d == 0.0, 1e-30, d), -1e30, 1e30)
+    ta, tb = (box[0:3] - on_np) * inv, (box[3:6] - on_np) * inv
+    near = np.minimum(ta, tb).max(-1)
+    far = np.maximum(ta, tb).min(-1)
+    miss = torch.tensor(~((far >= near) & (far > 0.0)) & active)
+    n_miss = int(miss.sum())
+    assert 0 < n_miss < n_rays - n_dead
+    assert float((walked[3] >= 0).float().mean()) > 0.05
+    assert bool(miss[order[-n_dead - n_miss:-n_dead]].all())
+    assert bool((walked[5][miss] == 0).all())
+
+    # sorted against unsorted: the same bits, kernel outputs and counters
+    got = {}
+    real_ref = twavefront.streamed_reference
+
+    def spy_ref(o, d, t_init, *args, **kw):
+        got["t_init"] = t_init
+        return real_ref(o, d, t_init, *args, **kw)
+
+    sorted_out = ttraverse.sorted_query(real_ref, on, _soa(d), t_init, sc,
+                                        pinfo)
+    for a, b in zip(sorted_out, walked):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(twavefront, "streamed_reference", spy_ref)
+    small = ttraverse.sorted_query(real_ref, tuple(c[:1000] for c in on),
+                                   tuple(c[:1000] for c in _soa(d)),
+                                   t_init[:1000], sc, pinfo)
+    for a, b in zip(small, walked):
+        assert torch.equal(a, b[:1000])
+
+    # the route: ray_scene, probe_forest_t and heat_counts walk sorted rays
+    hit_t, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo,
+                                   active=torch.tensor(active))
+    assert torch.equal(got["t_init"], t_init[order])
+    _assert_hits(hit_t, hit_j, 1e-5)
+    assert torch.equal(hit_t.t, walked[0])
+    got.clear()
+    probe = ttraverse.probe_forest_t(_soa(o), _soa(d), sc, pinfo)
+    full = torch.full((n_rays,), 1e30)
+    assert torch.equal(got["t_init"], full[order]) and bool(
+        (got["t_init"] > 0).all())
+    live = torch.tensor(active)
+    assert torch.equal(probe[live], walked[0][live])
+    got.clear()
+    box, rows = ttraverse.heat_counts(_soa(o), _soa(d), sc, pinfo)
+    assert "t_init" in got
+    assert torch.equal(box[live], walked[4][live])
+    assert torch.equal(rows[live], walked[5][live])
+
+
 W, H, CAM, ROT, SEED = 48, 36, (2.5, 3.0, -4.0), (0.4, 0.0, 0.0), 7
 
 
@@ -378,7 +473,7 @@ def test_ray_batch_size_chunks_change_nothing(raytracing):
 
 
 def test_spatial_sort_key_matches_jax():
-    """The ray-coherence key (not on the port's route) is bit-equal to the
+    """The ray-coherence key (the streamed route's sort) is bit-equal to the
     JAX package's on seeded rays, some with zero direction components and
     some outside the box."""
     o, d = _rays(4096, 20, seed=11)

@@ -27,7 +27,13 @@ non-zero:
                    480,000 primary rays alone, the batch the main path
                    gives it;
                    block_kernel on one sample's rays at 800x600 of config 6
-                   and of the OBJ grid;
+                   and of the OBJ grid, with the share of a warp's lanes a
+                   bounce step keeps busy and of its cycles each part of a
+                   scene query takes (`block_phases`: the check-only LANES
+                   and PHASES instantiations, outputs equal to the
+                   kernel's); and its two triangle loops, plain and
+                   staged with the early exit, in turns on grids of 4 to
+                   144 triangles and on config 6 (`block_stage_min`);
                    streamed_kernel on the 999,698-triangle terrain
                    (scenes.terrain(708)): the 480,000 primary rays of its
                    camera and 960,000 rays (primary + random, one in seven
@@ -49,7 +55,10 @@ non-zero:
                    themselves against float32 ones, B against C, and each
                    form against A (recorded); prefilter_kernel (row E) at
                    the same three shapes, with the hits of A it lost and
-                   its gate counts;
+                   its gate counts; the `ms` of mxu_big_kernel and
+                   mxu_split3_kernel is that of their launches alone, as
+                   the render kernels', the others' CUDA events around
+                   their wrappers (both are recorded for each);
                    the refill schedule of frame_kernel for configs 2, 4 and
                    6 at 800x600: against the plain version at 2 spp, and
                    against the default schedule at the main path's 16 spp
@@ -105,24 +114,27 @@ busy time, its kernel count and the kernels that took most of it (phase
 
 With `--parent LABEL=DIR` (repeatable) it also loads the package of another
 checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
-archive`, say), builds those of its frame, block, forest and streamed
-kernels whose sources differ from this one's, and holds each against this
-checkout's (phase `parent_vs_change`), whatever the others do:
-frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp in
-both schedules, traverse_kernel on the terrain's 960,000 rays,
+archive`, say), builds those of its frame, block, forest, streamed and
+group-test kernels whose sources differ from this one's, and holds each
+against this checkout's (phase `parent_vs_change`), whatever the others
+do: frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp
+in both schedules, traverse_kernel on the terrain's 960,000 rays,
 brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
-block_kernel on the OBJ grid's rays and streamed_kernel on the 1M
-terrain's four populations, the same inputs through both, their outputs
-compared and their device times taken in turns (parent, change, change,
-parent, parent, change; the median of each side), with each build's
-registers, spills and local-memory instructions and, where the other
-package has it, its PHASES shares.
+block_kernel on the OBJ grid's rays, streamed_kernel on the 1M terrain's
+four populations, and the group-test kernels (rows A-E, both precisions,
+mm_only) on the diagnostic's three populations at the group-test parity
+limits, the same inputs through both, their outputs compared and their
+device times taken in turns (parent, change, change, parent, parent,
+change; the median of each side), with each build's registers, spills and
+local-memory instructions and, where the other package has it, its PHASES
+shares.
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
 chiprun_out/chip_smoke.json.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -137,10 +149,21 @@ TERRAIN_N, TERRAIN_SPP, TERRAIN_LEAF = 181, 8, 4
 # the streamed route's cell: the scale benchmark's terrain and settings
 BIG_N, BIG_SPP, BIG_BOUNCES = 708, 2, 3
 GOLDEN = (160, 120, 4, 1234)
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside the
-# tensor cores
+# grids of side x side triangles on which block_kernel's two triangle loops
+# are timed (phase `block_stage_min`)
+STAGE_GRID_SIDES = (2, 3, 4, 5, 6, 8, 12)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; flop/s of
+# float32 outside the tensor cores and of TF32 and bf16 on them. The data
+# sheet's flop rates are 132 SMs' at one clock each: float32 256 a clock and
+# SM at 1,980 MHz, TF32 2,048 and bf16 4,096 at 1,830 MHz. The card may run
+# its SMs at up to its clocks.max.sm, so `set_peaks` takes for each type
+# the larger of the data sheet's rate and the card's SMs at that clock,
+# read in the same run: a bound from a rate below the card's would be
+# longer than the least time the card can take.
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+DATA_SHEET = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PER_SM_CLOCK = {"f32": 256, "tf32": 2048, "bf16": 4096}
+PEAK = dict(DATA_SHEET)
 # Float operations that every scene query of the frame kernel surely does
 # (csrc/pathtrace.cuh closest_hit), counted from the source: the nudge
 # and hit test, each triangle test up to its first compare, each
@@ -161,9 +184,9 @@ OPS_BOX, OPS_TRI_DIV = 23, 14
 # division-free triangle test d x e2 (9), the determinant (5) and its sign
 # fold (1), up to the first compare that can reject (|det| >= 1e-10).
 OPS_TRI_FREE = 15
-# The group-test kernels (csrc/mxu_group_kernel.cu). Tensor-core peaks of
-# the H100 SXM (NVIDIA data sheet, dense): TF32 for "highest" (three
-# passes), bf16 for "default" (one) and the bf16 split (three). What the
+# The group-test kernels (csrc/mxu_group_kernel.cu). Tensor-core peaks
+# (PEAK): TF32 for "highest" (three passes), bf16 for "default" (one) and
+# the bf16 split (three). What the
 # closest-hit function needs of a pass, per ray and group: 5 quantities of
 # 56 triangles over the 10 features that are ever non-zero, 2 x 10 x 280
 # operations. The kernels multiply the padded table, 2 x 16 x 320 (8 pad
@@ -173,13 +196,11 @@ OPS_TRI_FREE = 15
 # of the 56 candidates surely needs on the CUDA cores: the sign test, 3
 # min, 3 max and 2 compares; the reciprocal and what follows depend on the
 # data. `mm_only` adds one candidate per ray and group.
-PEAK_TF32 = 495e12
-PEAK_BF16 = 989e12
 OPS_SIGN_TEST, OPS_MM_ONLY = 8, 1
 OPS_PRODUCT, OPS_PRODUCT_PADDED = 2 * 10 * 280, 2 * 16 * 320
 GROUPS, GROUP_REPS_WIDE = 32, 4
-FORM_PASSES = {"highest": (3, PEAK_TF32), "default": (1, PEAK_BF16),
-               "split3": (3, PEAK_BF16)}
+FORM_PASSES = {"highest": (3, "tf32"), "default": (1, "bf16"),
+               "split3": (3, "bf16")}
 # Row E (prefilter_kernel): two bf16 products of D, U, V, W (4 x 56
 # candidates over the 10 features that are ever non-zero) a ray and group,
 # then for every candidate the margin test, 4 products and 8 compares; the
@@ -226,6 +247,21 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def set_peaks(n_sms):
+    """Set PEAK from the card's SM count and its highest SM clock
+    (nvidia-smi clocks.max.sm, MHz): for each type the larger of the data
+    sheet's rate and n_sms x PER_SM_CLOCK at that clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    mhz = float(out.stdout.split()[0])
+    for kind, rate in DATA_SHEET.items():
+        PEAK[kind] = max(rate, n_sms * PER_SM_CLOCK[kind] * mhz * 1e6)
+    return {"sms": n_sms, "clocks_max_sm_mhz": mhz, "data_sheet": DATA_SHEET,
+            "peaks": dict(PEAK)}
+
+
 def ptxas_usage(text):
     """{kernel instantiation: registers and spill bytes} from nvcc's
     `-Xptxas -v` output."""
@@ -257,7 +293,8 @@ def parent_trees():
 def load_tree(label, path):
     """The package pathtracer0_tpu_torch of the checkout at `path`, loaded
     beside this one as `tree_<label>` (it builds into its own _build/):
-    {"build": ..., "frame": ..., "fused": ..., "wavefront": ...}."""
+    {"build": ..., "frame": ..., "fused": ..., "wavefront": ...,
+    "mxu_group": ...}."""
     import importlib
     import importlib.util
 
@@ -270,13 +307,13 @@ def load_tree(label, path):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return {k: importlib.import_module(f"{name}.kernels.{k}")
-            for k in ("build", "frame", "fused", "wavefront")}
+            for k in ("build", "frame", "fused", "wavefront", "mxu_group")}
 
 
 # the libraries whose kernels `parent_vs_change` holds against another
 # checkout's
 COMPARED = ("frame_kernel", "block_kernel", "forest_kernel",
-            "streamed_kernel")
+            "streamed_kernel", "mxu_group_kernel")
 
 
 def differs(tree, build, lib):
@@ -288,13 +325,19 @@ def differs(tree, build, lib):
         for f in ours)
 
 
-# kernel -> (library, launch function) of the render kernels timed by
-# device_ms
+# kernel -> (library, launch function) of the kernels timed by device_ms
 LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
              "block_kernel": ("block_kernel", "pt_launch_block"),
              "brute_kernel": ("forest_kernel", "pt_launch_brute"),
              "traverse_kernel": ("forest_kernel", "pt_launch_traverse"),
-             "streamed_kernel": ("streamed_kernel", "pt_launch_streamed")}
+             "streamed_kernel": ("streamed_kernel", "pt_launch_streamed"),
+             **{k: ("mxu_group_kernel", f"pt_launch_{k[:-len('_kernel')]}")
+                for k in ("vpu_kernel", "mxu_kernel", "mxu_big_kernel",
+                          "mxu_split3_kernel", "prefilter_kernel")}}
+# the group-test kernels whose `ms` is the device time of 20 launches back
+# to back (device_ms), as the render kernels'; the others' `ms` is CUDA
+# events around their wrappers (`device_ms` beside it)
+DEVICE_TIMED = ("mxu_big_kernel", "mxu_split3_kernel")
 
 
 class KernelRepeat:
@@ -441,6 +484,8 @@ def main() -> int:
     card = smi()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
+    peaks = set_peaks(
+        torch.cuda.get_device_properties(0).multi_processor_count)
     dev = torch.device("cuda")
 
     # ---- 1. environment + build --------------------------------------------
@@ -471,7 +516,8 @@ def main() -> int:
             job.result()
     ptxas = {lib: ptxas_usage(text) for lib, text in build.ptxas_log.items()}
     emit({"phase": "environment", "card": card, "device": name,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "peaks": peaks, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas,
           "sass": {lib: sass_counts(build, lib) for lib in COMPARED},
           "frame_kernel_maxrregcount_128": cap.result() if cap else None,
@@ -516,7 +562,7 @@ def main() -> int:
                    for k in names)
 
     def least(nbytes, ops, **more):
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK["f32"]
         return {"bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "bytes": nbytes, "ops_lower_bound": ops, **more}
@@ -746,16 +792,20 @@ def main() -> int:
     terrain_cam = ((0.0, 14.0, -50.0 * (TERRAIN_N / 708.0) * 1.16),
                    (0.25, 0.0, 0.0))
 
-    def grid_scene(tmp):
+    def grid_scene(tmp, side=12):
         """A 12x12 jittered triangle grid written to an OBJ file and
-        loaded through Scene.add_object."""
+        loaded through Scene.add_object; `side` x `side` triangles over the
+        same square for another size."""
         rng = np.random.RandomState(0)
         lines, faces = ["o grid"], []
-        for i in range(12):
-            for k in range(12):
-                bx, bz, by = i * 0.7, k * 0.7, rng.rand() * 1.5
-                for v in ((bx, by, bz), (bx + 0.6, by + rng.randn() * 0.3, bz),
-                          (bx, by + rng.randn() * 0.3, bz + 0.6)):
+        scale = 12 / side
+        for i in range(side):
+            for k in range(side):
+                bx, bz, by = i * 0.7 * scale, k * 0.7 * scale, rng.rand() * 1.5
+                edge = 0.6 * scale
+                for v in ((bx, by, bz),
+                          (bx + edge, by + rng.randn() * 0.3, bz),
+                          (bx, by + rng.randn() * 0.3, bz + edge)):
                     lines.append("v %.5f %.5f %.5f" % v)
                 n = 3 * len(faces)
                 faces.append(f"f {n + 1} {n + 2} {n + 3}")
@@ -939,8 +989,38 @@ def main() -> int:
         check(rec["frac_within_1e-4"] >= 0.99, f"block_kernel: {rec}")
         check(rec["mean_abs"] < 5e-3, f"block_kernel: {rec}")
         check(abs(qk - qp) <= 0.01 * qp + 16, f"block_kernel: {rec}")
+        block_phases(label, sc, info, o, d, alive, state, rad_k, st_k, qk)
         return rec
 
+    def block_phases(label, sc, info, o, d, alive, state, rad_k, st_k, qk):
+        """block_kernel's check-only instantiations on the same rays: the
+        share of a warp's lanes a bounce step keeps busy (LANES) and of its
+        cycles each part of a scene query takes (PHASES); both give the
+        kernel's outputs."""
+        kw = dict(max_bounces=BOUNCES)
+        before = fused.trace_block.launches
+        *out_l, lanes = fused.trace_block(sc, info, o, d, alive, state,
+                                          check="lanes", **kw)
+        *out_p, cyc = fused.trace_block(sc, info, o, d, alive, state,
+                                        check="phases", **kw)
+        used, steps = lanes.tolist()
+        shares = {k: v / cyc["warp"] for k, v in cyc.items() if k != "warp"}
+        same = all(torch.equal(torch.stack(list(out[0])), torch.stack(
+            list(rad_k))) and torch.equal(out[1], st_k) and int(out[2]) == qk
+            for out in (out_l, out_p))
+        rec = {"phase": "block_phases", "scene": label,
+               "rays": int(state.numel()), "bounces": BOUNCES,
+               "lanes_busy_share": used / (32 * steps), "lanes": used,
+               "warp_steps": steps, "shares": shares,
+               "rest": 1.0 - sum(shares.values()), "cycles": cyc,
+               "same_outputs": same, "card": card}
+        emit(rec, log)
+        check(same and used == qk and cyc["warp"] > 0
+              and fused.trace_block.launches == before,
+              f"block_kernel check instantiations, {label}: {rec}")
+        block_phases_rec[label] = rec
+
+    block_phases_rec = {}
     compare_forest("brute_kernel", grid, grid_info, *grid_cam)
     # the records of the `kernels` line: the batches the main path launches
     brute_rec = compare_forest("brute_kernel", grid, grid_info, *grid_cam,
@@ -950,6 +1030,57 @@ def main() -> int:
     compare_block("config6", *scenes.BUILDERS[6]().build(device="cuda"),
                   *scenes.CAMERAS[6])
     block_rec = compare_block("obj_grid", grid, grid_info, *grid_cam)
+
+    def block_stage_min():
+        """block_kernel's two forms, the plain triangle loop and the staged
+        rows with the early exit (fused.STAGE_MIN picks one by the scene's
+        triangle count), on one sample's rays at 800x600 of grids of 4 to
+        144 triangles over the OBJ grid's square and of config 6, timed in
+        turns (plain, staged, staged, plain, plain, staged; the median of
+        each side), their outputs compared: from how many triangles staging
+        pays."""
+        with tempfile.TemporaryDirectory() as tmp:
+            cases = [(f"grid_{side * side}", *grid_scene(tmp, side),
+                      *grid_cam) for side in STAGE_GRID_SIDES]
+        cases.append(("config6", *scenes.BUILDERS[6]().build(device="cuda"),
+                      *scenes.CAMERAS[6]))
+        saved, recs = fused.STAGE_MIN, {}
+        try:
+            for label, sc, info, cam, rot in cases:
+                o, d, state = sample_rays(cam, rot, 800, 600)
+                alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+
+                def run():
+                    return fused.trace_block(sc, info, o, d, alive, state,
+                                             max_bounces=BOUNCES)
+
+                outs, times = {}, {"plain": [], "staged": []}
+                for form in ("plain", "staged", "staged", "plain", "plain",
+                             "staged"):
+                    fused.STAGE_MIN = 1 if form == "staged" else 1 << 30
+                    outs[form] = run()
+                    times[form].append(device_ms(run, "block_kernel"))
+                (rad_p, st_p, q_p), (rad_s, st_s, q_s) = (
+                    outs["plain"], outs["staged"])
+                ms = {form: sorted(t)[1] for form, t in times.items()}
+                rec = {"phase": "block_stage_min", "scene": label,
+                       "triangles": info.num_tris, "rays": int(state.numel()),
+                       "ms_plain": ms["plain"], "ms_staged": ms["staged"],
+                       "staged_over_plain": ms["staged"] / ms["plain"],
+                       "ms_turns": times,
+                       "state_eq": float((st_p == st_s).float().mean()),
+                       "rad_eq": float((torch.stack(rad_p) == torch.stack(
+                           rad_s)).all(0).float().mean()),
+                       "queries_eq": int(q_p) == int(q_s), "card": card}
+                emit(rec, log)
+                check(rec["state_eq"] >= 0.999 and rec["rad_eq"] >= 0.999
+                      and rec["queries_eq"], f"block_kernel forms: {rec}")
+                recs[label] = rec
+        finally:
+            fused.STAGE_MIN = saved
+        return recs
+
+    stage_min_rec = block_stage_min()
 
     # the streamed route's scenes: the scale benchmark's terrain, and the
     # n = 181 terrain built streamed
@@ -1228,24 +1359,25 @@ def main() -> int:
         return {k: float((a == b).float().mean())
                 for k, a, b in zip(names, out_p, out_c)}
 
+    def turns(tree, fn_parent, fn_change, key):
+        """Device ms of kernel `key` through another checkout's call and
+        this one's, in turns: the median of three each."""
+        times = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent", "parent",
+                    "change"):
+            times[who].append(
+                device_ms(fn_parent, key, lib_of=tree["build"])
+                if who == "parent" else device_ms(fn_change, key))
+        return {"ms_parent": sorted(times["parent"])[1],
+                "ms_change": sorted(times["change"])[1],
+                "ms_turns": times}
+
     def vs_tree(label, tree):
-        """This checkout's render kernels against another checkout's on the
-        same inputs: outputs compared, device times in turns. Each library
-        is compared where its sources differ, whatever the others do."""
+        """This checkout's kernels against another checkout's on the same
+        inputs: outputs compared, device times in turns. Each library is
+        compared where its sources differ, whatever the others do."""
         rec = {"phase": "parent_vs_change", "parent": label, "frame": {},
                "card": card}
-
-        def turns(fn_parent, fn_change, key):
-            """Device ms of each in turns: the median of three each."""
-            times = {"parent": [], "change": []}
-            for who in ("parent", "change", "change", "parent", "parent",
-                        "change"):
-                times[who].append(
-                    device_ms(fn_parent, key, lib_of=tree["build"])
-                    if who == "parent" else device_ms(fn_change, key))
-            return {"ms_parent": sorted(times["parent"])[1],
-                    "ms_change": sorted(times["change"])[1],
-                    "ms_turns": times}
 
         tf = tree["frame"]
         for n, refill, args, kw in (frame_cells() if differs(
@@ -1256,7 +1388,7 @@ def main() -> int:
                     "radiance_eq": float((out_p[0] == out_c[0]).all(-1)
                                          .float().mean()),
                     "queries": [int(out_p[2]), int(out_c[2])],
-                    **turns(lambda: tf.trace_frame(*args, **kw),
+                    **turns(tree, lambda: tf.trace_frame(*args, **kw),
                             lambda: frame.trace_frame(*args, **kw),
                             "frame_kernel")}
             if hasattr(tf, "phase_cycles"):
@@ -1277,7 +1409,7 @@ def main() -> int:
                 "rays": int(t_init.shape[0]),
                 "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
                                                    "box", "leaf")),
-                **turns(lambda: tw.trace_forest(o, d, t_init, terrain,
+                **turns(tree, lambda: tw.trace_forest(o, d, t_init, terrain,
                                                 terrain_info),
                         lambda: wavefront.trace_forest(o, d, t_init, terrain,
                                                        terrain_info),
@@ -1298,7 +1430,7 @@ def main() -> int:
                                                        "box", "leaf")),
                     "dead_exact": all(bool(torch.equal(a[dead], b[dead]))
                                       for a, b in zip(out_p, out_c)),
-                    **turns(lambda: tw.trace_forest(o, d, t_init, grid,
+                    **turns(tree, lambda: tw.trace_forest(o, d, t_init, grid,
                                                     grid_info),
                             lambda: wavefront.trace_forest(o, d, t_init, grid,
                                                            grid_info),
@@ -1308,27 +1440,48 @@ def main() -> int:
                       and cell["dead_exact"],
                       f"{label} against the change, brute {pop}: {cell}")
         if differs(tree, build, "block_kernel"):
-            o, d, state = sample_rays(*grid_cam, 800, 600)
-            alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+            # one sample's rays of the OBJ grid (the main path's batch) and
+            # of config 6 (four triangles)
             tb = tree["fused"]
-            out_p = tb.trace_block(grid, grid_info, o, d, alive, state,
-                                   max_bounces=BOUNCES)
-            out_c = fused.trace_block(grid, grid_info, o, d, alive, state,
-                                      max_bounces=BOUNCES)
-            rec["block"] = {
-                "rays": int(state.numel()),
-                "state_eq": float((out_p[1] == out_c[1]).float().mean()),
-                "radiance_eq": float((torch.stack(out_p[0]) == torch.stack(
-                    out_c[0])).all(0).float().mean()),
-                **turns(lambda: tb.trace_block(grid, grid_info, o, d, alive,
-                                               state, max_bounces=BOUNCES),
-                        lambda: fused.trace_block(grid, grid_info, o, d,
-                                                  alive, state,
-                                                  max_bounces=BOUNCES),
-                        "block_kernel")}
-            check(rec["block"]["state_eq"] >= 0.999
-                  and rec["block"]["radiance_eq"] >= 0.999,
-                  f"{label} against the change, block: {rec['block']}")
+            rec["block"] = {}
+            for name_, (sc, info, cam, rot) in (
+                    ("obj_grid", (grid, grid_info, *grid_cam)),
+                    ("config6", (*scenes.BUILDERS[6]().build(device="cuda"),
+                                 *scenes.CAMERAS[6]))):
+                o, d, state = sample_rays(cam, rot, 800, 600)
+                alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+
+                def run(module, sc=sc, info=info, o=o, d=d, alive=alive,
+                        state=state):
+                    return module.trace_block(sc, info, o, d, alive, state,
+                                              max_bounces=BOUNCES)
+
+                out_p, out_c = run(tb), run(fused)
+                cell = {
+                    "rays": int(state.numel()),
+                    "state_eq": float((out_p[1] == out_c[1]).float().mean()),
+                    "radiance_eq": float((torch.stack(out_p[0]) == torch.stack(
+                        out_c[0])).all(0).float().mean()),
+                    "queries": [int(out_p[2]), int(out_c[2])],
+                    **turns(tree, lambda: run(tb), lambda: run(fused),
+                            "block_kernel")}
+                if "check" in inspect.signature(tb.trace_block).parameters:
+                    # the other checkout's lanes and cycles, where it can
+                    lanes = tb.trace_block(sc, info, o, d, alive, state,
+                                           max_bounces=BOUNCES,
+                                           check="lanes")[3].tolist()
+                    cyc = tb.trace_block(sc, info, o, d, alive, state,
+                                         max_bounces=BOUNCES,
+                                         check="phases")[3]
+                    cell["lanes_busy_share_parent"] = (
+                        lanes[0] / (32 * lanes[1]))
+                    cell["phases_parent"] = {k: v / cyc["warp"]
+                                             for k, v in cyc.items()
+                                             if k != "warp"}
+                rec["block"][name_] = cell
+                check(cell["state_eq"] >= 0.999
+                      and cell["radiance_eq"] >= 0.999,
+                      f"{label} against the change, block {name_}: {cell}")
         if differs(tree, build, "streamed_kernel"):
             # the 1M terrain's primary and mixed rays, as given and sorted
             rec["streamed"] = {}
@@ -1339,7 +1492,7 @@ def main() -> int:
                     "rays": int(t_init.shape[0]),
                     "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
                                                        "box", "rows")),
-                    **turns(lambda: tw.trace_streamed(o, d, t_init, big,
+                    **turns(tree, lambda: tw.trace_streamed(o, d, t_init, big,
                                                       big_info),
                             lambda: wavefront.trace_streamed(o, d, t_init,
                                                              big, big_info),
@@ -1355,11 +1508,11 @@ def main() -> int:
                 rec["streamed"][pop] = cell
                 check(min(cell["equal"].values()) >= 0.999,
                       f"{label} against the change, streamed {pop}: {cell}")
+        if differs(tree, build, "mxu_group_kernel"):
+            rec["group"] = {shape: group_vs_tree(label, tree, shape, data)
+                            for shape, data in group_data.items()}
         emit(rec, log)
         return rec
-
-    parent_recs = {label: vs_tree(label, tree) for label, tree in
-                   trees.items()}
 
     # the group-test diagnostic's data: its own synthetic shape, and the
     # card's width on real data
@@ -1398,15 +1551,17 @@ def main() -> int:
         if form is None:        # vpu_kernel: 6 ray floats, t_init, triangles
             parts = {"bytes": n_rays * (28 + 16) + GROUPS * 56 * 36,
                      "tensor cores": 0.0,
-                     "cuda cores": OPS_TRI_FREE * 56 * work / PEAK_F32}
+                     "cuda cores": OPS_TRI_FREE * 56 * work / PEAK["f32"]}
         else:   # 16 features and t_init per ray; bf16 hi + lo are 4 bytes too
-            passes, rate = FORM_PASSES[form]
+            passes, kind = FORM_PASSES[form]
+            rate = PEAK[kind]
             padded = passes * OPS_PRODUCT_PADDED * work / rate
             parts = {"bytes": n_rays * (64 + 4 + 16) + GROUPS * 320 * 16 * 4,
                      "tensor cores": padded if mm_only
                      else passes * OPS_PRODUCT * work / rate,
                      "cuda cores": (OPS_MM_ONLY if mm_only
-                                    else OPS_SIGN_TEST * 56) * work / PEAK_F32}
+                                    else OPS_SIGN_TEST * 56)
+                     * work / PEAK["f32"]}
         parts["bytes"] = parts["bytes"] / PEAK_BYTES
         unit = max(parts, key=parts.get)
         bound = {"bound_ms": 1e3 * parts[unit],
@@ -1428,10 +1583,10 @@ def main() -> int:
         parts = {"bytes": (n_rays * (24 + 4 + 64 + 16)
                            + GROUPS * (2 * 320 * 16 * 2 + 56 * 36))
                  / PEAK_BYTES,
-                 "tensor cores": OPS_E_PRODUCTS * work / PEAK_BF16,
+                 "tensor cores": OPS_E_PRODUCTS * work / PEAK["bf16"],
                  "cuda cores": (OPS_MARGIN_TEST * 56 * work
                                 + OPS_TRI_FREE * 56 * 32 * passed_pairs)
-                 / PEAK_F32}
+                 / PEAK["f32"]}
         unit = max(parts, key=parts.get)
         return {"bound_ms": 1e3 * parts[unit],
                 "bound_by": "bytes" if unit == "bytes" else "operations",
@@ -1473,6 +1628,18 @@ def main() -> int:
                 "miss_exact": bool((out_k[0] == out_p[0])[same & ~hit].all()),
                 "hit_share": float((out_k[3] >= 0).float().mean())}
 
+    def scalar_parity(out_k, out_p):
+        """Rows A and E: the share of the rays that hit in either with idx
+        equal, of all rays, and the largest t, u, v difference where idx
+        agrees."""
+        same = out_k[3] == out_p[3]
+        either = (out_k[3] >= 0) | (out_p[3] >= 0)
+        return {"hits_idx_eq": share_of(same, either),
+                "idx_eq": float(same.float().mean()),
+                "max_abs_err": max(float((x - y).abs()[same].max())
+                                   for x, y in zip(out_k[:3], out_p[:3])),
+                "hit_share": float((out_k[3] >= 0).float().mean())}
+
     def against_a(out_a, out):
         """The tool's finding: a form against the scalar test."""
         both = (out_a[3] >= 0) & (out[3] >= 0)
@@ -1499,12 +1666,14 @@ def main() -> int:
             check(mxu_group.launches[kernel] == before + 1,
                   f"{variant} did not launch {kernel}")
             out_p, plain_ms = plain_ms_of(plain)
+            wrapper_ms, launch_ms = cuda_ms(run, 5), device_ms(run, kernel)
             rec = {"phase": "kernel_vs_plain", "kernel": kernel,
                    "variant": variant, "shape": shape, "rays": n,
                    "groups": GROUPS, **parity(out_k, out_p),
                    "finite": bool(torch.isfinite(out_k[0]).all()),
-                   "ms": cuda_ms(run, 5), "plain_ms": plain_ms, **bound,
-                   "card": card}
+                   "ms": launch_ms if kernel in DEVICE_TIMED else wrapper_ms,
+                   "wrapper_ms": wrapper_ms, "device_ms": launch_ms,
+                   "plain_ms": plain_ms, **bound, "card": card}
             if variant != "A" and "mm_only" not in variant:
                 rec["against_a"] = against_a(outs["A"], out_k)
             emit(rec, log)
@@ -1513,15 +1682,6 @@ def main() -> int:
                 check(rec[key] >= least_ok, f"{variant} {shape}: {key} {rec}")
             recs[variant], outs[variant] = rec, out_k
             return rec
-
-        def scalar_parity(out_k, out_p):
-            same = out_k[3] == out_p[3]
-            either = (out_k[3] >= 0) | (out_p[3] >= 0)
-            return {"hits_idx_eq": share_of(same, either),
-                    "idx_eq": float(same.float().mean()),
-                    "max_abs_err": max(float((x - y).abs()[same].max())
-                                       for x, y in zip(out_k[:3], out_p[:3])),
-                    "hit_share": float((out_k[3] >= 0).float().mean())}
 
         rec = record("A", "vpu_kernel",
                      lambda: mxu_group.run_vpu(tris, o, d, t_init, **kw),
@@ -1641,6 +1801,67 @@ def main() -> int:
     group_recs = {shape: compare_group(shape, data)
                   for shape, data in group_data.items()}
 
+    def group_vs_tree(label, tree, shape, data):
+        """Another checkout's group-test kernels against this one's on one
+        of the three populations, one pass over GROUPS groups, at the
+        group-test parity limits (the product's summation order may differ,
+        so its bits are not required): {variant: outputs compared, device
+        times in turns}."""
+        tg = tree["mxu_group"]
+        tris, o, d, center = (data[k] for k in ("tris", "o", "d", "center"))
+        coef = mxu_tri.coef_table(tris[:GROUPS * mxu_tri.GROUP_TRIS], center)
+        feats = mxu_tri.ray_features(o, d, center)
+        t_init = torch.full((o[0].shape[0],), 1e30, device=dev)
+        zero = torch.zeros_like(t_init)
+        tris_c = mxu_tri.recentre_tris(tris[:GROUPS * mxu_tri.GROUP_TRIS],
+                                       center)
+        o_c = mxu_tri.recentre_origins(o, center)
+        kw = dict(n_groups=GROUPS, reps=1)
+        runs = {"A": ("vpu_kernel",
+                      lambda m: m.run_vpu(tris, o, d, t_init, **kw)),
+                "E": ("prefilter_kernel",
+                      lambda m: m.run_prefilter(coef, tris_c, feats, o_c, d,
+                                                t_init, **kw)),
+                "D": ("mxu_split3_kernel",
+                      lambda m: m.run_mxu_split3(coef, feats, t_init, **kw))}
+        for p in mxu_group.PRECISIONS:
+            runs[f"B {p}"] = ("mxu_kernel", lambda m, p=p: m.run_mxu(
+                coef, feats, t_init, precision=p, **kw))
+            runs[f"C {p}"] = ("mxu_big_kernel", lambda m, p=p: m.run_mxu_big(
+                coef, feats, t_init, precision=p, **kw))
+            runs[f"C mm_only {p}"] = (
+                "mxu_big_kernel", lambda m, p=p: m.run_mxu_big(
+                    coef, feats, zero, precision=p, mm_only=True, **kw))
+        cells = {}
+        for variant, (kernel, run) in runs.items():
+            out_p, out_c = run(tg), run(mxu_group)
+            if variant in ("A", "E"):
+                cell = scalar_parity(out_c[:4], out_p[:4])
+                ok = (cell["hits_idx_eq"] >= 0.999
+                      and cell["max_abs_err"] <= 1e-5)
+                if variant == "E":
+                    cell["gate_eq"] = float((out_c[4] == out_p[4]).float()
+                                            .mean())
+                    ok = ok and cell["gate_eq"] >= 0.999
+            elif "mm_only" in variant:
+                p = variant.split()[-1]
+                c, f = (mxu_group._rounded(x, p) for x in (coef, feats))
+                mag = sum(c[g, 0].abs() @ f.abs() for g in range(GROUPS))
+                cell = {"err_over_magnitudes": float(
+                    ((out_c[0] - out_p[0]).abs() / mag).max())}
+                ok = cell["err_over_magnitudes"] <= 1e-5
+            else:
+                cell = form_parity(out_c, out_p)
+                ok = (cell["hits_idx_eq"] >= 0.995
+                      and cell["hits_idx_eq_and_t_within_1e-4"] >= 0.995
+                      and cell["miss_exact"] and cell["t_rel_err"] <= 1e-4)
+            cell.update(turns(tree, lambda: run(tg), lambda: run(mxu_group),
+                              kernel))
+            cells[variant] = cell
+            check(ok, f"{label} against the change, {variant} {shape}: "
+                      f"{cell}")
+        return cells
+
     def library_products():
         """One PyTorch call for the product alone (what C `mm_only` prices)
         at the card's width: the (32, 320, 16) table times the (16, 480,000)
@@ -1667,6 +1888,8 @@ def main() -> int:
         return times
 
     library_ms = library_products()
+    parent_recs = {label: vs_tree(label, tree) for label, tree in
+                   trees.items()}
 
     def probe_bound(n_cols, reps, form, precision, dtype):
         """Least time of one launch of mm_probe_kernel: bytes (the slices
@@ -1675,7 +1898,8 @@ def main() -> int:
         rows the output needs are beside."""
         size = 2 if dtype == torch.bfloat16 else 4
         slices = min(reps, mm_probe.SLICES) if form.endswith("dyn") else 1
-        passes, rate = FORM_PASSES[precision]
+        passes, kind = FORM_PASSES[precision]
+        rate = PEAK[kind]
         per_col = 2 * mm_probe.M * mm_probe.K * reps * passes
         parts = {"bytes": (slices * mm_probe.M * mm_probe.K * size
                            + mm_probe.K * n_cols * size + 8 * n_cols * 4)
@@ -2213,6 +2437,16 @@ def main() -> int:
         ("streamed_kernel", "streamed_kernel.cu",
          "pathtracer0_tpu/kernels/wavefront.py:151 _streamed_kernel",
          streamed_rec, launches_streamed))]}
+    # where block_kernel's warps' lanes and cycles go
+    kernels["kernels"][1]["phases"] = {
+        label: {**r["shares"], "rest": r["rest"],
+                "lanes_busy_share": r["lanes_busy_share"]}
+        for label, r in block_phases_rec.items()}
+    # its two triangle loops by the scene's triangle count
+    kernels["kernels"][1]["stage_min"] = {
+        "STAGE_MIN": fused.STAGE_MIN,
+        **{label: {k: r[k] for k in ("triangles", "ms_plain", "ms_staged")}
+           for label, r in stage_min_rec.items()}}
     # streamed_kernel on every population, and where its warps' cycles go
     streamed_entry = kernels["kernels"][-1]
     streamed_entry["populations"] = {
@@ -2248,7 +2482,10 @@ def main() -> int:
             "detail": {
                 "variant": main, **by_shape,
                 "rows": {shape: [r for r in rows if r["row"][0] == main[0]]
-                         for shape, rows in tool_rows.items()}}}
+                         for shape, rows in tool_rows.items()}},
+            "parents": {label: {shape: {v: cells[v] for v in variants}
+                                for shape, cells in r["group"].items()}
+                        for label, r in parent_recs.items() if "group" in r}}
 
     kernels["kernels"] += [
         group_entry("vpu_kernel", "35 _vpu_kernel", "A", ("A",)),
@@ -2325,6 +2562,11 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"records": log, **kernels}, f, indent=1)
+    # no time below its bound: that would make the bound no floor
+    under = [(r.get("kernel", r.get("name")), r.get("variant", r.get("scene")),
+              r["ms"], r["bound_ms"]) for r in log + kernels["kernels"]
+             if "bound_ms" in r and "ms" in r and r["ms"] < r["bound_ms"]]
+    check(not under, f"kernel times below their bounds: {under}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,7 +17,7 @@ from . import math as vm
 from . import rng as vrng
 
 
-def pixel_centers(width: int, height: int, device="cpu"):
+def pixel_centers(width: int, height: int, device):
     """((H*W, 2) float32 uv at pixel centres, (H*W,) int64 pixel index
     py * width + px, frag.glsl:885-886)."""
     u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \

@@ -46,18 +46,13 @@
 // sky is sampled here, so there are no banks and no cap on the samples a
 // launch takes.
 //
-// Two kinds of check-only instantiations, never launched on the main path
-// (whose instantiations count nothing):
-//   LANES   (both path schedules) adds, for each group of lanes that runs a
-//           bounce together, the lanes in it (__popc(__activemask())) and
-//           one warp step, so the share of the 32 lanes that a bounce step
-//           keeps busy can be read;
-//   PHASES  (every schedule) adds the clock64() cycles of each part of a
-//           scene query per warp (pathtrace.cuh PH_*: the triangles, the
-//           implicit march and the ellipsoids of the closest hit, the
-//           material decode with its maps, the sky, the lobe choice with the
-//           refraction stack) and each warp's cycles from start to end, so
-//           the share of a warp's time each part takes can be read.
+// Two kinds of check-only instantiations (integrate.cuh CHECK), never
+// launched on the main path: LANES (both path schedules) counts the lanes
+// each bounce step keeps busy; PHASES (every schedule) the clock64() cycles
+// of each part of a scene query (pathtrace.cuh PH_*: the triangles, the
+// implicit march and the ellipsoids of the closest hit, the material decode
+// with its maps, the sky, the lobe choice with the refraction stack) and of
+// each warp from start to end.
 //
 // The per-ray integrators are in integrate.cuh. Plain version:
 // pathtracer0_tpu_torch/kernels/frame.py `trace_frame_reference` (for both
@@ -79,8 +74,6 @@ struct FrameArgs {
   float xs_scale, ys_scale, focal_length, blur;
   int whitted, refill, check;
 };
-
-enum { NO_CHECK, LANES, PHASES };
 
 // The camera of one pixel: where its samples' rays start and aim.
 struct PixelCamera {
@@ -106,20 +99,6 @@ struct PixelCamera {
     d = v3(dd.x / mag, dd.y / mag, dd.z / mag);
   }
 };
-
-// LANES: the lanes that run this bounce step together, counted once by the
-// lowest of them.
-template <int CHECK>
-__device__ __forceinline__ void count_lanes(unsigned long long& used,
-                                            unsigned long long& steps) {
-  if (CHECK == LANES) {
-    const unsigned mask = __activemask();
-    if ((threadIdx.x & 31) == __ffs(mask) - 1) {
-      used += __popc(mask);
-      ++steps;
-    }
-  }
-}
 
 template <bool WHITTED, bool REFILL, int CHECK>
 __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {

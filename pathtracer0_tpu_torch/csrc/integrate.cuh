@@ -91,8 +91,8 @@ __device__ __forceinline__ bool path_on(const PathState& p, int max_bounces) {
 // and, on a miss, the sky into skyc; a miss or the throughput cut-off ends
 // the path (alive = false). PH: add the cycles of the closest hit, the
 // material decode with its maps, the sky and the lobe choice with the
-// refraction stack into cyc.
-template <bool PH = false>
+// refraction stack into cyc. STAGED: closest_hit's.
+template <bool PH = false, bool STAGED = false>
 __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_t& state, int S,
                                           bool gate_ss, V3& inc, V3& skyc,
                                           unsigned long long* cyc = nullptr) {
@@ -100,7 +100,7 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   V3 col = p.col;
   ++p.bounce;
   V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-  Hit h = closest_hit<PH>(sc, on, d, cyc);
+  Hit h = closest_hit<PH, STAGED>(sc, on, d, cyc);
   long long t0 = PH ? tick() : 0;
   if (!h.is_hit) {
     V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
@@ -201,18 +201,49 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   p.alive = !cutoff;
 }
 
+// Check-only instantiations of the kernels that run paths (frame_kernel.cu,
+// block_kernel.cu), never launched on the main path, whose instantiations
+// (NO_CHECK) count nothing:
+//   LANES   adds, for each group of lanes that runs a bounce together, the
+//           lanes in it (__popc(__activemask())) and one warp step, so the
+//           share of the 32 lanes that a bounce step keeps busy can be read;
+//   PHASES  adds the clock64() cycles of each part of a scene query per
+//           warp (pathtrace.cuh PH_*) and each warp's cycles from start to
+//           end, so the share of a warp's time each part takes can be read.
+enum { NO_CHECK, LANES, PHASES };
+
+// LANES: the lanes that run this bounce step together, counted once by the
+// lowest of them.
+template <int CHECK>
+__device__ __forceinline__ void count_lanes(unsigned long long& used,
+                                            unsigned long long& steps) {
+  if (CHECK == LANES) {
+    const unsigned mask = __activemask();
+    if ((threadIdx.x & 31) == __ffs(mask) - 1) {
+      used += __popc(mask);
+      ++steps;
+    }
+  }
+}
+
 // One sample's path from ray (o, d), bounce after bounce, with the
-// refraction stack `stk`. Adds the radiance without sky into inc and the
-// sky into skyc; returns the queries made.
+// refraction stack `stk` (the block kernel's loop; STAGED: closest_hit's).
+// Adds the radiance without sky into inc and the sky into skyc; returns the
+// queries made. CHECK: count into used and steps (LANES) or the parts'
+// cycles into cyc (PHASES).
+template <int CHECK, bool STAGED>
 __device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
                           int max_bounces, int S, bool gate_ss, V3& inc,
-                          V3& skyc, float* stk) {
+                          V3& skyc, float* stk, unsigned long long* used = nullptr,
+                          unsigned long long* steps = nullptr,
+                          unsigned long long* cyc = nullptr) {
   PathState p;
   path_begin(p, o, d, stk);
   int queries = 0;
   while (path_on(p, max_bounces)) {
+    if (CHECK == LANES) count_lanes<CHECK>(*used, *steps);
     ++queries;
-    path_step(sc, p, state, S, gate_ss, inc, skyc);
+    path_step<CHECK == PHASES, STAGED>(sc, p, state, S, gate_ss, inc, skyc, cyc);
   }
   return queries;
 }

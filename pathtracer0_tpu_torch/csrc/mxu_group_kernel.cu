@@ -31,11 +31,11 @@
 // (1e-10, closest so far); the winner of a group is its least t, the lowest
 // slot on a tie, and replaces the closest hit if strictly closer. Empty
 // slots and the 8 pad candidates carry det = +1, u = -1 and fail the sign
-// test; the product covers all 320 candidates (it is the function the TPU
-// kernels compute), the test the 56 real ones. The reciprocal is taken only
+// test; the test covers the 56 real ones. The reciprocal is taken only
 // where the sign test passes, so D is never 0 there.
 //
-// The product is `mma.sync` at warp level, rays as the M side: a warp's 16
+// mxu_kernel's product (all 320 candidates, as the TPU kernels compute it)
+// is `mma.sync` at warp level, rays as the M side: a warp's 16
 // rays by 16 features stay in registers as the A operand for the whole
 // launch, a group's coefficients are staged in shared memory (one row of 16
 // features per candidate, padded so the B-operand loads hit 32 banks), and
@@ -48,27 +48,40 @@
 //     is small x big + big x small + big x big, three m16n8k8 passes per 8
 //     features, float32 sums: the dropped small x small term and the split's
 //     remainder are each below 2^-22 of |x||y|.
-//   MODE_SPLIT3: hi and lo bf16 parts of both operands come from the host
-//     (coef = ch + cl, feats = fh + fl); ch fh + ch fl + cl fh, three
-//     m16n8k16 passes.
+//   MODE_SPLIT3 (the big form only): hi and lo bf16 parts of both operands
+//     come from the host (coef = ch + cl, feats = fh + fl); ch fh + ch fl +
+//     cl fh, three passes.
 //
 // mxu_kernel: 8 warps of 16 rays a block. After a group's 7 x 5 tiles (and
 // the 5 of the pad candidates) the four threads that share a ray reduce
 // their winners by shuffles and commit; the closest hit lives in registers.
 //
-// mxu_big_kernel, mxu_split3_kernel: what sets the TPU's `big` form apart is
-// ONE product per group over the whole block and a commit at block width. A
-// block of 128 rays computes the group's whole (320, 128) product into
-// shared memory (165 KB, so one block a multiprocessor: the product of at
-// most 177 rays fits there) before any thread tests a candidate. With one
-// thread per ray that leaves 4 warps a multiprocessor, which the latency of
-// every step then bounds (0.53 us per group and 1,024 rays at "default",
-// NVIDIA H100 80GB HBM3, 700.00 W); so the block has 512 threads: 16 warps
-// share the product's 320 tiles, and four threads share a ray's test, 14
-// candidates each in slot order with a strict <, their winners joined
-// through shared memory in slot order, again strictly: the least t and the
-// lowest slot on a tie. `mm_only` skips the test and adds candidate 0 into
-// t, to price the product alone.
+// mxu_big_kernel, mxu_split3_kernel (one body, big_body): what sets the
+// TPU's `big` form apart is ONE product per group over a whole block of rays.
+// Here a warpgroup multiplies its 64 rays by the group with `wgmma`
+// (m64n40: 8 triangles x the 5 quantities a product, so a thread holds D, U,
+// V, W, Tn of the same 2 rays x 2 triangles, as in mxu_kernel), and the test
+// runs on the accumulators: the product never goes through shared memory.
+// The features stay in registers as the A operand for the launch; the B
+// operand is the group's coefficients in shared memory, in the core-matrix
+// layout `wgmma` reads (kernels/mxu_tri.py b_image, made by the wrapper),
+// brought by the copy engine (cp.async.bulk) into a ring of two stages whose
+// mbarriers say "landed" and "read by every thread", so the next group's
+// copy overlaps this group's products and test. A block is two warpgroups,
+// 128 rays; the ring is 20 KB at "default", 40 KB for split3, 80 KB at
+// "highest", so two or more blocks share a multiprocessor.
+//   "default": one bf16 m64n40k16 a product.
+//   "highest": the TF32 split as in mxu_kernel, 3 passes x 2 halves of K,
+//     m64n40k8 with A (tf32) from registers; B's big and small parts are
+//     split on the host by the same rounding as cvt.rna.
+//   split3: ch fh + ch fl + cl fh, three bf16 m64n40k16.
+// The pad chunk (candidates 56-63 of each quantity) is multiplied only where
+// its products are read: by `mm_only`, which skips the test and adds
+// candidate 0 into t to price the padded product alone, and by DUMP.
+// A form that wrote each group's (320, 128) product into shared memory
+// (165 KB, one block a multiprocessor, three barriers a group) and read it
+// back for the test took 3.52 ms at "default" where mxu_kernel took 1.03
+// for the same function (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 //
 // prefilter_kernel (row E): the bf16 product as a conservative filter in
 // front of the scalar slot test. Per group a warp multiplies its 32 rays
@@ -106,7 +119,8 @@
 //
 // What bounds them: the test after the product (6 min/max and 2 compares on
 // each of 56 candidates) runs on the CUDA cores and outweighs the product's
-// tensor-core time; vpu_kernel is bound by its float32 operations, and so
+// tensor-core time at "default" (at "highest" the six TF32 passes come
+// close); vpu_kernel is bound by its float32 operations, and so
 // is prefilter_kernel where most units pass the gate (the margin test is 8
 // compares and 4 products a candidate, 2 x 4 x 56 x 32 products on the
 // tensor cores a warp and group).
@@ -136,9 +150,7 @@ struct VpuArgs {
 
 // kernels/mxu_group.py `_MxuArgs`, field for field.
 struct MxuArgs {
-  const float* coef;     // (n_groups, 320, 16) f32; MODE_BF16, MODE_TF32X3
-  const uint16_t* ch;    // the same shape in bf16, hi and lo; MODE_SPLIT3
-  const uint16_t* cl;
+  const float* coef;     // (n_groups, 320, 16) f32; mxu_kernel
   const float* feats;    // (16, n_rays) f32; MODE_BF16, MODE_TF32X3
   const uint16_t* fh;    // the same shape in bf16, hi and lo; MODE_SPLIT3
   const uint16_t* fl;
@@ -148,6 +160,8 @@ struct MxuArgs {
   float* v;
   int* idx;
   float* cand;           // null, or (n_groups, 320, n_rays): every product
+  const void* bimg;      // mxu_big_kernel, mxu_split3_kernel: the groups' B
+                         // images (kernels/mxu_tri.py b_image)
   int n_rays, n_groups, reps, mm_only;
 };
 
@@ -191,14 +205,11 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int VPU_BLOCK = 128;
 constexpr int ROWS_WARPS = 8;                  // mxu_kernel: warps a block
 constexpr int ROWS_RAYS = ROWS_WARPS * 16;     // and its rays
-constexpr int BIG_RAYS = 128;                  // mxu_big_kernel: rays a block
-constexpr int BIG_STRIDE = BIG_RAYS + 4;       // floats per staged candidate
-constexpr int BIG_PARTS = 4;                   // threads that share a ray's test
-constexpr int BIG_PART_TRIS = GROUP_TRIS / BIG_PARTS;
-constexpr int BIG_THREADS = BIG_RAYS * BIG_PARTS;
-// candidates a warp multiplies: the warps beyond one per tile of 16 rays
-// split the 320
-constexpr int BIG_SHARE = N_CAND / (BIG_THREADS / 32 / (BIG_RAYS / 16));
+constexpr int BIG_WARPGROUPS = 2;              // mxu_big_kernel: a block's
+constexpr int BIG_RAYS = 64 * BIG_WARPGROUPS;  // warpgroups, rays
+constexpr int BIG_THREADS = 128 * BIG_WARPGROUPS;
+constexpr int BIG_STAGES = 2;                  // groups in flight a block
+constexpr int B_CHUNKS = QUANT_PAD / 8;        // 8 triangles a product
 
 __global__ void __launch_bounds__(VPU_BLOCK) vpu_kernel(VpuArgs a) {
   const int r = blockIdx.x * VPU_BLOCK + threadIdx.x;
@@ -260,38 +271,27 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared-memory words of one staged group. MODE_BF16: a candidate is 8
-// words (16 bf16). MODE_SPLIT3: hi table, then lo table, 8 words each.
-// MODE_TF32X3: 16 floats padded to 20, so that the 8 candidates x 4 features
-// a warp reads at once fall into 32 different banks.
+// Shared-memory words of one group staged by mxu_kernel. MODE_BF16: a
+// candidate is 8 words (16 bf16). MODE_TF32X3: 16 floats padded to 20, so
+// that the 8 candidates x 4 features a warp reads at once fall into 32
+// different banks.
 template <int MODE>
 struct Stage {
   static constexpr int ROW = MODE == MODE_TF32X3 ? 20 : 8;
-  static constexpr int WORDS = N_CAND * ROW * (MODE == MODE_SPLIT3 ? 2 : 1);
+  static constexpr int WORDS = N_CAND * ROW;
 };
 
 // All threads of the block copy group `g`'s coefficients to `cs`.
 template <int MODE>
 __device__ __forceinline__ void stage(uint32_t* cs, const MxuArgs& a, int g) {
-  if constexpr (MODE == MODE_SPLIT3) {
-    // 16 bf16 a candidate = 2 uint4
-    const uint4* hi = reinterpret_cast<const uint4*>(a.ch) + static_cast<size_t>(g) * N_CAND * 2;
-    const uint4* lo = reinterpret_cast<const uint4*>(a.cl) + static_cast<size_t>(g) * N_CAND * 2;
-    uint4* dst = reinterpret_cast<uint4*>(cs);
-    for (int i = threadIdx.x; i < N_CAND * 2; i += blockDim.x) {
-      dst[i] = __ldg(hi + i);
-      dst[N_CAND * 2 + i] = __ldg(lo + i);
-    }
-  } else {
-    // 16 floats a candidate = 4 float4
-    const float4* src = reinterpret_cast<const float4*>(a.coef) + static_cast<size_t>(g) * N_CAND * 4;
-    for (int i = threadIdx.x; i < N_CAND * 4; i += blockDim.x) {
-      const float4 x = __ldg(src + i);
-      if constexpr (MODE == MODE_BF16) {
-        reinterpret_cast<uint2*>(cs)[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-      } else {
-        reinterpret_cast<float4*>(cs + (i >> 2) * Stage<MODE>::ROW)[i & 3] = x;
-      }
+  // 16 floats a candidate = 4 float4
+  const float4* src = reinterpret_cast<const float4*>(a.coef) + static_cast<size_t>(g) * N_CAND * 4;
+  for (int i = threadIdx.x; i < N_CAND * 4; i += blockDim.x) {
+    const float4 x = __ldg(src + i);
+    if constexpr (MODE == MODE_BF16) {
+      reinterpret_cast<uint2*>(cs)[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    } else {
+      reinterpret_cast<float4*>(cs + (i >> 2) * Stage<MODE>::ROW)[i & 3] = x;
     }
   }
 }
@@ -337,7 +337,7 @@ struct Feats {
 };
 
 // c = the warp's 16 rays x the 8 candidates from `n0` on, from the staged
-// group `cs`.
+// group `cs` (mxu_kernel, prefilter_kernel).
 template <int MODE>
 __device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE>& f, const uint32_t* cs, int n0,
                                      int lane) {
@@ -346,11 +346,6 @@ __device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE>& f, const 
   const uint32_t* row = cs + (n0 + g) * Stage<MODE>::ROW;
   if constexpr (MODE == MODE_BF16) {
     mma_bf16(c, f.a[0], row[q], row[q + 4]);
-  } else if constexpr (MODE == MODE_SPLIT3) {
-    const uint32_t* low = row + N_CAND * Stage<MODE>::ROW;
-    mma_bf16(c, f.a[0], low[q], low[q + 4]);  // fh x cl
-    mma_bf16(c, f.a[1], row[q], row[q + 4]);  // fl x ch
-    mma_bf16(c, f.a[0], row[q], row[q + 4]);  // fh x ch
   } else {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -467,100 +462,280 @@ __global__ void __launch_bounds__(ROWS_WARPS * 32) mxu_kernel(MxuArgs a) {
   }
 }
 
-// The body of mxu_big_kernel and mxu_split3_kernel. Dynamic shared memory:
-// the block's product, 320 candidates x BIG_STRIDE floats; the staged group;
-// the winners of a ray's BIG_PARTS threads (t, u, v, slot); the rays' closest
-// t.
+// ---- the big form: wgmma ------------------------------------------------------
+
+// One m64n40 product of a warpgroup: d (64 rays x 40 columns, f32) = (or
+// += with ACC) a (64 x K, the warp's 16 rows in registers) x b (K x 40, from
+// shared memory through the descriptor). bf16: K = 16; tf32: K = 8.
+template <int ACC>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[20], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(ACC));
+}
+
+template <int ACC>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[20], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(ACC));
+}
+
+// Keeps the compiler from moving accesses of d across a wgmma in flight.
+__device__ __forceinline__ void fence_operands(float (&d)[20]) {
+#pragma unroll
+  for (int i = 0; i < 20; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Until at most N committed groups of this warpgroup's products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared-memory descriptor of a K-major B operand without swizzle: core
+// matrices of 8 columns x 16 bytes, `lbo` bytes apart along K, `sbo` bytes
+// apart along N.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Until the phase of parity `parity` of `bar` has completed. A phase that
+// never completes (a copy that never lands) traps after about 2^32 cycles, so
+// a fault fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// `bytes` from device memory to shared memory by the copy engine; `bar`'s
+// phase completes when they have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bytes of one group's B image (kernels/mxu_tri.py b_image): bf16 columns
+// of 16 features for MODE_BF16, hi then lo for MODE_SPLIT3, TF32 big then
+// small for MODE_TF32X3; and the bytes between two chunks' 40 columns.
+template <int MODE>
+struct BImage {
+  static constexpr uint32_t PART = MODE == MODE_TF32X3 ? N_CAND * 16 * 4 : N_CAND * 16 * 2;
+  static constexpr uint32_t BYTES = MODE == MODE_BF16 ? PART : 2 * PART;
+  static constexpr uint32_t CHUNK = PART / 8;
+  static constexpr uint32_t SBO = MODE == MODE_TF32X3 ? 512 : 256;
+};
+
+// Issue the products of chunk j (triangles 8 j .. 8 j + 7, each quantity)
+// of the group whose B image starts at shared address `img`, into d, as one
+// committed group: when it has completed, thread (g, q) of warp w holds
+// d[4 k + e] = quantity k of triangle 8 j + 2 q + e % 2 for ray 16 w + g +
+// 8 (e / 2) of the warpgroup's 64.
+template <int MODE>
+__device__ __forceinline__ void chunk_product(float (&d)[20], const Feats<MODE>& f, uint32_t img, int j) {
+  using B = BImage<MODE>;
+  const uint32_t at = img + j * B::CHUNK;
+  wgmma_fence();
+  if constexpr (MODE == MODE_BF16) {
+    wgmma_bf16<0>(d, f.a[0], b_desc(at, 128, B::SBO));
+  } else if constexpr (MODE == MODE_SPLIT3) {
+    const uint64_t hi = b_desc(at, 128, B::SBO), lo = b_desc(at + B::PART, 128, B::SBO);
+    wgmma_bf16<0>(d, f.a[0], lo);  // fh x cl
+    wgmma_bf16<1>(d, f.a[1], hi);  // fl x ch
+    wgmma_bf16<1>(d, f.a[0], hi);  // fh x ch
+  } else {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // features 8 half .. 8 half + 7: two core matrices of 4 along K
+      const uint64_t big = b_desc(at + half * 256, 128, B::SBO);
+      const uint64_t small = b_desc(at + B::PART + half * 256, 128, B::SBO);
+      if (half == 0) {
+        wgmma_tf32<0>(d, f.a[2], big);
+      } else {
+        wgmma_tf32<1>(d, f.a[3], big);
+      }
+      wgmma_tf32<1>(d, f.a[half], small);
+      wgmma_tf32<1>(d, f.a[half], big);
+    }
+  }
+  wgmma_commit();
+  fence_operands(d);
+}
+
+// The body of mxu_big_kernel and mxu_split3_kernel: what sets the TPU's
+// `big` form apart is one product per group over a whole block of rays.
+// Here each warpgroup multiplies its 64 rays by the group's 320 candidates
+// with `wgmma`, 40 columns (8 triangles x 5 quantities) at a time, and the
+// test runs on the accumulators, as in mxu_kernel; the product never
+// touches shared memory. The features stay in registers as the A operand
+// for the whole launch; the groups' B images come by the copy engine
+// (cp.async.bulk) into a ring of BIG_STAGES stages with an mbarrier each
+// for "landed" and "read by every thread", so the next groups' copies
+// overlap this group's products and test. Dynamic shared memory: the ring,
+// then the barriers.
 template <int MODE, bool DUMP>
 __device__ __forceinline__ void big_body(const MxuArgs& a) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  float* prod = reinterpret_cast<float*>(smem);
-  uint32_t* cs = smem + N_CAND * BIG_STRIDE;
-  float4* win = reinterpret_cast<float4*>(cs + Stage<MODE>::WORDS);
-  float* best = reinterpret_cast<float*>(win + BIG_PARTS * BIG_RAYS);
+  using B = BImage<MODE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BIG_STAGES * B::BYTES);
+  uint64_t* empty = full + BIG_STAGES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int ray0 = blockIdx.x * BIG_RAYS;
+  // warp w of warpgroup wg: rays 16 w .. 16 w + 15 of the warpgroup's 64
+  const int ray0 = blockIdx.x * BIG_RAYS + (warp >> 2) * 64 + (warp & 3) * 16;
+  const int r[2] = {ray0 + g, ray0 + g + 8};
   const int last = a.n_rays - 1;
-  // the product: a warp multiplies one tile of 16 rays by its share of the
-  // candidates
-  const int mt = warp % (BIG_RAYS / 16), share = warp / (BIG_RAYS / 16);
   Feats<MODE> f;
-  f.load(a, min(ray0 + mt * 16 + g, last), min(ray0 + mt * 16 + g + 8, last), q);
-  // the test: thread `part` of a ray walks 14 of its 56 candidates; part 0
-  // holds the ray's closest hit
-  const int local = threadIdx.x % BIG_RAYS, part = threadIdx.x / BIG_RAYS;
-  const int ray = ray0 + local;
-  float bt = a.t_init[min(ray, last)], bu = 0.0f, bv = 0.0f;
-  int bi = -1;
-  if (part == 0) best[local] = bt;
-  for (int rep = 0; rep < a.reps; ++rep) {
-    for (int grp = 0; grp < a.n_groups; ++grp) {
-      __syncthreads();  // everyone has read the last product and winners
-      stage<MODE>(cs, a, grp);
-      __syncthreads();
-      float* out = prod + mt * 16 + g;
-#pragma unroll 4
-      for (int n0 = share * BIG_SHARE; n0 < (share + 1) * BIG_SHARE; n0 += 8) {
-        float c[4];
-        tile<MODE>(c, f, cs, n0, lane);
-        float* at = out + (n0 + 2 * q) * BIG_STRIDE;
-        at[0] = c[0];
-        at[BIG_STRIDE] = c[1];
-        at[8] = c[2];
-        at[BIG_STRIDE + 8] = c[3];
-      }
-      __syncthreads();  // the group's whole product stands
-      if constexpr (DUMP) {
-        float* dst = a.cand + static_cast<size_t>(grp) * N_CAND * a.n_rays;
-        for (int i = threadIdx.x; i < N_CAND * BIG_RAYS; i += blockDim.x) {
-          const int c = i / BIG_RAYS, r = ray0 + i % BIG_RAYS;
-          if (r < a.n_rays) dst[static_cast<size_t>(c) * a.n_rays + r] = prod[c * BIG_STRIDE + i % BIG_RAYS];
-        }
-      }
-      const float* mine = prod + local;
-      if (a.mm_only) {
-        if (part == 0) bt += mine[0];
-        continue;
-      }
-      const float limit = best[local];
-      float wt = BIG, wu = 0.0f, wv = 0.0f;
-      int wj = NO_SLOT;
-#pragma unroll 2
-      for (int j = part * BIG_PART_TRIS; j < (part + 1) * BIG_PART_TRIS; ++j) {
-        const float* p = mine + j * BIG_STRIDE;
-        candidate(p[0], p[QUANT_PAD * BIG_STRIDE], p[2 * QUANT_PAD * BIG_STRIDE],
-                  p[3 * QUANT_PAD * BIG_STRIDE], p[4 * QUANT_PAD * BIG_STRIDE], j, limit, wt, wj, wu, wv);
-      }
-      win[part * BIG_RAYS + local] = make_float4(wt, wu, wv, __int_as_float(wj));
-      __syncthreads();  // every part's winner stands
-      if (part == 0) {
-        // parts in slot order, strictly closer: the lowest slot wins a tie
+  f.load(a, min(r[0], last), min(r[1], last), q);
+  float bt[2] = {a.t_init[min(r[0], last)], a.t_init[min(r[1], last)]};
+  float bu[2] = {0.0f, 0.0f}, bv[2] = {0.0f, 0.0f};
+  int bi[2] = {-1, -1};
+  const unsigned char* images = static_cast<const unsigned char*>(a.bimg);
+  const int total = a.reps * a.n_groups;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BIG_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, BIG_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BIG_STAGES && s < total; ++s) {
+      bulk_load(smem + s * B::BYTES, images + static_cast<size_t>(s % a.n_groups) * B::BYTES, B::BYTES,
+                full + s);
+    }
+  }
+  // two sets of accumulators: the test reads chunk j's while chunk j + 1's
+  // products are in flight
+  float da[20] = {}, db[20] = {};
+  // the test reads chunks 0-6; the pad chunk 7 only DUMP and mm_only
+  const int n_chunks = DUMP || a.mm_only ? B_CHUNKS : B_CHUNKS - 1;
+  for (int it = 0; it < total; ++it) {
+    const int stage = it % BIG_STAGES, grp = it % a.n_groups;
+    const uint32_t parity = (it / BIG_STAGES) & 1;
+    const uint32_t img = smem_u32(smem + stage * B::BYTES);
+    mbar_wait(full + stage, parity);
+    float wt[2] = {BIG, BIG}, wu[2] = {0.0f, 0.0f}, wv[2] = {0.0f, 0.0f};
+    int wj[2] = {NO_SLOT, NO_SLOT};
+    chunk_product<MODE>(da, f, img, 0);
 #pragma unroll
-        for (int k = 1; k < BIG_PARTS; ++k) {
-          const float4 w = win[k * BIG_RAYS + local];
-          if (w.x < wt) {
-            wt = w.x;
-            wu = w.y;
-            wv = w.z;
-            wj = __float_as_int(w.w);
+    for (int j = 0; j < B_CHUNKS; ++j) {
+      if (j == n_chunks) break;
+      float(&d)[20] = j & 1 ? db : da;
+      if (j + 1 < n_chunks) {
+        chunk_product<MODE>(j & 1 ? da : db, f, img, j + 1);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operands(d);
+      if constexpr (DUMP) {
+#pragma unroll
+        for (int k = 0; k < N_QUANT; ++k) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const size_t row = static_cast<size_t>(grp) * N_CAND + k * QUANT_PAD + j * 8 + 2 * q + (e & 1);
+            if (r[e >> 1] < a.n_rays) a.cand[row * a.n_rays + r[e >> 1]] = d[4 * k + e];
           }
         }
-        if (wt < bt) {
-          bt = wt;
-          bu = wu;
-          bv = wv;
-          bi = grp * GROUP_TRIS + wj;
-          best[local] = bt;
+      }
+      if (a.mm_only) {
+        if (j == 0 && q == 0) {
+          bt[0] += d[0];
+          bt[1] += d[2];
+        }
+      } else if (j < B_CHUNKS - 1) {
+        // accumulator e: ray e / 2 of the thread's two, triangle 2 q + e % 2
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          candidate(d[e], d[4 + e], d[8 + e], d[12 + e], d[16 + e], j * 8 + 2 * q + (e & 1), bt[h], wt[h],
+                    wj[h], wu[h], wv[h]);
         }
       }
     }
+    // every wgmma of this group has completed: the stage may be refilled
+    mbar_arrive(empty + stage);
+    if (threadIdx.x == 0 && it + BIG_STAGES < total) {
+      mbar_wait(empty + stage, parity);
+      bulk_load(smem + stage * B::BYTES,
+                images + static_cast<size_t>((it + BIG_STAGES) % a.n_groups) * B::BYTES, B::BYTES,
+                full + stage);
+    }
+    __syncwarp();
+    if (a.mm_only) continue;
+    // the four threads of a ray agree on its winner: least t, then slot
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!__any_sync(FULL, wj[h] != NO_SLOT)) continue;
+      float t = wt[h];
+      int j = wj[h];
+#pragma unroll
+      for (int m = 1; m < 4; m <<= 1) {
+        const float ot = __shfl_xor_sync(FULL, t, m);
+        const int oj = __shfl_xor_sync(FULL, j, m);
+        if (ot < t || (ot == t && oj < j)) {
+          t = ot;
+          j = oj;
+        }
+      }
+      const int owner = (lane & ~3) | ((j & 7) >> 1);
+      const float u = __shfl_sync(FULL, wu[h], owner), v = __shfl_sync(FULL, wv[h], owner);
+      if (t < bt[h]) {
+        bt[h] = t;
+        bu[h] = u;
+        bv[h] = v;
+        bi[h] = grp * GROUP_TRIS + j;
+      }
+    }
   }
-  if (part == 0 && ray < a.n_rays) {
-    a.t[ray] = bt;
-    a.u[ray] = bu;
-    a.v[ray] = bv;
-    a.idx[ray] = bi;
+  if (q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r[h] < a.n_rays) {
+        a.t[r[h]] = bt[h];
+        a.u[r[h]] = bu[h];
+        a.v[r[h]] = bv[h];
+        a.idx[r[h]] = bi[h];
+      }
+    }
   }
 }
 
@@ -755,9 +930,10 @@ int launch_probe_form(const ProbeArgs* p, int tlhs, int dyn, void* stream) {
   return dyn ? launch_probe<MODE, IN_BF16, false, true>(p, stream) : launch_probe<MODE, IN_BF16, false, false>(p, stream);
 }
 
+// the ring of B images, then a "landed" and a "read" mbarrier a stage
 template <int MODE>
 constexpr int big_smem() {
-  return (N_CAND * BIG_STRIDE + Stage<MODE>::WORDS + BIG_PARTS * BIG_RAYS * 4 + BIG_RAYS) * 4;
+  return BIG_STAGES * BImage<MODE>::BYTES + 2 * BIG_STAGES * 8;
 }
 
 template <int MODE, bool DUMP>

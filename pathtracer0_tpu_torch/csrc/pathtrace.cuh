@@ -376,10 +376,102 @@ struct Hit {
   bool uvok;
 };
 
-// Closest hit from the nudged origin o: triangles (division-free
-// Möller-Trumbore, first closest in table order), implicits, ellipsoids.
+// One triangle row k (v1, e1, e2) of the block kernel's dense loop below
+// against o + t d: accepted where it is the closest so far.
+//
+// Early exit: once det and u's numerator are known, a row that no lane of
+// the warp can accept skips the second cross product and its two dots. A
+// lane can accept only if adet >= EPSILON, uc >= 0 and uc <= adet: with
+// vc >= 0, RN(uc + vc) >= uc, so uc + vc <= adet implies uc <= adet, and
+// NaN fails both. The rows a lane accepts, and so its bits, do not change.
+// On the card the skip is warp-uniform (__any_sync over the active lanes);
+// the host build of the same body (csrc/dense_hit_host.cpp) skips per ray.
+PT_HD void dense_row(V3 o, V3 d, V3 v1, V3 e1, V3 e2, int k, float& tn, float& td,
+                     float& un, float& vn, int& hid) {
+  V3 p = cross(d, e2);
+  float det = dot(e1, p);
+  V3 s = v3(o.x - v1.x, o.y - v1.y, o.z - v1.z);
+  float ur = dot(s, p);
+  float sg = det >= 0.0f ? 1.0f : -1.0f;
+  float adet = det * sg, uc = ur * sg;
+  const bool maybe = adet >= EPSILON && uc >= 0.0f && uc <= adet;
+#ifdef __CUDA_ARCH__
+  if (!__any_sync(__activemask(), maybe)) return;
+#else
+  if (!maybe) return;
+#endif
+  V3 q = cross(s, e1);
+  float vr = dot(d, q);
+  float tr = dot(e2, q);
+  float vc = vr * sg, tc = tr * sg;
+  if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet &&
+      tc > EPSILON * adet && tc * td < tn * adet) {
+    tn = tc;
+    td = adet;
+    un = uc;
+    vn = vc;
+    hid = k;
+  }
+}
+
+// The closest of n_tris triangles along o + t d, division-free
+// Möller-Trumbore (kernels/intersect.py `tri_candidate`): the first in
+// table order of the least t = tn / td, compared by cross-multiplication;
+// u = un / td, v = vn / td. Returns its row, -1 (tn = MISS, td = 1) if
+// none. Rows 0 .. n_staged - 1 come from `staged`, 12 floats a row (v1,
+// e1, e2, 3 pad) 16 bytes aligned (the block kernel stages them in shared
+// memory), the rest from `tris`, 9 floats a row. The block kernel's form of
+// closest_hit's triangle loop, with dense_row's early exit.
+PT_HD int dense_closest(const float* tris, int n_tris, const float* staged, int n_staged, V3 o,
+                        V3 d, float& tn, float& td, float& un, float& vn) {
+  tn = MISS;
+  td = 1.0f;
+  un = vn = 0.0f;
+  int hid = -1;
+  for (int k = 0; k < n_staged; ++k) {
+#ifdef __CUDA_ARCH__
+    const float4* r = reinterpret_cast<const float4*>(staged) + 3 * k;
+    const float4 a = r[0], b = r[1], c = r[2];
+    dense_row(o, d, v3(a.x, a.y, a.z), v3(a.w, b.x, b.y), v3(b.z, b.w, c.x), k, tn, td, un,
+              vn, hid);
+#else
+    const float* r = staged + 12 * k;
+    dense_row(o, d, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8]), k, tn,
+              td, un, vn, hid);
+#endif
+  }
+  for (int k = n_staged; k < n_tris; ++k) {
+    const float* r = tris + 9 * k;
+    dense_row(o, d, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), v3(r[6], r[7], r[8]), k, tn,
+              td, un, vn, hid);
+  }
+  return hid;
+}
+
+// The block kernel's staged rows, where it stages (kernels/fused.py
+// STAGE_MIN picks the instantiation): the first STAGED_ROWS rows in shared
+// memory as 16-byte rows (24 KB at most, with the stacks' 8 KB room for
+// several blocks a multiprocessor).
+constexpr int STAGED_ROWS = 512;
+PT_HD int staged_rows(int n_tris) { return n_tris < STAGED_ROWS ? n_tris : STAGED_ROWS; }
+#ifdef __CUDACC__
+// The staged rows: the block kernel's dynamic shared memory.
+__device__ __forceinline__ float4* staged_rows_smem() {
+  extern __shared__ float4 pt_staged_rows[];
+  return pt_staged_rows;
+}
+#endif
+
+// Closest hit from the nudged origin o: triangles, implicits, ellipsoids.
+// The triangles: every row of `tris` tested in full, or with STAGED (the
+// block kernel from STAGE_MIN triangles on) dense_closest, with its early
+// exit, over the rows the block staged in shared memory; a host build of
+// STAGED has no staged rows and reads every row from `tris`, with the same
+// results. The full test is written out here, not dense_closest without
+// its exit: that form made the frame kernel 2.5-4.1% slower in config 6
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 // PH: add each part's cycles into cyc (PH_TRI, PH_IMP, PH_ELL).
-template <bool PH = false>
+template <bool PH = false, bool STAGED = false>
 PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
   long long t0 = PH ? tick() : 0;
   Hit h;
@@ -391,29 +483,41 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nul
   int kind = 0;
   float t = MISS;
   if (sc.n_tris > 0) {
+    const float* staged = nullptr;
+    int n_staged = 0;
+#ifdef __CUDA_ARCH__
+    if (STAGED) {
+      staged = reinterpret_cast<const float*>(staged_rows_smem());
+      n_staged = staged_rows(sc.n_tris);
+    }
+#endif
     float tn = MISS, td = 1.0f, un = 0.0f, vn = 0.0f;
     int hid = -1;
-    for (int k = 0; k < sc.n_tris; ++k) {
-      const float* r = sc.tris + 9 * k;
-      V3 v1 = v3(r[0], r[1], r[2]), e1 = v3(r[3], r[4], r[5]),
-         e2 = v3(r[6], r[7], r[8]);
-      V3 p = cross(d, e2);
-      float det = dot(e1, p);
-      V3 s = v3(o.x - v1.x, o.y - v1.y, o.z - v1.z);
-      float ur = dot(s, p);
-      V3 q = cross(s, e1);
-      float vr = dot(d, q);
-      float tr = dot(e2, q);
-      float sg = det >= 0.0f ? 1.0f : -1.0f;
-      float adet = det * sg, uc = ur * sg, vc = vr * sg, tc = tr * sg;
-      if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet &&
-          tc > EPSILON * adet && tc * td < tn * adet) {
-        tn = tc;
-        td = adet;
-        un = uc;
-        vn = vc;
-        hid = k;
+    if (!STAGED) {
+      for (int k = 0; k < sc.n_tris; ++k) {
+        const float* r = sc.tris + 9 * k;
+        V3 v1 = v3(r[0], r[1], r[2]), e1 = v3(r[3], r[4], r[5]),
+           e2 = v3(r[6], r[7], r[8]);
+        V3 p = cross(d, e2);
+        float det = dot(e1, p);
+        V3 s = v3(o.x - v1.x, o.y - v1.y, o.z - v1.z);
+        float ur = dot(s, p);
+        V3 q = cross(s, e1);
+        float vr = dot(d, q);
+        float tr = dot(e2, q);
+        float sg = det >= 0.0f ? 1.0f : -1.0f;
+        float adet = det * sg, uc = ur * sg, vc = vr * sg, tc = tr * sg;
+        if (adet >= EPSILON && uc >= 0.0f && vc >= 0.0f && uc + vc <= adet &&
+            tc > EPSILON * adet && tc * td < tn * adet) {
+          tn = tc;
+          td = adet;
+          un = uc;
+          vn = vc;
+          hid = k;
+        }
       }
+    } else {
+      hid = dense_closest(sc.tris, sc.n_tris, staged, n_staged, o, d, tn, td, un, vn);
     }
     float invd = 1.0f / td;
     t = tn * invd;

@@ -2,7 +2,8 @@
 
 Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
 nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, and
-the forest kernels' triangle test for the CPU tests) by g++, into
+for the CPU tests the forest kernels' triangle test and the block
+kernel's dense triangle loop) by g++, into
 `_build/` at first use, and cached there under a hash of their sources
 and the flags; `build_all` starts one compiler per library together, so
 a fresh checkout pays the slowest build and not their sum.
@@ -36,9 +37,11 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # built by g++ for the host; no contraction here either, so the LBVH
 # build's float32 boxes equal the NumPy build's bit for bit, and the
-# forest kernels' triangle test (tri_divide.cuh) equals the plain version's
+# forest kernels' triangle test (tri_divide.cuh) and the block kernel's
+# dense triangle loop (pathtrace.cuh) equal the plain versions'
 HOST_LIBS = {"streambuild": ("streambuild.cpp",),
-             "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh")}
+             "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh"),
+             "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh")}
 HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs = {}

@@ -35,7 +35,7 @@ from ..core import rng as vrng
 from ..render import integrator
 from . import build, fused
 from .build import ptr
-from .fused import MAX_STACK, SceneArgs, scene_args
+from .fused import CHECKS, MAX_STACK, PHASES, SceneArgs, scene_args
 
 
 class _FrameArgs(ctypes.Structure):
@@ -50,15 +50,6 @@ class _FrameArgs(ctypes.Structure):
             "xs_scale", "ys_scale", "focal_length", "blur")] + [
         ("whitted", ctypes.c_int), ("refill", ctypes.c_int),
         ("check", ctypes.c_int)]
-
-
-# the check-only instantiations of csrc/frame_kernel.cu, and what each
-# writes to `check_out`
-_CHECKS = {"lanes": (1, 2), "phases": (2, 7)}
-# csrc/pathtrace.cuh PH_*: the parts of a scene query, then the warps' own
-# cycles from start to end
-PHASES = ("triangles", "implicits", "ellipsoids", "decode", "sky", "choose",
-          "warp")
 
 
 def eligible(info, *, whitted: bool = False) -> bool:
@@ -203,7 +194,7 @@ def _launch_frame(scene, info, cam_pos, cam_rot, ifd, state, *, width,
     rad = torch.empty((width * height, 3), dtype=torch.float32, device=dev)
     state_out = torch.empty_like(state)
     rays = torch.zeros(1, dtype=torch.int64, device=dev)
-    mode, n_out = _CHECKS[check] if check else (0, 0)
+    mode, n_out = CHECKS[check] if check else (0, 0)
     checked = torch.zeros(n_out, dtype=torch.int64, device=dev)
     args = _FrameArgs(
         scene_args(scene, info, dev), scal=ptr(scal, torch.float32, dev),

@@ -26,6 +26,20 @@ from . import build
 from .build import ptr
 
 MAX_STACK = 16  # csrc/pathtrace.cuh MAX_STACK
+# From this many triangles on, block_kernel stages the scene's rows in
+# shared memory and tests them with the early exit (csrc/block_kernel.cu
+# STAGE); below it, the plain loop. chip_smoke.py times both forms at 4 to
+# 144 triangles (phase `block_stage_min`): staging was 7% slower at 4 and
+# 2% slower at 9 triangles, 4% faster at 16, the next size measured (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md).
+STAGE_MIN = 16
+# the check-only instantiations of the frame and block kernels
+# (csrc/integrate.cuh CHECK): name -> (its `check` argument, int64 outputs)
+CHECKS = {"lanes": (1, 2), "phases": (2, 7)}
+# csrc/pathtrace.cuh PH_*: the parts of a scene query, then the warps' own
+# cycles from start to end
+PHASES = ("triangles", "implicits", "ellipsoids", "decode", "sky", "choose",
+          "warp")
 
 
 class SceneArgs(ctypes.Structure):
@@ -44,8 +58,8 @@ class _BlockArgs(ctypes.Structure):
 
     _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
         "ox", "oy", "oz", "dx", "dy", "dz", "alive", "state_in", "state_out",
-        "rad_out", "rays_out")] + [(n, ctypes.c_int) for n in (
-        "n_rays", "max_bounces", "stack_size")]
+        "rad_out", "rays_out", "check_out")] + [(n, ctypes.c_int) for n in (
+        "n_rays", "max_bounces", "stack_size", "check", "stage_min")]
 
 
 def scene_args(scene, info, dev) -> SceneArgs:
@@ -75,14 +89,29 @@ def eligible(info) -> bool:
 
 
 def trace_block(scene, info, o, d, alive, state, *, max_bounces: int,
-                stack_size: int = 10):
+                stack_size: int = 10, check=None):
     """The bounce loop of rays o, d ((x, y, z) tuples of (R,) float32, d
     normalized) that are `alive` (R,) bool, with RNG `state` (R,) int64.
     CUDA tensors go through csrc/block_kernel.cu, CPU tensors through the
     plain version.
 
-    Returns (radiance with sky (r, g, b), state, queries (1,) int64)."""
+    Returns (radiance with sky (r, g, b), state, queries (1,) int64).
+
+    `check` ("lanes" or "phases", card only) runs a check-only
+    instantiation instead, which gives the same outputs and one more,
+    counted in no launch count: "lanes", (lanes summed over the bounce
+    steps, warp steps) int64, whose first equals the queries and whose
+    ratio over 32 is the share of a warp's lanes a bounce step keeps busy;
+    "phases", {part of PHASES: clock64() cycles summed over the warps}, each
+    part counted once for the lanes that run it together and "warp" each
+    warp's cycles from start to end."""
     dev = state.device
+    if check is not None and check not in CHECKS:
+        raise ValueError(f"check must be one of {tuple(CHECKS)}, not "
+                         f"{check!r}")
+    if check is not None and dev.type != "cuda":
+        raise ValueError(f"check={check!r} measures the card: it needs CUDA "
+                         "tensors")
     if dev.type == "cpu":
         inc, skyc, state, queries = integrator.trace_plain(
             scene, info, o, d, alive, state, max_bounces=max_bounces,
@@ -105,13 +134,17 @@ def trace_block(scene, info, o, d, alive, state, *, max_bounces: int,
     rad = torch.empty((3, n_rays), dtype=f32, device=dev)
     state_out = torch.empty_like(state)
     queries = torch.zeros(1, dtype=torch.int64, device=dev)
+    mode, n_out = CHECKS[check] if check else (0, 0)
+    checked = torch.zeros(n_out, dtype=torch.int64, device=dev)
     args = _BlockArgs(
         scene_args(scene, info, dev), *(ptr(c, f32, dev) for c in rays),
         alive=ptr(alive, torch.bool, dev),
         state_in=ptr(state, torch.int64, dev),
         state_out=state_out.data_ptr(), rad_out=rad.data_ptr(),
-        rays_out=queries.data_ptr(), n_rays=n_rays, max_bounces=max_bounces,
-        stack_size=stack_size)
+        rays_out=queries.data_ptr(),
+        check_out=checked.data_ptr() if check else None, n_rays=n_rays,
+        max_bounces=max_bounces, stack_size=stack_size, check=mode,
+        stage_min=STAGE_MIN)
     lib = build.load("block_kernel")
     lib.pt_launch_block.argtypes = [ctypes.POINTER(_BlockArgs),
                                     ctypes.c_void_p]
@@ -121,8 +154,13 @@ def trace_block(scene, info, o, d, alive, state, *, max_bounces: int,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"block kernel launch failed: CUDA error {err}")
+    out = (rad[0], rad[1], rad[2]), state_out, queries
+    if check == "phases":
+        return (*out, dict(zip(PHASES, checked.tolist())))
+    if check:
+        return (*out, checked)
     trace_block.launches += 1
-    return (rad[0], rad[1], rad[2]), state_out, queries
+    return out
 
 
 trace_block.launches = 0

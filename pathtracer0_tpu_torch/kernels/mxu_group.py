@@ -14,9 +14,11 @@ their Pallas kernels:
                   far); a group's winner is its least t, the lowest slot on
                   a tie, and replaces the closest hit if strictly closer
   run_mxu_big     `_mxu_big_kernel`: the same with one product per group
-                  over a whole block of rays, staged before any candidate is
-                  tested; `mm_only` skips the test and adds candidate 0 of
-                  each product into t, to price the product alone
+                  over a whole block of rays (on the card a warpgroup's
+                  `wgmma` of 64 rays, whose B operand is the table in the
+                  port-side layout mxu_tri.b_image, made once a table);
+                  `mm_only` skips the test and adds candidate 0 of each
+                  product into t, to price the product alone
   run_mxu_split3  `_mxu_split3_kernel`: the same with both operands split
                   into bf16 hi and lo parts (`split_bf16`) and the product
                   taken as ch fh + ch fl + cl fh
@@ -44,10 +46,11 @@ again). `run_prefilter` also returns how many groups each unit passed in
 one pass.
 
 CUDA tensors go through csrc/mxu_group_kernel.cu and nothing else, CPU
-tensors through the plain versions below (`vpu_reference`, `mxu_reference`,
-`mm_only_reference`, `split3_reference`, `prefilter_reference`). `launches` counts the kernels'
-launches. `mxu_candidates` returns the products themselves, written out by
-a kernel's check-only instantiation, for checks of their accuracy.
+tensors through the plain versions below (`vpu_reference`,
+`mxu_reference`, `mm_only_reference`, `split3_reference`,
+`prefilter_reference`). `launches` counts the kernels' launches.
+`mxu_candidates` returns the products themselves, written out by a
+kernel's check-only instantiation, for checks of their accuracy.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, mxu_tri
 from .intersect import EPSILON
 from .mxu_tri import GROUP_TRIS, N_CAND, N_FEATURES, QUANT_PAD
 from .wavefront import group_accept
@@ -323,8 +326,8 @@ class _MxuArgs(ctypes.Structure):
     """csrc/mxu_group_kernel.cu `MxuArgs`, field for field."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "coef", "ch", "cl", "feats", "fh", "fl", "t_init", "t", "u", "v",
-        "idx", "cand")] + [(n, ctypes.c_int) for n in (
+        "coef", "feats", "fh", "fl", "t_init", "t", "u", "v",
+        "idx", "cand", "bimg")] + [(n, ctypes.c_int) for n in (
             "n_rays", "n_groups", "reps", "mm_only")]
 
 
@@ -390,8 +393,11 @@ def run_vpu(tris, o, d, t_init, *, n_groups, reps):
 
 def _run_product(name, symbol, coef, feats, t_init, n_groups, reps, *,
                  precision="default", mm_only=False, want_cand=False):
-    """Launch one of the product kernels. `precision` "split3" hands the
-    kernel bf16 hi and lo parts, made here."""
+    """Launch one of the product kernels. mxu_kernel reads the table as it
+    is; the big form (mxu_big_kernel, mxu_split3_kernel) reads its B image
+    (mxu_tri.b_image_of: made at the table's first launch, then kept).
+    `precision` "split3" also hands the kernel the features' bf16 hi and
+    lo parts, made here."""
     n_rays = _check_tables(coef, feats, t_init, n_groups)
     dev, f32 = t_init.device, torch.float32
     _check_precision(precision, (*PRECISIONS, "split3"))
@@ -402,13 +408,15 @@ def _run_product(name, symbol, coef, feats, t_init, n_groups, reps, *,
     args = _MxuArgs(t_init=build.ptr(keep[0], f32, dev), n_rays=n_rays,
                     n_groups=n_groups, reps=reps, mm_only=int(mm_only))
     if precision == "split3":
-        for x, hi, lo in ((coef, "ch", "cl"), (keep[1], "fh", "fl")):
-            parts = [p.contiguous() for p in split_bf16(x)]
-            keep += parts
-            setattr(args, hi, build.ptr(parts[0], torch.bfloat16, dev))
-            setattr(args, lo, build.ptr(parts[1], torch.bfloat16, dev))
+        parts = [p.contiguous() for p in split_bf16(keep[1])]
+        keep += parts
+        args.fh, args.fl = (build.ptr(p, torch.bfloat16, dev) for p in parts)
     else:
-        args.coef, args.feats = coef.data_ptr(), keep[1].data_ptr()
+        args.feats = keep[1].data_ptr()
+    if name == "mxu_kernel":
+        args.coef = coef.data_ptr()
+    else:
+        args.bimg = mxu_tri.b_image_of(coef, n_groups, precision).data_ptr()
     out = _outputs(n_rays, dev)
     args.t, args.u, args.v, args.idx = (x.data_ptr() for x in out)
     cand = None

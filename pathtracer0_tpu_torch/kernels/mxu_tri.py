@@ -160,6 +160,109 @@ def jax_layout(coef):
     return swapped.reshape(n_groups * N_FEATURES, N_CAND)
 
 
+# ---- the big form's B operand (csrc/mxu_group_kernel.cu big_body) --------
+#
+# A port-side layout of the same table for `wgmma`, whose B operand is read
+# from shared memory in 8 x 16-byte core matrices (no swizzle, K-major).
+# Columns are the table's candidates reordered so that one m64n40 product
+# gives a thread D, U, V, W and Tn of the same triangles: column n = 40 j +
+# 8 q + i is quantity q of triangle 8 j + i (chunk j = 0..7, the last one
+# the pad candidates). Per group, column n's features f sit at
+#   bf16 ("default", and each half of "split3"): (n // 8) * 256 + (f // 8)
+#        * 128 + (n % 8) * 16 + (f % 8) * 2 bytes, 10,240 bytes a group;
+#   tf32 ("highest": the big then the small part, each rounded to TF32 by
+#        nearest, ties away, as cvt.rna does): (n // 8) * 512 + (f // 4)
+#        * 128 + (n % 8) * 16 + (f % 4) * 4 bytes, 20,480 bytes a part.
+# Both are permutations of the table's entries (`b_columns`).
+B_CHUNKS = QUANT_PAD // 8       # 8 triangles a chunk
+
+
+def b_columns() -> torch.Tensor:
+    """(320,) int64: the table's candidate in each column of the B image."""
+    j, q, i = torch.meshgrid(torch.arange(B_CHUNKS), torch.arange(N_QUANT),
+                             torch.arange(8), indexing="ij")
+    return (q * QUANT_PAD + j * 8 + i).reshape(-1)
+
+
+def _b_blocks(table, k_block):
+    """(n_groups, 320, 16) -> the core-matrix order of the B image: (n_groups,
+    40, 16 // k_block, 8, k_block), columns in `b_columns` order."""
+    n_groups = table.shape[0]
+    cols = table[:, b_columns()]
+    return cols.reshape(n_groups, N_CAND // 8, 8, N_FEATURES // k_block,
+                        k_block).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def _from_blocks(blocks):
+    """The inverse of `_b_blocks`: back to the (n_groups, 320, 16) table."""
+    n_groups = blocks.shape[0]
+    cols = blocks.permute(0, 1, 3, 2, 4).reshape(n_groups, N_CAND, N_FEATURES)
+    table = torch.empty_like(cols)
+    table[:, b_columns()] = cols
+    return table
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as cvt.rna.tf32.f32; the result is float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def b_image(coef: torch.Tensor, precision: str) -> torch.Tensor:
+    """The B image of a (n_groups, 320, 16) float32 table for `precision`
+    "default" (bf16), "split3" (bf16 hi then lo, coef = hi + lo to 16
+    mantissa bits) or "highest" (TF32 big then small, coef = big + small
+    to 21 bits): (n_groups, bytes) uint8, the image of group g in row g."""
+    n_groups = coef.shape[0]
+    if precision == "default":
+        parts = [_b_blocks(coef.to(torch.bfloat16), 8)]
+    elif precision == "split3":
+        hi = coef.to(torch.bfloat16)
+        lo = (coef - hi.to(torch.float32)).to(torch.bfloat16)
+        parts = [_b_blocks(hi, 8), _b_blocks(lo, 8)]
+    elif precision == "highest":
+        big = round_tf32(coef)
+        parts = [_b_blocks(big, 4), _b_blocks(round_tf32(coef - big), 4)]
+    else:
+        raise ValueError(f"no B image for precision {precision!r}")
+    return torch.cat([x.reshape(n_groups, -1).view(torch.uint8)
+                      for x in parts], 1)
+
+
+# the B images made so far: (precision, n_groups) -> (table, its version
+# counter then, image); the table is held, so its storage is not reused
+_B_IMAGES = {}
+
+
+def b_image_of(coef: torch.Tensor, n_groups: int,
+               precision: str) -> torch.Tensor:
+    """b_image(coef[:n_groups], precision), made once per table: a later
+    call with the same tensor, not written since (its version counter),
+    returns the same image, so a launch does no arithmetic for it."""
+    key = (precision, n_groups)
+    held = _B_IMAGES.get(key)
+    if held is not None and held[0] is coef and held[1] == coef._version:
+        return held[2]
+    image = b_image(coef[:n_groups], precision)
+    _B_IMAGES[key] = (coef, coef._version, image)
+    return image
+
+
+def b_image_tables(image: torch.Tensor, precision: str):
+    """The (n_groups, 320, 16) float32 tables a B image holds, read back in
+    the table's candidate order: one for "default", (hi, lo) for "split3",
+    (big, small) for "highest"."""
+    n_groups = image.shape[0]
+    dtype, k_block = ((torch.float32, 4) if precision == "highest"
+                      else (torch.bfloat16, 8))
+    n_parts = 1 if precision == "default" else 2
+    flat = image.contiguous().view(dtype).reshape(n_groups, n_parts, -1)
+    return tuple(_from_blocks(flat[:, k].reshape(
+        n_groups, N_CAND // 8, N_FEATURES // k_block, 8, k_block)).to(
+            torch.float32) for k in range(n_parts))
+
+
 def candidates_np(tris, o, d):
     """Float64 oracle: (det, u_num, v_num, t_num), each (R, slots), by the
     direct Möller-Trumbore forms on `tris` (slots, 9) and rays o, d (R, 3);

@@ -59,6 +59,7 @@ import torch
 
 from ..accel import bvh as bvh_mod
 from ..accel import lbvh
+from ..core.device import resolve_device
 from .material import COL, pack_materials
 
 # Largest triangle count of the brute-force frame path (the JAX package's
@@ -466,7 +467,7 @@ def _unpack_rows(rows: np.ndarray, per_row: int, stride: int) -> np.ndarray:
         rows[:, :per_row * stride].reshape(-1, stride))
 
 
-def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
+def scene_from_numpy(arrays: dict, info: dict, device=None):
     """Carry a scene built by the JAX package across to the port.
 
     `arrays` holds that package's DeviceScene fields as numpy arrays and
@@ -488,8 +489,11 @@ def scene_from_numpy(arrays: dict, info: dict, device="cpu"):
     walks the very tree the JAX package built.
 
     Material maps come across where that package packed them for its fused
-    path (fs_maps). Returns (PackedScene, SceneInfo).
+    path (fs_maps). The tables land on `device`: the card unless the caller
+    passes device="cpu" (core/device.resolve_device; without a card that
+    raises). Returns (PackedScene, SceneInfo).
     """
+    device = resolve_device(device)
     def f32(key):
         return np.asarray(arrays[key], np.float32)
 

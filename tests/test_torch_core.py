@@ -106,7 +106,7 @@ def test_primary_directions_and_dof():
     """The frame path's raygen (rotation as a matrix) against the JAX
     camera (rotation as Euler angles)."""
     W, H = 13, 7
-    uv_t, idx_t = tcam.pixel_centers(W, H)
+    uv_t, idx_t = tcam.pixel_centers(W, H, "cpu")
     uv_j, idx_j = jcam.pixel_centers(W, H)
     np.testing.assert_array_equal(uv_t.numpy(), np.asarray(uv_j))
     np.testing.assert_array_equal(idx_t.numpy(),

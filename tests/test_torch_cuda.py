@@ -204,6 +204,62 @@ def test_forest_kernels_match_plain_on_card(n, kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("check", [None, "lanes", "phases"])
+def test_block_kernel_staged_rows_on_card(check):
+    """A 98-triangle mesh, past the block kernel's STAGE_MIN, so each block
+    stages its rows in shared memory: the kernel against the plain version,
+    and each check-only instantiation's outputs equal the kernel's."""
+    _card()
+    import numpy as np
+
+    from pathtracer0_tpu_torch.core import math as tmath
+    from pathtracer0_tpu_torch.kernels import fused
+    from pathtracer0_tpu_torch.render import integrator
+
+    xs = np.linspace(-2, 2, 8)
+    X, Z = np.meshgrid(xs, xs)
+    P = np.stack([X, np.sin(X) * np.cos(Z) * 0.4, Z + 4], -1)
+    a, b, c, d4 = P[:-1, :-1], P[1:, :-1], P[:-1, 1:], P[1:, 1:]
+    scn = Scene()
+    scn.set_constant_sky((0.5, 0.6, 0.9))
+    scn.add_material("m")
+    scn.set_last_mtl("Pr", 0.5)
+    scn.add_mesh(np.concatenate([a.reshape(-1, 3), d4.reshape(-1, 3)]),
+                 np.concatenate([b.reshape(-1, 3)] * 2),
+                 np.concatenate([c.reshape(-1, 3)] * 2), 0)
+    sc, info = scn.build(config=RenderConfig(max_tris_in_leaf=4))
+    assert info.num_tris == 98 and fused.eligible(info)
+    assert info.num_tris >= fused.STAGE_MIN
+    cam, rot = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                for v in ((0.0, 2.0, 0.0), (0.3, 0.0, 0.0)))
+    state = trng.seed(torch.arange(W * H, device="cuda"), SEED)
+    o, d, state = tframe._raygen(
+        cam, tmath.rotation_matrix(rot), torch.tensor(IFD, device="cuda"),
+        state, W, H, cam_size=1.5, focal_length=1.0, blur=BLUR)
+    alive = torch.arange(W * H, device="cuda") % 5 != 0
+    rad_k, st_k, q_k = fused.trace_block(sc, info, o, d, alive, state,
+                                         max_bounces=6)
+    inc, skyc, st_p, q_p = integrator.trace_plain(
+        sc, info, o, d, alive, state, max_bounces=6)
+    rk = torch.stack(list(rad_k), -1)
+    rp = torch.stack([inc[i] + skyc[i] for i in range(3)], -1)
+    assert float((st_k == st_p).float().mean()) >= 0.99
+    assert float(((rk - rp).abs().amax(-1) < 1e-4).float().mean()) >= 0.99
+    if check is None:
+        return
+    before = fused.trace_block.launches
+    *out, counted = fused.trace_block(sc, info, o, d, alive, state,
+                                      max_bounces=6, check=check)
+    assert fused.trace_block.launches == before
+    assert torch.equal(torch.stack(list(out[0]), -1), rk)
+    assert torch.equal(out[1], st_k) and int(out[2]) == int(q_k)
+    if check == "lanes":
+        assert int(counted[0]) == int(q_k) and int(counted[1]) > 0
+    else:
+        assert counted["warp"] > 0 and counted["triangles"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4, 6])
 def test_block_kernel_matches_plain_on_card(n):
     """One sample's rays through csrc/block_kernel.cu and through

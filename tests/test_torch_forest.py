@@ -439,7 +439,7 @@ def test_surface_sample_matches_jax_flat_mesh(pairs, name):
 def _carried(dev, info):
     return packing.scene_from_numpy(
         {k: np.asarray(getattr(dev, k)) for k in dev._fields},
-        info._asdict())
+        info._asdict(), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["grid40", "many"])

@@ -35,7 +35,8 @@ FS_FIELDS = ("fs_tris", "fs_attr", "fs_uvt", "fs_maps", "fs_sky",
 def _pair(n):
     dev, info = jscenes.BUILDERS[n]().build(max_leaf=4)
     sc, pinfo = scene_from_numpy(
-        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict())
+        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict(),
+        device="cpu")
     return dev, info, sc, pinfo
 
 

@@ -353,6 +353,94 @@ def test_candidates_reference(precision):
         assert float((cand.double() - exact).abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("precision", ("default", "split3", "highest"))
+def test_b_image_is_a_permutation_the_plain_version_reads(precision):
+    """The big form's B operand (mxu_tri.b_image): each part of a group's
+    image holds the (rounded or split) table's entries at the byte offsets
+    the kernel's `wgmma` descriptors read (core matrices of 8 columns x 16
+    bytes, columns 40 j + 8 q + i = quantity q of triangle 8 j + i), read
+    back it is the same table, and the products of the tables read back
+    are the plain version's."""
+    coef, feats, _ = _tables(_case("aimed"))
+    img = mxu_tri.b_image(coef, precision)
+    cols = mxu_tri.b_columns()
+    assert sorted(cols.tolist()) == list(range(320))
+    j, q, i = cols // 8 % 8, cols // 64, cols % 8
+    assert torch.equal(torch.arange(320), 40 * j + 8 * q + i)
+    if precision == "highest":
+        big = mxu_tri.round_tf32(coef)
+        parts = [big, mxu_tri.round_tf32(coef - big)]
+        kb, size, dtype = 4, 4, torch.float32
+    else:
+        parts = list(mxu_group.split_bf16(coef))[:1 if precision == "default"
+                                                 else 2]
+        kb, size, dtype = 8, 2, torch.bfloat16
+    part_bytes = 320 * 16 * size
+    assert img.dtype == torch.uint8 and img.shape == (N_GROUPS,
+                                                      part_bytes * len(parts))
+    n, f = torch.meshgrid(torch.arange(320), torch.arange(16), indexing="ij")
+    offset = ((n // 8) * 8 * 16 * (16 // kb) + (f // kb) * 128
+              + (n % 8) * 16 + (f % kb) * size)
+    for k, part in enumerate(parts):
+        words = img[:, k * part_bytes:(k + 1) * part_bytes].contiguous() \
+            .view(dtype)
+        at = words[:, offset // size]                    # (G, 320, 16)
+        assert torch.equal(at, part.to(dtype)[:, cols])
+        assert torch.equal(words.sort(1).values,
+                           part.to(dtype).reshape(N_GROUPS, -1).sort(1).values)
+    tables = mxu_tri.b_image_tables(img, precision)
+    for got, want in zip(tables, parts):
+        assert torch.equal(got, want.to(dtype).to(torch.float32))
+    want = mxu_group.candidates_reference(coef, feats, n_groups=N_GROUPS,
+                                          precision=precision)
+    if precision == "default":
+        assert torch.equal(tables[0] @ mxu_group._rounded(feats, "default"),
+                           want)
+    elif precision == "split3":
+        fh, fl = (x.to(torch.float32) for x in mxu_group.split_bf16(feats))
+        ch, cl = tables
+        assert torch.equal(ch @ fh + ch @ fl + cl @ fh, want)
+    else:
+        # big + small keeps 21 bits of each coefficient
+        assert bool(((tables[0] + tables[1] - coef).abs()
+                     <= 2.0 ** -21 * coef.abs()).all())
+        got = tables[0] @ feats + tables[1] @ feats
+        mag = coef.abs() @ feats.abs()
+        assert bool(((got - want).abs() <= 2.0 ** -20 * mag).all())
+
+
+@pytest.mark.parametrize("precision", ["default", "highest", "split3"])
+def test_b_image_is_made_once_a_table(precision):
+    """mxu_tri.b_image_of makes a table's B image at its first call and
+    returns that image while the table is neither another tensor nor
+    written in place; each image equals b_image of the table it holds."""
+    coef = _tables(_case("aimed"))[0].clone()
+    first = mxu_tri.b_image_of(coef, N_GROUPS, precision)
+    assert torch.equal(first, mxu_tri.b_image(coef[:N_GROUPS], precision))
+    assert mxu_tri.b_image_of(coef, N_GROUPS, precision) is first
+    coef[0, 0, 0] += 1.0
+    written = mxu_tri.b_image_of(coef, N_GROUPS, precision)
+    assert written is not first and not torch.equal(written, first)
+    assert torch.equal(written, mxu_tri.b_image(coef[:N_GROUPS], precision))
+    other = coef.clone()
+    again = mxu_tri.b_image_of(other, N_GROUPS, precision)
+    assert again is not written and torch.equal(again, written)
+    fewer = mxu_tri.b_image_of(other, 1, precision)
+    assert torch.equal(fewer, written[:1])
+
+
+def test_round_tf32_is_cvt_rna():
+    """Nearest TF32 (10 mantissa bits), ties away from zero."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + ulp / 2, 1.0 + 1.5 * ulp, -(1.0 + ulp / 2),
+                      1.0 + ulp / 4, 1.0 + 0.75 * ulp, 3.0, 0.0, -0.0],
+                     dtype=torch.float32)
+    want = [1.0 + ulp, 1.0 + 2 * ulp, -(1.0 + ulp), 1.0, 1.0 + ulp, 3.0,
+            0.0, -0.0]
+    assert mxu_tri.round_tf32(x).tolist() == want
+    assert (mxu_tri.round_tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
+
+
 def test_repeated_passes_change_nothing():
     tris, o, d, t_init = _torch_inputs(_case("aimed"))
     coef, feats, _ = _tables(_case("aimed"))

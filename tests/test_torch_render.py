@@ -12,6 +12,7 @@ import torch
 
 from pathtracer0_tpu_torch import RenderConfig, Renderer, render_frame
 from pathtracer0_tpu_torch import scenes
+from pathtracer0_tpu_torch.scene import packing
 from pathtracer0_tpu_torch.utils import image as img_util
 
 torch.set_num_threads(1)
@@ -110,6 +111,10 @@ def test_no_device_means_the_card():
         Renderer(sc, info, _small())
     with pytest.raises(RuntimeError, match="CUDA"):
         render_frame(sc, info, _small(), (0, 0, 0), (0, 0, 0), 1)
+    # the JAX package's scene carried across: the device is resolved
+    # before any table is read
+    with pytest.raises(RuntimeError, match="CUDA"):
+        packing.scene_from_numpy({}, {})
 
 
 def test_unported_modes_raise():

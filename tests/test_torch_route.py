@@ -26,6 +26,7 @@ from pathtracer0_tpu.render import integrator as jintegrator
 from pathtracer0_tpu.render import renderer as jrenderer
 from pathtracer0_tpu_torch import (RenderConfig, Renderer, Scene, render_frame,
                                    scenes)
+from pathtracer0_tpu_torch import scenes as tscenes
 from pathtracer0_tpu_torch.core import camera as tcamera
 from pathtracer0_tpu_torch.core import math as tmath
 from pathtracer0_tpu_torch.core import rng as trng
@@ -240,7 +241,8 @@ def test_trace_fused_plain_matches_jax_interpret():
     kernel against the Pallas `_fused_kernel` in interpret mode."""
     dev, info = jscenes.BUILDERS[6]().build(max_leaf=4)
     sc, pinfo = scene_from_numpy(
-        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict())
+        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict(),
+        device="cpu")
     cam, rot = jscenes.CAMERAS[6]
     o, d, state = _primary_rays(cam=cam, rot=rot)
     params = jintegrator.TraceParams(max_bounces=BOUNCES, fused="interpret")
@@ -260,6 +262,30 @@ def test_trace_fused_plain_matches_jax_interpret():
     assert float(torch.stack(list(rad_h), -1)[~half].abs().max()) == 0.0
     assert torch.equal(st_h[half], out_t[1][half])
     assert 0 < int(q_h) < int(out_t[2])
+
+
+@pytest.mark.parametrize("check", ["lanes", "phases", "cycles"])
+def test_block_check_instantiations_measure_the_card(check):
+    """trace_block(check=...): the block kernel's check-only
+    instantiations (lanes of a bounce step, cycles by part of a scene
+    query) measure the card, so CPU tensors are refused, as is a name that
+    is none of them; without `check` the same call runs the plain
+    version."""
+    sc, info = tscenes.BUILDERS[6]().build(device="cpu")
+    o = (torch.zeros(4), torch.zeros(4), torch.zeros(4))
+    d = (torch.zeros(4), torch.zeros(4), torch.ones(4))
+    state = trng.seed(torch.arange(4), 3)
+    alive = torch.ones(4, dtype=torch.bool)
+    match = "card" if check in tfused.CHECKS else "check must be one of"
+    with pytest.raises(ValueError, match=match):
+        tfused.trace_block(sc, info, o, d, alive, state, max_bounces=2,
+                           check=check)
+    before = tfused.trace_block.launches
+    rad, st, q = tfused.trace_block(sc, info, o, d, alive, state,
+                                    max_bounces=2)
+    assert tfused.trace_block.launches == before and int(q) >= 4
+    assert tfused.PHASES[-1] == "warp" and len(tfused.PHASES) == \
+        tfused.CHECKS["phases"][1]
 
 
 def test_whitted_with_thickness_probe_matches_jax(pair):
@@ -302,7 +328,7 @@ def test_render_rays_goes_to_the_block_path():
                 for v in scenes.CAMERAS[6])
     cfg = dict(width=40, height=30, samples_per_frame=3, max_bounces=4,
                auto_focus=False, focal_distance=4.0)
-    uv, index = tcamera.pixel_centers(40, 30)
+    uv, index = tcamera.pixel_centers(40, 30, "cpu")
     ifd = torch.tensor(4.0)
     on, q_on = render_rays(sc, info, uv, index, cam, rot, 17, ifd,
                            config=RenderConfig(fused="on", **cfg))
@@ -321,7 +347,7 @@ def test_render_rays_on_a_shard_of_the_image(pair):
     dev, info, sc, pinfo = pair()
     cfg = _port_cfg()
     cam, rot = (torch.tensor(v, dtype=torch.float32) for v in (CAM, ROT))
-    uv, index = tcamera.pixel_centers(W, H)
+    uv, index = tcamera.pixel_centers(W, H, "cpu")
     ifd = torch.tensor(6.0)
     whole, _ = render_rays(sc, pinfo, uv, index, cam, rot, SEED, ifd,
                            config=cfg)

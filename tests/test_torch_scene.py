@@ -52,7 +52,8 @@ def test_build_matches_jax(n):
     # the same triangles (JAX keeps BVH leaf order, the port insertion
     # order)
     via_jax, _ = packing.scene_from_numpy(
-        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict())
+        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict(),
+        device="cpu")
     assert pinfo.num_tris == via_jax.tris.shape[0] or pinfo.num_tris == 0
     if pinfo.num_tris:
         assert _tri_set(sc.tris.numpy(), sc.attr.numpy(), sc.uvt.numpy()) \
@@ -68,7 +69,8 @@ def test_scene_from_numpy_round_trip(n):
     dense 14-/12-slot lane rows re-flatten to the JAX triangle order."""
     dev, info = _jax(n)
     sc, pinfo = packing.scene_from_numpy(
-        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict())
+        {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}, info._asdict(),
+        device="cpu")
     fs_tris = np.asarray(dev.fs_tris)
     assert pinfo.num_ellipsoids == info.num_ellipsoids
     assert pinfo.num_implicits == info.num_implicits
@@ -91,6 +93,20 @@ def test_scene_from_numpy_round_trip(n):
             img, block.reshape(h, rpy * 128)[:, :w * 3].reshape(h, w, 3))
     np.testing.assert_array_equal(sc.materials.numpy(),
                                   np.asarray(dev.materials))
+
+
+def test_scene_from_numpy_needs_the_card_or_cpu():
+    """A JAX scene carried across lands on the card by default: without a
+    card that raises, and device="cpu" is the caller's choice."""
+    dev, info = _jax(6)
+    arrays = {k: np.asarray(getattr(dev, k)) for k in FS_FIELDS}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        packing.scene_from_numpy(arrays, info._asdict())
+    sc, pinfo = packing.scene_from_numpy(arrays, info._asdict(), device="cpu")
+    assert sc.device == torch.device("cpu")
+    assert pinfo.num_ellipsoids == info.num_ellipsoids
 
 
 def test_scene_api_limits():

@@ -89,7 +89,7 @@ def pair():
                 JConfig(stream_threshold=0))
             sc, pinfo = scene_from_numpy(
                 {k: np.asarray(getattr(dev, k)) for k in FIELDS},
-                info._asdict())
+                info._asdict(), device="cpu")
             cache[n, ellipsoid] = (dev, info, sc, pinfo)
         return cache[n, ellipsoid]
     return get

@@ -7,10 +7,13 @@ Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
   1. environment   card name and power limit; the five CUDA sources (one
-                   nvcc each) and the two host libraries (g++: the LBVH
-                   build, the forest kernels' triangle test) are built
+                   nvcc each) and the four host libraries (g++: the LBVH
+                   build and, for the CPU tests, the forest kernels'
+                   triangle test, the block kernel's triangle loop, the
+                   group tests' candidate test and group loop) are built
                    together; each kernel instantiation's registers and
-                   spills
+                   spills, and its local-memory, call and load
+                   instructions by width in the SASS
   2. kernels       each kernel against its plain PyTorch version on the
                    card, with kernel, plain and bound times (the render
                    kernels' `ms` is the time of their launches alone, 20
@@ -55,10 +58,18 @@ non-zero:
                    themselves against float32 ones, B against C, and each
                    form against A (recorded); prefilter_kernel (row E) at
                    the same three shapes, with the hits of A it lost and
-                   its gate counts; the `ms` of mxu_big_kernel and
-                   mxu_split3_kernel is that of their launches alone, as
-                   the render kernels', the others' CUDA events around
-                   their wrappers (both are recorded for each);
+                   its gate counts; the `ms` of vpu_kernel, mxu_kernel,
+                   mxu_big_kernel and mxu_split3_kernel is that of their
+                   launches alone, as the render kernels', the others'
+                   CUDA events around their wrappers (both are recorded for
+                   each); where mxu_kernel's warps' cycles go
+                   (`group_phases`: its check-only PHASES instantiation,
+                   outputs equal to the kernel's) at the card's width and
+                   on the aimed rays, both precisions; `group_nan`: rows
+                   B, C, D on the aimed rays' table with NaN in one
+                   coefficient of the 20 slots that win most often, none
+                   of which may then win (a NaN fails the sign test, as in
+                   the JAX reference);
                    the refill schedule of frame_kernel for configs 2, 4 and
                    6 at 800x600: against the plain version at 2 spp, and
                    against the default schedule at the main path's 16 spp
@@ -123,11 +134,13 @@ brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
 block_kernel on the OBJ grid's rays, streamed_kernel on the 1M terrain's
 four populations, and the group-test kernels (rows A-E, both precisions,
 mm_only) on the diagnostic's three populations at the group-test parity
-limits, the same inputs through both, their outputs compared and their
-device times taken in turns (parent, change, change, parent, parent,
-change; the median of each side), with each build's registers, spills and
-local-memory instructions and, where the other package has it, its PHASES
-shares.
+limits and to every bit (streamed_kernel to every bit too, mxu_kernel's
+products to 2^-20 of the sum of magnitudes), the same inputs through
+both, their outputs compared and their device times taken in turns
+(parent, change, change, parent, parent, change; the median of each
+side), with each
+build's registers, spills and local-memory instructions and, where the
+other package has it, its PHASES shares.
 
 Then the `kernels` summary line and, last, the `ok` line. Without a CUDA
 device it prints no result and exits 2. The full record goes to
@@ -337,7 +350,8 @@ LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
 # the group-test kernels whose `ms` is the device time of 20 launches back
 # to back (device_ms), as the render kernels'; the others' `ms` is CUDA
 # events around their wrappers (`device_ms` beside it)
-DEVICE_TIMED = ("mxu_big_kernel", "mxu_split3_kernel")
+DEVICE_TIMED = ("vpu_kernel", "mxu_kernel", "mxu_big_kernel",
+                "mxu_split3_kernel")
 
 
 class KernelRepeat:
@@ -383,8 +397,10 @@ class _Repeated:
 
 def sass_counts(build, lib):
     """{function: instructions, local loads (LDL), local stores (STL),
-    calls (CALL) and their distinct targets} of a built library's SASS
-    (cuobjdump from the toolkit of nvcc), or None without cuobjdump."""
+    calls (CALL) and their distinct targets, and the loads from device
+    memory (LDG) and shared memory (LDS) by width in bits ("LDG.128": ...;
+    32 where the opcode names none)} of a built library's SASS (cuobjdump
+    from the toolkit of nvcc), or None without cuobjdump."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         return None
@@ -402,10 +418,17 @@ def sass_counts(build, lib):
             c["instructions"] += 1
             op = ln.split("*/", 1)[1].split(";")[0].split()
             op = [w for w in op if not w.startswith("@")]
-            if op and op[0].split(".")[0] in ("LDL", "STL", "CALL"):
-                c[op[0].split(".")[0]] += 1
-                if op[0].startswith("CALL"):
+            head = op[0].split(".") if op else [""]
+            if head[0] in ("LDL", "STL", "CALL"):
+                c[head[0]] += 1
+                if head[0] == "CALL":
                     c["call_targets"].add(op[-1])
+            elif head[0] in ("LDG", "LDS"):
+                # LDG.E.128, LDS.64, LDG.E.U16 (16 bits), LDG.E (32)
+                width = next((w.lstrip("US") for w in head[1:]
+                              if w.lstrip("US").isdigit()), "32")
+                key = f"{head[0]}.{width}"
+                c[key] = c.get(key, 0) + 1
     for c in counts.values():
         c["call_targets"] = len(c["call_targets"])
     return counts
@@ -1506,7 +1529,8 @@ def main() -> int:
                     cell["distinct_groups_parent"] = (
                         cyc["group_distinct"] / max(cyc["group_tests"], 1))
                 rec["streamed"][pop] = cell
-                check(min(cell["equal"].values()) >= 0.999,
+                # the group loop moved into tri_free.cuh: every bit kept
+                check(min(cell["equal"].values()) == 1.0,
                       f"{label} against the change, streamed {pop}: {cell}")
         if differs(tree, build, "mxu_group_kernel"):
             rec["group"] = {shape: group_vs_tree(label, tree, shape, data)
@@ -1801,12 +1825,95 @@ def main() -> int:
     group_recs = {shape: compare_group(shape, data)
                   for shape, data in group_data.items()}
 
+    def group_nan(shape="aimed"):
+        """The product forms on a table with NaN in one coefficient of the
+        20 slots that win most often, four in each quantity: a NaN product
+        fails the sign test (as jnp.minimum / jnp.maximum make it fail in
+        the JAX reference), so none of those slots may win, in the kernel or
+        in its plain version, and the two stay within the group-test parity
+        limits."""
+        coef, feats = group_recs[shape][1]
+        t_init = torch.full((feats.shape[1],), 1e30, device=dev)
+        kw = dict(n_groups=GROUPS, reps=1)
+        clean = mxu_group.mxu_reference(coef, feats, t_init,
+                                        precision="highest", **kw)
+        wins = torch.bincount(clean[3][clean[3] >= 0],
+                              minlength=GROUPS * mxu_tri.GROUP_TRIS)
+        slots = wins.argsort(descending=True)[:20]
+        poisoned = coef.clone()
+        for k, s in enumerate(slots.tolist()):
+            g, j = divmod(s, mxu_tri.GROUP_TRIS)
+            poisoned[g, (k % 5) * mxu_tri.QUANT_PAD + j, k % 16] = float("nan")
+        runs = {"D": (mxu_group.run_mxu_split3, mxu_group.split3_reference,
+                      {})}
+        for p in mxu_group.PRECISIONS:
+            runs[f"B {p}"] = (mxu_group.run_mxu, mxu_group.mxu_reference,
+                              {"precision": p})
+            runs[f"C {p}"] = (mxu_group.run_mxu_big, mxu_group.mxu_reference,
+                              {"precision": p})
+        for variant, (run, plain, pkw) in runs.items():
+            out_k = run(poisoned, feats, t_init, **kw, **pkw)
+            out_p = plain(poisoned, feats, t_init, **kw, **pkw)
+            rec = {"phase": "group_nan", "variant": variant, "shape": shape,
+                   **form_parity(out_k, out_p),
+                   "poisoned_slots_won_before": int(wins[slots].sum()),
+                   "poisoned_slots_won_kernel": int(
+                       torch.isin(out_k[3], slots).sum()),
+                   "poisoned_slots_won_plain": int(
+                       torch.isin(out_p[3], slots).sum()),
+                   "card": card}
+            emit(rec, log)
+            check(rec["hits_idx_eq"] >= 0.995
+                  and rec["hits_idx_eq_and_t_within_1e-4"] >= 0.995
+                  and rec["miss_exact"] and rec["t_rel_err"] <= 1e-4
+                  and rec["poisoned_slots_won_before"] > 0
+                  and rec["poisoned_slots_won_kernel"] == 0
+                  and rec["poisoned_slots_won_plain"] == 0,
+                  f"NaN products, {variant} {shape}: {rec}")
+
+    group_nan()
+
+    def group_phase_shares(module, coef, feats, t_init, precision):
+        """((t, u, v, idx), {part: share of the warps' cycles}) of one pass
+        of `module`'s mxu_kernel through its check-only PHASES
+        instantiation; "rest" is what no part covers."""
+        *out, cyc = module.mxu_phase_cycles(coef, feats, t_init,
+                                            n_groups=GROUPS, reps=1,
+                                            precision=precision)
+        shares = {k: cyc[k] / cyc["warp"]
+                  for k in ("stage", "product", "test", "commit")}
+        shares["rest"] = 1.0 - sum(shares.values())
+        return out, shares
+
+    # where mxu_kernel's warps' cycles go: the card's width and the aimed
+    # rays (about half of them hit), both precisions
+    group_phases_rec = {}
+    for shape in ("wide", "aimed"):
+        coef, feats = group_recs[shape][1]
+        t_init = torch.full((feats.shape[1],), 1e30, device=dev)
+        for precision in mxu_group.PRECISIONS:
+            out, shares = group_phase_shares(mxu_group, coef, feats, t_init,
+                                             precision)
+            ref = mxu_group.run_mxu(coef, feats, t_init, n_groups=GROUPS,
+                                    reps=1, precision=precision)
+            rec = {"phase": "group_phases", "kernel": "mxu_kernel",
+                   "shape": shape, "precision": precision,
+                   "rays": int(t_init.shape[0]), "groups": GROUPS,
+                   "shares": shares,
+                   "same_outputs": all(bool(torch.equal(a, b))
+                                       for a, b in zip(out, ref)),
+                   "card": card}
+            group_phases_rec[f"{shape} {precision}"] = rec
+            emit(rec, log)
+            check(rec["same_outputs"] and shares["rest"] > -0.01,
+                  f"mxu_kernel PHASES {shape} {precision}: {rec}")
+
     def group_vs_tree(label, tree, shape, data):
         """Another checkout's group-test kernels against this one's on one
-        of the three populations, one pass over GROUPS groups, at the
-        group-test parity limits (the product's summation order may differ,
-        so its bits are not required): {variant: outputs compared, device
-        times in turns}."""
+        of the three populations, one pass over GROUPS groups: at the
+        group-test parity limits, and every output equal to the bit (each
+        kernel keeps its arithmetic and its products' summation order):
+        {variant: outputs compared, device times in turns}."""
         tg = tree["mxu_group"]
         tris, o, d, center = (data[k] for k in ("tris", "o", "d", "center"))
         coef = mxu_tri.coef_table(tris[:GROUPS * mxu_tri.GROUP_TRIS], center)
@@ -1835,6 +1942,8 @@ def main() -> int:
         cells = {}
         for variant, (kernel, run) in runs.items():
             out_p, out_c = run(tg), run(mxu_group)
+            bits_equal = all(bool(torch.equal(a, b))
+                             for a, b in zip(out_c, out_p))
             if variant in ("A", "E"):
                 cell = scalar_parity(out_c[:4], out_p[:4])
                 ok = (cell["hits_idx_eq"] >= 0.999
@@ -1855,6 +1964,24 @@ def main() -> int:
                 ok = (cell["hits_idx_eq"] >= 0.995
                       and cell["hits_idx_eq_and_t_within_1e-4"] >= 0.995
                       and cell["miss_exact"] and cell["t_rel_err"] <= 1e-4)
+            cell["bits_equal"] = bits_equal
+            ok = ok and bits_equal
+            if variant.startswith("B "):
+                p = variant.split()[-1]
+                few = feats[:, :16384].contiguous()
+                got, want = (m.mxu_candidates(coef, few, n_groups=GROUPS,
+                                              precision=p,
+                                              kernel="mxu_kernel")
+                             for m in (mxu_group, tg))
+                mag = (coef.abs() @ few.abs()).clamp(min=1e-30)
+                cell["products_equal"] = bool(torch.equal(got, want))
+                cell["products_err_over_magnitudes_x_2^20"] = float(
+                    ((got - want).abs() / mag).max()) * 2.0 ** 20
+                ok = ok and cell["products_err_over_magnitudes_x_2^20"] <= 1.0
+                del got, want
+                if hasattr(tg, "mxu_phase_cycles"):
+                    cell["phases_parent"] = group_phase_shares(
+                        tg, coef, feats, t_init, p)[1]
             cell.update(turns(tree, lambda: run(tg), lambda: run(mxu_group),
                               kernel))
             cells[variant] = cell
@@ -2496,6 +2623,9 @@ def main() -> int:
                      "C mm_only highest")),
         group_entry("mxu_split3_kernel", "170 _mxu_split3_kernel", "D",
                     ("D",))]
+    # where mxu_kernel's warps' cycles go (its check-only PHASES)
+    next(k for k in kernels["kernels"] if k["name"] == "mxu_kernel")[
+        "phases"] = {cell: r["shares"] for cell, r in group_phases_rec.items()}
     # one PyTorch call computes what the `mm_only` mode of mxu_big_kernel
     # does, the product alone: torch.matmul in float32, with TF32 allowed and
     # in bf16, beside the mode's own times; no call computes the full kernels

@@ -20,9 +20,11 @@
 // unit through dot_general; none of that is carried over. What is kept is
 // what each computes, and what distinguishes them.
 //
-// vpu_kernel: one thread per ray, the groups' slots in order through
-// csrc/tri_free.cuh, the slot test of csrc/streamed_kernel.cu without the
-// walk; one reciprocal at the end. idx = group * 56 + slot.
+// vpu_kernel: one thread per ray, the groups in order through
+// csrc/tri_free.cuh `group`, the group loop of csrc/streamed_kernel.cu
+// without the walk (a group's slots four at a time as nine 16-byte loads,
+// 2.25 load instructions a slot where a slot's nine floats one by one took
+// 9); one reciprocal at the end. idx = group * 56 + slot.
 //
 // The product forms: a group's candidates are coef_g (320, 16) x features
 // (16, rays) (kernels/mxu_tri.py): candidate q * 64 + j is quantity q (det,
@@ -31,30 +33,41 @@
 // (1e-10, closest so far); the winner of a group is its least t, the lowest
 // slot on a tie, and replaces the closest hit if strictly closer. Empty
 // slots and the 8 pad candidates carry det = +1, u = -1 and fail the sign
-// test; the test covers the 56 real ones. The reciprocal is taken only
-// where the sign test passes, so D is never 0 there.
+// test; the test covers the 56 real ones (csrc/group_test.cuh, shared with
+// the CPU tests through g++). The reciprocal is taken only where the sign
+// test passes, so D is never 0 there.
 //
-// mxu_kernel's product (all 320 candidates, as the TPU kernels compute it)
-// is `mma.sync` at warp level, rays as the M side: a warp's 16
-// rays by 16 features stay in registers as the A operand for the whole
-// launch, a group's coefficients are staged in shared memory (one row of 16
-// features per candidate, padded so the B-operand loads hit 32 banks), and
-// an accumulator tile holds 16 rays x 8 candidates. Five tiles, one per
-// quantity at the same 8 triangles, leave each thread with D, U, V, W, Tn of
-// 2 rays x 2 triangles, so the test runs on accumulator registers.
+// mxu_kernel's product is `mma.sync` at warp level, rays as the M side: a
+// warp's 16 rays by 16 features stay in registers as the A operand for the
+// whole launch, and an accumulator tile holds 16 rays x 8 candidates. Five
+// tiles, one per quantity at the same 8 triangles, leave each thread with
+// D, U, V, W, Tn of 2 rays x 2 triangles, so the test runs on accumulator
+// registers.
 //   MODE_BF16  ("default"): operands rounded to bf16, one m16n8k16 pass.
 //   MODE_TF32X3 ("highest"): the tensor cores have no float32 mode; each
-//     operand is split x = big + small, both TF32 (cvt.rna), and the product
-//     is small x big + big x small + big x big, three m16n8k8 passes per 8
-//     features, float32 sums: the dropped small x small term and the split's
+//     operand is split x = big + small, both TF32 (cvt.rna; the table's
+//     parts on the host by the same rounding), and the product is small x
+//     big + big x small + big x big, three m16n8k8 passes per 8 features,
+//     float32 sums: the dropped small x small term and the split's
 //     remainder are each below 2^-22 of |x||y|.
 //   MODE_SPLIT3 (the big form only): hi and lo bf16 parts of both operands
 //     come from the host (coef = ch + cl, feats = fh + fl); ch fh + ch fl +
 //     cl fh, three passes.
 //
-// mxu_kernel: 8 warps of 16 rays a block. After a group's 7 x 5 tiles (and
-// the 5 of the pad candidates) the four threads that share a ray reduce
-// their winners by shuffles and commit; the closest hit lives in registers.
+// mxu_kernel: 8 warps of 16 rays a block. B comes from a port-side image
+// of the table made once (kernels/mxu_tri.py frag_image): the 56 real
+// candidates of each quantity already in the B-fragment order of
+// `mma.sync`, bf16 or the TF32 big and small parts, so that a thread loads
+// a chunk's five tiles with two 16-byte and one 8-byte shared-memory load
+// ("default") or ten 16-byte ones ("highest") and converts nothing. The
+// copy engine (cp.async.bulk) brings each group's image into a ring of two
+// stages with a "landed" and a "read" mbarrier each, as the big form's, so
+// the next group's copy overlaps this group's work and no block-wide
+// barrier waits on a load (a third stage, refilled a group later, was no
+// faster). After a group's 7 x 5 tiles (the pad chunk is
+// not multiplied; DUMP makes its tiles from the table) the four threads
+// that share a ray reduce their winners by shuffles and commit; the closest
+// hit lives in registers.
 //
 // mxu_big_kernel, mxu_split3_kernel (one body, big_body): what sets the
 // TPU's `big` form apart is ONE product per group over a whole block of rays.
@@ -120,7 +133,9 @@
 // What bounds them: the test after the product (6 min/max and 2 compares on
 // each of 56 candidates) runs on the CUDA cores and outweighs the product's
 // tensor-core time at "default" (at "highest" the six TF32 passes come
-// close); vpu_kernel is bound by its float32 operations, and so
+// close); mxu_kernel's check-only PHASES instantiation says where a warp's
+// cycles go (kernels/mxu_group.py mxu_phase_cycles); vpu_kernel is bound
+// by its float32 operations and its loads, and so
 // is prefilter_kernel where most units pass the gate (the margin test is 8
 // compares and 4 products a candidate, 2 x 4 x 56 x 32 products on the
 // tensor cores a warp and group).
@@ -133,6 +148,7 @@
 
 #include <type_traits>
 
+#include "group_test.cuh"
 #include "tri_free.cuh"
 
 // kernels/mxu_group.py `_VpuArgs`, field for field.
@@ -140,7 +156,7 @@ struct VpuArgs {
   const float* o[3];
   const float* d[3];
   const float* t_init;
-  const float* tris;  // (56 n_groups, 9) v1, e1, e2 by slot
+  const float* tris;  // (56 n_groups, 9) v1, e1, e2 by slot; 16-byte aligned
   float* t;
   float* u;
   float* v;
@@ -162,7 +178,8 @@ struct MxuArgs {
   float* cand;           // null, or (n_groups, 320, n_rays): every product
   const void* bimg;      // mxu_big_kernel, mxu_split3_kernel: the groups' B
                          // images (kernels/mxu_tri.py b_image)
-  int n_rays, n_groups, reps, mm_only;
+  unsigned long long* check_out;  // mxu_kernel PHASES: N_GROUP_CHECK sums
+  int n_rays, n_groups, reps, mm_only, check;
 };
 
 // kernels/mxu_group.py `_PrefilterArgs`, field for field.
@@ -194,7 +211,6 @@ struct PrefilterArgs {
 
 namespace {
 
-constexpr float EPSILON = trifree::EPSILON;
 constexpr float BIG = 1e33f;
 constexpr int NO_SLOT = 1 << 30;
 constexpr int GROUP_TRIS = 56, QUANT_PAD = 64, N_QUANT = 5;
@@ -203,13 +219,16 @@ constexpr int MODE_BF16 = 0, MODE_TF32X3 = 1, MODE_SPLIT3 = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int VPU_BLOCK = 128;
-constexpr int ROWS_WARPS = 8;                  // mxu_kernel: warps a block
-constexpr int ROWS_RAYS = ROWS_WARPS * 16;     // and its rays
+constexpr int ROWS_WARPS = 8;                  // mxu_kernel: warps a block,
+constexpr int ROWS_THREADS = ROWS_WARPS * 32;  // its threads and rays
+constexpr int ROWS_RAYS = ROWS_WARPS * 16;
+constexpr int ROW_STAGES = 2;                  // groups in flight a block
 constexpr int BIG_WARPGROUPS = 2;              // mxu_big_kernel: a block's
 constexpr int BIG_RAYS = 64 * BIG_WARPGROUPS;  // warpgroups, rays
 constexpr int BIG_THREADS = 128 * BIG_WARPGROUPS;
 constexpr int BIG_STAGES = 2;                  // groups in flight a block
 constexpr int B_CHUNKS = QUANT_PAD / 8;        // 8 triangles a product
+constexpr int FRAG_CHUNKS = GROUP_TRIS / 8;    // the chunks the test reads
 
 __global__ void __launch_bounds__(VPU_BLOCK) vpu_kernel(VpuArgs a) {
   const int r = blockIdx.x * VPU_BLOCK + threadIdx.x;
@@ -218,11 +237,11 @@ __global__ void __launch_bounds__(VPU_BLOCK) vpu_kernel(VpuArgs a) {
   const float dx = a.d[0][r], dy = a.d[1][r], dz = a.d[2][r];
   float t = a.t_init[r], td = 1.0f, u = 0.0f, v = 0.0f;
   int idx = -1;
-  const int slots = a.n_groups * GROUP_TRIS;
   for (int rep = 0; rep < a.reps; ++rep) {
-    const float* p = a.tris;
-    for (int j = 0; j < slots; ++j, p += 9) {
-      if (trifree::accept(p, ox, oy, oz, dx, dy, dz, t, td, u, v)) idx = j;
+    for (int grp = 0; grp < a.n_groups; ++grp) {
+      const int slot0 = grp * GROUP_TRIS;
+      trifree::group(a.tris + static_cast<size_t>(slot0) * 9, ox, oy, oz, dx, dy, dz, t, td, u, v,
+                     [&](int j) { idx = slot0 + j; });
     }
   }
   const float inv = 1.0f / td;
@@ -231,6 +250,64 @@ __global__ void __launch_bounds__(VPU_BLOCK) vpu_kernel(VpuArgs a) {
   a.v[r] = v * inv;
   a.idx[r] = idx;
 }
+
+// ---- PHASES: where mxu_kernel's warps' cycles go (check-only) -------------
+// clock64() cycles of each part of a group's work, per warp (its lanes run
+// every part together), summed over the warps: waiting for the group's
+// coefficients (the barriers and the copy), the product (B loads, the TF32
+// split, mma.sync, and the wait for its accumulators), the candidate test,
+// and the four-lane reduction and commit; then the warps' cycles from start
+// to end, and an xor of the accumulators read to end each product (so that
+// the wait is not optimised away). The timed instantiations compile none
+// of it.
+enum { GP_STAGE, GP_PRODUCT, GP_TEST, GP_COMMIT, GP_WARP, GP_SINK, N_GROUP_CHECK };
+
+template <bool ON>
+struct GroupProbe {
+  unsigned long long c[GP_SINK];
+  long long start, t0;
+  uint32_t sink;
+  __device__ __forceinline__ GroupProbe() {
+    if constexpr (ON) {
+      for (int k = 0; k < GP_SINK; ++k) c[k] = 0;
+      sink = 0;
+      start = t0 = clock64();
+    }
+  }
+  // the part since the last mark ends here
+  __device__ __forceinline__ void mark(int k) {
+    if constexpr (ON) {
+      const long long now = clock64();
+      c[k] += static_cast<unsigned long long>(now - t0);
+      t0 = now;
+    }
+  }
+  // ends a product: the accumulators are read before the clock is
+  template <int N>
+  __device__ __forceinline__ void product_done(const float (&acc)[N][4]) {
+    if constexpr (ON) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x ^= __float_as_uint(acc[k][e]);
+      }
+      asm volatile("" : "+r"(x));
+      sink ^= x;
+      mark(GP_PRODUCT);
+    }
+  }
+  // lane 0 of each warp adds its sums to `out`; every lane calls it
+  __device__ __forceinline__ void finish(unsigned long long* out) {
+    if constexpr (ON) {
+      c[GP_WARP] = static_cast<unsigned long long>(clock64() - start);
+      if ((threadIdx.x & 31) == 0) {
+        for (int k = 0; k < GP_SINK; ++k) atomicAdd(out + k, c[k]);
+        atomicXor(out + GP_SINK, static_cast<unsigned long long>(sink));
+      }
+    }
+  }
+};
 
 // ---- the product -----------------------------------------------------------
 
@@ -271,30 +348,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared-memory words of one group staged by mxu_kernel. MODE_BF16: a
-// candidate is 8 words (16 bf16). MODE_TF32X3: 16 floats padded to 20, so
-// that the 8 candidates x 4 features a warp reads at once fall into 32
-// different banks.
-template <int MODE>
-struct Stage {
-  static constexpr int ROW = MODE == MODE_TF32X3 ? 20 : 8;
-  static constexpr int WORDS = N_CAND * ROW;
-};
-
-// All threads of the block copy group `g`'s coefficients to `cs`.
-template <int MODE>
-__device__ __forceinline__ void stage(uint32_t* cs, const MxuArgs& a, int g) {
-  // 16 floats a candidate = 4 float4
-  const float4* src = reinterpret_cast<const float4*>(a.coef) + static_cast<size_t>(g) * N_CAND * 4;
-  for (int i = threadIdx.x; i < N_CAND * 4; i += blockDim.x) {
-    const float4 x = __ldg(src + i);
-    if constexpr (MODE == MODE_BF16) {
-      reinterpret_cast<uint2*>(cs)[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-    } else {
-      reinterpret_cast<float4*>(cs + (i >> 2) * Stage<MODE>::ROW)[i & 3] = x;
-    }
-  }
-}
+// prefilter_kernel's staged group: a candidate is a row of 8 words (16
+// bf16 features).
+constexpr int STAGE_ROW = 8;
 
 // A warp's 16 rays x 16 features as `mma.sync` A operands: thread (g = lane /
 // 4, q = lane % 4) holds rays g and g + 8 of the tile.
@@ -337,21 +393,31 @@ struct Feats {
 };
 
 // c = the warp's 16 rays x the 8 candidates from `n0` on, from the staged
-// group `cs` (mxu_kernel, prefilter_kernel).
-template <int MODE>
-__device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE>& f, const uint32_t* cs, int n0,
-                                     int lane) {
+// bf16 rows `cs` (prefilter_kernel).
+__device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE_BF16>& f, const uint32_t* cs,
+                                     int n0, int lane) {
   c[0] = c[1] = c[2] = c[3] = 0.0f;
   const int g = lane >> 2, q = lane & 3;
-  const uint32_t* row = cs + (n0 + g) * Stage<MODE>::ROW;
+  const uint32_t* row = cs + (n0 + g) * STAGE_ROW;
+  mma_bf16(c, f.a[0], row[q], row[q + 4]);
+}
+
+// c = the warp's 16 rays x the candidate whose 16 float32 features are at
+// `row` (one a thread group: candidate n0 + lane / 4), B made from the
+// table in the loop: DUMP's pad chunk, which the fragment image omits.
+template <int MODE>
+__device__ __forceinline__ void table_tile(float (&c)[4], const Feats<MODE>& f, const float* row,
+                                           int q) {
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
   if constexpr (MODE == MODE_BF16) {
-    mma_bf16(c, f.a[0], row[q], row[q + 4]);
+    mma_bf16(c, f.a[0], pack_bf16(row[2 * q], row[2 * q + 1]),
+             pack_bf16(row[2 * q + 8], row[2 * q + 9]));
   } else {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       uint32_t b_big[2], b_small[2];
-      split_tf32(__uint_as_float(row[8 * half + q]), b_big[0], b_small[0]);
-      split_tf32(__uint_as_float(row[8 * half + q + 4]), b_big[1], b_small[1]);
+      split_tf32(row[8 * half + q], b_big[0], b_small[0]);
+      split_tf32(row[8 * half + q + 4], b_big[1], b_small[1]);
       mma_tf32(c, f.a[2 + half], b_big[0], b_big[1]);
       mma_tf32(c, f.a[half], b_small[0], b_small[1]);
       mma_tf32(c, f.a[half], b_big[0], b_big[1]);
@@ -359,27 +425,105 @@ __device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE>& f, const 
   }
 }
 
-// One candidate of a ray, slot `j` of its group: the sign test, then t = Tn /
-// D against the ray's closest hit `limit` and the group's winner so far.
-__device__ __forceinline__ void candidate(float D, float U, float V, float W, float Tn, int j,
-                                          float limit, float& wt, int& wj, float& wu, float& wv) {
-  const float mn = fminf(fminf(D, U), fminf(V, W));
-  const float mx = fmaxf(fmaxf(D, U), fmaxf(V, W));
-  if ((mn > 0.0f || mx < 0.0f) && fabsf(D) >= EPSILON) {
-    const float rD = 1.0f / D;
-    const float tval = Tn * rD;
-    if (tval > EPSILON && tval < limit && tval < wt) {
-      wt = tval;
-      wj = j;
-      wu = U * rD;
-      wv = V * rD;
+// ---- shared memory filled by the copy engine ----------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Until the phase of parity `parity` of `bar` has completed. A phase that
+// never completes (a copy that never lands) traps after about 2^32 cycles, so
+// a fault fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// `bytes` from device memory to shared memory by the copy engine; `bar`'s
+// phase completes when they have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- mxu_kernel --------------------------------------------------------------
+
+// Bytes of one group's fragment image (kernels/mxu_tri.py frag_image): the
+// 56 real candidates of each quantity in `mma.sync`'s B-fragment order, 7
+// chunks of 8 triangles, each chunk lane-major within its pieces so that a
+// warp's 16- or 8-byte loads fall into 32 banks. MODE_BF16: per chunk a
+// thread's (b0, b1) of tiles 0-1 (16 bytes), of tiles 2-3 (16), of tile 4
+// (8), each piece 32 lanes long; MODE_TF32X3: per chunk and tile the big
+// part's (b0, b1) of both halves of K (16 bytes a lane), then the small
+// part's.
+template <int MODE>
+struct Frag {
+  static constexpr uint32_t CHUNK = MODE == MODE_TF32X3 ? N_QUANT * 2 * 32 * 16 : 2 * 32 * 16 + 32 * 8;
+  static constexpr uint32_t BYTES = FRAG_CHUNKS * CHUNK;
+};
+
+// c[k] = the warp's 16 rays x quantity k of triangles 8 jt .. 8 jt + 7, from
+// the fragment image of a group at `img` (shared memory).
+template <int MODE>
+__device__ __forceinline__ void chunk_tiles(float (&c)[N_QUANT][4], const Feats<MODE>& f,
+                                            const unsigned char* img, int jt, int lane) {
+  const unsigned char* at = img + jt * Frag<MODE>::CHUNK;
+#pragma unroll
+  for (int k = 0; k < N_QUANT; ++k) c[k][0] = c[k][1] = c[k][2] = c[k][3] = 0.0f;
+  if constexpr (MODE == MODE_BF16) {
+    const uint4 p0 = *reinterpret_cast<const uint4*>(at + lane * 16);
+    const uint4 p1 = *reinterpret_cast<const uint4*>(at + 512 + lane * 16);
+    const uint2 p2 = *reinterpret_cast<const uint2*>(at + 1024 + lane * 8);
+    mma_bf16(c[0], f.a[0], p0.x, p0.y);
+    mma_bf16(c[1], f.a[0], p0.z, p0.w);
+    mma_bf16(c[2], f.a[0], p1.x, p1.y);
+    mma_bf16(c[3], f.a[0], p1.z, p1.w);
+    mma_bf16(c[4], f.a[0], p2.x, p2.y);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N_QUANT; ++k) {
+      const uint4 big = *reinterpret_cast<const uint4*>(at + (2 * k) * 512 + lane * 16);
+      const uint4 small = *reinterpret_cast<const uint4*>(at + (2 * k + 1) * 512 + lane * 16);
+      // small x big + big x small + big x big, half 0 of K, then half 1
+      mma_tf32(c[k], f.a[2], big.x, big.y);
+      mma_tf32(c[k], f.a[0], small.x, small.y);
+      mma_tf32(c[k], f.a[0], big.x, big.y);
+      mma_tf32(c[k], f.a[3], big.z, big.w);
+      mma_tf32(c[k], f.a[1], small.z, small.w);
+      mma_tf32(c[k], f.a[1], big.z, big.w);
     }
   }
 }
 
-template <int MODE, bool DUMP>
-__global__ void __launch_bounds__(ROWS_WARPS * 32) mxu_kernel(MxuArgs a) {
-  __shared__ __align__(16) uint32_t cs[Stage<MODE>::WORDS];
+template <int MODE, bool DUMP, bool PHASES>
+__global__ void __launch_bounds__(ROWS_THREADS) mxu_kernel(MxuArgs a) {
+  using F = Frag<MODE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ROW_STAGES * F::BYTES);
+  uint64_t* empty = full + ROW_STAGES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int ray0 = blockIdx.x * ROWS_RAYS + warp * 16;
@@ -391,64 +535,125 @@ __global__ void __launch_bounds__(ROWS_WARPS * 32) mxu_kernel(MxuArgs a) {
   float bt[2] = {a.t_init[min(r[0], last)], a.t_init[min(r[1], last)]};
   float bu[2] = {0.0f, 0.0f}, bv[2] = {0.0f, 0.0f};
   int bi[2] = {-1, -1};
-  for (int rep = 0; rep < a.reps; ++rep) {
-    for (int grp = 0; grp < a.n_groups; ++grp) {
-      __syncthreads();
-      stage<MODE>(cs, a, grp);
-      __syncthreads();
-      float wt[2] = {BIG, BIG}, wu[2] = {0.0f, 0.0f}, wv[2] = {0.0f, 0.0f};
-      int wj[2] = {NO_SLOT, NO_SLOT};
+  GroupProbe<PHASES> probe;
+  const unsigned char* images = static_cast<const unsigned char*>(a.bimg);
+  const int total = a.reps * a.n_groups;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ROW_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, ROWS_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ROW_STAGES && s < total; ++s) {
+      bulk_load(smem + s * F::BYTES, images + static_cast<size_t>(s % a.n_groups) * F::BYTES, F::BYTES,
+                full + s);
+    }
+  }
+  for (int it = 0; it < total; ++it) {
+    const int stage = it % ROW_STAGES, grp = it % a.n_groups;
+    const uint32_t parity = (it / ROW_STAGES) & 1;
+    const unsigned char* img = smem + stage * F::BYTES;
+    probe.mark(GP_COMMIT);
+    mbar_wait(full + stage, parity);
+    probe.mark(GP_STAGE);
+    float wt[2] = {BIG, BIG}, wu[2] = {0.0f, 0.0f}, wv[2] = {0.0f, 0.0f};
+    int wj[2] = {NO_SLOT, NO_SLOT};
+    // the test reads chunks 0-6; the pad chunk only DUMP, from the table
 #pragma unroll
-      for (int jt = 0; jt < QUANT_PAD / 8; ++jt) {
-        float c[N_QUANT][4];
+    for (int jt = 0; jt < (DUMP ? B_CHUNKS : FRAG_CHUNKS); ++jt) {
+      float c[N_QUANT][4];
+      if (jt < FRAG_CHUNKS) {
+        chunk_tiles<MODE>(c, f, img, jt, lane);
+      } else {
 #pragma unroll
-        for (int k = 0; k < N_QUANT; ++k) tile<MODE>(c[k], f, cs, k * QUANT_PAD + jt * 8, lane);
-        if constexpr (DUMP) {
+        for (int k = 0; k < N_QUANT; ++k) {
+          const size_t cand = static_cast<size_t>(grp) * N_CAND + k * QUANT_PAD + jt * 8 + g;
+          table_tile<MODE>(c[k], f, a.coef + cand * 16, q);
+        }
+      }
+      probe.product_done(c);
+      if constexpr (DUMP) {
 #pragma unroll
-          for (int k = 0; k < N_QUANT; ++k) {
+        for (int k = 0; k < N_QUANT; ++k) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const size_t row = static_cast<size_t>(grp) * N_CAND + k * QUANT_PAD + jt * 8 + 2 * q + (e & 1);
-              if (r[e >> 1] < a.n_rays) a.cand[row * a.n_rays + r[e >> 1]] = c[k][e];
-            }
+          for (int e = 0; e < 4; ++e) {
+            const size_t row = static_cast<size_t>(grp) * N_CAND + k * QUANT_PAD + jt * 8 + 2 * q + (e & 1);
+            if (r[e >> 1] < a.n_rays) a.cand[row * a.n_rays + r[e >> 1]] = c[k][e];
           }
         }
-        if (jt * 8 < GROUP_TRIS) {
-          // accumulator e: ray e / 2 of the thread's two, triangle 2 q + e % 2
+      }
+      if (jt < FRAG_CHUNKS) {
+        // accumulator e: ray e / 2 of the thread's two, triangle 2 q + e % 2
+        if constexpr (MODE == MODE_TF32X3) {
+          // the rest of the test only where a lane of the warp needs it:
+          // the warp branches once a chunk (at "default" the test of each
+          // candidate by itself was faster at the card's width)
+          uint32_t ok = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ok |= static_cast<uint32_t>(grouptest::signs_agree(c[0][e], c[1][e], c[2][e], c[3][e])) << e;
+          }
+          if (__any_sync(FULL, ok != 0)) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1;
+              if (ok & (1u << e)) {
+                grouptest::closer(c[0][e], c[1][e], c[2][e], c[4][e], jt * 8 + 2 * q + (e & 1), bt[h],
+                                  wt[h], wj[h], wu[h], wv[h]);
+              }
+            }
+          }
+        } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int h = e >> 1;
-            candidate(c[0][e], c[1][e], c[2][e], c[3][e], c[4][e], jt * 8 + 2 * q + (e & 1), bt[h],
-                      wt[h], wj[h], wu[h], wv[h]);
+            grouptest::candidate(c[0][e], c[1][e], c[2][e], c[3][e], c[4][e],
+                                 jt * 8 + 2 * q + (e & 1), bt[h], wt[h], wj[h], wu[h], wv[h]);
           }
         }
       }
-      // the four threads of a ray agree on its winner: least t, then slot
+      probe.mark(GP_TEST);
+    }
+    // every read of this stage is done: it may be refilled
+    mbar_arrive(empty + stage);
+    if (threadIdx.x == 0 && it + ROW_STAGES < total) {
+      mbar_wait(empty + stage, parity);
+      bulk_load(smem + stage * F::BYTES,
+                images + static_cast<size_t>((it + ROW_STAGES) % a.n_groups) * F::BYTES, F::BYTES,
+                full + stage);
+    }
+    __syncwarp();
+    probe.mark(GP_STAGE);
+    // the four threads of a ray agree on its winner: least t, then slot
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (!__any_sync(FULL, wj[h] != NO_SLOT)) continue;
-        float t = wt[h];
-        int j = wj[h];
+    for (int h = 0; h < 2; ++h) {
+      if (!__any_sync(FULL, wj[h] != NO_SLOT)) continue;
+      float t = wt[h];
+      int j = wj[h];
 #pragma unroll
-        for (int m = 1; m < 4; m <<= 1) {
-          const float ot = __shfl_xor_sync(FULL, t, m);
-          const int oj = __shfl_xor_sync(FULL, j, m);
-          if (ot < t || (ot == t && oj < j)) {
-            t = ot;
-            j = oj;
-          }
+      for (int m = 1; m < 4; m <<= 1) {
+        const float ot = __shfl_xor_sync(FULL, t, m);
+        const int oj = __shfl_xor_sync(FULL, j, m);
+        if (ot < t || (ot == t && oj < j)) {
+          t = ot;
+          j = oj;
         }
-        const int owner = (lane & ~3) | ((j & 7) >> 1);
-        const float u = __shfl_sync(FULL, wu[h], owner), v = __shfl_sync(FULL, wv[h], owner);
-        if (t < bt[h]) {
-          bt[h] = t;
-          bu[h] = u;
-          bv[h] = v;
-          bi[h] = grp * GROUP_TRIS + j;
-        }
+      }
+      const int owner = (lane & ~3) | ((j & 7) >> 1);
+      const float u = __shfl_sync(FULL, wu[h], owner), v = __shfl_sync(FULL, wv[h], owner);
+      if (t < bt[h]) {
+        bt[h] = t;
+        bu[h] = u;
+        bv[h] = v;
+        bi[h] = grp * GROUP_TRIS + j;
       }
     }
   }
+  probe.mark(GP_COMMIT);
+  probe.finish(a.check_out);
   if (q == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -507,48 +712,6 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Until the phase of parity `parity` of `bar` has completed. A phase that
-// never completes (a copy that never lands) traps after about 2^32 cycles, so
-// a fault fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 32)) __trap();
-  }
-}
-
-// `bytes` from device memory to shared memory by the copy engine; `bar`'s
-// phase completes when they have landed.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // Bytes of one group's B image (kernels/mxu_tri.py b_image): bf16 columns
@@ -686,8 +849,8 @@ __device__ __forceinline__ void big_body(const MxuArgs& a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
-          candidate(d[e], d[4 + e], d[8 + e], d[12 + e], d[16 + e], j * 8 + 2 * q + (e & 1), bt[h], wt[h],
-                    wj[h], wu[h], wv[h]);
+          grouptest::candidate(d[e], d[4 + e], d[8 + e], d[12 + e], d[16 + e], j * 8 + 2 * q + (e & 1),
+                               bt[h], wt[h], wj[h], wu[h], wv[h]);
         }
       }
     }
@@ -806,8 +969,8 @@ __global__ void __launch_bounds__(PRE_RAYS) prefilter_kernel(PrefilterArgs a) {
           float c[4][4], m[4][4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            tile<MODE_BF16>(c[k], fh[mt], cs, k * QUANT_PAD + jt * 8, lane);
-            tile<MODE_BF16>(m[k], fa[mt], cs + PRE_CAND * 8, k * QUANT_PAD + jt * 8, lane);
+            tile(c[k], fh[mt], cs, k * QUANT_PAD + jt * 8, lane);
+            tile(m[k], fa[mt], cs + PRE_CAND * STAGE_ROW, k * QUANT_PAD + jt * 8, lane);
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -936,20 +1099,37 @@ constexpr int big_smem() {
   return BIG_STAGES * BImage<MODE>::BYTES + 2 * BIG_STAGES * 8;
 }
 
-template <int MODE, bool DUMP>
-int launch_rows(const MxuArgs* a, void* stream) {
-  const dim3 grid((a->n_rays + ROWS_RAYS - 1) / ROWS_RAYS), block(ROWS_WARPS * 32);
-  mxu_kernel<MODE, DUMP><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+// the ring of fragment images, then a "landed" and a "read" mbarrier a stage
+template <int MODE>
+constexpr int rows_smem() {
+  return ROW_STAGES * Frag<MODE>::BYTES + 2 * ROW_STAGES * 8;
+}
+
+template <typename Kernel>
+int launch_dynamic(Kernel kernel, int smem, int rays_a_block, int threads, const MxuArgs* a,
+                   void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a->n_rays + rays_a_block - 1) / rays_a_block), block(threads);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_rows(const MxuArgs* a, void* stream) {
+  const int smem = rows_smem<MODE>();
+  if (a->cand != nullptr) {
+    return launch_dynamic(mxu_kernel<MODE, true, false>, smem, ROWS_RAYS, ROWS_THREADS, a, stream);
+  }
+  if (a->check) {
+    return launch_dynamic(mxu_kernel<MODE, false, true>, smem, ROWS_RAYS, ROWS_THREADS, a, stream);
+  }
+  return launch_dynamic(mxu_kernel<MODE, false, false>, smem, ROWS_RAYS, ROWS_THREADS, a, stream);
 }
 
 template <typename Kernel>
 int launch_big(Kernel kernel, int smem, const MxuArgs* a, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a->n_rays + BIG_RAYS - 1) / BIG_RAYS), block(BIG_THREADS);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dynamic(kernel, smem, BIG_RAYS, BIG_THREADS, a, stream);
 }
 
 }  // namespace
@@ -978,11 +1158,9 @@ extern "C" int pt_launch_prefilter(const PrefilterArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// mxu_kernel: a non-null `cand` launches DUMP, a non-zero `check` PHASES.
 extern "C" int pt_launch_mxu(const MxuArgs* a, int highest, void* stream) {
-  if (a->cand != nullptr) {
-    return highest ? launch_rows<MODE_TF32X3, true>(a, stream) : launch_rows<MODE_BF16, true>(a, stream);
-  }
-  return highest ? launch_rows<MODE_TF32X3, false>(a, stream) : launch_rows<MODE_BF16, false>(a, stream);
+  return highest ? launch_rows<MODE_TF32X3>(a, stream) : launch_rows<MODE_BF16>(a, stream);
 }
 
 extern "C" int pt_launch_mxu_big(const MxuArgs* a, int highest, void* stream) {

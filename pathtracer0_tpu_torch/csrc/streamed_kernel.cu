@@ -53,7 +53,8 @@
 //     its counters are those of the stack walk, so its bits are too;
 //   - a group's 56 slots, 2,016 contiguous bytes on a 16-byte boundary,
 //     are read four slots at a time as nine 16-byte loads (a load of lanes
-//     on k groups costs k passes of L1, whatever its width);
+//     on k groups costs k passes of L1, whatever its width): tri_free.cuh
+//     `group`, which vpu_kernel shares;
 //   - the slot test rejects a slot whose |det| or u already fails before it
 //     forms q, v and t (csrc/tri_free.cuh), so a warp whose lanes all fail
 //     there skips the rest.
@@ -61,8 +62,8 @@
 // lanes of a warp walk the same part of the tree. The box tests and the
 // walk's loads from L2 are the rest.
 //
-// The slot test is csrc/tri_free.cuh's, which the group-test diagnostic
-// (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
+// The group loop and its slot test are csrc/tri_free.cuh's, which the
+// group-test diagnostic (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
 // math. Plain version:
 // pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`.
 #include <cuda_runtime.h>
@@ -96,7 +97,7 @@ constexpr int STACK = 32;          // scene/packing.py STREAM_MAX_STACK
 constexpr int TRIS_PER_ROW = 14, GROUP_ROWS = 4, TREELET_ROWS = 128;
 constexpr int GROUPS = TREELET_ROWS / GROUP_ROWS;   // 32
 constexpr int SUB_STRIDE = 2 * GROUPS;              // 64
-constexpr int GROUP_TRIS = GROUP_ROWS * TRIS_PER_ROW;
+static_assert(GROUP_ROWS * TRIS_PER_ROW == trifree::GROUP_TRIS, "a group is 56 slots");
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -254,35 +255,18 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
         k = (node - sub0) & (SUB_STRIDE - 1);
       }
       if (node < 0) break;
-      // the group's 56 slots in order, with the other lanes that have
-      // reached a group; four slots are 36 floats, nine 16-byte loads
+      // the group's 56 slots in order (tri_free.cuh), with the other lanes
+      // that have reached a group
       probe.group_test(node);
       long long t0 = probe.tick();
       rows += GROUP_ROWS;
       const int treelet = (node - sub0) / SUB_STRIDE;
       const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
-      const float4* q = reinterpret_cast<const float4*>(a.tris + static_cast<size_t>(slot0) * 9);
-#pragma unroll 1
-      for (int j = 0; j < GROUP_TRIS; j += 4, q += 9) {
-        float f[36];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) {
-          const float4 x = __ldg(q + i);
-          f[4 * i] = x.x;
-          f[4 * i + 1] = x.y;
-          f[4 * i + 2] = x.z;
-          f[4 * i + 3] = x.w;
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const float* g = f + 9 * s;
-          const trifree::Tri tri{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[8]};
-          if (trifree::accept(tri, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t, td, u, v)) {
-            idx = slot0 + j + s;
-            tcur = t / td;
-          }
-        }
-      }
+      trifree::group(a.tris + static_cast<size_t>(slot0) * 9, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy,
+                     ray.dz, t, td, u, v, [&](int j) {
+                       idx = slot0 + j;
+                       tcur = t / td;
+                     });
       probe.tock(PH_GROUP, t0);
       t0 = probe.tick();
       node = pop(stack_n, stack_d, sp, tcur);

@@ -2,8 +2,9 @@
 
 Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
 nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, and
-for the CPU tests the forest kernels' triangle test and the block
-kernel's dense triangle loop) by g++, into
+for the CPU tests the forest kernels' triangle test, the block
+kernel's dense triangle loop and the group-test kernels' candidate test
+and group loop) by g++, into
 `_build/` at first use, and cached there under a hash of their sources
 and the flags; `build_all` starts one compiler per library together, so
 a fresh checkout pays the slowest build and not their sum.
@@ -31,17 +32,22 @@ LIBS = {
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "forest_kernel": ("forest_kernel.cu", "tri_divide.cuh"),
     "streamed_kernel": ("streamed_kernel.cu", "tri_free.cuh"),
-    "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh"),
+    "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh",
+                         "group_test.cuh"),
 }
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # built by g++ for the host; no contraction here either, so the LBVH
 # build's float32 boxes equal the NumPy build's bit for bit, and the
-# forest kernels' triangle test (tri_divide.cuh) and the block kernel's
-# dense triangle loop (pathtrace.cuh) equal the plain versions'
+# forest kernels' triangle test (tri_divide.cuh), the block kernel's
+# dense triangle loop (pathtrace.cuh) and the group-test kernels' candidate
+# test and group loop (group_test.cuh, tri_free.cuh) equal the plain
+# versions'
 HOST_LIBS = {"streambuild": ("streambuild.cpp",),
              "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh"),
-             "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh")}
+             "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh"),
+             "group_test": ("group_test_host.cpp", "group_test.cuh",
+                            "tri_free.cuh")}
 HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs = {}

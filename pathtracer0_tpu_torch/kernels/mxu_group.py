@@ -9,10 +9,13 @@ their Pallas kernels:
                   56 + slot
   run_mxu         `_mxu_kernel`: per group the product coef_g (320, 16) x
                   features (16, R) (kernels/mxu_tri.py), a warp's 16 rays at
-                  a time; a triangle is hit if det, u, v, w share a sign,
-                  |det| >= 1e-10 and t = Tn / D lies in (1e-10, closest so
-                  far); a group's winner is its least t, the lowest slot on
-                  a tie, and replaces the closest hit if strictly closer
+                  a time (on the card `mma.sync`, whose B operand is the
+                  table in the port-side layout mxu_tri.frag_image, made
+                  once a table); a triangle is hit if det, u, v, w share a
+                  sign, |det| >= 1e-10 and t = Tn / D lies in (1e-10,
+                  closest so far); a group's winner is its least t, the
+                  lowest slot on a tie, and replaces the closest hit if
+                  strictly closer
   run_mxu_big     `_mxu_big_kernel`: the same with one product per group
                   over a whole block of rays (on the card a warpgroup's
                   `wgmma` of 64 rays, whose B operand is the table in the
@@ -101,7 +104,9 @@ def vpu_reference(tris, o, d, t_init, *, n_groups, reps):
 
 def _commit(out, g, best):
     """One group's candidates `out` (320, R) against the closest hits
-    best = (t, u, v, idx): sign test, t = Tn / D, least t then lowest slot."""
+    best = (t, u, v, idx): sign test (a NaN fails it, as in
+    tools/diag_mxu.py), t = Tn / D, least t then lowest slot
+    (csrc/group_test.cuh)."""
     tb, ub, vb, ib = best
     D, U, V, W, Tn = (out[q * QUANT_PAD:q * QUANT_PAD + GROUP_TRIS]
                       for q in range(5))
@@ -327,8 +332,8 @@ class _MxuArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "coef", "feats", "fh", "fl", "t_init", "t", "u", "v",
-        "idx", "cand", "bimg")] + [(n, ctypes.c_int) for n in (
-            "n_rays", "n_groups", "reps", "mm_only")]
+        "idx", "cand", "bimg", "check_out")] + [(n, ctypes.c_int) for n in (
+            "n_rays", "n_groups", "reps", "mm_only", "check")]
 
 
 class _PrefilterArgs(ctypes.Structure):
@@ -353,7 +358,7 @@ def _outputs(n_rays, dev):
     return t, u, v, torch.empty(n_rays, dtype=torch.int32, device=dev)
 
 
-def _launch(name, symbol, args, extra, dev):
+def _launch(name, symbol, args, extra, dev, count=True):
     fn = getattr(build.load("mxu_group_kernel"), symbol)
     fn.argtypes = [ctypes.POINTER(type(args))] \
         + [ctypes.c_int] * len(extra) + [ctypes.c_void_p]
@@ -362,12 +367,14 @@ def _launch(name, symbol, args, extra, dev):
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
+    if count:
+        launches[name] += 1
 
 
 def run_vpu(tris, o, d, t_init, *, n_groups, reps):
     """Row A: the scalar slot test. `tris` (>= 56 n_groups, 9) float32 in
-    the `st_tris` layout (v1, e1, e2 by slot)."""
+    the `st_tris` layout (v1, e1, e2 by slot), starting on a 16-byte
+    boundary (the kernel reads a group 16 bytes at a time)."""
     if tris.ndim != 2 or tris.shape[1] != 9 \
             or tris.shape[0] < n_groups * GROUP_TRIS or n_groups < 1:
         raise ValueError(f"tris must be (>= {n_groups * GROUP_TRIS}, 9), "
@@ -376,14 +383,17 @@ def run_vpu(tris, o, d, t_init, *, n_groups, reps):
     if n_rays < 1 or any(c.shape != (n_rays,) for c in (*o, *d)):
         raise ValueError("o, d and t_init must hold one entry per ray, and "
                          "at least one ray")
+    if tris.data_ptr() % 16:
+        raise ValueError("tris must start on a 16-byte boundary: the kernel "
+                         "reads a group's slots 16 bytes at a time")
     if not _on_card(t_init):
         return vpu_reference(tris, o, d, t_init, n_groups=n_groups, reps=reps)
     dev, f32 = t_init.device, torch.float32
+    tris_at = build.ptr(tris, f32, dev)
     # the copies live until after the launch
     rays = [c.contiguous() for c in (*o, *d, t_init)]
     out = _outputs(n_rays, dev)
-    args = _VpuArgs(*(build.ptr(c, f32, dev) for c in rays),
-                    tris=build.ptr(tris, f32, dev),
+    args = _VpuArgs(*(build.ptr(c, f32, dev) for c in rays), tris=tris_at,
                     t=out[0].data_ptr(), u=out[1].data_ptr(),
                     v=out[2].data_ptr(), idx=out[3].data_ptr(),
                     n_rays=n_rays, n_groups=n_groups, reps=reps)
@@ -392,10 +402,12 @@ def run_vpu(tris, o, d, t_init, *, n_groups, reps):
 
 
 def _run_product(name, symbol, coef, feats, t_init, n_groups, reps, *,
-                 precision="default", mm_only=False, want_cand=False):
-    """Launch one of the product kernels. mxu_kernel reads the table as it
-    is; the big form (mxu_big_kernel, mxu_split3_kernel) reads its B image
-    (mxu_tri.b_image_of: made at the table's first launch, then kept).
+                 precision="default", mm_only=False, want_cand=False,
+                 check_out=None):
+    """Launch one of the product kernels. mxu_kernel reads its fragment
+    image (mxu_tri.frag_image_of), the big form (mxu_big_kernel,
+    mxu_split3_kernel) its B image (mxu_tri.b_image_of): each made at the
+    table's first launch, then kept.
     `precision` "split3" also hands the kernel the features' bf16 hi and
     lo parts, made here."""
     n_rays = _check_tables(coef, feats, t_init, n_groups)
@@ -414,7 +426,10 @@ def _run_product(name, symbol, coef, feats, t_init, n_groups, reps, *,
     else:
         args.feats = keep[1].data_ptr()
     if name == "mxu_kernel":
+        # DUMP also reads the pad candidates from the table itself
         args.coef = coef.data_ptr()
+        args.bimg = mxu_tri.frag_image_of(coef, n_groups,
+                                          precision).data_ptr()
     else:
         args.bimg = mxu_tri.b_image_of(coef, n_groups, precision).data_ptr()
     out = _outputs(n_rays, dev)
@@ -423,8 +438,10 @@ def _run_product(name, symbol, coef, feats, t_init, n_groups, reps, *,
     if want_cand:
         cand = torch.empty((n_groups, N_CAND, n_rays), dtype=f32, device=dev)
         args.cand = cand.data_ptr()
+    if check_out is not None:
+        args.check_out, args.check = check_out.data_ptr(), 1
     extra = () if precision == "split3" else (int(precision == "highest"),)
-    _launch(name, symbol, args, extra, dev)
+    _launch(name, symbol, args, extra, dev, count=check_out is None)
     return out, cand
 
 
@@ -436,6 +453,29 @@ def run_mxu(coef, feats, t_init, *, n_groups, reps, precision="default"):
                              reps=reps, precision=precision)
     return _run_product("mxu_kernel", "pt_launch_mxu", coef, feats, t_init,
                         n_groups, reps, precision=precision)[0]
+
+
+# the sums of mxu_kernel's check-only PHASES instantiation, in the order of
+# csrc/mxu_group_kernel.cu GP_*
+GROUP_PHASES = ("stage", "product", "test", "commit", "warp", "sink")
+
+
+def mxu_phase_cycles(coef, feats, t_init, *, n_groups, reps,
+                     precision="default"):
+    """`run_mxu` on the card through mxu_kernel's check-only PHASES
+    instantiation: (t, u, v, idx, sums), sums mapping each of
+    GROUP_PHASES to its sum over the warps (clock64() cycles; "sink" is an
+    xor of the accumulators, read only to end each product). A measurement
+    of the card, counted in no launch count."""
+    if not _on_card(t_init):
+        raise ValueError("mxu_phase_cycles measures the card: it needs "
+                         "CUDA tensors")
+    sums = torch.zeros(len(GROUP_PHASES), dtype=torch.int64,
+                       device=t_init.device)
+    out = _run_product("mxu_kernel", "pt_launch_mxu", coef, feats, t_init,
+                       n_groups, reps, precision=precision,
+                       check_out=sums)[0]
+    return (*out, dict(zip(GROUP_PHASES, sums.tolist())))
 
 
 def run_mxu_big(coef, feats, t_init, *, n_groups, reps, precision="default",

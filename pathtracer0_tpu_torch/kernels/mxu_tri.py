@@ -230,9 +230,96 @@ def b_image(coef: torch.Tensor, precision: str) -> torch.Tensor:
                       for x in parts], 1)
 
 
-# the B images made so far: (precision, n_groups) -> (table, its version
-# counter then, image); the table is held, so its storage is not reused
-_B_IMAGES = {}
+# ---- mxu_kernel's B operand (csrc/mxu_group_kernel.cu mxu_kernel) ---------
+#
+# A second port-side layout of the table, for `mma.sync`: the 56 real
+# candidates of each quantity (the pad candidates are left out: the test
+# never reads their products) in the order in which thread (g = lane // 4,
+# q = lane % 4) of a warp holds its B fragments, so that it loads each with
+# one 16- or 8-byte shared-memory load and a warp's load falls into 32
+# banks. Chunk jt (0..6) holds tile k (quantity k of triangles 8 jt ..
+# 8 jt + 7); tile k's fragment of lane L is candidate n = 64 k + 8 jt + g at
+#   bf16 ("default"): words b0 (features 2q, 2q + 1) and b1 (2q + 8, 2q + 9)
+#        at byte jt * 1280 + (k // 2) * 512 + 16 L + 8 (k % 2) for k < 4,
+#        jt * 1280 + 1024 + 8 L for k = 4; 8,960 bytes a group;
+#   tf32 ("highest", big and small parts from `round_tf32`): at byte jt *
+#        5120 + (2 k + part) * 512 + 16 L, the words of features q, q + 4,
+#        8 + q, 12 + q (b0, b1 of each half of K); 35,840 bytes a group.
+FRAG_CHUNKS = GROUP_TRIS // 8
+
+
+def frag_layout(precision: str):
+    """(candidate, feature, part) of each element of a group's fragment
+    image, in image order: three (elements,) int64 tensors; an element is a
+    bf16 ("default") or a float32 ("highest"), part 0 the big and 1 the
+    small TF32 part."""
+    if precision == "default":
+        jt, k, L, w, h = torch.meshgrid(
+            torch.arange(FRAG_CHUNKS), torch.arange(N_QUANT),
+            torch.arange(32), torch.arange(2), torch.arange(2),
+            indexing="ij")
+        at = (jt * 640 + torch.where(k < 4, (k // 2) * 256 + 8 * L
+                                     + 4 * (k % 2), 512 + 4 * L)
+              + 2 * w + h)
+        feature = 2 * (L % 4) + 8 * w + h
+        part = torch.zeros_like(at)
+    elif precision == "highest":
+        jt, k, part, L, i = torch.meshgrid(
+            torch.arange(FRAG_CHUNKS), torch.arange(N_QUANT),
+            torch.arange(2), torch.arange(32), torch.arange(4),
+            indexing="ij")
+        at = jt * 1280 + (2 * k + part) * 128 + 4 * L + i
+        feature = (i // 2) * 8 + L % 4 + 4 * (i % 2)
+    else:
+        raise ValueError(f"no fragment image for precision {precision!r}")
+    cand = QUANT_PAD * k + 8 * jt + L // 4
+    order = at.reshape(-1).argsort()
+    return tuple(x.reshape(-1)[order] for x in (cand, feature, part))
+
+
+def frag_image(coef: torch.Tensor, precision: str) -> torch.Tensor:
+    """The fragment image of a (n_groups, 320, 16) float32 table for
+    `precision` "default" (bf16) or "highest" (TF32 big and small parts,
+    coef = big + small to 21 bits): (n_groups, bytes) uint8, the image of
+    group g in row g."""
+    cand, feature, part = (x.to(coef.device) for x in frag_layout(precision))
+    if precision == "default":
+        words = coef.to(torch.bfloat16)[:, cand, feature]
+    else:
+        big = round_tf32(coef)
+        words = torch.stack([big, round_tf32(coef - big)])[
+            part, :, cand, feature].T
+    return words.contiguous().view(torch.uint8)
+
+
+def frag_image_tables(image: torch.Tensor, precision: str):
+    """The tables a fragment image holds, read back as (n_groups, 320, 16)
+    float32 with NaN where the image holds nothing (the pad candidates):
+    one for "default", (big, small) for "highest"."""
+    n_groups = image.shape[0]
+    cand, feature, part = frag_layout(precision)
+    dtype = torch.bfloat16 if precision == "default" else torch.float32
+    words = image.contiguous().view(dtype).to(torch.float32)
+    tables = torch.full((int(part.max()) + 1, n_groups, N_CAND, N_FEATURES),
+                        float("nan"))
+    tables[part, :, cand, feature] = words.T
+    return tuple(tables)
+
+
+# the images made so far: (layout, precision, n_groups) -> (table, its
+# version counter then, image); the table is held, so its storage is not
+# reused
+_IMAGES = {}
+
+
+def _image_of(make, coef, n_groups, precision):
+    key = (make.__name__, precision, n_groups)
+    held = _IMAGES.get(key)
+    if held is not None and held[0] is coef and held[1] == coef._version:
+        return held[2]
+    image = make(coef[:n_groups], precision)
+    _IMAGES[key] = (coef, coef._version, image)
+    return image
 
 
 def b_image_of(coef: torch.Tensor, n_groups: int,
@@ -240,13 +327,14 @@ def b_image_of(coef: torch.Tensor, n_groups: int,
     """b_image(coef[:n_groups], precision), made once per table: a later
     call with the same tensor, not written since (its version counter),
     returns the same image, so a launch does no arithmetic for it."""
-    key = (precision, n_groups)
-    held = _B_IMAGES.get(key)
-    if held is not None and held[0] is coef and held[1] == coef._version:
-        return held[2]
-    image = b_image(coef[:n_groups], precision)
-    _B_IMAGES[key] = (coef, coef._version, image)
-    return image
+    return _image_of(b_image, coef, n_groups, precision)
+
+
+def frag_image_of(coef: torch.Tensor, n_groups: int,
+                  precision: str) -> torch.Tensor:
+    """frag_image(coef[:n_groups], precision), made once per table as
+    `b_image_of` makes the big form's."""
+    return _image_of(frag_image, coef, n_groups, precision)
 
 
 def b_image_tables(image: torch.Tensor, precision: str):

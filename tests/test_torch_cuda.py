@@ -760,6 +760,41 @@ def test_group_kernels_repeat_and_refuse_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_mxu_phase_cycles_on_card(precision):
+    """mxu_kernel's check-only PHASES instantiation: the kernel's outputs,
+    cycles in every part, the parts within the warps' cycles, and no launch
+    counted; mxu_kernel with DUMP (the pad chunk from the table) finds the
+    same hits."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    _, _, _, coef, feats, t_init = _group_inputs(4, 1000, aimed=True)
+    kw = dict(n_groups=4, reps=2, precision=precision)
+    before = dict(mxu_group.launches)
+    *out, cyc = mxu_group.mxu_phase_cycles(coef, feats, t_init, **kw)
+    assert mxu_group.launches == before
+    ref = mxu_group.run_mxu(coef, feats, t_init, **kw)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    parts = ("stage", "product", "test", "commit")
+    assert all(cyc[k] > 0 for k in parts)
+    assert sum(cyc[k] for k in parts) <= cyc["warp"]
+
+
+@pytest.mark.cuda
+def test_run_vpu_refuses_tris_off_a_16_byte_boundary_on_card():
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    tris, o, d, _, _, t_init = _group_inputs(1, 1000)
+    shifted = torch.zeros(tris.numel() + 1, device="cuda")[1:].view(-1, 9)
+    shifted.copy_(tris)
+    with pytest.raises(ValueError, match="16-byte"):
+        mxu_group.run_vpu(shifted, o, d, t_init, n_groups=1, reps=1)
+
+
+@pytest.mark.cuda
 def test_diag_tool_on_card():
     """The diagnostic end to end on the card at a small size: eight rows,
     each with a time from the 4 x reps against reps difference, through

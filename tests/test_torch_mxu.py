@@ -295,6 +295,39 @@ def test_mxu_reference_against_jax_kernels(name, precision, jax_runs):
     assert np.all(np.isfinite(b[0])) and np.all(b[3][b[0] > 1e29] == -1)
 
 
+@pytest.mark.parametrize("precision", mxu_group.PRECISIONS)
+def test_nan_products_fail_the_sign_test_as_in_jax(precision, jtool):
+    """A candidate with NaN in one of D, U, V, W or Tn is no hit, in the JAX
+    kernel `_mxu_kernel` (jnp.minimum / jnp.maximum carry the NaN into the
+    sign test) and in the plain version: NaN in one coefficient of the 20
+    slots that win most often on the aimed rays, four in each quantity."""
+    case = _case("aimed")
+    coef, feats, t_init = _tables(case)
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    clean = mxu_group.run_mxu(coef, feats, t_init, precision=precision, **kw)
+    wins = torch.bincount(clean[3][clean[3] >= 0],
+                          minlength=N_GROUPS * mxu_tri.GROUP_TRIS)
+    slots = wins.argsort(descending=True)[:20]
+    poisoned = coef.clone()
+    for k, s in enumerate(slots.tolist()):
+        g, j = divmod(s, mxu_tri.GROUP_TRIS)
+        poisoned[g, (k % 5) * mxu_tri.QUANT_PAD + j, k % 16] = float("nan")
+    got = [x.numpy() for x in mxu_group.run_mxu(poisoned, feats, t_init,
+                                                precision=precision, **kw)]
+    j = _to_jax(case)
+    coef_j, feats_j = mxu_tri.jax_layout(poisoned).numpy(), feats.numpy()
+    if precision == "default":
+        want = jtool.run_mxu(_bf16(coef_j), _bf16(feats_j), j["t_b"], **kw)
+    else:
+        want = jtool.run_mxu(coef_j, feats_j, j["t_b"],
+                             prec=jax.lax.Precision.HIGHEST, **kw)
+    want = _from_jax(want)
+    _agree(got, want, 0.995, 1e-4, uv=1e-3)
+    for idx in (got[3], want[3]):
+        assert not np.isin(idx, slots.numpy()).any()
+    assert int(wins[slots].sum()) > N_RAYS // 8
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_mm_only_reference_against_jax_kernel(name, jax_runs):
     coef, feats, _ = _tables(_case(name))

@@ -58,14 +58,14 @@ non-zero:
                    themselves against float32 ones, B against C, and each
                    form against A (recorded); prefilter_kernel (row E) at
                    the same three shapes, with the hits of A it lost and
-                   its gate counts; the `ms` of vpu_kernel, mxu_kernel,
-                   mxu_big_kernel and mxu_split3_kernel is that of their
-                   launches alone, as the render kernels', the others'
-                   CUDA events around their wrappers (both are recorded for
-                   each); where mxu_kernel's warps' cycles go
-                   (`group_phases`: its check-only PHASES instantiation,
-                   outputs equal to the kernel's) at the card's width and
-                   on the aimed rays, both precisions; `group_nan`: rows
+                   its gate counts; the `ms` of every group-test kernel
+                   is that of its launches alone, as the render kernels'
+                   (CUDA events around its wrapper beside it); where
+                   mxu_kernel's warps' cycles go (`group_phases`: its
+                   check-only PHASES instantiation, outputs equal to the
+                   kernel's) at the card's width and on the aimed rays,
+                   both precisions, and prefilter_kernel's (its own PHASES
+                   instantiation) on all three shapes; `group_nan`: rows
                    B, C, D on the aimed rays' table with NaN in one
                    coefficient of the 20 slots that win most often, none
                    of which may then win (a NaN fails the sign test, as in
@@ -77,7 +77,9 @@ non-zero:
                    warp's lanes a bounce step keeps busy in either schedule
                    (check-only counting instantiations);
                    mm_probe_kernel, every form and precision, at the
-                   probe's N = 1,024 and at 480,000;
+                   probe's N = 1,024 and at 480,000: device ms of one
+                   launch of one product and of PROBE_CHECK_REPS, and
+                   their difference per product;
                    `phases`: the share of a warp's cycles that each part of
                    a scene query takes in frame_kernel (the check-only
                    PHASES instantiations), configs 1, 2, 4, 6 at 800x600 and
@@ -132,10 +134,12 @@ do: frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp
 in both schedules, traverse_kernel on the terrain's 960,000 rays,
 brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
 block_kernel on the OBJ grid's rays, streamed_kernel on the 1M terrain's
-four populations, and the group-test kernels (rows A-E, both precisions,
+four populations, the group-test kernels (rows A-E, both precisions,
 mm_only) on the diagnostic's three populations at the group-test parity
 limits and to every bit (streamed_kernel to every bit too, mxu_kernel's
-products to 2^-20 of the sum of magnitudes), the same inputs through
+products to 2^-20 of the sum of magnitudes), and mm_probe_kernel in every
+case of the probe at N = 1,024 and 480,000 and PROBE_CHECK_REPS reps, to
+every bit (and a product's time), the same inputs through
 both, their outputs compared and their device times taken in turns
 (parent, change, change, parent, parent, change; the median of each
 side), with each
@@ -214,11 +218,13 @@ OPS_PRODUCT, OPS_PRODUCT_PADDED = 2 * 10 * 280, 2 * 16 * 320
 GROUPS, GROUP_REPS_WIDE = 32, 4
 FORM_PASSES = {"highest": (3, "tf32"), "default": (1, "bf16"),
                "split3": (3, "bf16")}
-# Row E (prefilter_kernel): two bf16 products of D, U, V, W (4 x 56
-# candidates over the 10 features that are ever non-zero) a ray and group,
-# then for every candidate the margin test, 4 products and 8 compares; the
-# slot test only for the rays of the units whose gate passed (the data's).
-OPS_E_PRODUCTS, OPS_MARGIN_TEST = 2 * (2 * 10 * 4 * 56), 12
+# Row E (prefilter_kernel): a unit's gate runs chunks of 8 triangles until
+# one of its rays has a plausible candidate (all 7 where none has): a ray
+# and chunk, two bf16 products of D, U, V, W (4 x 8 candidates over the 10
+# features that are ever non-zero), then for each of the 8 candidates the
+# margin test, 4 products and 8 compares; the slot test only for the rays
+# of the units whose gate passed. Both counts are this run's data's.
+OPS_E_PRODUCTS, OPS_MARGIN_TEST = 2 * (2 * 10 * 4 * 8), 12
 # The probe: a rep is the whole (320, 16) x (16, N) product, which it
 # exists to price (2 x 320 x 16 operations a column); its output needs 8
 # rows of it. Checked at 8 reps (each slice of the "dyn" forms once): the
@@ -307,7 +313,7 @@ def load_tree(label, path):
     """The package pathtracer0_tpu_torch of the checkout at `path`, loaded
     beside this one as `tree_<label>` (it builds into its own _build/):
     {"build": ..., "frame": ..., "fused": ..., "wavefront": ...,
-    "mxu_group": ...}."""
+    "mxu_group": ..., "mm_probe": ...}."""
     import importlib
     import importlib.util
 
@@ -320,7 +326,8 @@ def load_tree(label, path):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return {k: importlib.import_module(f"{name}.kernels.{k}")
-            for k in ("build", "frame", "fused", "wavefront", "mxu_group")}
+            for k in ("build", "frame", "fused", "wavefront", "mxu_group",
+                      "mm_probe")}
 
 
 # the libraries whose kernels `parent_vs_change` holds against another
@@ -338,6 +345,13 @@ def differs(tree, build, lib):
         for f in ours)
 
 
+def module_differs(tree, module, name):
+    """Whether another checkout's kernels/<name>.py differs from this
+    checkout's `module` (a wrapper that chooses a launch's shape)."""
+    return (open(tree[name].__file__, "rb").read()
+            != open(module.__file__, "rb").read())
+
+
 # kernel -> (library, launch function) of the kernels timed by device_ms
 LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
              "block_kernel": ("block_kernel", "pt_launch_block"),
@@ -346,12 +360,13 @@ LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
              "streamed_kernel": ("streamed_kernel", "pt_launch_streamed"),
              **{k: ("mxu_group_kernel", f"pt_launch_{k[:-len('_kernel')]}")
                 for k in ("vpu_kernel", "mxu_kernel", "mxu_big_kernel",
-                          "mxu_split3_kernel", "prefilter_kernel")}}
-# the group-test kernels whose `ms` is the device time of 20 launches back
-# to back (device_ms), as the render kernels'; the others' `ms` is CUDA
-# events around their wrappers (`device_ms` beside it)
+                          "mxu_split3_kernel", "prefilter_kernel",
+                          "mm_probe_kernel")}}
+# the diagnostics' kernels whose `ms` is the device time of 20 launches
+# back to back (device_ms), as the render kernels' (`wrapper_ms`, CUDA
+# events around their wrappers, beside it): every one of them
 DEVICE_TIMED = ("vpu_kernel", "mxu_kernel", "mxu_big_kernel",
-                "mxu_split3_kernel")
+                "mxu_split3_kernel", "prefilter_kernel", "mm_probe_kernel")
 
 
 class KernelRepeat:
@@ -1535,6 +1550,9 @@ def main() -> int:
         if differs(tree, build, "mxu_group_kernel"):
             rec["group"] = {shape: group_vs_tree(label, tree, shape, data)
                             for shape, data in group_data.items()}
+        if differs(tree, build, "mxu_group_kernel") or module_differs(
+                tree, mm_probe, "mm_probe"):
+            rec["probe"] = probe_vs_tree(label, tree)
         emit(rec, log)
         return rec
 
@@ -1596,25 +1614,50 @@ def main() -> int:
             bound["bound_parts_ms"]["padded product"] = 1e3 * padded
         return bound
 
-    def prefilter_bound(n_rays, passed_pairs):
+    def prefilter_chunks(coef, feats):
+        """The chunks of 8 triangles that prefilter_kernel's gate needs on
+        this data, summed over the rays and GROUPS groups: a unit of
+        GATE_RAYS rays leaves a group's gate at the first chunk where one
+        of its rays has a plausible candidate (the plain version's
+        products), and runs all 7 where none has."""
+        ch, ca, fh, fa = mxu_group._bf16_tables(coef, feats)
+        n, gate = feats.shape[1], mxu_group.GATE_RAYS
+        units, chunks = -(-n // gate), mxu_tri.GROUP_TRIS // 8
+        rays = torch.zeros(units * gate, device=feats.device)
+        rays[:n] = 1.0
+        rays = rays.view(units, gate).sum(1)
+        total = 0
+        for g in range(GROUPS):
+            plaus = mxu_group._plausible(ch[g, :256] @ fh, ca[g, :256] @ fa)
+            by_unit = torch.zeros(chunks, units * gate, dtype=torch.bool,
+                                  device=feats.device)
+            by_unit[:, :n] = plaus.view(chunks, 8, n).any(1)
+            by_unit = by_unit.view(chunks, units, gate).any(2)
+            ran = torch.where(by_unit.any(0),
+                              by_unit.to(torch.int32).argmax(0) + 1, chunks)
+            total += int((ran * rays).sum())
+        return total
+
+    def prefilter_bound(n_rays, passed_pairs, ray_chunks):
         """Least time of one pass of prefilter_kernel over GROUPS groups:
         bytes (rays in: re-centred origins, directions, t_init, features;
         hits out; the bf16 tables and the triangles once), the two bf16
-        products, and on the CUDA cores the margin test of every candidate
-        plus the slot test of the rays of the units that passed (this
-        run's count)."""
+        products and the margin test of the `ray_chunks` chunks the gate
+        needs (`prefilter_chunks`), and the slot test of the rays of the
+        units that passed (this run's counts)."""
         work = n_rays * GROUPS
         parts = {"bytes": (n_rays * (24 + 4 + 64 + 16)
                            + GROUPS * (2 * 320 * 16 * 2 + 56 * 36))
                  / PEAK_BYTES,
-                 "tensor cores": OPS_E_PRODUCTS * work / PEAK["bf16"],
-                 "cuda cores": (OPS_MARGIN_TEST * 56 * work
+                 "tensor cores": OPS_E_PRODUCTS * ray_chunks / PEAK["bf16"],
+                 "cuda cores": (OPS_MARGIN_TEST * 8 * ray_chunks
                                 + OPS_TRI_FREE * 56 * 32 * passed_pairs)
                  / PEAK["f32"]}
         unit = max(parts, key=parts.get)
         return {"bound_ms": 1e3 * parts[unit],
                 "bound_by": "bytes" if unit == "bytes" else "operations",
                 "bound_unit": unit, "passed_pairs": passed_pairs,
+                "gate_chunks_per_unit": ray_chunks / work,
                 "bound_parts_ms": {k: 1e3 * v for k, v in parts.items()}}
 
     def plain_ms_of(fn):
@@ -1786,7 +1829,9 @@ def main() -> int:
         rec = record("E", "prefilter_kernel", run_e,
                      lambda: mxu_group.prefilter_reference(
                          coef, tris_c, feats, o_c, d, t_init, **kw),
-                     prefilter_bound(n, int(passed.sum())), prefilter_parity,
+                     prefilter_bound(n, int(passed.sum()),
+                                     prefilter_chunks(coef, feats)),
+                     prefilter_parity,
                      {"hits_idx_eq": 0.999, "gate_eq": 0.999})
         check(rec["max_abs_err"] <= 1e-5 and rec["hits_of_a_lost"] == 0
               and rec["margin_ratio"] > 0.0, f"E {shape}: {rec}")
@@ -1908,6 +1953,44 @@ def main() -> int:
             check(rec["same_outputs"] and shares["rest"] > -0.01,
                   f"mxu_kernel PHASES {shape} {precision}: {rec}")
 
+    def prefilter_phase_shares(module, args):
+        """((t, u, v, idx, passed), {part: share of the warps' cycles}) of
+        one pass of `module`'s prefilter_kernel through its check-only
+        PHASES instantiation; "rest" is what no part covers."""
+        *out, cyc = module.prefilter_phase_cycles(*args, n_groups=GROUPS,
+                                                  reps=1)
+        shares = {k: cyc[k] / cyc["warp"]
+                  for k in ("stage", "product", "margin", "vote", "slot")}
+        shares["rest"] = 1.0 - sum(shares.values())
+        return out, shares
+
+    def prefilter_args(shape):
+        """Row E's inputs on one of the three populations: (coef, tris_c,
+        feats, o_c, d, t_init), triangles and origins re-centred."""
+        coef, feats = group_recs[shape][1]
+        data = group_data[shape]
+        return (coef, mxu_tri.recentre_tris(
+                    data["tris"][:GROUPS * mxu_tri.GROUP_TRIS],
+                    data["center"]), feats,
+                mxu_tri.recentre_origins(data["o"], data["center"]),
+                data["d"], torch.full((feats.shape[1],), 1e30, device=dev))
+
+    # where prefilter_kernel's warps' cycles go, on all three populations
+    for shape in group_data:
+        args = prefilter_args(shape)
+        out, shares = prefilter_phase_shares(mxu_group, args)
+        ref = mxu_group.run_prefilter(*args, n_groups=GROUPS, reps=1)
+        rec = {"phase": "group_phases", "kernel": "prefilter_kernel",
+               "shape": shape, "rays": int(args[-1].shape[0]),
+               "groups": GROUPS, "shares": shares,
+               "same_outputs": all(bool(torch.equal(a, b))
+                                   for a, b in zip(out, ref)),
+               "card": card}
+        group_phases_rec[f"E {shape}"] = rec
+        emit(rec, log)
+        check(rec["same_outputs"] and shares["rest"] > -0.01,
+              f"prefilter_kernel PHASES {shape}: {rec}")
+
     def group_vs_tree(label, tree, shape, data):
         """Another checkout's group-test kernels against this one's on one
         of the three populations, one pass over GROUPS groups: at the
@@ -1952,6 +2035,9 @@ def main() -> int:
                     cell["gate_eq"] = float((out_c[4] == out_p[4]).float()
                                             .mean())
                     ok = ok and cell["gate_eq"] >= 0.999
+                    if hasattr(tg, "prefilter_phase_cycles"):
+                        cell["phases_parent"] = prefilter_phase_shares(
+                            tg, (coef, tris_c, feats, o_c, d, t_init))[1]
             elif "mm_only" in variant:
                 p = variant.split()[-1]
                 c, f = (mxu_group._rounded(x, p) for x in (coef, feats))
@@ -2015,6 +2101,51 @@ def main() -> int:
         return times
 
     library_ms = library_products()
+
+    def probe_vs_tree(label, tree):
+        """Another checkout's mm_probe_kernel against this one's: every case
+        of the tool at N = 1,024 and 480,000 and PROBE_CHECK_REPS reps, `o`
+        equal to the bit and within 2^-20 of the sum of magnitudes of the
+        plain version; device ms of one product and of PROBE_CHECK_REPS in
+        turns, and their difference per product."""
+        tp, cells = tree["mm_probe"], {}
+        for n_cols in (PROBE_N, PROBE_WIDE_N):
+            ops = diag_mxu_mm.operands(n_cols, "cuda")
+            for form, precision, dtype in diag_mxu_mm.cases():
+                a, b = ops[form.split("_")[0]].to(dtype), ops["b"].to(dtype)
+                kw = dict(form=form, precision=precision)
+
+                def run(module, reps, a=a, b=b, kw=kw):
+                    return lambda: module.run(a, b, reps=reps, **kw)
+
+                out_p = run(tp, PROBE_CHECK_REPS)()
+                out_c = run(mm_probe, PROBE_CHECK_REPS)()
+                want = mm_probe.mm_probe_reference(
+                    a, b, reps=PROBE_CHECK_REPS, **kw)
+                mag = mm_probe.magnitudes(a, b, reps=PROBE_CHECK_REPS,
+                                          form=form)
+                cell = {"bits_equal": bool(torch.equal(out_p, out_c)),
+                        "err_over_magnitudes_x_2^20": float(
+                            ((out_c.double() - want.double()).abs()
+                             / mag).max()) * 2.0 ** 20,
+                        **turns(tree, run(tp, 1), run(mm_probe, 1),
+                                "mm_probe_kernel")}
+                many = turns(tree, run(tp, PROBE_CHECK_REPS),
+                             run(mm_probe, PROBE_CHECK_REPS),
+                             "mm_probe_kernel")
+                for who in ("parent", "change"):
+                    cell[f"ms_check_reps_{who}"] = many[f"ms_{who}"]
+                    cell[f"ms_per_product_{who}"] = (
+                        (many[f"ms_{who}"] - cell[f"ms_{who}"])
+                        / (PROBE_CHECK_REPS - 1))
+                variant = f"{n_cols} {form} {precision} {str(dtype)[6:]}"
+                cells[variant] = cell
+                check(cell["bits_equal"]
+                      and cell["err_over_magnitudes_x_2^20"] <= 1.0,
+                      f"{label} against the change, probe {variant}: "
+                      f"{cell}")
+        return cells
+
     parent_recs = {label: vs_tree(label, tree) for label, tree in
                    trees.items()}
 
@@ -2044,7 +2175,9 @@ def main() -> int:
         """mm_probe_kernel against its plain version, every case of the
         tool, on its operands at `n_cols` columns: at PROBE_CHECK_REPS reps
         within 2^-20 of the sum of magnitudes |a| |b| (checked), and one
-        launch of one product timed with its plain version and bound."""
+        launch of one product timed (device_ms, the wrapper's time beside)
+        with its plain version and bound, and one of PROBE_CHECK_REPS
+        products: their difference is the time of a product."""
         ops = diag_mxu_mm.operands(n_cols, "cuda")
         recs = {}
         for form, precision, dtype in diag_mxu_mm.cases():
@@ -2062,6 +2195,12 @@ def main() -> int:
             _, plain_ms = plain_ms_of(
                 lambda: mm_probe.mm_probe_reference(a, b, reps=1, **kw))
             variant = f"{form} {precision} {str(dtype)[6:]}"
+
+            def run(reps, a=a, b=b, kw=kw):
+                return lambda: mm_probe.run(a, b, reps=reps, **kw)
+
+            ms, ms_check = (device_ms(run(r), "mm_probe_kernel")
+                            for r in (1, PROBE_CHECK_REPS))
             rec = {"phase": "kernel_vs_plain", "kernel": "mm_probe_kernel",
                    "variant": variant, "n": n_cols,
                    "check_reps": PROBE_CHECK_REPS,
@@ -2069,10 +2208,12 @@ def main() -> int:
                    * 2.0 ** 20,
                    "max_abs_err": float(err.max()),
                    "finite": bool(torch.isfinite(got).all()),
-                   "ms": cuda_ms(lambda: mm_probe.run(a, b, reps=1, **kw), 5),
-                   "ms_check_reps": cuda_ms(
-                       lambda: mm_probe.run(a, b, reps=PROBE_CHECK_REPS, **kw),
-                       5),
+                   "ms": ms, "ms_check_reps": ms_check,
+                   "ms_per_product": (ms_check - ms)
+                   / (PROBE_CHECK_REPS - 1),
+                   "wrapper_ms": cuda_ms(run(1), 5),
+                   "wrapper_ms_check_reps": cuda_ms(run(PROBE_CHECK_REPS),
+                                                    5),
                    "plain_ms": plain_ms,
                    **probe_bound(n_cols, 1, form, precision, dtype),
                    "card": card}
@@ -2625,7 +2766,8 @@ def main() -> int:
                     ("D",))]
     # where mxu_kernel's warps' cycles go (its check-only PHASES)
     next(k for k in kernels["kernels"] if k["name"] == "mxu_kernel")[
-        "phases"] = {cell: r["shares"] for cell, r in group_phases_rec.items()}
+        "phases"] = {cell: r["shares"] for cell, r in group_phases_rec.items()
+                     if not cell.startswith("E ")}
     # one PyTorch call computes what the `mm_only` mode of mxu_big_kernel
     # does, the product alone: torch.matmul in float32, with TF32 allowed and
     # in bf16, beside the mode's own times; no call computes the full kernels
@@ -2635,9 +2777,13 @@ def main() -> int:
         "mode": "mm_only", "torch.matmul_ms": library_ms,
         "mm_only_ms": {p: big["detail"]["wide"][f"C mm_only {p}"]["ms"]
                        for p in mxu_group.PRECISIONS}}
-    # row E: the card's width on the line, as rows A-D
+    # row E: the card's width on the line, as rows A-D, and where its
+    # warps' cycles go on each population
     kernels["kernels"].append(
         group_entry("prefilter_kernel", "236 _prefilter_kernel", "E", ("E",)))
+    kernels["kernels"][-1]["phases"] = {
+        cell[2:]: r["shares"] for cell, r in group_phases_rec.items()
+        if cell.startswith("E ")}
     # the refill schedule: cells 2, 4, 6 at the main path's 16 spp
     kernels["kernels"].append({
         "name": "frame_kernel_refill", "route": "cuda",

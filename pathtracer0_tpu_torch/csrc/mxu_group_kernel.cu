@@ -105,40 +105,70 @@
 // four could share a sign within 2^-6 of their magnitudes
 // (tools/diag_mxu.py:320-322); __any_sync over the warp is the gate, so the
 // gate's unit is a warp of 32 consecutive rays (the TPU kernel's was a
-// block of 1,024). A warp that passes runs vpu_kernel's slot test
-// (tri_free.cuh) over the group's 56 slots on re-centred triangles and
-// origins, one ray a lane; the hits then equal row A's on those inputs as
-// long as the filter loses none. Lane 0 counts the groups its unit passed
-// in the first pass.
+// block of 1,024). B is row B's fragment image at "default"
+// (kernels/mxu_tri.py frag_image, made once a table): the copy engine brings
+// it a group at a time into a two-stage ring as in mxu_kernel, and a lane's
+// D, U, V, W fragments of a chunk are two conflict-free 16-byte loads that
+// feed both M tiles and both products: the magnitudes are the same words
+// with the sign bits cleared, as bf16 rounding is symmetric (|bf16(c)| =
+// bf16(|c|), held word for word on the CPU). The gate is decided a chunk of
+// 8 triangles at a time and a warp leaves at the first chunk that passes
+// ("any" over a prefix that holds is "any" over all), so the outcome and
+// the counts do not change. A warp that passes runs row A's group loop
+// (tri_free.cuh `group`: four slots as nine 16-byte loads) over the group's
+// 56 slots on re-centred triangles and origins, one ray a lane; the hits then
+// equal row A's on those inputs as long as the filter loses none. Lane 0
+// counts the groups its unit passed in the first pass. Every thread arrives
+// on a stage's "read" barrier once a group, whatever its warp's gate did.
+// What bounds it: where few warps pass (the terrain's rays, 2%) nearly
+// every warp runs all 7 chunks, and the products and the margin test take
+// 0.83 of its cycles, waiting for the stage 0.09; where most pass, the gate
+// leaves after about a chunk and the slot test takes 0.85 (PERF.md; 2 or 8
+// warps a block, a third stage refilled a group later and the chunk loop
+// unrolled were no faster than 4 warps).
 //
 // mm_probe_kernel: o (8, N) = the sum over reps of rows 0-7 of one
 // (320, 16) x (16, N) product, to price the operand layouts rows B-E use.
 // The (320, 16) operand is slice s of `a`, s = rep % 8 ("dyn") or 0 ("fix"),
 // laid out K-major, a (128, 320) whose slice is (16, 320) and enters
-// transposed ("tlhs": a thread's fragment is four loads 320 apart), or
-// M-major, a (2560, 16) whose slice is (320, 16) ("std": contiguous
-// fragments). As in mxu_kernel the N side (b's columns) is the M side of
-// `mma.sync`: a warp keeps 16 columns of b in registers for the launch and
-// reads the slice's fragments from device memory (L1) every rep; a fixed
-// slice stays in L1, a dynamic one cycles through 8 x 20 KB. Precision
-// "default" (bf16 operands, one m16n8k16 pass; b and a may come in bf16) or
-// "highest" (the three-pass TF32 split). Only 8 of the 320 rows reach `o`, so
-// every other tile is folded into a per-thread sum written to `sink`, and
-// the compilers can delete none of the 40 tiles a warp multiplies a rep.
+// transposed ("tlhs"), or M-major, a (2560, 16) whose slice is (320, 16)
+// ("std"). Each block reads the slices the launch needs once from `a` in
+// its own layout (min(reps, 8) for "dyn", one for "fix") and writes them to
+// shared memory in `mma.sync`'s B-fragment order, bf16 words for "default"
+// (10 KB a slice), the float32 values for "highest" (20 KB, split into TF32
+// parts in the loop as before); a lane's B fragments of a tile are then one
+// conflict-free 8- or 16-byte load, and the layout costs only in the
+// staging, which is what the probe reports about it. As in mxu_kernel the N
+// side (b's columns) is the M side of `mma.sync`: a warp keeps 16 or 32
+// columns of b in registers (two M tiles share each B load and, at
+// "highest", each split, where the columns fill every warp of the grid; one
+// spreads a narrow launch over more multiprocessors) and loops over its
+// units of columns; the grid is two blocks of 16 warps for each
+// multiprocessor at most, so a block's staging is paid once a launch.
+// Precision "default" (bf16 operands, one m16n8k16 pass; b and a may come
+// in bf16) or "highest" (the three-pass TF32 split). Only 8 of the 320 rows
+// reach `o` (each tile's product starts from zero and is added to `o` rep by
+// rep, as before); every other tile folds one accumulator into a
+// per-thread sum written to `sink`, so each of the 40 tiles a warp
+// multiplies a rep is read. What bounds it: the shared-memory and issue
+// cost of the B loads and the product, about 0.012 ms a product at
+// N = 480,000 "default" where the tensor cores need 0.0046, and the TF32
+// split and six dependent passes at "highest" (PERF.md).
 //
 // Every product kernel also has a DUMP instantiation that writes each
 // group's product to `cand`, for the checks of its accuracy; it is launched
 // only when `cand` is given, so the timed kernels carry none of it.
 //
-// What bounds them: the test after the product (6 min/max and 2 compares on
-// each of 56 candidates) runs on the CUDA cores and outweighs the product's
-// tensor-core time at "default" (at "highest" the six TF32 passes come
-// close); mxu_kernel's check-only PHASES instantiation says where a warp's
-// cycles go (kernels/mxu_group.py mxu_phase_cycles); vpu_kernel is bound
-// by its float32 operations and its loads, and so
-// is prefilter_kernel where most units pass the gate (the margin test is 8
-// compares and 4 products a candidate, 2 x 4 x 56 x 32 products on the
-// tensor cores a warp and group).
+// What bounds the group tests: the test after the product (6 min/max and 2
+// compares on each of 56 candidates) runs on the CUDA cores and outweighs
+// the product's tensor-core time at "default" (at "highest" the six TF32
+// passes come close); the check-only PHASES instantiations of mxu_kernel
+// and prefilter_kernel say where a warp's cycles go (kernels/mxu_group.py
+// mxu_phase_cycles, prefilter_phase_cycles); vpu_kernel is bound by its
+// float32 operations and its loads, and so is prefilter_kernel where most
+// units pass the gate (the margin test is 8 compares and 4 products a
+// candidate, 2 x 4 x 56 x 32 products on the tensor cores a warp and
+// group).
 //
 // Build with -fmad=false and no fast math. Plain versions:
 // pathtracer0_tpu_torch/kernels/mxu_group.py.
@@ -189,15 +219,17 @@ struct ProbeArgs {
   const float* feats;    // b (16, n_rays) f32, or null
   const uint16_t* b16;   // b in bf16, or null
   float* o;              // (8, n_rays)
-  float* sink;           // one float a thread: the other rows, folded
+  float* sink;           // one float a thread of the grid: the other rows
   int n_rays, reps;
+  int n_blocks, m_tiles;  // the grid; M tiles of 16 columns a warp, 1 or 2
 };
 
 struct PrefilterArgs {
-  const uint16_t* ch;    // (n_groups, 320, 16) coef in bf16
-  const uint16_t* ca;    // |coef| in bf16
+  const void* bimg;      // the groups' fragment images at "default"
+                         // (kernels/mxu_tri.py frag_image)
   const float* feats;    // (16, n_rays) f32
-  const float* tris;     // (56 n_groups, 9) v1, e1, e2 by slot, re-centred
+  const float* tris;     // (56 n_groups, 9) v1, e1, e2 by slot, re-centred;
+                         // 16-byte aligned
   const float* o[3];     // re-centred origins
   const float* d[3];
   const float* t_init;
@@ -206,7 +238,8 @@ struct PrefilterArgs {
   float* v;
   int* idx;
   int* passed;           // (ceil(n_rays / 32),) groups passed in one pass
-  int n_rays, n_groups, reps;
+  unsigned long long* check_out;  // PHASES: N_GROUP_CHECK sums
+  int n_rays, n_groups, reps, check;
 };
 
 namespace {
@@ -251,16 +284,17 @@ __global__ void __launch_bounds__(VPU_BLOCK) vpu_kernel(VpuArgs a) {
   a.idx[r] = idx;
 }
 
-// ---- PHASES: where mxu_kernel's warps' cycles go (check-only) -------------
-// clock64() cycles of each part of a group's work, per warp (its lanes run
-// every part together), summed over the warps: waiting for the group's
-// coefficients (the barriers and the copy), the product (B loads, the TF32
-// split, mma.sync, and the wait for its accumulators), the candidate test,
-// and the four-lane reduction and commit; then the warps' cycles from start
-// to end, and an xor of the accumulators read to end each product (so that
-// the wait is not optimised away). The timed instantiations compile none
-// of it.
-enum { GP_STAGE, GP_PRODUCT, GP_TEST, GP_COMMIT, GP_WARP, GP_SINK, N_GROUP_CHECK };
+// ---- PHASES: where mxu_kernel's and prefilter_kernel's warps' cycles go ----
+// (check-only) clock64() cycles of each part of a group's work, per warp
+// (its lanes run every part together), summed over the warps: waiting for
+// the group's coefficients (the barriers and the copy), the product (B
+// loads, the TF32 split, mma.sync, and the wait for its accumulators), the
+// candidate test (prefilter_kernel: the margin test), the four-lane
+// reduction and commit (prefilter_kernel: the gate's vote) and the slot
+// test (prefilter_kernel only); then the warps' cycles from start to end,
+// and an xor of the accumulators read to end each product (so that the
+// wait is not optimised away). The timed instantiations compile none of it.
+enum { GP_STAGE, GP_PRODUCT, GP_TEST, GP_COMMIT, GP_SLOT, GP_WARP, GP_SINK, N_GROUP_CHECK };
 
 template <bool ON>
 struct GroupProbe {
@@ -348,10 +382,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// prefilter_kernel's staged group: a candidate is a row of 8 words (16
-// bf16 features).
-constexpr int STAGE_ROW = 8;
-
 // A warp's 16 rays x 16 features as `mma.sync` A operands: thread (g = lane /
 // 4, q = lane % 4) holds rays g and g + 8 of the tile.
 template <int MODE>
@@ -391,16 +421,6 @@ struct Feats {
     }
   }
 };
-
-// c = the warp's 16 rays x the 8 candidates from `n0` on, from the staged
-// bf16 rows `cs` (prefilter_kernel).
-__device__ __forceinline__ void tile(float (&c)[4], const Feats<MODE_BF16>& f, const uint32_t* cs,
-                                     int n0, int lane) {
-  c[0] = c[1] = c[2] = c[3] = 0.0f;
-  const int g = lane >> 2, q = lane & 3;
-  const uint32_t* row = cs + (n0 + g) * STAGE_ROW;
-  mma_bf16(c, f.a[0], row[q], row[q + 4]);
-}
 
 // c = the warp's 16 rays x the candidate whose 16 float32 features are at
 // `row` (one a thread group: candidate n0 + lane / 4), B made from the
@@ -916,7 +936,7 @@ __global__ void __launch_bounds__(BIG_THREADS) mxu_split3_kernel(MxuArgs a) {
 
 constexpr int PRE_WARPS = 4;                   // prefilter_kernel: warps a block
 constexpr int PRE_RAYS = PRE_WARPS * 32;
-constexpr int PRE_CAND = 4 * QUANT_PAD;        // D, U, V, W
+constexpr int PRE_STAGES = 2;                  // groups in flight a block
 constexpr float MARGIN = 0.015625f;            // 2^-6
 
 // Whether D, U, V, W could share a sign within the margins mD, mU, mV, mW.
@@ -927,9 +947,12 @@ __device__ __forceinline__ bool plausible(float D, float U, float V, float W, fl
   return pos || neg;
 }
 
+template <bool PHASES>
 __global__ void __launch_bounds__(PRE_RAYS) prefilter_kernel(PrefilterArgs a) {
-  // the group's D, U, V, W candidates in bf16: coef, then |coef|
-  __shared__ __align__(16) uint32_t cs[2 * PRE_CAND * 8];
+  using F = Frag<MODE_BF16>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + PRE_STAGES * F::BYTES);
+  uint64_t* empty = full + PRE_STAGES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int base = blockIdx.x * PRE_RAYS + warp * 32;  // the warp's unit
@@ -947,46 +970,82 @@ __global__ void __launch_bounds__(PRE_RAYS) prefilter_kernel(PrefilterArgs a) {
   const float dx = a.d[0][ray], dy = a.d[1][ray], dz = a.d[2][ray];
   float t = a.t_init[ray], td = 1.0f, u = 0.0f, v = 0.0f;
   int idx = -1, passed = 0;
-  for (int rep = 0; rep < a.reps; ++rep) {
-    for (int grp = 0; grp < a.n_groups; ++grp) {
-      __syncthreads();  // everyone is done with the last group
-      {
-        const size_t at = static_cast<size_t>(grp) * N_CAND * 2;  // 2 uint4 a candidate
-        const uint4* src_h = reinterpret_cast<const uint4*>(a.ch) + at;
-        const uint4* src_a = reinterpret_cast<const uint4*>(a.ca) + at;
-        uint4* dst = reinterpret_cast<uint4*>(cs);
-        for (int i = threadIdx.x; i < PRE_CAND * 2; i += PRE_RAYS) {
-          dst[i] = __ldg(src_h + i);
-          dst[PRE_CAND * 2 + i] = __ldg(src_a + i);
-        }
-      }
-      __syncthreads();
-      bool plaus = false;
-#pragma unroll 1
-      for (int jt = 0; jt < GROUP_TRIS / 8; ++jt) {
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float c[4][4], m[4][4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            tile(c[k], fh[mt], cs, k * QUANT_PAD + jt * 8, lane);
-            tile(m[k], fa[mt], cs + PRE_CAND * STAGE_ROW, k * QUANT_PAD + jt * 8, lane);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            plaus |= plausible(c[0][e], c[1][e], c[2][e], c[3][e], m[0][e] * MARGIN, m[1][e] * MARGIN,
-                               m[2][e] * MARGIN, m[3][e] * MARGIN);
-          }
-        }
-      }
-      if (!__any_sync(FULL, plaus)) continue;
-      if (rep == 0) ++passed;
-      const float* p = a.tris + static_cast<size_t>(grp) * GROUP_TRIS * 9;
-      for (int j = 0; j < GROUP_TRIS; ++j, p += 9) {
-        if (trifree::accept(p, ox, oy, oz, dx, dy, dz, t, td, u, v)) idx = grp * GROUP_TRIS + j;
-      }
+  GroupProbe<PHASES> probe;
+  const unsigned char* images = static_cast<const unsigned char*>(a.bimg);
+  const int total = a.reps * a.n_groups;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PRE_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, PRE_RAYS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PRE_STAGES && s < total; ++s) {
+      bulk_load(smem + s * F::BYTES, images + static_cast<size_t>(s % a.n_groups) * F::BYTES, F::BYTES,
+                full + s);
     }
   }
+  for (int it = 0; it < total; ++it) {
+    const int stage = it % PRE_STAGES, grp = it % a.n_groups;
+    const uint32_t parity = (it / PRE_STAGES) & 1;
+    const unsigned char* img = smem + stage * F::BYTES;
+    probe.mark(GP_SLOT);
+    mbar_wait(full + stage, parity);
+    probe.mark(GP_STAGE);
+    // the gate, chunk by chunk: "any" over the chunks up to the first
+    // that holds is "any" over all of them
+    bool pass = false;
+#pragma unroll 1
+    for (int jt = 0; jt < FRAG_CHUNKS && !pass; ++jt) {
+      // the (b0, b1) of tiles D, U (p0) and V, W (p1); with the sign bits
+      // cleared they are |coef| in bf16 (rounding is symmetric)
+      const uint4 p0 = *reinterpret_cast<const uint4*>(img + jt * F::CHUNK + lane * 16);
+      const uint4 p1 = *reinterpret_cast<const uint4*>(img + jt * F::CHUNK + 512 + lane * 16);
+      const uint32_t b[4][2] = {{p0.x, p0.y}, {p0.z, p0.w}, {p1.x, p1.y}, {p1.z, p1.w}};
+      bool plaus = false;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float c[4][4], m[4][4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          c[k][0] = c[k][1] = c[k][2] = c[k][3] = 0.0f;
+          m[k][0] = m[k][1] = m[k][2] = m[k][3] = 0.0f;
+          mma_bf16(c[k], fh[mt].a[0], b[k][0], b[k][1]);
+          mma_bf16(m[k], fa[mt].a[0], b[k][0] & 0x7fff7fffu, b[k][1] & 0x7fff7fffu);
+        }
+        probe.product_done(c);
+        probe.product_done(m);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          plaus |= plausible(c[0][e], c[1][e], c[2][e], c[3][e], m[0][e] * MARGIN, m[1][e] * MARGIN,
+                             m[2][e] * MARGIN, m[3][e] * MARGIN);
+        }
+        probe.mark(GP_TEST);
+      }
+      pass = __any_sync(FULL, plaus);
+      probe.mark(GP_COMMIT);
+    }
+    // every read of this stage is done, by every thread once a group
+    // (whatever its warp's gate did): it may be refilled
+    mbar_arrive(empty + stage);
+    if (threadIdx.x == 0 && it + PRE_STAGES < total) {
+      mbar_wait(empty + stage, parity);
+      bulk_load(smem + stage * F::BYTES,
+                images + static_cast<size_t>((it + PRE_STAGES) % a.n_groups) * F::BYTES, F::BYTES,
+                full + stage);
+    }
+    __syncwarp();
+    probe.mark(GP_STAGE);
+    if (!pass) continue;
+    if (it < a.n_groups) ++passed;
+    const int slot0 = grp * GROUP_TRIS;
+    trifree::group(a.tris + static_cast<size_t>(slot0) * 9, ox, oy, oz, dx, dy, dz, t, td, u, v,
+                   [&](int j) { idx = slot0 + j; });
+  }
+  probe.mark(GP_SLOT);
+  probe.finish(a.check_out);
   if (base + lane < a.n_rays) {
     const float inv = 1.0f / td;
     a.t[base + lane] = t * inv;
@@ -999,91 +1058,150 @@ __global__ void __launch_bounds__(PRE_RAYS) prefilter_kernel(PrefilterArgs a) {
 
 // ---- the small-K product probe ---------------------------------------------
 
-constexpr int PROBE_WARPS = 4;
-constexpr int PROBE_COLS = PROBE_WARPS * 16;
+constexpr int PROBE_WARPS = 16;                // mm_probe_kernel: warps a block
+constexpr int PROBE_THREADS = PROBE_WARPS * 32;
 constexpr int PROBE_M = 320, PROBE_K = 16, PROBE_SLICES = 8;
+constexpr int PROBE_TILES = PROBE_M / 8;       // n-tiles of 8 rows a slice
 
-// Element (m, k) of slice `s` of the probe's `a`.
+// Element (m, k) of slice `s` of the probe's `a`, in its own layout.
 template <bool TLHS, typename T>
 __device__ __forceinline__ T probe_a(const T* a, int s, int m, int k) {
   return TLHS ? __ldg(a + (s * PROBE_K + k) * PROBE_M + m) : __ldg(a + (s * PROBE_M + m) * PROBE_K + k);
 }
 
-__device__ __forceinline__ float bf16_value(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
+// A slice's B fragments in shared memory, tile nt's of lane L at entry
+// nt * 32 + L: MODE_BF16 b0 (features 2q, 2q + 1) and b1 (2q + 8, 2q + 9)
+// of row 8 nt + g in bf16, 8 bytes (10,240 a slice); MODE_TF32X3 the
+// float32 features q, q + 4, 8 + q, 12 + q (b0, b1 of each half of K before
+// the split), 16 bytes (20,480 a slice). A warp's load of a tile is one
+// conflict-free 8- or 16-byte load a lane.
+template <int MODE>
+struct ProbeFrag {
+  using T = typename std::conditional<MODE == MODE_BF16, uint2, float4>::type;
+  static constexpr int SLICE = PROBE_TILES * 32 * sizeof(T);
+};
 
-template <int MODE, bool IN_BF16, bool TLHS, bool DYN>
-__global__ void __launch_bounds__(PROBE_WARPS * 32) mm_probe_kernel(ProbeArgs p) {
+// MT: the M tiles of 16 columns a warp takes at once, sharing each B load
+template <int MODE, bool IN_BF16, bool TLHS, bool DYN, int MT>
+__global__ void __launch_bounds__(PROBE_THREADS) mm_probe_kernel(ProbeArgs p) {
+  using W = typename ProbeFrag<MODE>::T;
+  using T = typename std::conditional<IN_BF16, uint16_t, float>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  W* frag = reinterpret_cast<W*>(smem);
+  const T* a = static_cast<const T*>(p.a);
+  // the slices the launch reads, once a block, from a's own layout into
+  // fragment order (converted to bf16 here for MODE_BF16)
+  const int n_slices = DYN ? min(p.reps, PROBE_SLICES) : 1;
+  for (int i = threadIdx.x; i < n_slices * PROBE_TILES * 32; i += PROBE_THREADS) {
+    const int s = i / (PROBE_TILES * 32), nt = (i / 32) % PROBE_TILES, L = i % 32;
+    const int m = nt * 8 + (L >> 2), q = L & 3;
+    if constexpr (MODE == MODE_BF16) {
+      uint32_t b[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 2 * q + 8 * h;
+        if constexpr (IN_BF16) {
+          b[h] = probe_a<TLHS>(a, s, m, k) | (static_cast<uint32_t>(probe_a<TLHS>(a, s, m, k + 1)) << 16);
+        } else {
+          b[h] = pack_bf16(probe_a<TLHS>(a, s, m, k), probe_a<TLHS>(a, s, m, k + 1));
+        }
+      }
+      frag[i] = make_uint2(b[0], b[1]);
+    } else {
+      frag[i] = make_float4(probe_a<TLHS>(a, s, m, q), probe_a<TLHS>(a, s, m, q + 4),
+                            probe_a<TLHS>(a, s, m, 8 + q), probe_a<TLHS>(a, s, m, 12 + q));
+    }
+  }
+  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int col0 = blockIdx.x * PROBE_COLS + warp * 16;
   const int last = p.n_rays - 1;
-  const int r[2] = {col0 + g, col0 + g + 8};
-  Feats<MODE> f;
-  if constexpr (IN_BF16) {
-    const size_t n = p.n_rays;
+  const int n_units = (p.n_rays + 16 * MT - 1) / (16 * MT);
+  float sink = 0.0f;
+  // a warp takes 16 MT columns at a time; past the last column the last
+  // one stands in. Unit u goes to block u % grid first, so a launch of few
+  // columns spreads over the multiprocessors
+  for (int unit = blockIdx.x + warp * gridDim.x; unit < n_units; unit += gridDim.x * PROBE_WARPS) {
+    const int col0 = unit * 16 * MT;
+    int r[MT][2];
+    Feats<MODE> f[MT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 2 * q + (i >> 1) * 8;
-      const size_t c = min(r[i & 1], last);
-      f.a[0][i] = p.b16[k * n + c] | (static_cast<uint32_t>(p.b16[(k + 1) * n + c]) << 16);
+    for (int j = 0; j < MT; ++j) {
+      r[j][0] = col0 + 16 * j + g;
+      r[j][1] = col0 + 16 * j + g + 8;
+      if constexpr (IN_BF16) {
+        const size_t n = p.n_rays;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = 2 * q + (i >> 1) * 8;
+          const size_t c = min(r[j][i & 1], last);
+          f[j].a[0][i] = p.b16[k * n + c] | (static_cast<uint32_t>(p.b16[(k + 1) * n + c]) << 16);
+        }
+      } else {
+        f[j].load(p, min(r[j][0], last), min(r[j][1], last), q);
+      }
     }
-  } else {
-    f.load(p, min(r[0], last), min(r[1], last), q);
-  }
-  using T = typename std::conditional<IN_BF16, uint16_t, float>::type;
-  const T* a = static_cast<const T*>(p.a);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sink = 0.0f;
-  for (int rep = 0; rep < p.reps; ++rep) {
-    const int s = DYN ? rep % PROBE_SLICES : 0;
-#pragma unroll 2
-    for (int nt = 0; nt < PROBE_M / 8; ++nt) {
-      const int m = nt * 8 + g;  // the thread's row of the slice
-      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if constexpr (MODE == MODE_BF16) {
-        uint32_t b[2];
+    float acc[MT][4] = {};
+    for (int rep = 0; rep < p.reps; ++rep) {
+      const W* sl = frag + (DYN ? rep % PROBE_SLICES : 0) * PROBE_TILES * 32 + lane;
+#pragma unroll 4
+      for (int nt = 0; nt < PROBE_TILES; ++nt) {
+        const W w = sl[nt * 32];
+        float c[MT][4] = {};
+        if constexpr (MODE == MODE_BF16) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 2 * q + 8 * h;
-          if constexpr (IN_BF16) {
-            b[h] = probe_a<TLHS>(a, s, m, k) | (static_cast<uint32_t>(probe_a<TLHS>(a, s, m, k + 1)) << 16);
-          } else {
-            b[h] = pack_bf16(probe_a<TLHS>(a, s, m, k), probe_a<TLHS>(a, s, m, k + 1));
+          for (int j = 0; j < MT; ++j) mma_bf16(c[j], f[j].a[0], w.x, w.y);
+        } else {
+          uint32_t big[4], small[4];
+          split_tf32(w.x, big[0], small[0]);
+          split_tf32(w.y, big[1], small[1]);
+          split_tf32(w.z, big[2], small[2]);
+          split_tf32(w.w, big[3], small[3]);
+#pragma unroll
+          for (int j = 0; j < MT; ++j) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              mma_tf32(c[j], f[j].a[2 + half], big[2 * half], big[2 * half + 1]);
+              mma_tf32(c[j], f[j].a[half], small[2 * half], small[2 * half + 1]);
+              mma_tf32(c[j], f[j].a[half], big[2 * half], big[2 * half + 1]);
+            }
           }
         }
-        mma_bf16(c, f.a[0], b[0], b[1]);
-      } else {
+        // each other tile folds one accumulator into the sink, so that
+        // its product is read
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          uint32_t b_big[2], b_small[2];
-          split_tf32(probe_a<TLHS>(a, s, m, 8 * half + q), b_big[0], b_small[0]);
-          split_tf32(probe_a<TLHS>(a, s, m, 8 * half + q + 4), b_big[1], b_small[1]);
-          mma_tf32(c, f.a[2 + half], b_big[0], b_big[1]);
-          mma_tf32(c, f.a[half], b_small[0], b_small[1]);
-          mma_tf32(c, f.a[half], b_big[0], b_big[1]);
+        for (int j = 0; j < MT; ++j) {
+          if (nt == 0) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] += c[j][e];
+          } else {
+            sink += c[j][0];
+          }
         }
       }
-      if (nt == 0) {
+    }
+    // accumulator e of M tile j: column r[j][e / 2], row 2 q + e % 2
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] += c[e];
-      } else {
-        sink += (c[0] + c[1]) + (c[2] + c[3]);
+    for (int j = 0; j < MT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = r[j][e >> 1];
+        if (col < p.n_rays) p.o[static_cast<size_t>(2 * q + (e & 1)) * p.n_rays + col] = acc[j][e];
       }
     }
   }
-  // accumulator e: column r[e / 2], row 2 q + e % 2
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (r[e >> 1] < p.n_rays) p.o[static_cast<size_t>(2 * q + (e & 1)) * p.n_rays + r[e >> 1]] = acc[e];
-  }
-  p.sink[blockIdx.x * PROBE_WARPS * 32 + threadIdx.x] = sink;
+  p.sink[blockIdx.x * PROBE_THREADS + threadIdx.x] = sink;
 }
 
 template <int MODE, bool IN_BF16, bool TLHS, bool DYN>
 int launch_probe(const ProbeArgs* p, void* stream) {
-  const dim3 grid((p->n_rays + PROBE_COLS - 1) / PROBE_COLS), block(PROBE_WARPS * 32);
-  mm_probe_kernel<MODE, IN_BF16, TLHS, DYN><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*p);
+  const int slices = DYN ? min(p->reps, PROBE_SLICES) : 1;
+  const int smem = slices * ProbeFrag<MODE>::SLICE;
+  auto kernel = p->m_tiles == 2 ? mm_probe_kernel<MODE, IN_BF16, TLHS, DYN, 2>
+                                : mm_probe_kernel<MODE, IN_BF16, TLHS, DYN, 1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p->n_blocks, PROBE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1152,9 +1270,16 @@ extern "C" int pt_launch_mm_probe(const ProbeArgs* p, int tlhs, int dyn, int hig
                  : launch_probe_form<MODE_BF16, false>(p, tlhs, dyn, stream);
 }
 
+// prefilter_kernel: a non-zero `check` launches PHASES.
 extern "C" int pt_launch_prefilter(const PrefilterArgs* a, void* stream) {
+  // the ring of fragment images, then a "landed" and a "read" mbarrier a stage
+  const int smem = PRE_STAGES * Frag<MODE_BF16>::BYTES + 2 * PRE_STAGES * 8;
   const dim3 grid((a->n_rays + PRE_RAYS - 1) / PRE_RAYS), block(PRE_RAYS);
-  prefilter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  if (a->check) {
+    prefilter_kernel<true><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  } else {
+    prefilter_kernel<false><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(*a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

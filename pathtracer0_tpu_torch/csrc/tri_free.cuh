@@ -2,8 +2,9 @@
 // group loop, shared by csrc/streamed_kernel.cu (the walk) and
 // csrc/mxu_group_kernel.cu `vpu_kernel` (the same loop without the walk),
 // so that the diagnostic's scalar row is the production loop by
-// construction; `prefilter_kernel` takes the slot test alone. __host__ __device__ code: g++ builds it
-// into csrc/group_test_host.cpp for the CPU tests.
+// construction; `prefilter_kernel` runs the same loop for the warps its gate
+// passes. __host__ __device__ code: g++ builds it into
+// csrc/group_test_host.cpp for the CPU tests.
 //
 // The closest hit is carried as numerators t, u, v over the denominator td
 // (start t = t_init, td = 1) and compared by cross-multiplication,
@@ -32,14 +33,6 @@ constexpr int GROUP_TRIS = 56;     // accel/lbvh.py SUB_GROUP_ROWS * TRIS_PER_RO
 struct Tri {
   float v1x, v1y, v1z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
-
-#if defined(__CUDACC__)
-// The 9 floats (v1, e1, e2) at `p`, from the read-only cache.
-__device__ __forceinline__ Tri load(const float* __restrict__ p) {
-  return Tri{__ldg(p),     __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-             __ldg(p + 5), __ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
-}
-#endif
 
 // Tests the slot `p` against the ray o + s d. If it is hit closer than
 // t / td, replaces t, td, u, v by the hit's numerators and |det| and
@@ -73,15 +66,6 @@ TRIFREE_HD bool accept(const Tri& p, float ox, float oy, float oz, float dx, flo
   }
   return false;
 }
-
-#if defined(__CUDACC__)
-// The same for the 9 floats at `p`, read from the read-only cache.
-__device__ __forceinline__ bool accept(const float* __restrict__ p, float ox, float oy, float oz,
-                                       float dx, float dy, float dz, float& t, float& td, float& u,
-                                       float& v) {
-  return accept(load(p), ox, oy, oz, dx, dy, dz, t, td, u, v);
-}
-#endif
 
 // Four floats of a group's slots, one 16-byte load on the card.
 struct Quad {

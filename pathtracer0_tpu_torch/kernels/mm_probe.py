@@ -17,6 +17,12 @@ csrc/mxu_group_kernel.cu). `a` and `b` may also come in bfloat16, with
 "default" only: the JAX tool's bf16 cases. The kernel multiplies all 320
 rows every rep, though only 8 reach `o`.
 
+On the card each block reads the slices a launch needs once from `a` in
+its own layout (min(reps, 8) for "dyn", one for "fix") and writes them to
+shared memory in `mma.sync`'s B-fragment order, so a form's layout costs
+only in that staging; its warps then loop over the columns, 16 or 32 at a
+time (`launch_shape`).
+
 CUDA tensors go through csrc/mxu_group_kernel.cu `mm_probe_kernel` and
 nothing else, CPU tensors through `mm_probe_reference`. `launches` counts
 the kernel's launches.
@@ -33,7 +39,9 @@ FORMS = ("tlhs_dyn", "tlhs_fix", "std_dyn", "std_fix")
 PRECISIONS = ("default", "highest")
 SLICES, M, K = 8, 320, 16
 SHAPES = {"tlhs": (SLICES * K, M), "std": (SLICES * M, K)}
-COLS_PER_BLOCK, THREADS_PER_BLOCK = 64, 128    # csrc: PROBE_COLS, threads
+# csrc/mxu_group_kernel.cu mm_probe_kernel: warps a block (PROBE_WARPS),
+# and blocks an SM at most (`launch_shape`)
+WARPS_PER_BLOCK, BLOCKS_PER_SM = 16, 2
 
 launches = {"mm_probe_kernel": 0}
 
@@ -61,6 +69,17 @@ def _slice(a, form, s):
     if form.startswith("tlhs"):
         return a[K * s:K * (s + 1)].T
     return a[M * s:M * (s + 1)]
+
+
+def launch_shape(n, sms):
+    """(m_tiles, blocks) of mm_probe_kernel's launch over `n` columns on a
+    card of `sms` multiprocessors: two M tiles of 16 columns a warp, which
+    share each B load, where the 32-column units fill every warp of the
+    largest grid, else one, which spreads a narrow launch over more
+    multiprocessors; a block for each unit, at most BLOCKS_PER_SM an SM."""
+    cap = BLOCKS_PER_SM * sms
+    m_tiles = 2 if -(-n // 32) >= cap * WARPS_PER_BLOCK else 1
+    return m_tiles, min(-(-n // (16 * m_tiles)), cap)
 
 
 def mm_probe_reference(a, b, *, reps, form, precision="default"):
@@ -94,7 +113,8 @@ class _ProbeArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "a", "feats", "b16", "o", "sink")] + [
-        (n, ctypes.c_int) for n in ("n_rays", "reps")]
+        (n, ctypes.c_int) for n in ("n_rays", "reps", "n_blocks",
+                                    "m_tiles")]
 
 
 def run(a, b, *, reps, form, precision="default"):
@@ -112,11 +132,13 @@ def run(a, b, *, reps, form, precision="default"):
     # the copies live until after the launch
     keep = [a.contiguous(), b.contiguous()]
     o = torch.empty((8, n), dtype=torch.float32, device=dev)
-    blocks = -(-n // COLS_PER_BLOCK)
-    sink = torch.empty(blocks * THREADS_PER_BLOCK, dtype=torch.float32,
+    m_tiles, blocks = launch_shape(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    sink = torch.empty(blocks * WARPS_PER_BLOCK * 32, dtype=torch.float32,
                        device=dev)
     args = _ProbeArgs(a=build.ptr(keep[0], a.dtype, dev), o=o.data_ptr(),
-                      sink=sink.data_ptr(), n_rays=n, reps=reps)
+                      sink=sink.data_ptr(), n_rays=n, reps=reps,
+                      n_blocks=blocks, m_tiles=m_tiles)
     if in_bf16:
         args.b16 = build.ptr(keep[1], torch.bfloat16, dev)
     else:

@@ -37,7 +37,11 @@ their Pallas kernels:
                   slot test over the group's 56 slots, on re-centred
                   triangles and origins (kernels/mxu_tri.py). While the
                   filter is conservative the hits do not depend on the
-                  unit; the count of units that pass does
+                  unit; the count of units that pass does. On the card
+                  the products read run_mxu's fragment image ("default",
+                  the magnitudes as its words with the sign bits
+                  cleared), the gate is decided 8 triangles at a time
+                  and a unit leaves it at the first chunk that passes
 
 Rays are flat (R,) tensors for any R; o and d are (x, y, z) tuples. The
 product forms take `precision`: "default" rounds both operands to bf16
@@ -157,6 +161,9 @@ def _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups):
             or tris_c.shape[0] < n_groups * GROUP_TRIS:
         raise ValueError(f"tris_c must be (>= {n_groups * GROUP_TRIS}, 9), "
                          f"not {tuple(tris_c.shape)}")
+    if tris_c.data_ptr() % 16:
+        raise ValueError("tris_c must start on a 16-byte boundary: the "
+                         "kernel reads a group's slots 16 bytes at a time")
     if any(c.shape != (n_rays,) for c in (*o_c, *d)):
         raise ValueError("o_c, d and t_init must hold one entry per ray")
     return n_rays
@@ -243,13 +250,27 @@ def _plausible(out, mag):
     return pos | neg
 
 
+def _unit_gate(ch, ca, fh, fa, g, n_units):
+    """Which of the n_units units of GATE_RAYS rays pass group g's gate:
+    any ray of the unit with a plausible candidate, from the whole group's
+    product at once (the kernel decides it 8 triangles at a time and
+    leaves at the first chunk that passes: "any" over a prefix that holds
+    is "any" over all)."""
+    cand = 4 * QUANT_PAD
+    plaus = _plausible(ch[g, :cand] @ fh, ca[g, :cand] @ fa).any(0)
+    unit = torch.zeros(n_units * GATE_RAYS, dtype=torch.bool,
+                       device=fh.device)
+    unit[:fh.shape[1]] = plaus
+    return unit.view(n_units, GATE_RAYS).any(1)
+
+
 def prefilter_reference(coef, tris_c, feats, o_c, d, t_init, *, n_groups,
                         reps):
     """Plain version of `prefilter_kernel`: per group the gate of each unit
-    of GATE_RAYS rays from float32 products of the bf16-rounded operands,
-    then `vpu_reference`'s accept loop for the rays of the units that
-    passed. Returns (t, u, v, idx, passed): passed (n_units,) int32, the
-    groups each unit passed in one pass."""
+    of GATE_RAYS rays from float32 products of the bf16-rounded operands
+    (`_unit_gate`), then `vpu_reference`'s accept loop for the rays of the
+    units that passed. Returns (t, u, v, idx, passed): passed (n_units,)
+    int32, the groups each unit passed in one pass."""
     n_rays = _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
     ch, ca, fh, fa = _bf16_tables(coef, feats)
     dev = t_init.device
@@ -260,14 +281,9 @@ def prefilter_reference(coef, tris_c, feats, o_c, d, t_init, *, n_groups,
             t_init.clone()]
     lanes = torch.arange(GROUP_TRIS, dtype=torch.int32, device=dev)
     passed = torch.zeros(n_units, dtype=torch.int32, device=dev)
-    cand = 4 * QUANT_PAD
     for rep in range(reps):
         for g in range(n_groups):
-            plaus = _plausible(ch[g, :cand] @ fh, ca[g, :cand] @ fa).any(0)
-            unit = torch.zeros(n_units * GATE_RAYS, dtype=torch.bool,
-                               device=dev)
-            unit[:n_rays] = plaus
-            unit = unit.view(n_units, GATE_RAYS).any(1)
+            unit = _unit_gate(ch, ca, fh, fa, g, n_units)
             if rep == 0:
                 passed += unit.to(torch.int32)
             sel = unit.repeat_interleave(GATE_RAYS)[:n_rays].nonzero()[:, 0]
@@ -340,9 +356,9 @@ class _PrefilterArgs(ctypes.Structure):
     """csrc/mxu_group_kernel.cu `PrefilterArgs`, field for field."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "ch", "ca", "feats", "tris", "ox", "oy", "oz", "dx", "dy", "dz",
-        "t_init", "t", "u", "v", "idx", "passed")] + [
-        (n, ctypes.c_int) for n in ("n_rays", "n_groups", "reps")]
+        "bimg", "feats", "tris", "ox", "oy", "oz", "dx", "dy", "dz",
+        "t_init", "t", "u", "v", "idx", "passed", "check_out")] + [
+        (n, ctypes.c_int) for n in ("n_rays", "n_groups", "reps", "check")]
 
 
 def _on_card(t_init) -> bool:
@@ -455,9 +471,11 @@ def run_mxu(coef, feats, t_init, *, n_groups, reps, precision="default"):
                         n_groups, reps, precision=precision)[0]
 
 
-# the sums of mxu_kernel's check-only PHASES instantiation, in the order of
-# csrc/mxu_group_kernel.cu GP_*
-GROUP_PHASES = ("stage", "product", "test", "commit", "warp", "sink")
+# the sums of the group-test kernels' check-only PHASES instantiations, in
+# the order of csrc/mxu_group_kernel.cu GP_*: mxu_kernel fills all but
+# "slot"; prefilter_kernel's test is its margin test, its commit the gate's
+# vote (prefilter_phase_cycles names them so)
+GROUP_PHASES = ("stage", "product", "test", "commit", "slot", "warp", "sink")
 
 
 def mxu_phase_cycles(coef, feats, t_init, *, n_groups, reps,
@@ -475,7 +493,8 @@ def mxu_phase_cycles(coef, feats, t_init, *, n_groups, reps,
     out = _run_product("mxu_kernel", "pt_launch_mxu", coef, feats, t_init,
                        n_groups, reps, precision=precision,
                        check_out=sums)[0]
-    return (*out, dict(zip(GROUP_PHASES, sums.tolist())))
+    return (*out, {k: v for k, v in zip(GROUP_PHASES, sums.tolist())
+                   if k != "slot"})
 
 
 def run_mxu_big(coef, feats, t_init, *, n_groups, reps, precision="default",
@@ -506,28 +525,66 @@ def run_prefilter(coef, tris_c, feats, o_c, d, t_init, *, n_groups, reps):
     """Row E: the bf16 gate, then the scalar slot test for the units that
     pass. `coef` (n_groups, 320, 16) and `feats` (16, R) as for run_mxu;
     `tris_c` and `o_c` re-centred by the table's centre
-    (mxu_tri.recentre_tris, recentre_origins). Returns (t, u, v, idx,
-    passed) as `prefilter_reference`."""
-    n_rays = _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
+    (mxu_tri.recentre_tris, recentre_origins), `tris_c` starting on a
+    16-byte boundary (the slot test reads a group 16 bytes at a time, as
+    run_vpu's). Returns (t, u, v, idx, passed) as `prefilter_reference`.
+    On the card the kernel reads the table's fragment image at "default"
+    (mxu_tri.frag_image_of: made at the table's first launch, then kept,
+    and shared with run_mxu), which the copy engine brings a group at a
+    time; the gate leaves at the first chunk of 8 triangles that passes,
+    which changes neither the hits nor `passed`."""
+    _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
     if not _on_card(t_init):
         return prefilter_reference(coef, tris_c, feats, o_c, d, t_init,
                                    n_groups=n_groups, reps=reps)
+    return _run_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups,
+                          reps)
+
+
+def prefilter_phase_cycles(coef, tris_c, feats, o_c, d, t_init, *, n_groups,
+                           reps):
+    """`run_prefilter` on the card through prefilter_kernel's check-only
+    PHASES instantiation: (t, u, v, idx, passed, sums), sums mapping each
+    of GROUP_PHASES to its sum over the warps (clock64() cycles), "test"
+    and "commit" named "margin" and "vote". A measurement of the card,
+    counted in no launch count."""
+    _check_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups)
+    if not _on_card(t_init):
+        raise ValueError("prefilter_phase_cycles measures the card: it "
+                         "needs CUDA tensors")
+    sums = torch.zeros(len(GROUP_PHASES), dtype=torch.int64,
+                       device=t_init.device)
+    out = _run_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups, reps,
+                         check_out=sums)
+    names = {"test": "margin", "commit": "vote"}
+    return (*out, {names.get(k, k): v
+                   for k, v in zip(GROUP_PHASES, sums.tolist())})
+
+
+def _run_prefilter(coef, tris_c, feats, o_c, d, t_init, n_groups, reps,
+                   check_out=None):
+    """Launch prefilter_kernel. Its B operand is the table's fragment image
+    at "default" (mxu_tri.frag_image_of, made at the table's first launch
+    and shared with run_mxu); the magnitudes are the same words with the
+    sign bits cleared."""
+    n_rays = t_init.shape[0]
     dev, f32 = t_init.device, torch.float32
     build.ptr(coef, f32, dev)
-    # the tables and copies live until after the launch
-    keep = [coef.to(torch.bfloat16),
-            coef.abs().to(torch.bfloat16),
-            feats.contiguous(), tris_c.contiguous(),
+    image = mxu_tri.frag_image_of(coef, n_groups, "default")
+    # the copies live until after the launch
+    keep = [feats.contiguous(), tris_c.contiguous(),
             *(c.contiguous() for c in (*o_c, *d, t_init))]
     out = _outputs(n_rays, dev)
     passed = torch.empty(-(-n_rays // GATE_RAYS), dtype=torch.int32,
                          device=dev)
     args = _PrefilterArgs(
-        *(build.ptr(x, torch.bfloat16, dev) for x in keep[:2]),
-        *(build.ptr(x, f32, dev) for x in keep[2:]),
+        image.data_ptr(), *(build.ptr(x, f32, dev) for x in keep),
         *(x.data_ptr() for x in (*out, passed)),
         n_rays=n_rays, n_groups=n_groups, reps=reps)
-    _launch("prefilter_kernel", "pt_launch_prefilter", args, (), dev)
+    if check_out is not None:
+        args.check_out, args.check = check_out.data_ptr(), 1
+    _launch("prefilter_kernel", "pt_launch_prefilter", args, (), dev,
+            count=check_out is None)
     return (*out, passed)
 
 

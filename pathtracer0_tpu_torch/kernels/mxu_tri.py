@@ -232,6 +232,8 @@ def b_image(coef: torch.Tensor, precision: str) -> torch.Tensor:
 
 # ---- mxu_kernel's B operand (csrc/mxu_group_kernel.cu mxu_kernel) ---------
 #
+# (prefilter_kernel reads the "default" image too: tiles 0-3, with the
+# sign bits cleared for its product of magnitudes.)
 # A second port-side layout of the table, for `mma.sync`: the 56 real
 # candidates of each quantity (the pad candidates are left out: the test
 # never reads their products) in the order in which thread (g = lane // 4,

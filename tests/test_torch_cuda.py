@@ -953,6 +953,68 @@ def test_prefilter_matches_plain_on_card(n_rays, aimed):
 
 
 @pytest.mark.cuda
+def test_prefilter_gate_leaves_at_the_first_chunk_that_passes_on_card():
+    """The gate's early exit: groups whose only triangles sit in chunk 0, 3
+    or 6 (the others empty) and one group all empty, so that a warp's gate
+    passes at its first, fourth or last chunk or never. Kernel and plain
+    version (the gate over the whole group) agree to the row-E limits and
+    on the gate counts."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group, mxu_tri
+    from pathtracer0_tpu_torch.tools import diag_mxu
+
+    data = diag_mxu.synthetic(4, 2)
+    tris = data["tris"].clone()
+    for g, keep in enumerate((0, 3, 6, None)):
+        group = tris[g * 56:(g + 1) * 56]
+        for jt in range(7):
+            if jt != keep:
+                group[8 * jt:8 * jt + 8] = 0.0
+    data = diag_mxu.aim({**data, "tris": tris})[0]
+    o, d, center = data["o"], data["d"], data["center"]
+    coef = mxu_tri.coef_table(tris, center)
+    feats = mxu_tri.ray_features(o, d, center)
+    t_init = torch.full((o[0].shape[0],), 1e30, device="cuda")
+    args = (coef, mxu_tri.recentre_tris(tris, center), feats,
+            mxu_tri.recentre_origins(o, center), d, t_init)
+    kw = dict(n_groups=4, reps=1)
+    e_k = mxu_group.run_prefilter(*args, **kw)
+    plain = mxu_group.prefilter_reference(*args, **kw)
+    same = e_k[3] == plain[3]
+    assert _hits_idx_eq(e_k, plain) >= 0.999
+    for x, y in zip(e_k[:3], plain[:3]):
+        assert float((x - y).abs()[same].max()) <= 1e-5
+    assert float((e_k[4] == plain[4]).float().mean()) >= 0.999
+    assert int(e_k[4].max()) <= 3 and float((e_k[3] >= 0).float().mean()) \
+        > 0.2
+    a = mxu_group.run_vpu(tris, o, d, t_init, **kw)
+    assert not bool(((a[3] >= 0) & (e_k[3] < 0)).any())
+
+
+@pytest.mark.cuda
+def test_prefilter_phase_cycles_on_card():
+    """prefilter_kernel's check-only PHASES instantiation: the kernel's
+    outputs, cycles in the stage, the products, the margin test and the
+    vote (and the slot test, where a gate passes), the parts within the
+    warps' cycles, and no launch counted."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mxu_group
+
+    _, _, d, coef, feats, t_init, tris_c, o_c = _prefilter_inputs(
+        4, 1000, True)
+    args = (coef, tris_c, feats, o_c, d, t_init)
+    kw = dict(n_groups=4, reps=2)
+    before = dict(mxu_group.launches)
+    *out, cyc = mxu_group.prefilter_phase_cycles(*args, **kw)
+    assert mxu_group.launches == before
+    for a, b in zip(out, mxu_group.run_prefilter(*args, **kw)):
+        assert torch.equal(a, b)
+    parts = ("stage", "product", "margin", "vote", "slot")
+    assert all(cyc[k] > 0 for k in parts)
+    assert sum(cyc[k] for k in parts) <= cyc["warp"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", range(10))
 def test_mm_probe_matches_plain_on_card(case):
     """mm_probe_kernel against its plain version, each case of the tool, at
@@ -977,6 +1039,34 @@ def test_mm_probe_matches_plain_on_card(case):
     assert torch.equal(mm_probe.run(a, b, reps=0, form=form,
                                     precision=precision),
                        torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_mm_probe_ragged_columns_on_card(case):
+    """Each case at column counts that are no multiple of a warp's 16 or 32
+    columns (1, 33, 8,200 with one M tile a warp, 140,009 with two) and at
+    9 reps (the "dyn" forms read slice 0 twice): within 2^-20 of the sum of
+    magnitudes of the plain version, and a column's `o` does not depend on
+    how many columns share the launch."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import mm_probe
+    from pathtracer0_tpu_torch.tools import diag_mxu_mm
+
+    form, precision, dtype = diag_mxu_mm.cases()[case]
+    ops = diag_mxu_mm.operands(140009, "cuda")
+    a = ops[form.split("_")[0]].to(dtype)
+    kw = dict(reps=9, form=form, precision=precision)
+    wide = mm_probe.run(a, ops["b"].to(dtype), **kw)
+    for n in (1, 33, 8200, 140009):
+        b = ops["b"][:, :n].to(dtype).contiguous()
+        got = mm_probe.run(a, b, **kw)
+        want = mm_probe.mm_probe_reference(a, b, **kw)
+        mag = mm_probe.magnitudes(a, b, reps=9, form=form)
+        assert got.shape == (8, n)
+        assert bool(((got.double() - want.double()).abs()
+                     <= 2.0 ** -20 * mag).all())
+        assert torch.equal(got, wide[:, :n])
 
 
 @pytest.mark.cuda

@@ -107,6 +107,28 @@ def test_probe_forms_read_their_slices():
                        torch.zeros(8, 5))
 
 
+@pytest.mark.parametrize("n", [1, 33, 1024, 8200, 135136, 135137, 480000])
+def test_probe_launch_shape_covers_every_column(n):
+    """The probe's launch on a card of 132 multiprocessors: two M tiles a
+    warp from the column count at which the 32-column units fill every
+    warp of the largest grid (4,224 warps in 2 x 132 blocks of 16: from
+    135,137 columns), one below it; a block for each unit up to that grid,
+    so no block is without a unit; and the warps' units, dealt to the
+    blocks first, take every column once."""
+    m_tiles, blocks = mm_probe.launch_shape(n, 132)
+    cap = mm_probe.BLOCKS_PER_SM * 132
+    assert m_tiles == (2 if n > 32 * (cap * mm_probe.WARPS_PER_BLOCK - 1)
+                       else 1)
+    units = -(-n // (16 * m_tiles))
+    assert blocks == min(units, cap) and 1 <= blocks <= cap
+    warps = blocks * mm_probe.WARPS_PER_BLOCK
+    taken = torch.zeros(units, dtype=torch.int32)
+    for block in range(blocks):
+        for warp in range(mm_probe.WARPS_PER_BLOCK):
+            taken[block + warp * blocks::warps] += 1
+    assert bool((taken == 1).all())
+
+
 def test_probe_refuses_what_it_does_not_take():
     a, b = _operands("std_fix", torch.float32)
     with pytest.raises(ValueError, match="form"):

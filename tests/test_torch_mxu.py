@@ -651,6 +651,138 @@ def test_prefilter_gate_unit_is_a_warp():
     assert torch.equal(cut[4], e[4])        # the gate reads no t
 
 
+def _terrain_tris(n_groups):
+    """A height field like the terrain's, v1, e1, e2 by slot, in groups of
+    56: two triangles a quad of a 0.25-unit grid, every 9th slot empty."""
+    quads = n_groups * mxu_tri.GROUP_TRIS // 2
+    side = int(np.ceil(np.sqrt(quads)))
+    xs = np.arange(side + 1) * 0.25
+    x, z = np.meshgrid(xs, xs)
+    p = np.stack([x, np.sin(3 * x) * np.cos(2 * z) * 0.4, z + 6], -1)
+    a, b, c, e = (p[:-1, :-1], p[1:, :-1], p[:-1, 1:], p[1:, 1:])
+    v1 = np.concatenate([a.reshape(-1, 3), e.reshape(-1, 3)])[:2 * quads]
+    v2 = np.concatenate([b.reshape(-1, 3)] * 2)[:2 * quads]
+    v3 = np.concatenate([c.reshape(-1, 3)] * 2)[:2 * quads]
+    tris = np.concatenate([v1, v2 - v1, v3 - v1], 1).astype(np.float32)
+    tris[::9] = 0.0
+    return tris
+
+
+@pytest.mark.parametrize("name", ("tool", "aimed", "terrain"))
+def test_sign_cleared_frag_image_is_the_magnitude_image(name):
+    """prefilter_kernel's magnitude operand: the fragment image of the
+    table at "default" with each bf16 word's sign bit cleared equals, word
+    for word, the fragment image of |coef| (bf16 rounding to nearest is
+    symmetric), so one image serves both of row E's products; and its
+    words are those of |coef| in bf16 (`coef.abs().to(torch.bfloat16)`,
+    the table the kernel used to be handed) at every real candidate."""
+    if name == "terrain":
+        tris = _terrain_tris(N_GROUPS)
+        center = (tris[:, 0:3].min(0) + tris[:, 0:3].max(0)) / 2.0
+    else:
+        tris, center = _case(name)["tris"], CENTER
+    coef = torch.from_numpy(mxu_tri.coef_table_np(tris, center))
+    words = mxu_tri.frag_image(coef, "default").view(torch.int16)
+    cleared = words & 0x7fff
+    magnitudes = mxu_tri.frag_image(coef.abs(), "default").view(torch.int16)
+    assert torch.equal(cleared, magnitudes)
+    assert bool((words < 0).any())      # some sign bits were set
+    back = mxu_tri.frag_image_tables(cleared.view(torch.uint8), "default")[0]
+    real = ~torch.isnan(back)
+    assert int(real.sum()) == N_GROUPS * 5 * mxu_tri.GROUP_TRIS * 16
+    assert torch.equal(back[real],
+                       coef.abs().to(torch.bfloat16).to(torch.float32)[real])
+
+
+def _chunk_gate(ch, ca, fh, fa, g, n_units):
+    """Group g's gate decided as prefilter_kernel decides it, 8 triangles
+    at a time, the rays of a unit leaving at the first chunk that passes
+    it; the operands as `mxu_group._bf16_tables` gives them. Returns
+    (unit, first): whether each of the n_units units of 32 rays passes,
+    and the chunk it passed at (-1 where it passed none)."""
+    n_rays = fh.shape[1]
+    first = torch.full((n_units,), -1, dtype=torch.int64)
+    for jt in range(mxu_tri.GROUP_TRIS // 8):
+        left = (first < 0).repeat_interleave(32)[:n_rays].nonzero()[:, 0]
+        if left.numel() == 0:
+            break
+        rows = (torch.arange(4)[:, None] * mxu_tri.QUANT_PAD + 8 * jt
+                + torch.arange(8)).reshape(-1)
+        out = (ch[g, rows] @ fh[:, left]).view(4, 8, -1)
+        m = (ca[g, rows] @ fa[:, left]).view(4, 8, -1) * mxu_group.MARGIN
+        plaus = torch.zeros(n_units * 32, dtype=torch.bool)
+        plaus[left] = ((out > -m).all(0) | (out < m).all(0)).any(0)
+        first[plaus.view(n_units, 32).any(1) & (first < 0)] = jt
+    return first >= 0, first
+
+
+def _chunk_gated(args, kw, monkeypatch):
+    """prefilter_reference with its gate decided chunk by chunk
+    (`_chunk_gate` in place of the whole group's `_unit_gate`)."""
+    with monkeypatch.context() as mp:
+        mp.setattr(mxu_group, "_unit_gate",
+                   lambda *gate_args: _chunk_gate(*gate_args)[0])
+        return mxu_group.prefilter_reference(*args, **kw)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_prefilter_gate_by_chunks_equals_the_whole_group_gate(
+        name, jax_runs, monkeypatch):
+    """prefilter_reference with the gate decided chunk by chunk, a unit
+    leaving at the first chunk that passes it (the kernel's order), and
+    with the gate over the whole group's product: the same gate on every
+    unit and group, the same outputs and gate counts, and both against the
+    JAX `_prefilter_kernel` as test_prefilter_reference_against_jax_kernel
+    holds the second."""
+    args = _prefilter_inputs(_case(name))
+    kw = dict(n_groups=N_GROUPS, reps=1)
+    ch, ca, fh, fa = mxu_group._bf16_tables(args[0], args[2])
+    for g in range(N_GROUPS):
+        assert torch.equal(
+            _chunk_gate(ch, ca, fh, fa, g, N_RAYS // 32)[0],
+            mxu_group._unit_gate(ch, ca, fh, fa, g, N_RAYS // 32))
+    whole = mxu_group.prefilter_reference(*args, **kw)
+    chunks = _chunk_gated(args, kw, monkeypatch)
+    for x, y in zip(chunks, whole):
+        assert torch.equal(x, y)
+    for got in (chunks, whole):
+        _agree([x.numpy() for x in got[:4]], jax_runs[name]["E"], 0.999,
+               1e-4, uv=1e-4)
+
+
+def test_prefilter_gate_leaves_at_the_first_chunk_that_passes(monkeypatch):
+    """Groups whose only triangles sit in chunk 0, 3 or 6 (the others
+    empty), one group all empty, rays aimed at them: the chunk-by-chunk
+    gate passes units at those chunks and no unit in the empty group, with
+    the same outputs and gate counts as the whole-group gate."""
+    data = diag_mxu.synthetic(4, 1, "cpu")
+    tris = data["tris"].clone()
+    for g, keep in enumerate((0, 3, 6, None)):
+        for jt in range(7):
+            if jt != keep:
+                tris[g * 56 + 8 * jt:g * 56 + 8 * jt + 8] = 0.0
+    data = diag_mxu.aim({**data, "tris": tris})[0]
+    o, d = data["o"], data["d"]
+    coef = torch.from_numpy(mxu_tri.coef_table_np(tris.numpy(), CENTER))
+    feats = mxu_tri.ray_features(o, d, CENTER)
+    t_init = torch.full((o[0].shape[0],), 1e30)
+    args = (coef, mxu_tri.recentre_tris(tris, CENTER), feats,
+            mxu_tri.recentre_origins(o, CENTER), d, t_init)
+    kw = dict(n_groups=4, reps=1)
+    whole = mxu_group.prefilter_reference(*args, **kw)
+    chunks = _chunk_gated(args, kw, monkeypatch)
+    for x, y in zip(chunks, whole):
+        assert torch.equal(x, y)
+    ch, ca, fh, fa = mxu_group._bf16_tables(coef, feats)
+    for g, keep in enumerate((0, 3, 6, None)):
+        unit, first = _chunk_gate(ch, ca, fh, fa, g, 32)
+        assert bool(unit.any()) == (keep is not None)
+        assert bool((first[unit] == (-1 if keep is None else keep)).all())
+    a = mxu_group.run_vpu(tris, o, d, t_init, **kw)
+    assert not bool(((a[3] >= 0) & (whole[3] < 0)).any())
+    assert float((a[3] >= 0).float().mean()) > 0.2
+
+
 def test_prefilter_refuses_what_it_does_not_take():
     coef, tris_c, feats, o_c, d, t_init = _prefilter_inputs(_case("tool"))
     kw = dict(n_groups=N_GROUPS, reps=1)
@@ -669,3 +801,7 @@ def test_prefilter_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="no group-test kernel"):
         mxu_group.run_prefilter(coef, tris_c, feats, o_c, d,
                                 t_init.to("meta"), **kw)
+    shifted = torch.zeros(tris_c.numel() + 1)[1:].view(-1, 9)
+    shifted.copy_(tris_c)
+    with pytest.raises(ValueError, match="16-byte"):
+        mxu_group.run_prefilter(coef, shifted, feats, o_c, d, t_init, **kw)

@@ -19,7 +19,7 @@ non-zero:
                    kernels' `ms` is the time of their launches alone, 20
                    back to back between CUDA events, `wrapper_ms` the
                    CUDA-event time of calls of their Python wrappers):
-                   frame_kernel for configs 1 (Whitted), 2, 4 and 6 at
+                   frame_kernel for configs 1 (Whitted), 2, 3, 4 and 6 at
                    320x240, 2 spp, 6 bounces, and at 800x600: there
                    checked at 2 spp, then timed and checked again (looser,
                    TIMED_*) at the main path's spp;
@@ -70,8 +70,8 @@ non-zero:
                    coefficient of the 20 slots that win most often, none
                    of which may then win (a NaN fails the sign test, as in
                    the JAX reference);
-                   the refill schedule of frame_kernel for configs 2, 4 and
-                   6 at 800x600: against the plain version at 2 spp, and
+                   the refill schedule of frame_kernel for configs 2, 3, 4
+                   and 6 at 800x600: against the plain version at 2 spp, and
                    against the default schedule at the main path's 16 spp
                    (bit-equal), both timed in turns, and the share of a
                    warp's lanes a bounce step keeps busy in either schedule
@@ -82,13 +82,13 @@ non-zero:
                    their difference per product;
                    `phases`: the share of a warp's cycles that each part of
                    a scene query takes in frame_kernel (the check-only
-                   PHASES instantiations), configs 1, 2, 4, 6 at 800x600 and
+                   PHASES instantiations), configs 1, 2, 3, 4, 6 at 800x600 and
                    the main path's spp, both schedules
   3. main paths    every launch counter is zeroed just before each and
                    read just after.
                    Frame path: Renderer at 800x600 with autofocus, config
-                   1 1 spp Whitted, configs 2, 4 and 6 16 spp, 6 bounces,
-                   one warm-up frame and 2 timed frames each.
+                   1 1 spp Whitted, configs 2, 3, 4 and 6 16 spp, 6
+                   bounces, one warm-up frame and 2 timed frames each.
                    Per-bounce route: the terrain (bench.py's height
                    function at n = 181, a metal and a glass sphere on it)
                    through Renderer at 800x600, 8 spp, 6 bounces, one
@@ -105,7 +105,7 @@ non-zero:
                    Diagnostic: tools.diag_mxu.main at its defaults (32
                    groups, 64 passes, 16,384 rays) and at the card's width
                    (480,000 rays, 4 passes): rows A, B, C, C mm_only, D, E.
-                   Refill: configs 2, 4, 6 through Renderer at 800x600x16
+                   Refill: configs 2, 3, 4, 6 through Renderer at 800x600x16
                    with PT0_FUSED_REFILL=1, in turns with a Renderer of the
                    default schedule on the same frames (default, refill,
                    refill, default; a warm-up and a timed frame a turn).
@@ -117,8 +117,16 @@ non-zero:
                    against each other (RMSE < 0.05);
                    the OBJ grid at 160x120x4: block path, per-bounce route
                    and frame kernel against each other (RMSE < 0.05)
-  5. goldens       configs 1, 2, 4, 6 at 160x120x4, seed 1234, against
+  5. goldens       configs 1, 2, 3, 4, 6 at 160x120x4, seed 1234, against
                    tests/goldens/config{n}.png (RMSE < 0.05)
+  6. session       the renderer as a user drives it (`session`): the
+                   config-5 hero at 1920x1080x8 through Renderer.render
+                   (Mrays/s, samples/s, seconds to 4096 spp); a checkpoint
+                   resumed in a fresh Renderer, bit-equal after one more
+                   step; `pick` on 3 x 3 pixels against the CPU's in config
+                   3, the OBJ grid and the 1M terrain; the scripted driver
+                   session on config 3 at 800x600x8 (ms of a preview and a
+                   full tick); the CLI as a subprocess
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -130,7 +138,7 @@ checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
 archive`, say), builds those of its frame, block, forest, streamed and
 group-test kernels whose sources differ from this one's, and holds each
 against this checkout's (phase `parent_vs_change`), whatever the others
-do: frame_kernel in configs 1, 2, 4, 6 at 800x600 and the main path's spp
+do: frame_kernel in configs 1, 2, 3, 4, 6 at 800x600 and the main path's spp
 in both schedules, traverse_kernel on the terrain's 960,000 rays,
 brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
 block_kernel on the OBJ grid's rays, streamed_kernel on the 1M terrain's
@@ -154,6 +162,7 @@ import dataclasses
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -161,7 +170,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W_CMP, H_CMP, SPP_CMP, BOUNCES = 320, 240, 2, 6
-MAIN = {1: (1, False), 2: (16, True), 4: (16, True), 6: (16, True)}
+MAIN = {1: (1, False), 2: (16, True), 3: (16, True), 4: (16, True),
+        6: (16, True)}
 TERRAIN_N, TERRAIN_SPP, TERRAIN_LEAF = 181, 8, 4
 # the streamed route's cell: the scale benchmark's terrain and settings
 BIG_N, BIG_SPP, BIG_BOUNCES = 708, 2, 3
@@ -491,6 +501,179 @@ def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
           "card": card}, log)
 
 
+def session(torch, np, dev, card, log, zero_counts, scenes, RenderConfig,
+            Renderer, frame, wavefront, cpu_scenes, card_scenes):
+    """Phase 6, `session`: the renderer as a user drives it on the card,
+    each part with the launch counts set to 0 just before it and read just
+    after. hero: config 5 at 1920x1080x8 through Renderer.render(frames=2,
+    chunk=2), a warm-up and a timed call (bench.py's hero metrics);
+    checkpoint: save, load in a fresh Renderer of the same seed, one
+    step() each, display images bit-equal; pick: 3 x 3 pixels around the
+    centre against the CPU's pick of the same scene in config 3, the OBJ
+    grid and the 1M terrain; driver: tests/test_driver.py's scripted
+    session on config 3 at 800x600x8; cli: python -m pathtracer0_tpu_torch
+    --scene 3 --frames 4 with a stdin that stays open."""
+    from pathtracer0_tpu_torch.render.driver import FrameLoopDriver
+
+    t_start = time.perf_counter()
+    rec = {"phase": "session", "card": card}
+    tmp = tempfile.mkdtemp()
+
+    # hero (bench.py:155-177)
+    zero_counts()
+    sc, info = scenes.BUILDERS[5]().build(max_leaf=4, device="cuda")
+    cam, rot = scenes.CAMERAS[5]
+    cfg = RenderConfig(width=1920, height=1080, samples_per_frame=8,
+                       max_bounces=6, auto_focus=False, blur=0.001)
+    r = Renderer(sc, info, cfg, cam_pos=cam, cam_rot=rot, device="cuda")
+    frames = 2
+    r.render(frames=frames, chunk=frames)
+    rays0 = r.rays_traced
+    t0 = time.perf_counter()
+    r.render(frames=frames, chunk=frames)
+    rays1 = r.rays_traced
+    dt = (time.perf_counter() - t0) / frames
+    rec["hero"] = {
+        "shape": [1920, 1080, 8, 6], "frames": frames, "frame_s": dt,
+        "mrays_per_s": (rays1 - rays0) / frames / dt / 1e6,
+        "samples_per_s": 1920 * 1080 * 8 / dt,
+        "est_time_to_4096spp_s": 4096 / 8 * dt,
+        "launches": frame.trace_frame.launches,
+        "finite": bool(torch.isfinite(r.display_image()).all())}
+    check(rec["hero"]["finite"], f"hero: image not finite {rec['hero']}")
+    check(rec["hero"]["launches"] == 2 * frames, f"hero: {rec['hero']}")
+
+    # checkpoint: the same kernel on the same inputs gives the same bits
+    zero_counts()
+    path = os.path.join(tmp, "hero.npz")
+    r.save_checkpoint(path)
+    resumed = Renderer(sc, info, cfg, cam_pos=cam, cam_rot=rot,
+                       device="cuda")
+    resumed.load_checkpoint(path)
+    loaded_equal = bool(torch.equal(r.display_image(),
+                                    resumed.display_image()))
+    a, b = r.step(), resumed.step()
+    rec["checkpoint"] = {
+        "loaded_equal": loaded_equal, "step_equal": bool(torch.equal(a, b)),
+        "max_abs_diff": float((a - b).abs().max()),
+        "count": resumed._count, "seed_draws": resumed._seed_draws,
+        "launches": frame.trace_frame.launches}
+    check(rec["checkpoint"]["loaded_equal"]
+          and rec["checkpoint"]["step_equal"]
+          and resumed._seed_draws == r._seed_draws == 2 * frames + 1,
+          f"checkpoint: resume not bit-equal {rec['checkpoint']}")
+    del r, resumed
+
+    # pick: the card against the CPU on the same scene
+    rec["pick"] = {}
+    for label, (host, host_info, (cam, rot), kw) in cpu_scenes.items():
+        zero_counts()
+        cfg = RenderConfig(width=800, height=600, **kw)
+        on_card = Renderer(*card_scenes[label], cfg, cam_pos=cam,
+                           cam_rot=rot, device="cuda")
+        on_cpu = Renderer(host, host_info, cfg, cam_pos=cam, cam_rot=rot,
+                          device="cpu")
+        worst, kinds = {"distance": 0.0, "normal": 0.0, "loc": 0.0}, []
+        for dy in (-60, 0, 60):
+            for dx in (-100, 0, 100):
+                pk, pc = on_card.pick(400 + dx, 300 + dy), \
+                    on_cpu.pick(400 + dx, 300 + dy)
+                for key in ("hit", "kind", "obj", "material"):
+                    check(pk[key] == pc[key],
+                          f"pick {label} ({dx}, {dy}) {key}: {pk} {pc}")
+                t = pc["distance"]
+                worst["distance"] = max(worst["distance"], abs(
+                    pk["distance"] - t) / (1.0 + abs(t)))
+                for key in ("normal", "loc"):
+                    worst[key] = max(worst[key], float(
+                        np.abs(pk[key] - pc[key]).max()
+                        / (1.0 + np.abs(pc["loc"]).max())))
+                kinds.append(pc["kind"])
+        launches = {"brute_kernel": wavefront.launches["brute_kernel"],
+                    "traverse_kernel": wavefront.launches["traverse_kernel"],
+                    "streamed_kernel": wavefront.launches["streamed_kernel"]}
+        rec["pick"][label] = {"relative_err": worst, "kinds": kinds,
+                              "launches": launches}
+        check(all(v <= 1e-5 for v in worst.values()),
+              f"pick {label}: {worst}")
+        mesh = kinds.count(1)
+        check(sum(launches.values()) == (9 if host_info.num_tris else 0)
+              and (mesh > 0) == bool(host_info.num_tris),
+              f"pick {label}: {rec['pick'][label]}")
+    check(rec["pick"]["terrain_1m"]["launches"]["streamed_kernel"] == 9
+          and rec["pick"]["obj_grid"]["launches"]["streamed_kernel"] == 0,
+          f"pick: routes {rec['pick']}")
+
+    # driver: tests/test_driver.py's scripted session, timed by tick
+    zero_counts()
+    sc, info = card_scenes["config3"]
+    cam, rot = scenes.CAMERAS[3]
+    drv = FrameLoopDriver(sc, info, RenderConfig(width=800, height=600,
+                                                 samples_per_frame=8),
+                          cam_pos=cam, cam_rot=rot, auto_screenshot_after=3,
+                          screenshot_dir=os.path.join(tmp, "shots"),
+                          preview_frames=2, device="cuda")
+    ticks, real_tick = [], drv.tick
+
+    def timed_tick():
+        quality = "preview" if drv.moving else "full"
+        t0 = time.perf_counter()
+        img = real_tick()
+        torch.cuda.synchronize()
+        ticks.append((quality, 1e3 * (time.perf_counter() - t0)))
+        return img
+
+    drv.tick = timed_tick
+    replies = drv.run_script(
+        [None, "move 0 0 0.5", None, None, None, "screenshot end.png"],
+        trailing_frames=1)
+    rec["driver"] = {
+        "replies": [os.path.relpath(x, tmp) for x in replies],
+        "auto_screenshot": os.path.basename(drv.last_screenshot or ""),
+        "full_count": drv.renderer._count,
+        "preview_count": drv.preview_renderer._count,
+        "frames": drv.renderer._frame_index
+        + drv.preview_renderer._frame_index,
+        "tick_ms": ticks,
+        "preview_tick_ms": [ms for q, ms in ticks if q == "preview"][-1],
+        "full_tick_ms": [ms for q, ms in ticks if q == "full"][-1],
+        "launches": frame.trace_frame.launches}
+    check(replies == [os.path.join(tmp, "shots", "end.png")]
+          and os.path.exists(replies[0])
+          and drv.renderer._count == 4 and drv.preview_renderer._count == 2
+          and rec["driver"]["auto_screenshot"].startswith("autoScreenshot_3_")
+          and rec["driver"]["launches"] == len(ticks) == 7,
+          f"driver: {rec['driver']}")
+
+    # cli: a subprocess on the card, its stdin a pipe that stays open
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with open(os.path.join(tmp, "cli.err"), "w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pathtracer0_tpu_torch", "--scene", "3",
+             "--frames", "4", "--out", os.path.join(tmp, "cli")],
+            cwd=ROOT, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        try:
+            out = proc.stdout.read()
+            rc = proc.wait(timeout=300)
+        finally:
+            proc.stdin.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        tail = err.read()[-2000:]
+    lines = out.splitlines()
+    rec["cli"] = {"rc": rc, "stdout": lines, "stderr_tail": tail}
+    check(rc == 0 and len(lines) == 2
+          and lines[0].startswith("scene built in ")
+          and lines[1].startswith("4 frames in "), f"cli: {rec['cli']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec, log)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -698,8 +881,7 @@ def main() -> int:
               f"config {n}: {spp_time} spp: queries {q_time} vs {qtp}")
         return rec
 
-    small = {n: compare(n, W_CMP, H_CMP, SPP_CMP, SPP_CMP)
-             for n in (1, 2, 4, 6)}
+    small = {n: compare(n, W_CMP, H_CMP, SPP_CMP, SPP_CMP) for n in MAIN}
     full = {n: compare(n, 800, 600, min(spp, SPP_CMP), spp)
             for n, (spp, _) in MAIN.items()}
 
@@ -830,10 +1012,10 @@ def main() -> int:
     terrain_cam = ((0.0, 14.0, -50.0 * (TERRAIN_N / 708.0) * 1.16),
                    (0.25, 0.0, 0.0))
 
-    def grid_scene(tmp, side=12):
+    def grid_scene(tmp, side=12, device="cuda"):
         """A 12x12 jittered triangle grid written to an OBJ file and
         loaded through Scene.add_object; `side` x `side` triangles over the
-        same square for another size."""
+        same square for another size; built on `device`."""
         rng = np.random.RandomState(0)
         lines, faces = ["o grid"], []
         scale = 12 / side
@@ -861,12 +1043,14 @@ def main() -> int:
         sc.set_last_mtl("illum", 7)
         sc.add_object(path, material=0)
         sc.add_sphere((4.2, 2.4, 3.0), 0.9, m=1)
-        return sc.build(config=RenderConfig(max_tris_in_leaf=TERRAIN_LEAF))
+        return sc.build(RenderConfig(max_tris_in_leaf=TERRAIN_LEAF),
+                        device=device)
 
     grid_cam = ((4.2, 3.2, -1.5), (0.55, 0.0, 0.0))
     terrain, terrain_info, terrain_build_s = terrain_scene()
     with tempfile.TemporaryDirectory() as tmp:
         grid, grid_info = grid_scene(tmp)
+        grid_cpu = grid_scene(tmp, device="cpu")   # for the session's picks
     emit({"phase": "scenes", "terrain_tris": terrain_info.num_tris,
           "terrain_leaves": terrain_info.num_leaves,
           "terrain_depth": terrain_info.forest_depth,
@@ -1126,14 +1310,14 @@ def main() -> int:
         """scenes.terrain(BIG_N) built on the card as a user builds it, and
         beside it the seconds of the same build on the CPU device (all but
         the upload), of copying that scene's tensors to the card, and of
-        the LBVH builder alone."""
+        the LBVH builder alone; and the CPU device's scene and info."""
         sc = scenes.terrain(BIG_N)
         t0 = time.perf_counter()
         scene, info = sc.build()
         torch.cuda.synchronize()
         seconds = {"build_s": time.perf_counter() - t0}
         t0 = time.perf_counter()
-        host, _ = sc.build(device="cpu")
+        host, host_info = sc.build(device="cpu")
         seconds["host_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         moved = [getattr(host, f.name).to(dev)
@@ -1146,9 +1330,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lbvh.build_streamed(mesh["v1"], mesh["v2"], mesh["v3"])
         seconds["lbvh_s"] = time.perf_counter() - t0
-        return scene, info, seconds
+        return scene, info, seconds, (host, host_info)
 
-    big, big_info, big_seconds = big_scene()
+    big, big_info, big_seconds, big_host = big_scene()
     big_cam = scenes.terrain_camera(BIG_N)
     terrain_st, terrain_st_info, _ = terrain_scene(stream_threshold=0)
     emit({"phase": "scenes", "big_tris": big_info.num_tris,
@@ -2350,7 +2534,8 @@ def main() -> int:
         check(rec["default_schedule"]["queries"] == queries,
               f"config {n} refill: queries against the default {rec}")
     launches_refill = frame.trace_frame.refill_launches
-    check(launches_refill > 0 and frame.trace_frame.launches == 4 * 3,
+    check(launches_refill > 0
+          and frame.trace_frame.launches == 4 * len(refill_full),
           "PT0_FUSED_REFILL=1 did not take the refill schedule")
 
     # the per-bounce route: terrain through Renderer, OBJ grid through
@@ -2641,7 +2826,7 @@ def main() -> int:
             "terrain_1m", big, big_info, big_cam, card, log)
 
     # ---- 5. goldens ------------------------------------------------------
-    for n in (1, 2, 4, 6):
+    for n in MAIN:
         sc, info = scenes.BUILDERS[n]().build(device="cuda")
         cam, rot = scenes.CAMERAS[n]
         cfg = RenderConfig(width=gw, height=gh, samples_per_frame=gspp,
@@ -2654,6 +2839,20 @@ def main() -> int:
         emit({"phase": "golden", "config": n, "rmse": err, "budget": 0.05},
              log)
         check(err < 0.05, f"config {n}: golden RMSE {err}")
+
+    # ---- 6. session: the user's surface of the renderer -------------------
+    session_rec = session(torch, np, dev, card, log, zero_counts, scenes,
+                          RenderConfig, Renderer, frame, wavefront,
+                          {"config3": (*scenes.BUILDERS[3]().build(
+                               device="cpu"), scenes.CAMERAS[3], {}),
+                           "obj_grid": (*grid_cpu, grid_cam,
+                                        {"fused": "off", **grid_cfg}),
+                           "terrain_1m": (*big_host, big_cam,
+                                          {"auto_focus": False})},
+                          {"config3": scenes.BUILDERS[3]().build(
+                               device="cuda"),
+                           "obj_grid": (grid, grid_info),
+                           "terrain_1m": (big, big_info)})
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",

@@ -16,12 +16,18 @@ by one of two routes:
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
 
-Not ported yet: checkpoint/resume, `pick`, the debug heatmap, the legacy
-shading modes and `fold_spp`.
+`Renderer` is the session around them: progressive accumulation, camera
+moves, screenshots, checkpoint and resume (the JAX package's `.npz` keys,
+so a checkpoint of either package loads in the other), the mouse
+inspector (`pick`, `display_image_with_pick`) and the `telemetry` text.
+
+Not ported yet: the debug heatmap, the legacy shading modes and
+`fold_spp`.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Optional
 
@@ -200,6 +206,9 @@ class Renderer:
         # queries accumulate on the device: reading them syncs
         self._rays = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._rng = np.random.RandomState(seed)
+        # seeds drawn from self._rng (not _frame_index where callers pass
+        # explicit seeds): a resumed session fast-forwards by this count
+        self._seed_draws = 0
         self._ifd = None  # autofocus distance of the current pose
 
     @property
@@ -222,6 +231,12 @@ class Renderer:
         self._ifd = None
         self.reset_accumulation()
 
+    def _draw(self, k: int):
+        """k frame seeds from the session's stream (u_seed, a fresh random
+        int per frame, dispatch.java:698)."""
+        self._seed_draws += k
+        return [int(self._rng.randint(0, 10000)) for _ in range(k)]
+
     def _accum(self, seeds):
         cfg = self.config
         if self._ifd is None:
@@ -235,21 +250,26 @@ class Renderer:
         self._frame_index += len(seeds)
 
     def step(self, frame_seed: Optional[int] = None) -> torch.Tensor:
-        """Render one frame into the accumulation (u_seed is a fresh random
-        int per frame, dispatch.java:698); returns the display image."""
-        if frame_seed is None:
-            frame_seed = int(self._rng.randint(0, 10000))
-        self._accum([frame_seed])
+        """Render one frame into the accumulation, with `frame_seed` or the
+        next seed of the stream; returns the display image."""
+        self._accum(self._draw(1) if frame_seed is None else [frame_seed])
         return self.display_image()
 
-    def render(self, frames: int = 1) -> torch.Tensor:
-        self._accum([int(self._rng.randint(0, 10000))
-                     for _ in range(frames)])
+    def render(self, frames: int = 1, chunk: int = 8) -> torch.Tensor:
+        """Accumulate `frames` frames, at most `chunk` a
+        `render_frames_accum` call, the seeds drawn chunk by chunk (the
+        same stream for any `chunk`)."""
+        left = frames
+        while left > 0:
+            k = min(chunk, left)
+            self._accum(self._draw(k))
+            left -= k
         return self.display_image()
 
     def display_image(self) -> torch.Tensor:
         return self._sum / float(max(self._count, 1))
 
+    # -- I/O ------------------------------------------------------------------
     def screenshot(self, filename: Optional[str] = None,
                    directory: str = "screenshots") -> str:
         """PNG of the display image, flipped like the reference readback
@@ -260,3 +280,95 @@ class Renderer:
         path = os.path.join(directory, filename or "GLSL_render.png")
         img_util.write_png(path, self.display_image().cpu().numpy())
         return path
+
+    def auto_screenshot(self, directory: str = "screenshots") -> str:
+        """autoScreenshot_<frames>_<timestamp>.png (dispatch.java:595-599)
+        in `directory`."""
+        stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M")
+        return self.screenshot(f"autoScreenshot_{self._count}_{stamp}.png",
+                               directory=directory)
+
+    def pick(self, px: int, py: int) -> dict:
+        """The mouse inspector (frag.glsl:888-893) as a probe record: the
+        scene through pixel (px, py), (0, 0) bottom-left as in GL. Keys:
+        normal (3,) float32, material, distance, obj (the root node of the
+        object hit, its ordinal in a streamed scene; -1 for an analytic
+        primitive or a miss), kind (0 none, 1 triangle, 2 implicit, 3
+        ellipsoid), hit, loc (3,) float32, as the JAX package returns
+        them. The ray is the pixel centre's undeflected primary ray,
+        unnormalized, so `distance` is in units of its length."""
+        cfg = self.config
+        uv = torch.tensor([[(px + 0.5) / float(cfg.width),
+                            (py + 0.5) / float(cfg.height)]],
+                          dtype=torch.float32, device=self.device)
+        d = camera.primary_directions(
+            uv, vm.rotation_matrix(self.cam_rot), cfg.cam_size,
+            cfg.focal_length, cfg.screen_h_ratio).unbind(-1)
+        o = tuple(self.cam_pos[i].reshape(1) for i in range(3))
+        hit, o_n = traverse.ray_scene(o, d, self.scene, self.info,
+                                      pallas=cfg.pallas)
+        surf = traverse.surface_sample(hit, o_n, d, self.scene, self.info)
+
+        def vec(v):
+            return torch.stack(v, -1)[0].cpu().numpy()
+
+        return {"normal": vec(surf.norm), "material": int(surf.mat[0]),
+                "distance": float(hit.t[0]), "obj": int(hit.obj[0]),
+                "kind": int(hit.kind[0]), "hit": bool(hit.is_hit[0]),
+                "loc": vec(surf.loc)}
+
+    def display_image_with_pick(self, px: int, py: int,
+                                radius: float = 0.005) -> np.ndarray:
+        """The display image with the inspector overlay (frag.glsl:888-893):
+        pixels whose texCoord lies within `radius` (texture-coordinate
+        units, the reference's 0.5%) of the cursor show the surface normal
+        under it."""
+        rec = self.pick(px, py)
+        cfg = self.config
+        u = (np.arange(cfg.width, dtype=np.float32) + 0.5) / cfg.width
+        v = (np.arange(cfg.height, dtype=np.float32) + 0.5) / cfg.height
+        du = (u - (px + 0.5) / cfg.width)[None, :]
+        dv = (v - (py + 0.5) / cfg.height)[:, None]
+        out = self.display_image().cpu().numpy().copy()
+        out[du * du + dv * dv < radius * radius] = rec["normal"]
+        return out
+
+    def telemetry(self) -> str:
+        """The stdin `telemetry` command (dispatch.java:785-792), the pose
+        printed as float32 values."""
+        p = self.cam_pos.cpu().numpy()
+        r = self.cam_rot.cpu().numpy()
+        return (f"Camera Position: \n({p[0]},{p[1]},{p[2]})\n"
+                f"Rotation:\n({r[0]},{r[1]},{r[2]})")
+
+    # -- checkpoint and resume ---------------------------------------------
+    def save_checkpoint(self, path: str):
+        """Write the accumulation, the counters and the pose to an `.npz`
+        with the JAX package's keys and dtypes; the seed stream's position
+        is `seed_draws` draws past `seed`."""
+        np.savez(path, sum=self._sum.cpu().numpy(), count=self._count,
+                 frame_index=self._frame_index, seed_draws=self._seed_draws,
+                 cam_pos=self.cam_pos.cpu().numpy(),
+                 cam_rot=self.cam_rot.cpu().numpy())
+
+    def load_checkpoint(self, path: str):
+        """Resume from a checkpoint of either package: the same seed then
+        continues the same stream (files without `seed_draws` fast-forward
+        by `frame_index`)."""
+        data = np.load(path, allow_pickle=False)
+        self._sum = torch.as_tensor(np.asarray(data["sum"], np.float32),
+                                    device=self.device)
+        self._count = int(data["count"])
+        self._frame_index = int(data["frame_index"])
+        self.cam_pos = torch.as_tensor(np.asarray(data["cam_pos"]),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self.cam_rot = torch.as_tensor(np.asarray(data["cam_rot"]),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self._ifd = None
+        self._rng = np.random.RandomState(self.seed)
+        self._seed_draws = (int(data["seed_draws"]) if "seed_draws" in data
+                            else self._frame_index)
+        for _ in range(self._seed_draws):
+            self._rng.randint(0, 10000)

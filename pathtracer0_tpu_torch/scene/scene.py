@@ -8,9 +8,9 @@
     scene.addMaterial(name) / setLastMtl(prop, val) -> add_material /
                                                        set_last_mtl
 plus texture 0 as the sky (set_sky) and bulk meshes (add_mesh,
-add_mesh_indexed). `build(device=...)` builds the SAH forest over the
-triangles, or the two-level LBVH past `config.stream_threshold` of them,
-and packs everything onto one device (scene/packing.py).
+add_mesh_indexed). `build(config, device=...)` builds the SAH forest
+over the triangles, or the two-level LBVH past `config.stream_threshold`
+of them, and packs everything onto one device (scene/packing.py).
 """
 from __future__ import annotations
 
@@ -192,12 +192,15 @@ class Scene:
         self.imp_mat.append(int(m))
 
     # -- packing -------------------------------------------------------------
-    def build(self, device=None, config: Optional[RenderConfig] = None,
-              max_leaf: Optional[int] = None, validate: bool = True):
+    def build(self, config: Optional[RenderConfig] = None,
+              max_leaf: Optional[int] = None, validate: bool = True, *,
+              device=None):
         """Build the forest (`config.sah_planes`, `max_bvh_depth`,
         `max_tris_in_leaf` or `max_leaf`), or the streamed LBVH for more
         than `config.stream_threshold` triangles, and pack onto `device`
-        (default: the card). Returns (PackedScene, SceneInfo).
+        (default: the card). The positional arguments are the JAX
+        package's (`build(config, max_leaf, validate)`); `device` is by
+        keyword only. Returns (PackedScene, SceneInfo).
 
         validate=True (default) first runs scene/validate.py: bad material
         or texture indices, non-finite geometry and degenerate primitives

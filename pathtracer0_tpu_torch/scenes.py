@@ -1,17 +1,24 @@
-"""Built-in benchmark scenes of the port: BASELINE configs 1, 2, 4 and 6
-and the scale benchmark's procedural terrain (`terrain`).
+"""Built-in benchmark scenes of the port: BASELINE configs 1-6 and the
+scale benchmark's procedural terrain (`terrain`).
 
 The same scenes as the JAX package's scenes.py (own copy): Whitted
-analytic (1), path-traced metal and glass (2), the full PBR stack with an
-implicit surface and a rotated ellipsoid (4), and texture-mapped
-materials with a normal map (6). Config 3 and its hero variant 5 load an
-OBJ fixture, which waits for the objparse slice of the port.
+analytic (1), path-traced metal and glass (2), the reference's table OBJ
+with two spheres on a ground sphere (3, and the progressive hero 5, the
+same scene at 1920x1080), the full PBR stack with an implicit surface and
+a rotated ellipsoid (4), and texture-mapped materials with a normal map
+(6). The table is loaded where its file is present (`TABLE_OBJ`), as the
+JAX package does; without it configs 3 and 5 are the three spheres alone.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from .scene.scene import Scene
+
+# the reference's OBJ fixture, as the JAX package's scenes.py names it
+TABLE_OBJ = "/root/reference/src/objs/table - Copy.obj"
 
 
 def _gradient_sky(sc: Scene):
@@ -67,6 +74,36 @@ def metal_glass() -> Scene:
     sc.add_sphere((0.0, -100.5, 5.0), 100.0, m=0)
     sc.add_sphere((-1.1, 0.35, 4.6), 0.85, m=1)
     sc.add_sphere((1.1, 0.3, 4.2), 0.8, m=2)
+    return sc
+
+
+def obj_bvh() -> Scene:
+    """Config #3: OBJ mesh (the reference's table fixture) + BVH traversal,
+    diffuse + roughness, plus analytic spheres."""
+    sc = Scene()
+    _gradient_sky(sc)
+    sc.add_material("gray")
+    sc.set_last_mtl("Kd", (0.7, 0.68, 0.62))
+    sc.set_last_mtl("Pr", 1.0)
+    sc.add_material("metal")
+    sc.set_last_mtl("Pr", 0.05)
+    sc.set_last_mtl("Pm", 1.0)
+    sc.set_last_mtl("Ks", (0.9, 0.85, 0.7))
+    sc.add_material("glass")
+    sc.set_last_mtl("Tr", 0.9)
+    sc.set_last_mtl("Ni", 1.5)
+    sc.set_last_mtl("illum", 7)
+    sc.set_last_mtl("Tf", (0.12, 0.02, 0.1))
+    sc.set_last_mtl("Density", 0.6)
+    sc.add_material("ground")
+    sc.set_last_mtl("Kd", (0.55, 0.55, 0.55))
+    sc.set_last_mtl("Pr", 1.0)
+    if os.path.exists(TABLE_OBJ):
+        sc.add_object(TABLE_OBJ, material=0, scale=(0.03, 0.03, 0.03),
+                      shift=(0.0, 0.2, 4.0), rot=(0.0, 0.5, 0.0))
+    sc.add_sphere((-1.2, 0.4, 3.2), 0.55, m=1)
+    sc.add_sphere((1.2, 0.4, 3.2), 0.55, m=2)
+    sc.add_sphere((0.0, -100.0, 4.0), 100.0, m=3)
     return sc
 
 
@@ -198,7 +235,8 @@ CAMERAS = {
     6: ((0.0, 1.1, 0.0), (0.12, 0.0, 0.0)),
 }
 
-BUILDERS = {1: whitted_analytic, 2: metal_glass, 4: full_pbr, 6: textured}
+BUILDERS = {1: whitted_analytic, 2: metal_glass, 3: obj_bvh, 4: full_pbr,
+            5: obj_bvh, 6: textured}
 
 
 def terrain(n: int = 708) -> Scene:

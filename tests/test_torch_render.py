@@ -26,7 +26,7 @@ def _scene(n):
     return scenes.BUILDERS[n]().build(device="cpu")
 
 
-@pytest.mark.parametrize("n", [1, 2, 4, 6])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6])
 def test_golden(n):
     """160x120x4 at seed 1234, blur 0, no autofocus (bench.py GOLDEN_*)."""
     sc, info = _scene(n)
@@ -137,11 +137,18 @@ def test_import_boundary():
         "from pathtracer0_tpu_torch.accel import bvh, lbvh, native_lbvh\n"
         "from pathtracer0_tpu_torch.scene import packing, objparse\n"
         "from pathtracer0_tpu_torch.render import integrator, renderer\n"
+        "from pathtracer0_tpu_torch.render import driver\n"
+        "import pathtracer0_tpu_torch.__main__\n"
         "from pathtracer0_tpu_torch.kernels import mxu_group, mxu_tri\n"
         "from pathtracer0_tpu_torch.kernels import mm_probe\n"
         "from pathtracer0_tpu_torch.tools import diag_mxu, diag_mxu_mm\n"
         "diag_mxu.main(1, 1, n_blocks=1, device='cpu', out=lambda s: None)\n"
         "diag_mxu_mm.main(8, 1, device='cpu', out=lambda s: None)\n"
+        "from pathtracer0_tpu_torch import RenderConfig\n"
+        "cfg = RenderConfig(16, 12, samples_per_frame=1)\n"
+        "s, i = scenes.BUILDERS[3]().build(cfg, device='cpu')\n"
+        "driver.FrameLoopDriver(s, i, cfg, device='cpu').run_script(\n"
+        "    [None, 'telemetry'])\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')]\n"

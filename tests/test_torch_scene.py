@@ -1,7 +1,8 @@
 """Port scene building (pathtracer0_tpu_torch.scene) against the JAX
-package's Scene.build for BASELINE configs 1, 2, 4 and 6: the material,
-ellipsoid and implicit tables equal, the triangle set equal as a set, the
-gates equal, and scene_from_numpy carrying the JAX scene across intact.
+package's Scene.build for BASELINE configs 1-6: the material, ellipsoid and
+implicit tables equal, the triangle set equal as a set, the gates equal,
+and scene_from_numpy carrying the JAX scene across intact; and
+`Scene.build` taking its config positionally, as the JAX package's does.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ from pathtracer0_tpu_torch.scene.validate import SceneValidationError
 
 torch.set_num_threads(1)
 
-CONFIGS = (1, 2, 4, 6)
+CONFIGS = (1, 2, 3, 4, 5, 6)
 FS_FIELDS = ("fs_tris", "fs_attr", "fs_uvt", "fs_maps", "fs_sky",
              "materials", "ell_tab", "imp_tab", "tex_data", "tex_sizes")
 
@@ -227,3 +228,63 @@ def test_add_object_directory_matches_jax(tmp_path):
     assert pinfo.any_uv == info.any_uv and pinfo.any_smooth == info.any_smooth
     with pytest.raises(FileNotFoundError):
         ts.add_object(str(tmp_path / "m.mtl"))
+
+
+def _wavy_grid(sc):
+    """A 12 x 12 height field of 242 triangles in one mesh, over a
+    ground sphere."""
+    xs = np.linspace(-3.0, 3.0, 12)
+    X, Z = np.meshgrid(xs, xs)
+    P = np.stack([X, np.sin(X) * np.cos(Z) * 0.4, Z + 6.0], -1)
+    a, b, c, d = P[:-1, :-1], P[1:, :-1], P[:-1, 1:], P[1:, 1:]
+    sc.set_constant_sky((0.5, 0.6, 0.9))
+    sc.add_material("m")
+    sc.add_mesh(np.concatenate([a.reshape(-1, 3), d.reshape(-1, 3)]),
+                np.concatenate([b.reshape(-1, 3)] * 2),
+                np.concatenate([c.reshape(-1, 3)] * 2), 0)
+    sc.add_sphere((0.0, -101.0, 6.0), 100.0, m=0)
+    return sc
+
+
+@pytest.mark.parametrize("case", ["mesh", "config1"])
+def test_build_takes_the_config_positionally(case):
+    """`build(config, max_leaf, validate, *, device)`: the JAX package's
+    call form `build(RenderConfig(...))` with the device by keyword builds
+    the same forest, bit for bit, as the JAX `build(JConfig(...))`."""
+    from pathtracer0_tpu import RenderConfig as JConfig
+    from pathtracer0_tpu import Scene as JScene
+
+    if case == "mesh":
+        kw = dict(sah_planes=1, max_tris_in_leaf=4)
+        dev, info = _wavy_grid(JScene()).build(JConfig(**kw))
+        sc, pinfo = _wavy_grid(Scene()).build(RenderConfig(**kw),
+                                              device="cpu")
+        assert pinfo.num_tris == dev.num_tris == 242
+    else:
+        dev, info = jscenes.BUILDERS[1]().build(JConfig())
+        sc, pinfo = tscenes.BUILDERS[1]().build(RenderConfig(), device="cpu")
+        assert pinfo.num_tris == 0 and pinfo.num_ellipsoids == 4
+    assert sc.device == torch.device("cpu")
+    assert pinfo.num_objects == info.num_objects
+    np.testing.assert_array_equal(sc.materials.numpy(),
+                                  np.asarray(dev.materials))
+    np.testing.assert_array_equal(sc.ell_tab.numpy(),
+                                  np.asarray(dev.ell_tab))
+    if pinfo.num_tris:
+        assert pinfo.max_leaf_size == info.max_leaf_size
+        np.testing.assert_array_equal(sc.nodes_f[:, 0:3].numpy(),
+                                      np.asarray(dev.node_min))
+        np.testing.assert_array_equal(sc.nodes_f[:, 3:6].numpy(),
+                                      np.asarray(dev.node_max))
+        np.testing.assert_array_equal(sc.nodes_i[:, 0].numpy(),
+                                      np.asarray(dev.node_left))
+        np.testing.assert_array_equal(sc.wf_perm.numpy(),
+                                      np.asarray(dev.leaf_tri))
+        np.testing.assert_array_equal(sc.tri_obj.numpy(),
+                                      np.asarray(dev.tri_obj))
+        np.testing.assert_array_equal(sc.roots.numpy(),
+                                      np.asarray(dev.roots))
+    # the positional max_leaf and validate are the JAX package's too
+    _, leaf2 = _wavy_grid(Scene()).build(RenderConfig(sah_planes=1), 2,
+                                         False, device="cpu")
+    assert leaf2.max_leaf_size <= 2

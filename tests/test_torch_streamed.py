@@ -18,6 +18,7 @@ against a dividing triangle test): triangle id equal on >= 99.9%, t within
 ellipsoid's root differs by a few ulps of t between the two packages.
 """
 import dataclasses
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,11 +27,14 @@ import torch
 
 from pathtracer0_tpu import RenderConfig as JConfig
 from pathtracer0_tpu import Scene as JScene
+from pathtracer0_tpu.accel import native_lbvh as jnative_lbvh
 from pathtracer0_tpu.kernels import traverse as jtraverse
 from pathtracer0_tpu.kernels import wavefront as jwavefront
 from pathtracer0_tpu.render import renderer as jrenderer
 from pathtracer0_tpu_torch import (RenderConfig, Renderer, Scene, render_frame,
                                    scenes)
+from pathtracer0_tpu_torch.accel import lbvh as tlbvh
+from pathtracer0_tpu_torch.accel import native_lbvh as tnative_lbvh
 from pathtracer0_tpu_torch.core import camera as tcamera
 from pathtracer0_tpu_torch.kernels import traverse as ttraverse
 from pathtracer0_tpu_torch.kernels import wavefront as twavefront
@@ -129,13 +133,34 @@ def test_scene_from_numpy_carries_the_lbvh(pair):
                                   np.asarray(dev.st_sub)[:, :6])
     np.testing.assert_array_equal(sc.st_perm.numpy(), np.asarray(dev.st_perm))
     np.testing.assert_array_equal(sc.tri_obj.numpy(), 0)
-    # the port's own build of the same mesh is the same tree (both default
-    # to the native builder's median-split order)
+    # The port's own build of the same mesh is the median-split order of
+    # its native builder. The JAX package builds that order where its
+    # native builder loads, and NumPy's Morton order where it does not
+    # (PT0_NATIVE_LBVH=0, or a worker that lost the race to compile it):
+    # the port is held against whichever tree the JAX package built.
     own, oinfo = _fill(Scene(), 12, False).build(
-        device="cpu", config=RenderConfig(stream_threshold=0))
+        RenderConfig(stream_threshold=0), device="cpu")
     assert oinfo == pinfo
-    for name in ("st_top", "st_sub", "st_tris", "st_perm", "attr"):
-        assert torch.equal(getattr(own, name), getattr(sc, name)), name
+    assert torch.equal(own.attr, sc.attr)
+    tables = ("st_top", "st_sub", "st_tris", "st_perm")
+    if (jnative_lbvh.available()
+            and os.environ.get("PT0_STREAM_ORDER") != "morton"):
+        for name in tables:
+            assert torch.equal(getattr(own, name), getattr(sc, name)), name
+    else:
+        mesh = _fill(Scene(), 12, False).bulk_meshes[0]
+        v = [mesh[k] for k in ("v1", "v2", "v3")]
+        morton = tlbvh.build_streamed(*v, order="morton")
+        for name, field in zip(tables, ("ctree_f", "sub_f", "tris",
+                                        "row_perm")):
+            assert torch.equal(torch.from_numpy(getattr(morton, field)),
+                               getattr(sc, name)), name
+        # the port's median build is its native builder's median order
+        median = tnative_lbvh.build_streamed(*v, mode=1)
+        for name, field in zip(tables, ("ctree_f", "sub_f", "tris",
+                                        "row_perm")):
+            assert torch.equal(torch.from_numpy(getattr(median, field)),
+                               getattr(own, name)), name
 
 
 # 12 x 12 = 144 triangles: one treelet; 45 x 45 = 2,025: two (a treelet
@@ -510,3 +535,47 @@ def test_terrain_scene_streams_past_the_threshold():
     assert 0.05 < covered < 0.98
     _, small = sc.build(device="cpu", config=RenderConfig())
     assert not small.streamed and small.num_objects == 1
+
+
+def _watertight(sc):
+    """The 12 x 12 watertight height field of the JAX package's
+    test_pick_streamed_scene (tests/test_debug_tools.py), one mesh."""
+    n = 12
+    xs = np.linspace(0.0, 6.0, n)
+    X, Z = np.meshgrid(xs, xs)
+    P = np.stack([X, np.sin(X) * np.cos(Z) * 0.4, Z], axis=-1)
+    a, b = P[:-1, :-1].reshape(-1, 3), P[1:, :-1].reshape(-1, 3)
+    c, d4 = P[:-1, 1:].reshape(-1, 3), P[1:, 1:].reshape(-1, 3)
+    sc.set_constant_sky((0.2, 0.3, 0.8))
+    sc.add_material("m")
+    sc.add_mesh(np.concatenate([a, d4]), np.concatenate([b, b]),
+                np.concatenate([c, c]), 0)
+    return sc
+
+
+def test_pick_streamed_scene():
+    """Renderer.pick through the streamed route, straight down over the
+    grid's centre on a 3 x 3 block of pixels: every pick a triangle hit
+    at a distance in (4, 12), record by record the JAX package's (hit,
+    kind, obj, material equal; distance within 1e-5 x (1 + t); normal and
+    loc within 1e-5 x (1 + |loc|), the limits of `ray_scene` above)."""
+    pose = dict(cam_pos=(3.0, 8.0, 3.0), cam_rot=(np.pi / 2, 0.0, 0.0))
+    kw = dict(width=32, height=32, auto_focus=False, stream_threshold=10)
+    dev, info = _watertight(JScene()).build(JConfig(**kw))
+    sc, pinfo = _watertight(Scene()).build(RenderConfig(**kw), device="cpu")
+    assert info.streamed and pinfo.streamed
+    jr = jrenderer.Renderer(dev, info, JConfig(**kw), **pose)
+    r = Renderer(sc, pinfo, RenderConfig(**kw), device="cpu", **pose)
+    for x in (14, 16, 18):
+        for y in (14, 16, 18):
+            rj, rt = jr.pick(x, y), r.pick(x, y)
+            assert rt["hit"] and rt["kind"] == 1 and rt["obj"] == 0
+            assert np.isfinite(rt["normal"]).all()
+            assert 4.0 < rt["distance"] < 12.0
+            for key in ("hit", "kind", "obj", "material"):
+                assert rj[key] == rt[key], key
+            t = rj["distance"]
+            assert abs(t - rt["distance"]) <= 1e-5 * (1.0 + t)
+            limit = 1e-5 * (1.0 + np.abs(rj["loc"]).max())
+            for key in ("normal", "loc"):
+                assert np.abs(rj[key] - rt[key]).max() <= limit, key

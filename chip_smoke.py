@@ -127,6 +127,18 @@ non-zero:
                    3, the OBJ grid and the 1M terrain; the scripted driver
                    session on config 3 at 800x600x8 (ms of a preview and a
                    full tick); the CLI as a subprocess
+  7. modes         the render modes off the frame path at 800x600
+                   (`modes`): legacy shading (S = 4) and the legacy
+                   pathTrace (S = 2) on the terrain and the OBJ grid with
+                   an emissive sphere as their light, fold_spp on the
+                   terrain at 8 spp, the debug heatmap on a two-object
+                   forest (the terrain and the OBJ grid) and on the 1M
+                   terrain: frame ms, launches per frame by kernel (of the
+                   legacy modes also what one query per grid point would
+                   launch), the card's busy share under torch.profiler;
+                   each against the CPU route at 160x120 (and the legacy
+                   modes at S = 0), the heatmap's counters against the
+                   plain walks
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -136,7 +148,8 @@ busy time, its kernel count and the kernels that took most of it (phase
 With `--parent LABEL=DIR` (repeatable) it also loads the package of another
 checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
 archive`, say), builds those of its frame, block, forest, streamed and
-group-test kernels whose sources differ from this one's, and holds each
+group-test kernels whose sources differ from this one's (the forest and
+streamed kernels also where kernels/wavefront.py differs), and holds each
 against this checkout's (phase `parent_vs_change`), whatever the others
 do: frame_kernel in configs 1, 2, 3, 4, 6 at 800x600 and the main path's spp
 in both schedules, traverse_kernel on the terrain's 960,000 rays,
@@ -242,6 +255,15 @@ OPS_E_PRODUCTS, OPS_MARGIN_TEST = 2 * (2 * 10 * 4 * 8), 12
 # limit holds a few reps, not the tool's 512.
 PROBE_N, PROBE_REPS, PROBE_WIDE_N, PROBE_WIDE_REPS = 1024, 512, 480000, 16
 PROBE_CHECK_REPS = 8
+# Phase `modes`: the legacy modes' light (an emissive sphere with its disk
+# light), the soft-shadow resolution S of legacy shading (21 grid points)
+# and of the legacy pathTrace (9), fold_spp's samples, and the share of
+# pixels a legacy pathTrace frame may leave NaN: the reference's own (and
+# the JAX package's) where a path leaves glass with its refraction stack
+# drained, 0 / 0 in eta and Fresnel
+LIGHT_KE = (6.0, 5.5, 5.0)
+MODES_SHADING_S, MODES_PATH_S, MODES_FOLD_SPP = 4, 2, 8
+MODES_NAN_SHARE = 0.05
 # Timed-spp parity (16 spp in cells 2, 4 and 6): bit equality decays with
 # spp, one diverged pixel's later samples all differ, so the limits bound
 # the share of diverged pixels and the per-sample mean's error.
@@ -459,25 +481,24 @@ def sass_counts(build, lib):
     return counts
 
 
-def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
-    """One 800x600 frame of the per-bounce route under torch.profiler:
-    how busy the card is (its device time over an untraced frame's wall
-    time) and which kernels take its time (`ours`: the share of the
-    package's own kernels in the device time)."""
+def trace_busy(torch, step):
+    """One call of `step` (a frame) under torch.profiler, after a warm-up
+    call and an untraced one: how busy the card is (its device time over
+    the untraced call's wall time) and which kernels take its time
+    (`ours`: the share of the package's own kernels in the device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    r = Renderer(scene, info, cfg, cam_pos=cam[0], cam_rot=cam[1], seed=2,
-                 device="cuda")
-    r.step()
+    step()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    r.step()
+    step()
     torch.cuda.synchronize()
     untraced_ms = 1e3 * (time.perf_counter() - t)
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        r.step()
+        step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t)
     kernels = [e for e in prof.key_averages()
@@ -487,18 +508,25 @@ def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     # csrc/*.cu: every kernel of the package takes one `...Args` struct
     ours = [e for e in kernels if e.key.endswith("Args)")]
+    return {"wall_ms_untraced": untraced_ms, "wall_ms_traced": wall_ms,
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / untraced_ms,
+            "ours": [{"name": e.key[:80], "count": int(e.count),
+                      "ms": e.device_time_total / 1e3,
+                      "share_of_busy": e.device_time_total / 1e3 / busy_ms}
+                     for e in ours],
+            "device_kernels": int(sum(e.count for e in kernels)),
+            "top": [{"name": e.key[:80], "count": int(e.count),
+                     "ms": e.device_time_total / 1e3} for e in top]}
+
+
+def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
+    """One 800x600 frame of the per-bounce route under torch.profiler
+    (trace_busy)."""
+    r = Renderer(scene, info, cfg, cam_pos=cam[0], cam_rot=cam[1], seed=2,
+                 device="cuda")
     emit({"phase": "profile", "scene": label,
           "spp": cfg.samples_per_frame, "bounces": cfg.max_bounces,
-          "wall_ms_untraced": untraced_ms, "wall_ms_traced": wall_ms,
-          "device_busy_ms": busy_ms, "busy_share": busy_ms / untraced_ms,
-          "ours": [{"name": e.key[:80], "count": int(e.count),
-                    "ms": e.device_time_total / 1e3,
-                    "share_of_busy": e.device_time_total / 1e3 / busy_ms}
-                   for e in ours],
-          "device_kernels": int(sum(e.count for e in kernels)),
-          "top": [{"name": e.key[:80], "count": int(e.count),
-                   "ms": e.device_time_total / 1e3} for e in top],
-          "card": card}, log)
+          **trace_busy(torch, r.step), "card": card}, log)
 
 
 def session(torch, np, dev, card, log, zero_counts, scenes, RenderConfig,
@@ -672,6 +700,319 @@ def session(torch, np, dev, card, log, zero_counts, scenes, RenderConfig,
     rec["seconds"] = time.perf_counter() - t_start
     emit(rec, log)
     return rec
+
+
+def modes(c):
+    """Phase 7, `modes`: the render modes that never take the frame path,
+    each through the entry point a user calls, at 800x600 on the card:
+    legacy shading (Whitted, S = 4) and the legacy pathTrace (S = 2, 6
+    bounces) on the terrain (traverse_kernel) and on the OBJ grid
+    (brute_kernel), each with an emissive sphere as its light; fold_spp
+    through render_rays on the terrain at 8 spp (one query of 3.84 M
+    rays a bounce); the debug heatmap on a two-object forest (the terrain
+    and the OBJ grid: traverse_kernel once per object) and on the 1M
+    terrain (streamed_kernel).
+
+    Each run: a warm-up frame, the launch counts set to 0, 2 timed frames
+    (wall and CUDA-event ms), the counts read (launches per frame by
+    kernel; of the legacy modes also what one query per grid point would
+    launch), then one frame under torch.profiler (the card's busy share,
+    as --profile reports it). Then the same render at 160x120 and the
+    same seed on the card against the CPU route (the plain versions):
+    as the goldens are made (no blur, no autofocus): at S = 0 (legacy
+    modes only) pixels within 1e-4 on >= 99.9%, at the run's S or spp the
+    golden RMSE < 0.05, the heatmap within 1e-6 on >= 99.9%; NaN pixels
+    (the reference's drained refraction stack) count as agreeing where
+    both have them; the pathTrace's pixels that followed a glossy
+    refraction (whose location hash turns a libm ulp into another path)
+    stand under the RMSE alone, their share recorded. The heatmap's
+    counters on the 800x600 rays against the plain walks
+    (traverse_reference per object, streamed_reference): equal on
+    >= 99.9% of rays."""
+    torch, np = c.torch, c.np
+    from pathtracer0_tpu_torch.core import rng as vrng
+    from pathtracer0_tpu_torch.kernels import fused, traverse
+    from pathtracer0_tpu_torch.kernels.intersect import MISS
+    from pathtracer0_tpu_torch.render.renderer import render_debug_frame
+    from pathtracer0_tpu_torch.shade import arealights
+
+    t_start = time.perf_counter()
+    dev = c.dev
+    (w, h), (w_s, h_s) = c.size, c.small
+    tmp = tempfile.mkdtemp()
+
+    def on_card(host):
+        sc, info = host[:2]
+        return dataclasses.replace(sc, **{
+            f.name: getattr(sc, f.name).to(dev)
+            for f in dataclasses.fields(sc)}), info
+
+    built = {}
+    t0 = time.perf_counter()
+    host = c.terrain_scene(light=True, device="cpu")[:2]
+    built["terrain"] = (*on_card(host), *host, c.terrain_cam)
+    host = c.grid_scene(tmp, device="cpu", light=True)
+    built["obj_grid"] = (*on_card(host), *host, c.grid_cam)
+    host = c.terrain_scene(obj=c.grid_obj(tmp), device="cpu")[:2]
+    built["forest2"] = (*on_card(host), *host, c.terrain_cam)
+    built["terrain_1m"] = (c.big, c.big_info, *c.big_host, c.big_cam)
+    build_s = time.perf_counter() - t0
+    check(built["forest2"][1].num_objects == 2
+          and not c.wavefront.use_brute(built["forest2"][1])
+          and built["terrain"][1].lights and built["obj_grid"][1].lights,
+          "modes: the scenes are not the ones described")
+
+    def counts():
+        return {"frame_kernel": c.frame.trace_frame.launches,
+                "block_kernel": fused.trace_block.launches,
+                **c.wavefront.launches}
+
+    class Folded:
+        """render_rays(fold_spp=True) over a whole frame behind
+        Renderer's step(), rays_traced and display_image()."""
+
+        def __init__(self, sc, info, cfg, cam, device):
+            self.sc, self.info, self.cfg = sc, info, cfg
+            self.device, self.seed, self.queries = device, 1, 0
+            self.pose = [torch.tensor(v, dtype=torch.float32, device=device)
+                         for v in cam]
+            self.uv, self.index = c.camera.pixel_centers(cfg.width,
+                                                         cfg.height, device)
+            self.ifd = c.autofocus_distance(sc, info, *self.pose,
+                                            cfg.focal_distance, True)
+
+        def step(self, frame_seed=None):
+            self.seed += 1
+            self.image, q = c.render_rays(
+                self.sc, self.info, self.uv, self.index, *self.pose,
+                self.seed if frame_seed is None else frame_seed, self.ifd,
+                config=self.cfg, fold_spp=True)
+            self.queries = self.queries + q
+
+        @property
+        def rays_traced(self):
+            return int(self.queries)
+
+        def display_image(self):
+            return self.image.reshape(self.cfg.height, self.cfg.width, 3)
+
+    def small_render(mode, sc, info, cfg, cam, device):
+        """One 160x120 frame (seed GOLDEN's) as a numpy image, and of the
+        legacy pathTrace the pixels that followed a glossy refraction (its
+        rays made as render_rays makes them, the frame checked equal to
+        render_frame's on the card)."""
+        seed = GOLDEN[3]
+        if mode == "legacy_pathtrace":
+            uv, index = c.camera.pixel_centers(cfg.width, cfg.height, device)
+            pose = [torch.tensor(v, dtype=torch.float32, device=device)
+                    for v in cam]
+            rotmat = c.vm.rotation_matrix(pose[1])
+            state = vrng.seed(index, seed)
+            o, d, state = c.camera.dof_ray(
+                pose[0], c.camera.primary_directions(
+                    uv, rotmat, cfg.cam_size, cfg.focal_length,
+                    cfg.screen_h_ratio), rotmat, cfg.blur,
+                torch.tensor(cfg.focal_distance, device=device), state)
+            glossy = torch.zeros(index.shape, dtype=torch.bool,
+                                 device=device)
+            col = arealights.path_trace(
+                o.unbind(-1), d.unbind(-1), state, sc, info,
+                cfg.samples_per_frame, cfg.max_bounces,
+                stack_size=cfg.refraction_stack_depth, glossy=glossy)[0]
+            img = torch.stack(col, -1).reshape(cfg.height, cfg.width, 3)
+            if torch.device(device).type == "cuda":
+                ref = c.render_frame(sc, info, cfg, *cam, seed,
+                                     device=device)[0]
+                check(bool(((img == ref) | (torch.isnan(img)
+                                            & torch.isnan(ref))).all()),
+                      "modes: the pathTrace's rays are not render_frame's")
+            return img.cpu().numpy(), glossy.reshape(
+                cfg.height, cfg.width).cpu().numpy()
+        if mode == "fold_spp":
+            r = Folded(sc, info, cfg, cam, device)
+            r.step(seed)
+            img = r.display_image()
+        elif mode == "debug":
+            img = render_debug_frame(sc, info, cfg, *cam, device=device)
+        else:
+            img = c.render_frame(sc, info, cfg, *cam, seed,
+                                 device=device)[0]
+        return img.cpu().numpy(), None
+
+    def agreement(a, b, tol, glossy):
+        """Pixels within `tol` (or NaN in both) and NaN in both or
+        neither, as shares of the pixels no glossy refraction reached
+        (the location hash turns a libm ulp between the devices into
+        another path: those pixels stand under the image budget, the
+        RMSE over every pixel finite in both)."""
+        nan_a, nan_b = np.isnan(a).any(-1), np.isnan(b).any(-1)
+        both = ~nan_a & ~nan_b
+        steady = ~glossy
+        diff = np.where(both, np.abs(np.where(both[..., None], a - b, 0.0))
+                        .max(-1), np.inf)
+        return {"within": float(((diff < tol) | (nan_a & nan_b))[steady]
+                                .mean()),
+                "rmse": c.img_util.rmse(np.clip(a[both], 0.0, 1.0),
+                                        np.clip(b[both], 0.0, 1.0)),
+                "nan_agree": float((nan_a == nan_b)[steady].mean()),
+                "nan_pixels": [int(nan_a.sum()), int(nan_b.sum())],
+                "glossy_share": float(glossy.mean()),
+                "within_glossy": float(((diff < tol) | (nan_a & nan_b))
+                                       [glossy].mean()) if glossy.any()
+                else None,
+                "max_abs_err": float(diff[both & steady].max())
+                if (both & steady).any() else 0.0}
+
+    base = dict(width=w, height=h, max_bounces=BOUNCES)
+    terrain_kw = dict(auto_focus=True)
+    grid_kw = dict(auto_focus=False, focal_distance=5.0)
+    runs = (
+        ("legacy_shading", "terrain", "traverse_kernel",
+         dict(raytracing=False, legacy_shading=True,
+              samples_per_frame=MODES_SHADING_S, **terrain_kw)),
+        ("legacy_shading", "obj_grid", "brute_kernel",
+         dict(raytracing=False, legacy_shading=True,
+              samples_per_frame=MODES_SHADING_S, **grid_kw)),
+        ("legacy_pathtrace", "terrain", "traverse_kernel",
+         dict(legacy_pathtrace=True, samples_per_frame=MODES_PATH_S,
+              **terrain_kw)),
+        ("legacy_pathtrace", "obj_grid", "brute_kernel",
+         dict(legacy_pathtrace=True, samples_per_frame=MODES_PATH_S,
+              **grid_kw)),
+        ("fold_spp", "terrain", "traverse_kernel",
+         dict(samples_per_frame=MODES_FOLD_SPP, **terrain_kw)),
+        ("debug", "forest2", "traverse_kernel",
+         dict(debug=True, auto_focus=False)),
+        ("debug", "terrain_1m", "streamed_kernel",
+         dict(debug=True, auto_focus=False)))
+    recs = {}
+    for mode, label, kernel, kw in runs:
+        sc, info, host_sc, host_info, cam = built[label]
+        cfg = c.RenderConfig(**{**base, **kw})
+        if mode == "fold_spp":
+            r = Folded(sc, info, cfg, cam, dev)
+        else:
+            r = c.Renderer(sc, info, cfg, cam_pos=cam[0], cam_rot=cam[1],
+                           seed=7, device=dev)
+        r.step()
+        torch.cuda.synchronize()
+        c.zero_counts()
+        q0, walls, events = r.rays_traced, [], []
+        for _ in range(2):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            a.record()
+            r.step()
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+            events.append(a.elapsed_time(b))
+        per_frame = {k: v / 2 for k, v in counts().items() if v}
+        img = r.display_image()
+        nan_share = float(torch.isnan(img).any(-1).float().mean())
+        rec = {"phase": "modes", "mode": mode, "scene": label,
+               "tris": info.num_tris, "objects": info.num_objects,
+               "width": w, "height": h,
+               "spp": cfg.samples_per_frame, "bounces": cfg.max_bounces,
+               "wall_ms": walls, "cuda_ms": events,
+               "queries_per_frame": (r.rays_traced - q0) / 2,
+               "launches_per_frame": per_frame, "kernel": kernel,
+               "nan_share": nan_share,
+               "finite_share": float(torch.isfinite(img).all(-1).float()
+                                     .mean()),
+               "card": c.card}
+        if mode.startswith("legacy"):
+            # what the JAX package's one query per grid point would launch
+            grid = len(arealights.grid_points(cfg.samples_per_frame))
+            shades = (1 if mode == "legacy_shading"
+                      else (per_frame.get(kernel, 0) - 1) // 2)
+            rec["grid_points"] = grid
+            rec["launches_per_frame_one_per_point"] = (
+                per_frame.get(kernel, 0)
+                + shades * len(info.lights) * (grid - 1))
+        rec["profile"] = trace_busy(torch, r.step)
+        rec["busy_share"] = rec["profile"]["busy_share"]
+        # the same render at 160x120 on the card and on the CPU, as the
+        # goldens are made: no blur, no autofocus (libm ulps in the lens
+        # draws or the probe would move every ray)
+        small = c.RenderConfig(**{**base, **kw, "width": w_s,
+                                  "height": h_s, "blur": 0.0,
+                                  "auto_focus": False})
+        variants = [("run", small)]
+        if mode.startswith("legacy"):
+            variants.append(("s0", dataclasses.replace(small,
+                                                       samples_per_frame=0)))
+        rec["vs_cpu"] = {}
+        for name, cfg_s in variants:
+            got, glossy_k = small_render(mode, sc, info, cfg_s, cam, dev)
+            want, glossy_p = small_render(mode, host_sc, host_info, cfg_s,
+                                          cam, "cpu")
+            glossy = (np.zeros(got.shape[:2], bool) if glossy_k is None
+                      else glossy_k | glossy_p)
+            tol = 1e-6 if mode == "debug" else 1e-4
+            rec["vs_cpu"][name] = {"spp": cfg_s.samples_per_frame,
+                                   **agreement(got, want, tol, glossy)}
+        recs[f"{mode} {label}"] = rec
+        # checks: only the run's kernel, as often as the mode needs it
+        others = {k: v for k, v in per_frame.items() if k != kernel}
+        n_kernel = per_frame.get(kernel, 0)
+        want_n = {"legacy_shading": 1 + len(info.lights),
+                  "debug": max(info.num_objects, 1)}.get(mode)
+        check(not others and n_kernel > 0
+              and (want_n is None or n_kernel == want_n)
+              and n_kernel <= 1 + 4 * BOUNCES,
+              f"modes {mode} {label}: launches {per_frame}")
+        check(nan_share <= (MODES_NAN_SHARE if mode == "legacy_pathtrace"
+                            else 0.0),
+              f"modes {mode} {label}: NaN pixels {nan_share}")
+        run = rec["vs_cpu"]["run"]
+        if mode == "debug":
+            check(run["within"] >= 0.999,
+                  f"modes {mode} {label}: against the CPU {run}")
+        else:
+            check(run["rmse"] < 0.05 and run["nan_agree"] >= 0.999,
+                  f"modes {mode} {label}: against the CPU {run}")
+        if "s0" in rec["vs_cpu"]:
+            s0 = rec["vs_cpu"]["s0"]
+            check(s0["within"] >= 0.999,
+                  f"modes {mode} {label}: S = 0 against the CPU {s0}")
+
+        # the heatmap's counters against the plain walks, on the card
+        if mode == "debug":
+            uv, _ = c.camera.pixel_centers(w, h, dev)
+            pose = [torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in cam]
+            d = c.camera.primary_directions(
+                uv, c.vm.rotation_matrix(pose[1]), cfg.cam_size,
+                cfg.focal_length, cfg.screen_h_ratio).unbind(-1)
+            o = tuple(pose[0][i].expand(w * h) for i in range(3))
+            on = traverse.nudged(o, d)
+            miss = torch.full((w * h,), MISS, device=dev)
+            rec["counters_equal"] = {}
+            if info.streamed:
+                box, rows = traverse.heat_counts(o, d, sc, info)
+                out = c.wavefront.streamed_reference(on, d, miss, sc, info)
+                rec["counters_equal"]["lbvh"] = {
+                    "box": float((box == out[4]).float().mean()),
+                    "rows": float((rows == out[5]).float().mean()),
+                    "rows_per_ray": float(rows.float().mean())}
+            for k in range(info.num_objects):
+                box, leaf = traverse.object_heat_counts(o, d, sc, info, k)
+                out = c.wavefront.traverse_reference(on, d, miss, sc, info,
+                                                     objects=(k,))
+                rec["counters_equal"][f"object {k}"] = {
+                    "box": float((box == out[4]).float().mean()),
+                    "leaf": float((leaf == out[5]).float().mean()),
+                    "leaves_per_ray": float(leaf.float().mean())}
+            check(rec["counters_equal"] and all(
+                v >= 0.999 for cell in rec["counters_equal"].values()
+                for key, v in cell.items() if key in ("box", "leaf", "rows")),
+                f"modes {mode} {label}: counters {rec['counters_equal']}")
+        emit(rec, c.log)
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "modes", "summary": True, "build_s": build_s,
+          "seconds": time.perf_counter() - t_start, "card": c.card}, c.log)
+    return recs
 
 
 def main() -> int:
@@ -970,10 +1311,13 @@ def main() -> int:
                    in MAIN.items() if raytracing}
 
     # the slice's scenes: the terrain and the OBJ grid
-    def terrain_scene(stream_threshold=1 << 16):
+    def terrain_scene(stream_threshold=1 << 16, light=False, obj=None,
+                      device="cuda"):
         """bench.py's height function at n = TERRAIN_N as one mesh, a metal
         and a glass sphere on it; `stream_threshold=0` builds the streamed
-        LBVH over it instead of the SAH forest."""
+        LBVH over it instead of the SAH forest. `light` adds an emissive
+        sphere above it with its disk light (the legacy modes' light),
+        `obj` an OBJ file as another object, built on `device`."""
         n = TERRAIN_N
         ext = 50.0 * (n / 708.0)
         xs = np.linspace(-ext, ext, n)
@@ -1004,18 +1348,25 @@ def main() -> int:
                     np.concatenate([c, c]), 0)
         sc.add_sphere((-2.5, 7.0, -4.0), 1.5, m=1)
         sc.add_sphere((2.5, 7.0, -5.0), 1.5, m=2)
+        if light:
+            sc.add_material("light")
+            sc.set_last_mtl("Ke", LIGHT_KE)
+            sc.add_emissive_sphere((0.0, 16.0, -2.0), 2.0, m=3)
+        if obj:
+            sc.add_object(obj, material=0)
         t0 = time.perf_counter()
-        out = sc.build(config=RenderConfig(
-            max_tris_in_leaf=TERRAIN_LEAF, stream_threshold=stream_threshold))
+        out = sc.build(RenderConfig(max_tris_in_leaf=TERRAIN_LEAF,
+                                    stream_threshold=stream_threshold),
+                       device=device)
         return (*out, time.perf_counter() - t0)
 
     terrain_cam = ((0.0, 14.0, -50.0 * (TERRAIN_N / 708.0) * 1.16),
                    (0.25, 0.0, 0.0))
 
-    def grid_scene(tmp, side=12, device="cuda"):
-        """A 12x12 jittered triangle grid written to an OBJ file and
-        loaded through Scene.add_object; `side` x `side` triangles over the
-        same square for another size; built on `device`."""
+    def grid_obj(tmp, side=12):
+        """A 12x12 jittered triangle grid written to an OBJ file in `tmp`
+        (`side` x `side` triangles over the same square for another size);
+        returns its path."""
         rng = np.random.RandomState(0)
         lines, faces = ["o grid"], []
         scale = 12 / side
@@ -1029,9 +1380,16 @@ def main() -> int:
                     lines.append("v %.5f %.5f %.5f" % v)
                 n = 3 * len(faces)
                 faces.append(f"f {n + 1} {n + 2} {n + 3}")
-        path = os.path.join(tmp, "grid.obj")
+        path = os.path.join(tmp, f"grid{side}.obj")
         with open(path, "w") as f:
             f.write("\n".join(lines + faces) + "\n")
+        return path
+
+    def grid_scene(tmp, side=12, device="cuda", light=False):
+        """The grid of `grid_obj` loaded through Scene.add_object, a glass
+        sphere beside it (and with `light` an emissive sphere with its disk
+        light above it), built on `device`."""
+        path = grid_obj(tmp, side)
         sc = Scene()
         sc.set_constant_sky((0.5, 0.6, 0.9))
         sc.add_material("grid")
@@ -1043,6 +1401,10 @@ def main() -> int:
         sc.set_last_mtl("illum", 7)
         sc.add_object(path, material=0)
         sc.add_sphere((4.2, 2.4, 3.0), 0.9, m=1)
+        if light:
+            sc.add_material("light")
+            sc.set_last_mtl("Ke", LIGHT_KE)
+            sc.add_emissive_sphere((4.2, 7.0, 6.0), 1.0, m=2)
         return sc.build(RenderConfig(max_tris_in_leaf=TERRAIN_LEAF),
                         device=device)
 
@@ -1621,7 +1983,10 @@ def main() -> int:
                   and cell["queries"][0] == cell["queries"][1],
                   f"{label} against the change, frame {name_}: {cell}")
         tw = tree["wavefront"]
-        if differs(tree, build, "forest_kernel"):
+        # the walks also where only their wrapper differs (it chooses the
+        # roots a launch walks)
+        walks_differ = module_differs(tree, wavefront, "wavefront")
+        if differs(tree, build, "forest_kernel") or walks_differ:
             o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain),
                                       True)
             out_p = tw.trace_forest(o, d, t_init, terrain, terrain_info)
@@ -1704,7 +2069,7 @@ def main() -> int:
                 check(cell["state_eq"] >= 0.999
                       and cell["radiance_eq"] >= 0.999,
                       f"{label} against the change, block {name_}: {cell}")
-        if differs(tree, build, "streamed_kernel"):
+        if differs(tree, build, "streamed_kernel") or walks_differ:
             # the 1M terrain's primary and mixed rays, as given and sorted
             rec["streamed"] = {}
             for pop, (o, d, t_init) in streamed_pops.items():
@@ -2853,6 +3218,20 @@ def main() -> int:
                                device="cuda"),
                            "obj_grid": (grid, grid_info),
                            "terrain_1m": (big, big_info)})
+
+    # ---- 7. modes: the render modes off the frame path -------------------
+    from types import SimpleNamespace
+
+    modes(SimpleNamespace(
+        torch=torch, np=np, dev=dev, size=(800, 600), small=GOLDEN[:2],
+        card=card, log=log, zero_counts=zero_counts,
+        RenderConfig=RenderConfig, Renderer=Renderer,
+        render_frame=render_frame, render_rays=render_rays,
+        autofocus_distance=autofocus_distance, camera=camera, vm=vm,
+        frame=frame, wavefront=wavefront, img_util=img_util,
+        terrain_scene=terrain_scene, grid_scene=grid_scene,
+        grid_obj=grid_obj, terrain_cam=terrain_cam, grid_cam=grid_cam,
+        big=big, big_info=big_info, big_host=big_host, big_cam=big_cam))
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",

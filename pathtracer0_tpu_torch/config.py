@@ -17,6 +17,9 @@ no "interpret": the plain PyTorch versions of the kernels serve the CPU):
           only (the renderer refuses it on the card, where nothing takes
           the kernels' place)
 
+`debug`, `legacy_shading` and `legacy_pathtrace` render as the JAX
+package's do (render/renderer.py), never through the frame path.
+
 `ray_batch_size` bounds the pixels the per-bounce route renders at once
 (render/renderer.render_rays; 0: no limit). `traversal_stack_depth` is
 ignored: the traversal stack is sized from the forest's depth.
@@ -49,9 +52,9 @@ class RenderConfig:
     auto_focus: bool = True
 
     raytracing: bool = True         # True = path trace, False = Whitted
-    debug: bool = False             # BVH heatmap: not ported yet
-    legacy_shading: bool = False    # not ported yet
-    legacy_pathtrace: bool = False  # not ported yet
+    debug: bool = False             # BVH traversal-cost heatmap
+    legacy_shading: bool = False    # Whitted: Phong with disk lights
+    legacy_pathtrace: bool = False  # path mode: the deterministic pathTrace
 
     gamma: float = 0.0
 

@@ -54,7 +54,7 @@ def dof_ray(origin, direction, rotmat, blur, focal_distance, state):
         origin_j = origin + vm.apply(rotmat,
                                      jitter * float(np.float32(blur)))
     dd = focal_point - origin_j
-    mag = torch.sqrt(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
+    mag = vm.sqrt(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
                      + dd[..., 2] * dd[..., 2])
     return origin_j, dd / mag[..., None], vrng.advance(state, 6)
 

@@ -39,6 +39,17 @@ def rotate_back(p: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     return apply(rotation_matrix(rot).transpose(-1, -2), p)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root on every device. PyTorch's
+    float32 one on the CPU is not always (its vector code misses by an ulp
+    on about 1% of inputs); the card's, the kernels' and XLA's are. The
+    CPU takes it in float64 and rounds once, so a chaotic consumer (the
+    legacy pathTrace's location hash) sees the card's bits."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """GLSL normalize: no epsilon guard."""
-    return a / torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+    return a / sqrt(torch.sum(a * a, dim=-1, keepdim=True))

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .math import sqrt
+
 MASK = 0xFFFFFFFF
 MUL = 747796405
 INC = 2891336453
@@ -98,7 +100,7 @@ def peek_uniform(state, offset: int):
 def normal_from(u1, u2):
     """Box-Muller (frag.glsl:696-701)."""
     theta = TWO_PI * u1
-    rho = torch.sqrt(-2.0 * torch.log(u2))
+    rho = sqrt(-2.0 * torch.log(u2))
     return rho * torch.cos(theta)
 
 
@@ -122,3 +124,41 @@ def peek_lambertian_vec(state, offset: int):
     return torch.stack([normal_from(us[0], us[1]),
                         normal_from(us[2], us[3]),
                         normal_from(us[4], us[5])], dim=-1)
+
+
+def uniform_cube_vec(state):
+    """randUniformDistVec (frag.glsl:709-714): (R, 3) uniform in [-1, 1]^3
+    from 3 draws. Returns (vec, new state)."""
+    x, state = uniform(state)
+    y, state = uniform(state)
+    z, state = uniform(state)
+    return (torch.stack([x, y, z], dim=-1) - 0.5) * 2.0, state
+
+
+def disk_sample(state, n):
+    """randDiskSamplePoint (frag.glsl:715-723): a point on the unit circle
+    in the plane of the (unnormalized) basis n x (0, 1, 0), n x that, for
+    n (R, 3); 2 draws. Returns ((R, 3) point, new state)."""
+    u, state = uniform(state)
+    v, state = uniform(state)
+    uv = (torch.stack([u, v], dim=-1) - 0.5) * 2.0
+    uv = uv / sqrt(uv[..., 0:1] * uv[..., 0:1] + uv[..., 1:2] * uv[..., 1:2])
+    uvec = cross_fms(n, torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype,
+                                     device=n.device).expand(n.shape))
+    vvec = cross_fms(n, uvec)
+    return uvec * uv[..., 0:1] + vvec * uv[..., 1:2], state
+
+
+def cross_fms(a, b):
+    """a x b (..., 3) float32 with each component a fused multiply-add,
+    x1 y2 - round(x2 y1), as XLA computes jnp.cross on the CPU: the first
+    product and the difference taken in float64 (where the product is
+    exact), rounded once to float32."""
+    def fms(p, q, r, s):
+        return (p.to(torch.float64) * q.to(torch.float64)
+                - (r * s).to(torch.float64)).to(torch.float32)
+
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([fms(a1, b2, a2, b1), fms(a2, b0, a0, b2),
+                        fms(a0, b1, a1, b0)], dim=-1)

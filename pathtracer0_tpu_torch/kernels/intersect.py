@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.math import sqrt
+
 MISS = 1e30
 EPSILON = float(np.float32(1e-10))  # frag.glsl:228
 
@@ -121,7 +123,7 @@ def ellipsoid_soa(o, d, c, stretch, rad):
     cc = (fx * oc[0] * oc[0] + fy * oc[1] * oc[1] + fz * oc[2] * oc[2]
           - rad * rad)
     disc = b * b - 4.0 * a * cc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     inv_2a = 1.0 / (2.0 * a)
     t0 = (-b - sq) * inv_2a
     t1 = (-b + sq) * inv_2a
@@ -149,5 +151,5 @@ def compute_tangent(p1, p2, p3, uv1, uv2, uv3, normal):
     tangent = f[..., None] * (duv2[..., 1:2] * edge1 - duv1[..., 1:2] * edge2)
     ndt = torch.sum(normal * tangent, dim=-1, keepdim=True)
     tangent = tangent - normal * ndt
-    return tangent / torch.sqrt(torch.sum(tangent * tangent, dim=-1,
+    return tangent / sqrt(torch.sum(tangent * tangent, dim=-1,
                                           keepdim=True))

@@ -14,7 +14,9 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
                   per ray; both routes of the renderer shade from it
   probe_forest_t  closest triangle distance only (the Whitted subsurface
                   thickness probe, frag.glsl:662-676)
-  heat_counts     the per-ray traversal counters
+  heat_counts     the per-ray traversal counters of the whole scene query
+  object_heat_counts  those of one object's walk alone, from no hit (the
+                  debug heatmap's, frag.glsl:534, 539-547)
   spatial_sort_key  the JAX package's ray-coherence key. A streamed query
                   of at least SORT_MIN_RAYS rays is sorted by it, as that
                   package's `_ray_scene_streamed(sort_rays=True)` does
@@ -37,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.math import sqrt
 from ..shade import bsdf, implicits
 from . import wavefront
 from .intersect import MISS, ellipsoid_soa, safe_inv_dir
@@ -146,14 +149,19 @@ def _t_init(like, active):
     return full if active is None else torch.where(active, full, 0.0)
 
 
+def _plain(pallas: str) -> bool:
+    """Whether `pallas` asks for the plain versions on any device."""
+    if pallas not in ("auto", "on", "off"):
+        raise ValueError(
+            f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
+    return pallas == "off"
+
+
 def _forest_fn(pallas: str, info):
     """The triangle query of the scene, (o, d, t_init, scene, info) ->
     (t, u, v, idx, counter, counter), and the table that maps its idx to
     a triangle id."""
-    if pallas not in ("auto", "on", "off"):
-        raise ValueError(
-            f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
-    plain = pallas == "off"
+    plain = _plain(pallas)
     if info.streamed:
         query = (wavefront.streamed_reference if plain
                  else wavefront.trace_streamed)
@@ -211,6 +219,22 @@ def heat_counts(o, d, scene, info, *, pallas: str = "auto"):
     return out[4], out[5]
 
 
+def object_heat_counts(o, d, scene, info, k: int, *, pallas: str = "auto"):
+    """Per-ray (box tests, leaf visits) of object k's walk alone from the
+    nudged origins, with no closer hit to prune it (t_init = MISS): on the
+    card `traverse_kernel` with that root only (wavefront.walk_object),
+    on the CPU, or with pallas="off", `traverse_reference` over that
+    root."""
+    on = nudged(o, d)
+    t_init = _t_init(on[0], None)
+    if _plain(pallas):
+        out = wavefront.traverse_reference(on, d, t_init, scene, info,
+                                           objects=(k,))
+    else:
+        out = wavefront.walk_object(on, d, t_init, scene, info, k)
+    return out[4], out[5]
+
+
 def _morton_spread(v):
     """Two zero bits between each of the low 10 bits of int32 `v`."""
     v = (v | (v << 16)) & 0x030000FF
@@ -247,7 +271,7 @@ def spatial_sort_key(o, d, scene_lo, scene_hi, o_bits: int = 5,
     summed into place, so a query costs a few dozen small launches."""
     top, shift, sign_shift = _key_constants(o.device, o_bits, d_bits)
     span = torch.clamp(scene_hi - scene_lo, min=1e-6)
-    dn = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)),
+    dn = d / torch.clamp(sqrt(torch.sum(d * d, dim=-1, keepdim=True)),
                          min=1e-20)
     x = torch.cat([(o - scene_lo) / span * (2 ** o_bits - 1),
                    (dn * 0.5 + 0.5) * (2 ** d_bits - 1)], dim=-1)
@@ -316,7 +340,7 @@ def surface_sample(hit: Hit, o, d, scene, info) -> SurfaceSample:
         w = 1.0 - u - v
         ni = tuple(a[:, i] * w + a[:, 3 + i] * u + a[:, 6 + i] * v
                    for i in range(3))
-        mag = torch.sqrt(bsdf.dot3(ni, ni))
+        mag = sqrt(bsdf.dot3(ni, ni))
         norm = tuple(torch.where(is_tri,
                                  torch.where(smooth, ni[i] / mag, a[:, i]),
                                  0.0) for i in range(3))
@@ -332,7 +356,7 @@ def surface_sample(hit: Hit, o, d, scene, info) -> SurfaceSample:
             raw = (uv[:, 6], uv[:, 7], uv[:, 8])
             ndt = bsdf.dot3(raw, norm)
             g = tuple(raw[i] - norm[i] * ndt for i in range(3))
-            gm = torch.sqrt(bsdf.dot3(g, g))
+            gm = sqrt(bsdf.dot3(g, g))
             tangent = tuple(torch.where(has_uv, g[i] / gm, 0.0)
                             for i in range(3))
     return _assemble_sample(hit, o, d, scene, info, loc, norm, tangent,

@@ -21,7 +21,9 @@ The stack walk visits the objects in order, each pruned by the closest
 hit so far (frag.glsl:563-577), and inside an object pushes the far child
 first (frag.glsl:523-531). Its counters are per ray: 2 box tests for each
 internal node visited, 1 leaf visit for each leaf (the TPU kernel counted
-per block of rays). A walk never holds more than forest depth + 1 nodes:
+per block of rays). `walk_object` walks one object alone, as the debug
+heatmap counts it (traverse_kernel with that object's root as its only
+one). A walk never holds more than forest depth + 1 nodes:
 the plain version sizes its stack tensor from `info.forest_depth`, the
 kernel has scene/packing.TRAVERSE_MAX_STACK entries per ray, and a deeper
 forest is refused when the scene is packed.
@@ -122,9 +124,11 @@ def brute_reference(o, d, t_init, scene, info):
     return (*best, count, torch.where(live, info.num_leaves, count))
 
 
-def traverse_reference(o, d, t_init, scene, info):
+def traverse_reference(o, d, t_init, scene, info, objects=None):
     """Plain version of `traverse_kernel`: one (R, depth + 1) stack tensor,
-    every ray popping one node per step until all stacks are empty."""
+    every ray popping one node per step until all stacks are empty.
+    `objects` (default: all, in order) are the indices of the roots to
+    walk."""
     best, box = _start(t_init)
     leaf = box
     n_rays = t_init.shape[0]
@@ -146,7 +150,7 @@ def traverse_reference(o, d, t_init, scene, info):
         stack[rays, at] = torch.where(want, node, stack[rays, at])
         return sp + want.to(torch.int64)
 
-    for k in range(info.num_objects):
+    for k in range(info.num_objects) if objects is None else objects:
         root = nodes_i.new_full((n_rays,), int(scene.roots[k]))
         stack = torch.zeros((n_rays, cap), dtype=torch.int64, device=dev)
         stack[:, 0] = root
@@ -199,6 +203,28 @@ def trace_forest(o, d, t_init, scene, info):
     dev = t_init.device
     if dev.type == "cpu":
         return trace_forest_reference(o, d, t_init, scene, info)
+    return _launch_forest(o, d, t_init, scene, info, use_brute(info),
+                          scene.roots, info.num_objects)
+
+
+def walk_object(o, d, t_init, scene, info, k: int):
+    """The stack walk of object k alone (root scene.roots[k]) from the
+    per-ray `t_init`: `traverse_kernel` with that one root, whatever the
+    forest's size (brute_kernel counts no walk), on CUDA tensors;
+    `traverse_reference(objects=(k,))` on CPU tensors. Returns as
+    `trace_forest`; its counters are the walk's of that object."""
+    if not 0 <= k < info.num_objects:
+        raise ValueError(f"object {k} of {info.num_objects}")
+    if t_init.device.type == "cpu":
+        return traverse_reference(o, d, t_init, scene, info, objects=(k,))
+    return _launch_forest(o, d, t_init, scene, info, False,
+                          scene.roots[k:k + 1], 1)
+
+
+def _launch_forest(o, d, t_init, scene, info, brute, roots, n_roots):
+    """Launch brute_kernel (`brute`) or traverse_kernel over the objects
+    whose roots are the `n_roots` entries of `roots`."""
+    dev = t_init.device
     if dev.type != "cuda":
         raise ValueError(f"no forest kernel for device {dev}")
     if info.num_objects < 1:
@@ -216,12 +242,10 @@ def trace_forest(o, d, t_init, scene, info):
         nodes_f=build.ptr(scene.nodes_f, f32, dev),
         nodes_i=build.ptr(scene.nodes_i, i32, dev),
         tris=build.ptr(scene.wf_tris, f32, dev),
-        roots=build.ptr(scene.roots, i32, dev),
+        roots=build.ptr(roots, i32, dev),
         t=t.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), idx=idx.data_ptr(),
         box=box.data_ptr(), leaf=leaf.data_ptr(), n_rays=n_rays,
-        n_roots=info.num_objects, n_tris=info.num_tris,
-        n_leaves=info.num_leaves)
-    brute = use_brute(info)
+        n_roots=n_roots, n_tris=info.num_tris, n_leaves=info.num_leaves)
     name = "brute_kernel" if brute else "traverse_kernel"
     if not brute and info.forest_depth + 1 > TRAVERSE_MAX_STACK:
         raise ValueError(f"forest depth {info.forest_depth} needs a stack "

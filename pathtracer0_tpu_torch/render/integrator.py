@@ -39,6 +39,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..core.math import sqrt
 from ..kernels import traverse
 from ..kernels.intersect import MISS, tri_candidate
 from ..kernels.traverse import Hit, SurfaceSample
@@ -94,9 +95,10 @@ def _forest_query(scene, info, pallas):
     return query
 
 
-def _shade_setup(scene, info, surf: SurfaceSample, names, channels):
+def shade_setup(scene, info, surf: SurfaceSample, names, channels):
     """Material decode, mapMtl and normal mapping at the hits: the one
-    shading helper of both routes. `names` are the COL fields wanted
+    shading helper of both routes and of the legacy modes
+    (shade/arealights.py). `names` are the COL fields wanted
     (three-wide ones come back as (r, g, b) tuples); Ka/Kd multiply their
     map sample, the rest are replaced by it. Returns (fields, shading
     normal)."""
@@ -180,7 +182,7 @@ def _bounce_loop(query, scene, info, o, d, alive, state, *, max_bounces: int,
         is_miss = alive & ~hit.is_hit
         hx = surf.loc
 
-        m, n = _shade_setup(scene, info, surf, _PATH_FIELDS, _PATH_MAPS)
+        m, n = shade_setup(scene, info, surf, _PATH_FIELDS, _PATH_MAPS)
         Kd, Ks, Ke, Tf = m["Kd"], m["Ks"], m["Ke"], m["Tf"]
 
         # normal flip by sign(N.D) (frag.glsl:829-830)
@@ -210,7 +212,7 @@ def _bounce_loop(query, scene, info, o, d, alive, state, *, max_bounces: int,
         # medium bookkeeping (frag.glsl:847-863)
         transmitted = lobe.win == 3
         dd = tuple(enter[i] - hx[i] for i in range(3))
-        dist = torch.sqrt(bsdf.dot3(dd, dd))
+        dist = sqrt(bsdf.dot3(dd, dd))
         apply_absorb = transmitted & ((~entering) | inobj)
         new_inobj = torch.where(transmitted, entering, inobj)
         enter_now = transmitted & entering
@@ -220,7 +222,7 @@ def _bounce_loop(query, scene, info, o, d, alive, state, *, max_bounces: int,
         # transport (frag.glsl:865-874)
         inc = tuple(inc[i] + torch.where(hitf, Ke[i] * col[i], 0.0)
                     for i in range(3))
-        cutoff = torch.sqrt(bsdf.dot3(col, col)) < 0.1
+        cutoff = sqrt(bsdf.dot3(col, col)) < 0.1
         spec = lobe.win == 2
         passthrough = lobe.win == 4
         new_col = []
@@ -313,7 +315,7 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
 def _direct(query, scene, info, o, d, alive, probe):
     hit, on = query(o, d, alive)
     surf = traverse.surface_sample(hit, on, d, scene, info)
-    m, n = _shade_setup(scene, info, surf, _WHITTED_FIELDS, _WHITTED_MAPS)
+    m, n = shade_setup(scene, info, surf, _WHITTED_FIELDS, _WHITTED_MAPS)
     col = [m["Ka"][i] + m["Kd"][i] * (0.2 + n[1]) + m["Ke"][i]
            for i in range(3)]
     if probe is not None and info.mat_gates[0] and traverse.has_tree(info):

@@ -16,13 +16,20 @@ by one of two routes:
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
 
+`render_rays` also serves the modes that never take the frame path:
+`fold_spp=True` folds the samples into the ray axis (one query of spp x N
+rays, each sample its own RNG stream, a different but equally unbiased
+estimator); `config.legacy_pathtrace` (path mode) and
+`config.legacy_shading` (Whitted mode, on a scene with disk lights) render
+one evaluation of shade/arealights.py per frame, spp being its soft-shadow
+resolution. `render_debug_frame` is the traversal-cost heatmap of
+`config.debug` (frag.glsl:534, 539-547).
+
 `Renderer` is the session around them: progressive accumulation, camera
 moves, screenshots, checkpoint and resume (the JAX package's `.npz` keys,
 so a checkpoint of either package loads in the other), the mouse
-inspector (`pick`, `display_image_with_pick`) and the `telemetry` text.
-
-Not ported yet: the debug heatmap, the legacy shading modes and
-`fold_spp`.
+inspector (`pick`, `display_image_with_pick`) and the `telemetry` text;
+with `config.debug` it accumulates heatmap frames instead.
 """
 from __future__ import annotations
 
@@ -40,14 +47,19 @@ from ..core import math as vm
 from ..core import rng as vrng
 from ..core.device import resolve_device
 from ..kernels import frame, traverse
+from ..shade import arealights
 from . import integrator
+
+# sample k of a folded pixel seeds its stream as pixel index + k * stride:
+# an odd constant (2^32 / golden ratio), not the local pixel count, so a
+# tiled render of several cards seeds as one card does
+FOLD_STRIDE = 2654435769
+# the heatmap's red term of the triangle tests, which the reference never
+# counts: exp(0.02 (0 - 150)) (frag.glsl:534)
+_HEAT_TRI = float(np.float32(np.exp(0.02 * (0.0 - 150.0))))
 
 
 def _check(config: RenderConfig, dev: torch.device):
-    if config.debug or config.legacy_shading or config.legacy_pathtrace:
-        raise NotImplementedError(
-            "the debug heatmap and the legacy shading modes wait for a "
-            "later slice of the port")
     for name in ("fused", "pallas"):
         if getattr(config, name) not in ("auto", "on", "off"):
             raise ValueError(
@@ -85,8 +97,15 @@ def autofocus_distance(scene, info, cam_pos, cam_rot, focal_distance: float,
     return torch.where(mid > 0.0, mid, ifd)
 
 
+def _legacy(config: RenderConfig, info) -> bool:
+    """Whether `render_rays` renders through shade/arealights.py."""
+    return (config.legacy_pathtrace if config.raytracing
+            else config.legacy_shading and bool(info.lights))
+
+
 def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
-                ifd, *, config: RenderConfig, screen_h_ratio=None):
+                ifd, *, config: RenderConfig, screen_h_ratio=None,
+                fold_spp: bool = False):
     """The per-bounce route over a flat batch of pixels: uv (N, 2) pixel
     centres, index (N,) pixel indices that seed the RNG streams. This is
     the unit that spreads over several cards: pixels are independent.
@@ -98,7 +117,14 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     that many nearly equal chunks one after the other, so the live state
     (some 30 tensors a ray) stays inside a fixed envelope whatever the
     resolution; a pixel's RNG stream depends on its index alone, so the
-    result is the same."""
+    result is the same.
+
+    fold_spp=True (with spp > 1) folds the samples into the ray axis: one
+    query of spp x N rays, sample k of pixel i seeded i + k * FOLD_STRIDE,
+    the colour the mean over the samples. Otherwise a legacy mode of the
+    config renders one evaluation of shade/arealights.py (spp its
+    soft-shadow resolution), and the other modes spp samples one after
+    the other."""
     _check(config, index.device)
     integrator.check_fused(info, config.fused)
     if screen_h_ratio is None:
@@ -109,7 +135,7 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
         n_chunks = -(-n // batch)
         parts = [render_rays(scene, info, uv_c, index_c, cam_pos, cam_rot,
                              frame_seed, ifd, config=whole,
-                             screen_h_ratio=screen_h_ratio)
+                             screen_h_ratio=screen_h_ratio, fold_spp=fold_spp)
                  for uv_c, index_c in zip(uv.tensor_split(n_chunks),
                                           index.tensor_split(n_chunks))]
         return (torch.cat([p[0] for p in parts]),
@@ -118,7 +144,25 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     rotmat = vm.rotation_matrix(cam_rot.to(torch.float32))
     direction = camera.primary_directions(
         uv, rotmat, config.cam_size, config.focal_length, screen_h_ratio)
+    if fold_spp and spp > 1:
+        return _render_folded(scene, info, index, cam_pos, rotmat, direction,
+                              frame_seed, ifd, config)
     state = vrng.seed(index, frame_seed)
+    if _legacy(config, info):
+        o, d, state = camera.dof_ray(cam_pos, direction, rotmat, config.blur,
+                                     ifd, state)
+        o, d = o.unbind(-1), d.unbind(-1)
+        if config.raytracing:
+            col, state, queries = arealights.path_trace(
+                o, d, state, scene, info, spp, config.max_bounces,
+                stack_size=config.refraction_stack_depth,
+                pallas=config.pallas)
+        else:
+            col, state = arealights.shade_point(o, d, state, scene, info,
+                                                spp, pallas=config.pallas)
+            queries = torch.full((1,), n, dtype=torch.int64,
+                                 device=state.device)
+        return torch.stack(col, dim=-1), queries
     alive = torch.ones(state.shape, dtype=torch.bool, device=state.device)
     zero = torch.zeros(state.shape, dtype=torch.float32, device=state.device)
     total = [zero, zero, zero]
@@ -142,6 +186,94 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     return torch.stack(total, dim=-1) / float(spp), queries
 
 
+def fold_seeds(index, spp: int, frame_seed: int):
+    """The RNG states of spp x N folded samples, sample-major: sample k of
+    pixel index i starts from i + k * FOLD_STRIDE + frame_seed (mod
+    2^32)."""
+    folded = (index[None, :].to(torch.int64)
+              + torch.arange(spp, device=index.device)[:, None]
+              * FOLD_STRIDE) & vrng.MASK
+    return vrng.seed(folded.reshape(-1), frame_seed)
+
+
+def _render_folded(scene, info, index, cam_pos, rotmat, direction,
+                   frame_seed, ifd, config):
+    """`render_rays` with fold_spp: one batch of spp x N rays."""
+    spp, n = config.samples_per_frame, index.shape[0]
+    state = fold_seeds(index, spp, frame_seed)
+    o, d, state = camera.dof_ray(cam_pos, direction.repeat(spp, 1), rotmat,
+                                 config.blur, ifd, state)
+    o, d = o.unbind(-1), d.unbind(-1)
+    if config.raytracing:
+        col, state, queries = integrator.trace(
+            scene, info, o, d, torch.ones_like(state, dtype=torch.bool),
+            state, max_bounces=config.max_bounces,
+            stack_size=config.refraction_stack_depth, fused=config.fused,
+            pallas=config.pallas)
+    else:
+        col = integrator.direct_diffuse(
+            scene, info, o, d, torch.ones_like(state, dtype=torch.bool),
+            pallas=config.pallas)
+        queries = torch.full((1,), spp * n, dtype=torch.int64,
+                             device=state.device)
+    per_sample = torch.stack(col, dim=-1).reshape(spp, n, 3)
+    total = per_sample[0]
+    for k in range(1, spp):
+        total = total + per_sample[k]
+    return total / float(spp), queries
+
+
+def heat_color(box, leaf):
+    """The frag.glsl:534 colour of (R,) box tests and leaf visits: red
+    0.01 per leaf plus exp(0.02 (tri - 150)) with tri, which the
+    reference never counts, 0; blue exp(0.01 (box - 200)); green 0. The
+    exponential is taken in float64 and rounded once, so the card and the
+    CPU agree. Returns (R, 3) float32."""
+    box = box.to(torch.float32)
+    red = 0.01 * leaf.to(torch.float32) + _HEAT_TRI
+    blue = torch.exp((0.01 * (box - 200.0)).to(torch.float64)).to(
+        torch.float32)
+    return torch.stack([red, torch.zeros_like(red), blue], dim=-1)
+
+
+def render_debug_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
+                       device=None):
+    """The BVH traversal-cost heatmap (frag.glsl:534, 539-547) of the
+    undeflected primary rays: (H, W, 3) float32.
+
+    Over the SAH forest each object is walked alone from no hit, as the
+    reference's debugRayScene does (wavefront.walk_object:
+    traverse_kernel with that one root), and the mean of the objects'
+    colours is taken. A streamed scene has no objects to walk: the colour
+    of the whole query's per-ray counters (box tests, row visits) over
+    max(objects, triangle objects, 1), the JAX package's packet formula
+    (which counts per block of 1,024 rays). A scene of no triangles is
+    black."""
+    dev = _on(scene, device)
+    _check(config, dev)
+    cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+    cam_rot = torch.as_tensor(cam_rot, dtype=torch.float32, device=dev)
+    w, h = config.width, config.height
+    if info.num_objects == 0 and not info.streamed:
+        return torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    uv, _ = camera.pixel_centers(w, h, dev)
+    d = camera.primary_directions(uv, vm.rotation_matrix(cam_rot),
+                                  config.cam_size, config.focal_length,
+                                  config.screen_h_ratio).unbind(-1)
+    o = tuple(cam_pos[i].expand(w * h) for i in range(3))
+    if info.streamed:
+        box, rows = traverse.heat_counts(o, d, scene, info,
+                                         pallas=config.pallas)
+        n_obj = max(info.num_objects, info.num_tri_objects, 1)
+        return (heat_color(box, rows) / float(n_obj)).reshape(h, w, 3)
+    img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+    for k in range(info.num_objects):
+        box, leaf = traverse.object_heat_counts(o, d, scene, info, k,
+                                                pallas=config.pallas)
+        img = img + heat_color(box, leaf) / float(info.num_objects)
+    return img.reshape(h, w, 3)
+
+
 def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
                  frame_seed: int, device=None, ifd=None):
     """One frame: ((H, W, 3) float32 mean of the samples, scene queries
@@ -155,7 +287,9 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
                                  config.focal_distance, config.auto_focus,
                                  config.pallas)
     whitted = not config.raytracing
-    if config.fused != "off" and frame.eligible(info, whitted=whitted):
+    if (config.fused != "off" and not config.legacy_shading
+            and not config.legacy_pathtrace
+            and frame.eligible(info, whitted=whitted)):
         col, rays = frame.render_fused_frame(
             scene, info, cam_pos, cam_rot, frame_seed, ifd,
             width=config.width, height=config.height,
@@ -251,14 +385,27 @@ class Renderer:
 
     def step(self, frame_seed: Optional[int] = None) -> torch.Tensor:
         """Render one frame into the accumulation, with `frame_seed` or the
-        next seed of the stream; returns the display image."""
-        self._accum(self._draw(1) if frame_seed is None else [frame_seed])
+        next seed of the stream (a heatmap frame with `config.debug`,
+        which draws its seed all the same); returns the display image."""
+        seeds = self._draw(1) if frame_seed is None else [frame_seed]
+        if self.config.debug:
+            self._sum = self._sum + render_debug_frame(
+                self.scene, self.info, self.config, self.cam_pos,
+                self.cam_rot, device=self.device)
+            self._count += 1
+            self._frame_index += 1
+        else:
+            self._accum(seeds)
         return self.display_image()
 
     def render(self, frames: int = 1, chunk: int = 8) -> torch.Tensor:
         """Accumulate `frames` frames, at most `chunk` a
         `render_frames_accum` call, the seeds drawn chunk by chunk (the
-        same stream for any `chunk`)."""
+        same stream for any `chunk`); heatmap frames one `step` each."""
+        if self.config.debug:
+            for _ in range(frames):
+                self.step()
+            return self.display_image()
         left = frames
         while left > 0:
             k = min(chunk, left)

@@ -16,6 +16,8 @@ rows exist only because Mosaic needs static lane offsets):
   slots     (S, 3)  i32  per atlas image: h, w, texel offset
   mat_maps  (M, 9)  i32  atlas slot of each MAP_CHANNELS map, -1 if none
   sky       (h*w, 3) f32 texture 0, the equirect sky
+  legacy_mats (max(Ml, 1), 18) f32  Scene.add_mat's legacy records, one
+                         zero row when there are none
 
 and the SAH forest (accel/bvh.py), one BVH per object:
 
@@ -109,6 +111,13 @@ class SceneInfo(NamedTuple):
     st_n_treelets: int = 0
     st_treelet_rows: int = 0
     st_leaf_cap: int = 0    # triangle slots in a row
+    num_tri_objects: int = 0  # objects of triangles (streamed or not)
+    n_legacy_mats: int = 0  # records of Scene.add_mat
+    # the legacy disk lights (Scene.add_disk_light): (kind, id_start,
+    # id_end, material) of each, its centre and its radius
+    lights: tuple = ()
+    light_centers: tuple = ()
+    light_radii: tuple = ()
 
 
 @dataclasses.dataclass
@@ -137,6 +146,7 @@ class PackedScene:
     st_sub: torch.Tensor
     st_tris: torch.Tensor
     st_perm: torch.Tensor
+    legacy_mats: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -268,9 +278,11 @@ def _forest_tables(forest, tris, object_ranges):
 
 def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
             imp_rotated, imp_fn_ids, map_images, bindings, sky_img,
-            maps_present, forest, object_ranges, device, streamed=None):
+            maps_present, forest, object_ranges, device, streamed=None,
+            legacy_mats=(), disk_lights=()):
     """Assemble (PackedScene, SceneInfo) from host arrays: over the SAH
-    `forest`, or over the StreamedForest `streamed` with `forest` empty."""
+    `forest`, or over the StreamedForest `streamed` with `forest` empty;
+    `legacy_mats` the add_mat records, `disk_lights` Scene.disk_lights."""
     n_tri = tris.shape[0]
     _check_material_ids(mats.shape[0], attr, ell_tab[:len(ell_rotated)],
                         imp_tab[:len(imp_rotated)])
@@ -307,6 +319,8 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         slots=_pad1(np.asarray(shapes, np.int32).reshape(-1, 3)),
         mat_maps=_mat_maps(bindings, mats.shape[0]),
         sky=np.asarray(sky_img, np.float32).reshape(-1, 3),
+        legacy_mats=_pad1(np.asarray(legacy_mats, np.float32)
+                          .reshape(-1, 18)),
         **{**_forest_tables(forest, tris, object_ranges),
            **_streamed_tables(streamed, n_tri, object_ranges)},
     )
@@ -333,6 +347,13 @@ def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,
         st_n_treelets=streamed.n_treelets if streamed else 0,
         st_treelet_rows=lbvh.TREELET_ROWS if streamed else 0,
         st_leaf_cap=lbvh.TRIS_PER_ROW if streamed else 0,
+        num_tri_objects=len(object_ranges),
+        n_legacy_mats=len(legacy_mats),
+        lights=tuple((int(k), int(s0), int(e0), int(m))
+                     for k, s0, e0, m, _, _ in disk_lights),
+        light_centers=tuple(tuple(float(x) for x in c)
+                            for _, _, _, _, c, _ in disk_lights),
+        light_radii=tuple(float(r) for *_, r in disk_lights),
     )
     return scene, info
 
@@ -457,7 +478,8 @@ def pack_scene(scene, device, config, max_leaf=None):
         imp_fn_ids=[int(f) for f in scene.imp_fn], map_images=map_images,
         bindings=bindings, sky_img=sky, maps_present=maps_present,
         forest=forest, object_ranges=object_ranges, device=device,
-        streamed=streamed)
+        streamed=streamed, legacy_mats=scene.legacy_mats,
+        disk_lights=scene.disk_lights)
 
 
 def _unpack_rows(rows: np.ndarray, per_row: int, stride: int) -> np.ndarray:
@@ -489,8 +511,10 @@ def scene_from_numpy(arrays: dict, info: dict, device=None):
     walks the very tree the JAX package built.
 
     Material maps come across where that package packed them for its fused
-    path (fs_maps). The tables land on `device`: the card unless the caller
-    passes device="cpu" (core/device.resolve_device; without a card that
+    path (fs_maps); the legacy records (legacy_mats, n_legacy_mats) and
+    disk lights (lights, light_centers, light_radii) where given. The
+    tables land on `device`: the card unless the caller passes
+    device="cpu" (core/device.resolve_device; without a card that
     raises). Returns (PackedScene, SceneInfo).
     """
     device = resolve_device(device)
@@ -572,6 +596,7 @@ def scene_from_numpy(arrays: dict, info: dict, device=None):
     n_ell = int(info["num_ellipsoids"])
     n_imp = int(info["num_implicits"])
     maps_present = tuple(info.get("maps_present", ()))
+    n_legacy = int(info.get("n_legacy_mats", 0))
     return _finish(
         tris=tris, attr=attr, uvt=uvt, mats=mats,
         ell_tab=np.asarray(arrays["ell_tab"], np.float32),
@@ -583,4 +608,10 @@ def scene_from_numpy(arrays: dict, info: dict, device=None):
         bindings=tuple(info.get("fs_map_bindings", ())),
         sky_img=tex_data[0, :sh, :sw], maps_present=maps_present,
         forest=forest, object_ranges=object_ranges, device=device,
-        streamed=streamed)
+        streamed=streamed,
+        legacy_mats=np.asarray(arrays["legacy_mats"], np.float32)[:n_legacy]
+        if n_legacy else (),
+        disk_lights=[(*light, center, radius) for light, center, radius
+                     in zip(info.get("lights", ()),
+                            info.get("light_centers", ()),
+                            info.get("light_radii", ()))])

@@ -7,10 +7,13 @@
     scene.addImplicit(fn, shift, scale, rot, m)     -> add_implicit
     scene.addMaterial(name) / setLastMtl(prop, val) -> add_material /
                                                        set_last_mtl
-plus texture 0 as the sky (set_sky) and bulk meshes (add_mesh,
-add_mesh_indexed). `build(config, device=...)` builds the SAH forest
-over the triangles, or the two-level LBVH past `config.stream_threshold`
-of them, and packs everything onto one device (scene/packing.py).
+    scene.addMat(Ka, Kd, Ks, ...)                   -> add_mat
+plus texture 0 as the sky (set_sky), bulk meshes (add_mesh,
+add_mesh_indexed) and the legacy shader's emissive-disk lights
+(add_disk_light, add_emissive_sphere). `build(config, device=...)`
+builds the SAH forest over the triangles, or the two-level LBVH past
+`config.stream_threshold` of them, and packs everything onto one device
+(scene/packing.py).
 """
 from __future__ import annotations
 
@@ -44,6 +47,11 @@ class Scene:
         self.ell_rad: List[float] = []
         self.ell_mat: List[int] = []
         self.bulk_meshes: List[dict] = []
+        # legacy emissive-disk lights (raytrace.glsl EmissiveData): (kind,
+        # id_start, id_end, material, centre, radius)
+        self.disk_lights: List[tuple] = []
+        # legacy 18-float materials (addMat, dispatch.java:1025-1046)
+        self.legacy_mats: List[tuple] = []
 
     # -- sky ---------------------------------------------------------------
     def set_sky(self, image: Union[str, np.ndarray], name: str = "sky"):
@@ -70,6 +78,18 @@ class Scene:
         if not self.materials:
             raise RuntimeError("no material added yet")
         self.materials[-1].set(prop, value)
+
+    def add_mat(self, KaR, KaG, KaB, KdR, KdG, KdB, KsR, KsG, KsB,
+                alpha, reflectivity, transmission, ref_index, emission,
+                emissive_radius, solid, absorption, texture_id):
+        """Legacy 18-float material (addMat, dispatch.java:1025-1046), in
+        the reference's argument order: packed as PackedScene.legacy_mats
+        and read by shade/mtl.decode_legacy. No render mode shades with
+        these records, as in the reference."""
+        self.legacy_mats.append(tuple(float(v) for v in (
+            KaR, KaG, KaB, KdR, KdG, KdB, KsR, KsG, KsB,
+            alpha, reflectivity, transmission, ref_index, emission,
+            emissive_radius, solid, absorption, texture_id)))
 
     # -- geometry -----------------------------------------------------------
     def add_object(self, filepath: str, material: int = 0,
@@ -181,6 +201,24 @@ class Scene:
         """A unit-stretch ellipsoid."""
         self.add_ellipsoid(center, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0),
                            radius, m)
+
+    def add_disk_light(self, center, radius: float, m: int, kind: int = 3,
+                       id_start: int = 0, id_end: int = 0):
+        """Legacy emissive-disk light (raytrace.glsl EmissiveData), read by
+        RenderConfig.legacy_shading and legacy_pathtrace: a disk at
+        `center` of `radius` that emits material m's Ke, bound to the
+        primitives a shadow ray must reach (kind 1 triangles or 3
+        ellipsoids, ids id_start..id_end)."""
+        self.disk_lights.append((int(kind), int(id_start), int(id_end),
+                                 int(m), tuple(float(c) for c in center),
+                                 float(radius)))
+
+    def add_emissive_sphere(self, center, radius: float, m: int):
+        """A sphere of material m and the disk light bound to it."""
+        idx = len(self.ell_rad)
+        self.add_sphere(center, radius, m)
+        self.add_disk_light(center, radius, m, kind=3, id_start=idx,
+                            id_end=idx)
 
     def add_implicit(self, fn: int, shift, scale, rot, m: int):
         """Implicit surface `fn` in 1..10 (shade/implicits.py); `build`

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng as vrng
+from ..core.math import sqrt
 
 
 def dot3(a, b):
@@ -30,7 +31,7 @@ def dot3(a, b):
 
 
 def unit3(a):
-    m = torch.sqrt(dot3(a, a))
+    m = sqrt(dot3(a, a))
     return (a[0] / m, a[1] / m, a[2] / m)
 
 
@@ -42,7 +43,7 @@ def fresnel_soa(n1, n2, nrm, d):
     rn = n1 / n2
     sin_t2 = rn * rn * (1.0 - cos_x * cos_x)
     tir = (n1 > n2) & (sin_t2 > 1.0)
-    cos_x = torch.where(n1 > n2, torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0)),
+    cos_x = torch.where(n1 > n2, sqrt(torch.clamp(1.0 - sin_t2, min=0.0)),
                         cos_x)
     x = 1.0 - cos_x
     ret = r0 + (1.0 - r0) * x * x * x * x * x
@@ -91,7 +92,7 @@ def choose_ray_soa(Pr, Pm, Pc, Pcr, Tr, Tf, illum, subsurface, n1, n2,
                  for i in range(3))
     kk = 1.0 - eta * eta * (1.0 - dn * dn)
     tir = kk < 0.0
-    ksq = torch.sqrt(torch.clamp(kk, min=0.0))
+    ksq = sqrt(torch.clamp(kk, min=0.0))
     refr = tuple(torch.where(tir, zero, eta * d[i] - (eta * dn + ksq) * nrm[i])
                  for i in range(3))
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.math import sqrt
+
 _GR = 0.5 + 5.0 ** 0.5 / 2.0   # golden ratio (frag.glsl:229)
 _GR2 = _GR * _GR
 NAN = float("nan")
@@ -67,7 +69,7 @@ def _fx6(x2, y2, z2, x, y, z):
 
 
 def _fx7(x2, y2, z2, x, y, z):
-    fx = -1.047 * torch.sqrt(-(y - 1.25) * (y - 1.25) + 1.0)
+    fx = -1.047 * sqrt(-(y - 1.25) * (y - 1.25) + 1.0)
     return x2 + z2 - fx * fx
 
 

@@ -1,6 +1,7 @@
 """Material decode and texture-map overrides (frag.glsl:97-225).
 
-`decode` splits (B,) material records into named fields. `apply_maps`
+`decode` splits (B,) material records into named fields; `decode_legacy`
+does the same for the legacy 18-float records (`LegacyMat`). `apply_maps`
 (mapMtl) multiplies Ka/Kd by their map sample and replaces Ks, Ke, d, Tr,
 Ns, Pm, Pr, Ps, Pc by theirs; `shading_normal` does tangent-space normal
 mapping. Both come in two forms: over the padded (K, Hm, Wm, 3) texture
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.math import sqrt
 from ..scene.material import COL
 from ..scene.packing import MAP_CHANNELS
 from ..scene.texture import bilinear, sample_bilinear
@@ -67,6 +69,38 @@ def decode(materials, mat_idx):
     ), rec
 
 
+class LegacyMat(NamedTuple):
+    """The legacy 18-float `mat` record (raytrace.glsl:75-88)."""
+
+    Ka: torch.Tensor            # (B, 3)
+    Kd: torch.Tensor
+    Ks: torch.Tensor
+    alpha: torch.Tensor         # (B,) Phong exponent
+    refl: torch.Tensor          # reflectivity 0-1
+    trans: torch.Tensor         # transmission 0-1
+    refr_index: torch.Tensor
+    emission: torch.Tensor      # emission strength
+    emissive_radius: torch.Tensor
+    solid: torch.Tensor         # bool
+    absorption: torch.Tensor
+    texture_id: torch.Tensor    # int64
+
+
+def decode_legacy(legacy_mats, mat_idx):
+    """newMat (raytrace.glsl:162-178) over PackedScene.legacy_mats (the
+    records of Scene.add_mat, in its argument order); a negative index
+    decodes record 0. The texture id is each record's own column 17: the
+    reference reads `MatData[17*m + 18]`, another record's float for
+    m > 0."""
+    rec = legacy_mats[torch.clamp(mat_idx.to(torch.int64), min=0)]
+    return LegacyMat(
+        Ka=rec[..., 0:3], Kd=rec[..., 3:6], Ks=rec[..., 6:9],
+        alpha=rec[..., 9], refl=rec[..., 10], trans=rec[..., 11],
+        refr_index=rec[..., 12], emission=rec[..., 13],
+        emissive_radius=rec[..., 14], solid=rec[..., 15] != 0.0,
+        absorption=rec[..., 16], texture_id=rec[..., 17].to(torch.int64))
+
+
 _RGB_MAPS = (("Ka", "map_Ka", True), ("Kd", "map_Kd", True),
              ("Ks", "map_Ks", False), ("Ke", "map_Ke", False))
 _SCALAR_MAPS = (("d", "map_d"), ("Tr", "map_Tr"), ("Ns", "map_Ns"),
@@ -108,7 +142,7 @@ def tbn_map(nrm, tangent, sample):
     mx = gx * ax + bx * ay + nx * az
     my = gy * ax + by * ay + ny * az
     mz = gz * ax + bz * ay + nz * az
-    mm = torch.clamp(torch.sqrt(mx * mx + my * my + mz * mz), min=1e-20)
+    mm = torch.clamp(sqrt(mx * mx + my * my + mz * mz), min=1e-20)
     return mx / mm, my / mm, mz / mm
 
 

@@ -118,11 +118,18 @@ def test_no_device_means_the_card():
 
 
 def test_unported_modes_raise():
+    """The one mode of the JAX package the port has not, "interpret" (its
+    plain versions serve the CPU), is refused; the debug heatmap and the
+    legacy modes render."""
     sc, info = _scene(2)
-    for cfg in (_small(debug=True), _small(legacy_shading=True)):
-        with pytest.raises(NotImplementedError):
+    for cfg in (_small(fused="interpret"), _small(pallas="interpret")):
+        with pytest.raises(ValueError, match="interpret"):
             render_frame(sc, info, cfg, (0, 0, 0), (0, 0, 0), 1,
                          device="cpu")
+    for cfg in (_small(debug=True), _small(legacy_shading=True),
+                _small(legacy_pathtrace=True)):
+        img = Renderer(sc, info, cfg, device="cpu").render(1)
+        assert img.shape == (16, 24, 3) and bool(torch.isfinite(img).all())
 
 
 def test_import_boundary():
@@ -138,10 +145,14 @@ def test_import_boundary():
         "from pathtracer0_tpu_torch.scene import packing, objparse\n"
         "from pathtracer0_tpu_torch.render import integrator, renderer\n"
         "from pathtracer0_tpu_torch.render import driver\n"
+        "from pathtracer0_tpu_torch.core import camera\n"
         "import pathtracer0_tpu_torch.__main__\n"
         "from pathtracer0_tpu_torch.kernels import mxu_group, mxu_tri\n"
         "from pathtracer0_tpu_torch.kernels import mm_probe\n"
         "from pathtracer0_tpu_torch.tools import diag_mxu, diag_mxu_mm\n"
+        "from pathtracer0_tpu_torch.shade import arealights, mtl\n"
+        "from pathtracer0_tpu_torch.render.renderer import (\n"
+        "    render_debug_frame, render_rays)\n"
         "diag_mxu.main(1, 1, n_blocks=1, device='cpu', out=lambda s: None)\n"
         "diag_mxu_mm.main(8, 1, device='cpu', out=lambda s: None)\n"
         "from pathtracer0_tpu_torch import RenderConfig\n"
@@ -149,6 +160,25 @@ def test_import_boundary():
         "s, i = scenes.BUILDERS[3]().build(cfg, device='cpu')\n"
         "driver.FrameLoopDriver(s, i, cfg, device='cpu').run_script(\n"
         "    [None, 'telemetry'])\n"
+        "from pathtracer0_tpu_torch import Renderer, Scene\n"
+        "lit = Scene()\n"
+        "lit.set_constant_sky((0.1, 0.1, 0.1))\n"
+        "lit.add_material('m')\n"
+        "lit.add_material('light')\n"
+        "lit.set_last_mtl('Ke', (3.0, 3.0, 3.0))\n"
+        "lit.add_tri((-2, -1, 4), (2, -1, 4), (0, 2, 5), 0)\n"
+        "lit.add_emissive_sphere((0, 3, 3), 0.5, 1)\n"
+        "ls, li = lit.build(cfg, device='cpu')\n"
+        "import dataclasses\n"
+        "for kw in (dict(debug=True), dict(legacy_pathtrace=True),\n"
+        "           dict(legacy_shading=True, raytracing=False)):\n"
+        "    Renderer(ls, li, dataclasses.replace(cfg, **kw),\n"
+        "             device='cpu').render(1)\n"
+        "uv, ix = camera.pixel_centers(16, 12, 'cpu')\n"
+        "import torch\n"
+        "render_rays(ls, li, uv, ix, torch.zeros(3), torch.zeros(3), 1,\n"
+        "            torch.tensor(1.0), fold_spp=True,\n"
+        "            config=dataclasses.replace(cfg, samples_per_frame=2))\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')]\n"

@@ -139,6 +139,24 @@ non-zero:
                    each against the CPU route at 160x120 (and the legacy
                    modes at S = 0), the heatmap's counters against the
                    plain walks
+  8. obj           the native OBJ parser (`obj_phase`): the 1M terrain
+                   written as a 50 MB OBJ, loaded through add_object (the
+                   native parser, by size) and built streamed: its tables
+                   against the add_mesh_indexed build field by field, one
+                   Whitted and one path frame of each at 800x600
+                   (streamed_kernel); the n = 181 terrain's OBJ through
+                   both parsers, their tables equal, both parse times
+  9. dist          rendering over several devices and processes
+                   (`dist_phase`): the config-5 hero at 1920x1080x8 and the
+                   1M terrain at 800x600x2 tiled over [cuda:0] * 4 against
+                   one untiled render_rays (block_kernel,
+                   streamed_kernel); the sample split of config 2 over
+                   [cuda:0] * 2 against the mean of its two seeds, and its
+                   golden; DistributedRenderer on the hero (Mrays/s beside
+                   phase `session`'s, checkpoint resume, camera reset);
+                   two processes on the card over gloo, the assembled
+                   image against one process's; a mesh of two cards where
+                   there are two
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -1013,6 +1031,420 @@ def modes(c):
     emit({"phase": "modes", "summary": True, "build_s": build_s,
           "seconds": time.perf_counter() - t_start, "card": c.card}, c.log)
     return recs
+
+
+def obj_phase(c):
+    """Phase 8, `obj`: the native OBJ parser on the card's machine.
+    scenes.terrain(BIG_N)'s 999,698 triangles written as one OBJ (`o
+    terrain`, `v` in %.17g, `f` in the mesh's vertex order, no vt or vn:
+    about 50 MB, so Scene.add_object picks the native parser by size),
+    timed through add_object and build() (streamed); its packed tables
+    against the add_mesh_indexed build of the same mesh, field by field to
+    every bit (the UV fields may differ: the OBJ's sentinel against
+    add_mesh's zeros, and no triangle has UVs); one Whitted and one path
+    frame of each through Renderer at 800x600, BIG_SPP spp, BIG_BOUNCES
+    bounces, no autofocus, blur 0 (streamed_kernel): pixels equal on >=
+    99.9%. Then the n = 181 terrain (64,800 faces) as an OBJ through both
+    parsers (PT0_NATIVE_OBJ=1 and 0), both parse times, the packed tables
+    equal to every bit."""
+    torch, np = c.torch, c.np
+    t_start = time.perf_counter()
+    check(os.environ.get("PT0_NATIVE_OBJ") is None,
+          "obj: PT0_NATIVE_OBJ must be unset, the file's size picks the "
+          "parser")
+    tmp = tempfile.mkdtemp()
+    rec = {"phase": "obj", "card": c.card}
+
+    def write_obj(path, verts, faces):
+        with open(path, "w") as f:
+            f.write("o terrain\n")
+            np.savetxt(f, verts, fmt="v %.17g %.17g %.17g")
+            np.savetxt(f, faces + 1, fmt="f %d %d %d")
+
+    def parts(sc):
+        """The packed tables by field; attr and uvt split by meaning."""
+        out = {}
+        for f in dataclasses.fields(sc):
+            t = getattr(sc, f.name)
+            if f.name == "attr":
+                out["attr normals"], out["attr material, smooth"] = \
+                    t[:, :9], t[:, 9]
+            elif f.name == "uvt":
+                out["uvt uv"], out["uvt tangent, has_uv"] = t[:, :6], t[:, 6:]
+            else:
+                out[f.name] = t
+        return out
+
+    def fields_equal(a, b):
+        pa, pb = parts(a), parts(b)
+        return {k: bool(pa[k].shape == pb[k].shape
+                        and torch.equal(pa[k], pb[k])) for k in pa}
+
+    def load(path, force=None):
+        """The terrain's materials and the OBJ, parsed with PT0_NATIVE_OBJ
+        set to `force` (None: by size): (Scene, parse seconds)."""
+        sc = c.scenes.terrain_materials(c.Scene())
+        if force is not None:
+            os.environ["PT0_NATIVE_OBJ"] = force
+        try:
+            t0 = time.perf_counter()
+            sc.add_object(path)
+            return sc, time.perf_counter() - t0
+        finally:
+            os.environ.pop("PT0_NATIVE_OBJ", None)
+
+    # the 1M terrain: chosen by size, streamed, against add_mesh_indexed
+    path = os.path.join(tmp, "terrain_1m.obj")
+    t0 = time.perf_counter()
+    write_obj(path, *c.scenes.terrain_mesh(BIG_N))
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    sc, parse_s = load(path)
+    native = len(sc.bulk_meshes) == 1 and len(sc.tris) == 0
+    t0 = time.perf_counter()
+    obj, obj_info = sc.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    equal = fields_equal(obj, c.big)
+    big = {"faces": obj_info.num_tris, "bytes": size, "write_s": write_s,
+           "parse_s": parse_s, "faces_per_s": obj_info.num_tris / parse_s,
+           "build_s": build_s, "native": native,
+           "info_equal": obj_info == c.big_info,
+           "fields_equal": equal,
+           "fields_differing": [k for k, v in equal.items() if not v]}
+    check(native and size > c.Scene.NATIVE_OBJ_THRESHOLD,
+          f"obj: the 1M OBJ did not take the native parser {big}")
+    check(obj_info.streamed and big["info_equal"]
+          and set(big["fields_differing"]) <= {"uvt uv"},
+          f"obj: the OBJ's tables differ from add_mesh_indexed's {big}")
+    big["frames"] = {}
+    for raytracing in (True, False):
+        cfg = c.RenderConfig(width=800, height=600,
+                             samples_per_frame=BIG_SPP,
+                             max_bounces=BIG_BOUNCES, raytracing=raytracing,
+                             auto_focus=False, blur=0.0)
+        imgs, launches = [], {}
+        for label, (s, info) in (("obj", (obj, obj_info)),
+                                 ("indexed", (c.big, c.big_info))):
+            r = c.Renderer(s, info, cfg, cam_pos=c.big_cam[0],
+                           cam_rot=c.big_cam[1], seed=5, device="cuda")
+            c.zero_counts()
+            imgs.append(r.step())
+            torch.cuda.synchronize()
+            launches[label] = c.counts()
+        eq = float((imgs[0] == imgs[1]).all(-1).float().mean())
+        mode = "path" if raytracing else "whitted"
+        big["frames"][mode] = {"pixels_equal": eq, "launches": launches}
+        n_max = BIG_SPP * (BIG_BOUNCES if raytracing else 1)
+        check(eq >= 0.999 and all(
+            set(n) == {"streamed_kernel"} and 0 < n["streamed_kernel"] <= n_max
+            for n in launches.values()),
+            f"obj: {mode} frames {big['frames'][mode]}")
+    rec["terrain_1m"] = big
+    del obj, sc
+
+    # the n = 181 terrain: both parsers of the same OBJ, streamed builds
+    path = os.path.join(tmp, "terrain_181.obj")
+    write_obj(path, *c.scenes.terrain_mesh(TERRAIN_N))
+    cfg = c.RenderConfig(stream_threshold=0)
+    built, seconds = {}, {}
+    for label, force in (("native", "1"), ("python", "0")):
+        sc, seconds[label] = load(path, force)
+        built[label] = sc.build(cfg)
+    equal = fields_equal(built["native"][0], built["python"][0])
+    small = {"faces": built["native"][1].num_tris, "parse_s": seconds,
+             "speedup": seconds["python"] / seconds["native"],
+             "info_equal": built["native"][1] == built["python"][1],
+             "fields_differing": [k for k, v in equal.items() if not v]}
+    check(small["faces"] == 2 * (TERRAIN_N - 1) ** 2 and small["info_equal"]
+          and not small["fields_differing"],
+          f"obj: the two parsers' tables differ {small}")
+    rec["terrain_181"] = small
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec, c.log)
+    return rec
+
+
+# phase `dist`: the hero's settings (phase `session`'s), its frame seed,
+# and how long the two processes on the card may take
+HERO = dict(width=1920, height=1080, samples_per_frame=8, max_bounces=6,
+            auto_focus=False, blur=0.001)
+DIST_SEED, DIST_TIMEOUT_S = 4242, 120
+
+
+def dist_worker(rank, addr, world, out_dir):
+    """One rank of phase `dist`'s two processes on cuda:0: joins the
+    process group over gloo, renders its row slab of the config-5 hero and
+    assembles the image with one all-gather; writes its record, and rank
+    0 the image, into `out_dir`."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import torch.distributed as torch_dist
+
+    from pathtracer0_tpu_torch import RenderConfig, scenes
+    from pathtracer0_tpu_torch.dist import multihost
+    from pathtracer0_tpu_torch.kernels import fused
+
+    torch.cuda.set_device(0)
+    check(multihost.initialize(addr, world, rank, backend="gloo"),
+          "dist: initialize did not join the process group")
+    sc, info = scenes.BUILDERS[5]().build(max_leaf=4, device="cuda")
+    cam, rot = scenes.CAMERAS[5]
+    slab, queries = multihost.render_local_slab(
+        sc, info, RenderConfig(**HERO), cam, rot, DIST_SEED,
+        multihost.local_mesh(["cuda:0"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = multihost.assemble_image(slab, HERO["height"])
+    gather_ms = 1e3 * (time.perf_counter() - t0)
+    if rank == 0:
+        np.save(os.path.join(out_dir, "assembled.npy"), full)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "rows": multihost.local_rows(HERO["height"]),
+                   "slab_shape": list(slab.shape), "queries": int(queries),
+                   "all_gather_ms": gather_ms,
+                   "launches": {"block_kernel": fused.trace_block.launches}},
+                  f)
+    torch_dist.destroy_process_group()
+
+
+def dist_phase(c, session_rec):
+    """Phase 9, `dist`: dist/mesh.py and dist/multihost.py on the card,
+    each run with the launch counts set to 0 just before it and read just
+    after. hero: config 5 at 1920x1080x8, 6 bounces, blur 0.001, no
+    autofocus; render_frame_tiled over [cuda:0] * 4 against one
+    render_rays over the whole image (block_kernel): elements bit-equal on
+    >= 99.9%, queries equal but for the pad pixels' own. terrain: the 1M
+    terrain the same way at 800x600, BIG_SPP spp, BIG_BOUNCES bounces
+    (streamed_kernel). sample split: config 2 at 800x600x16 over
+    [cuda:0] * 2 against the mean of two render_rays calls with seeds s
+    and s + 2654435761 (mod 2^32), to every bit; at 160x120, 2 spp a
+    device, golden RMSE < 0.05. DistributedRenderer on the hero over
+    [cuda:0] * 4: a warm-up and two timed frames (Mrays/s, wall and CUDA
+    ms, beside phase `session`'s frame-path hero); a checkpoint loaded
+    into a fresh instance, display images bit-equal after one more step;
+    move_camera resets the count; then one frame under torch.profiler (the
+    card's busy share, the kernels' device time). Two processes on cuda:0
+    over gloo (torch.multiprocessing, a free TCP port, DIST_TIMEOUT_S),
+    each its 540-row slab of the hero: rank 0's assembled image against
+    the single-process render, >= 99.9% of elements equal, the all-gather's
+    ms. With more than one card, a mesh of two cards against one card."""
+    torch, np = c.torch, c.np
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from pathtracer0_tpu_torch.dist import mesh as dmesh
+
+    t_start = time.perf_counter()
+    dev = c.dev
+    rec = {"phase": "dist", "card": c.card}
+    tmp = tempfile.mkdtemp()
+    sc5, info5 = c.scenes.BUILDERS[5]().build(max_leaf=4, device="cuda")
+    cam5 = c.scenes.CAMERAS[5]
+    hero_cfg = c.RenderConfig(**HERO)
+
+    def untiled(sc, info, cfg, cam, seed):
+        """One render_rays call over the whole image on the card."""
+        pos, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in cam)
+        uv, index = c.camera.pixel_centers(cfg.width, cfg.height, dev)
+        ifd = c.autofocus_distance(sc, info, pos, rot, cfg.focal_distance,
+                                   cfg.auto_focus)
+        col, q = c.render_rays(sc, info, uv, index, pos, rot, seed, ifd,
+                               config=cfg)
+        return col.reshape(cfg.height, cfg.width, 3), int(q)
+
+    def chunks(n, cfg):
+        return -(-n // cfg.ray_batch_size)
+
+    def tiled_vs_untiled(sc, info, cfg, cam, mesh, kernel):
+        n = cfg.width * cfg.height
+        c.zero_counts()
+        t0 = time.perf_counter()
+        img_t, q_t = dmesh.render_frame_tiled(sc, info, cfg, cam[0], cam[1],
+                                              DIST_SEED, mesh)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        launches_t = c.counts()
+        c.zero_counts()
+        t0 = time.perf_counter()
+        img_u, q_u = untiled(sc, info, cfg, cam, DIST_SEED)
+        torch.cuda.synchronize()
+        wall_u = 1e3 * (time.perf_counter() - t0)
+        launches_u = c.counts()
+        n_pad = -n % len(mesh)
+        q_pad = 0
+        if n_pad:
+            q_pad = int(c.render_rays(
+                sc, info, torch.zeros((n_pad, 2), device=dev),
+                torch.zeros(n_pad, dtype=torch.int64, device=dev),
+                torch.tensor(cam[0], dtype=torch.float32, device=dev),
+                torch.tensor(cam[1], dtype=torch.float32, device=dev),
+                DIST_SEED, torch.tensor(cfg.focal_distance, device=dev),
+                config=cfg)[1])
+        r = {"shape": [cfg.width, cfg.height, cfg.samples_per_frame,
+                       cfg.max_bounces], "mesh": [str(d) for d in mesh],
+             "elements_equal": float((img_t == img_u).float().mean()),
+             "queries_tiled": int(q_t), "queries_untiled": q_u,
+             "pad_pixels": n_pad, "pad_queries": q_pad,
+             "wall_ms_tiled": wall, "wall_ms_untiled": wall_u,
+             "launches_tiled": launches_t, "launches_untiled": launches_u,
+             "finite": bool(torch.isfinite(img_t).all())}
+        if kernel == "block_kernel":
+            tile = (n + n_pad) // len(mesh)
+            r["block_launches_expected"] = [
+                len(mesh) * cfg.samples_per_frame * chunks(tile, cfg),
+                cfg.samples_per_frame * chunks(n, cfg)]
+            ok = [launches_t, launches_u] == [
+                {kernel: k} for k in r["block_launches_expected"]]
+        else:
+            limit = cfg.samples_per_frame * cfg.max_bounces
+            ok = (set(launches_t) == set(launches_u) == {kernel}
+                  and 0 < launches_t[kernel] <= len(mesh) * limit
+                  and 0 < launches_u[kernel] <= limit)
+        check(ok and r["finite"] and r["elements_equal"] >= 0.999
+              and r["queries_tiled"] == q_u + q_pad,
+              f"dist: tiled against untiled {r}")
+        return r, img_u
+
+    mesh4 = dmesh.make_mesh(devices=["cuda:0"] * 4)
+    rec["hero_tiled"], hero_img = tiled_vs_untiled(
+        sc5, info5, hero_cfg, cam5, mesh4, "block_kernel")
+    rec["terrain_1m_tiled"], _ = tiled_vs_untiled(
+        c.big, c.big_info, c.RenderConfig(
+            width=800, height=600, samples_per_frame=BIG_SPP,
+            max_bounces=BIG_BOUNCES, auto_focus=False, blur=0.0),
+        c.big_cam, mesh4, "streamed_kernel")
+
+    # the sample split on config 2, and its golden
+    sc2, info2 = c.scenes.BUILDERS[2]().build(device="cuda")
+    cam2 = c.scenes.CAMERAS[2]
+    mesh2 = dmesh.make_mesh(devices=["cuda:0"] * 2)
+    cfg2 = c.RenderConfig(width=800, height=600, samples_per_frame=16,
+                          max_bounces=BOUNCES)
+    c.zero_counts()
+    split, q_split = dmesh.render_frame_sample_split(
+        sc2, info2, cfg2, cam2[0], cam2[1], DIST_SEED, mesh2)
+    torch.cuda.synchronize()
+    launches = c.counts()
+    a, qa = untiled(sc2, info2, cfg2, cam2, DIST_SEED)
+    b, qb = untiled(sc2, info2, cfg2, cam2, dmesh.split_seed(DIST_SEED, 1))
+    gw, gh, gspp, gseed = GOLDEN
+    gcfg = c.RenderConfig(width=gw, height=gh, samples_per_frame=gspp // 2,
+                          max_bounces=BOUNCES, auto_focus=False, blur=0.0)
+    golden_img, _ = dmesh.render_frame_sample_split(
+        sc2, info2, gcfg, cam2[0], cam2[1], gseed, mesh2)
+    golden = c.img_util.read_png(os.path.join(ROOT, "tests", "goldens",
+                                              "config2.png"))
+    rec["sample_split"] = {
+        "shape": [800, 600, 16, BOUNCES], "mesh": [str(d) for d in mesh2],
+        "seeds": [DIST_SEED, dmesh.split_seed(DIST_SEED, 1)],
+        "equal_to_mean": bool(torch.equal(split, (a + b) / 2.0)),
+        "queries": int(q_split), "queries_of_the_two": qa + qb,
+        "launches": launches,
+        "golden_rmse": c.img_util.rmse(
+            np.clip(golden_img.cpu().numpy(), 0.0, 1.0), golden),
+        "golden_shape": [gw, gh, gspp // 2, 2]}
+    check(rec["sample_split"]["equal_to_mean"]
+          and int(q_split) == qa + qb
+          and launches == {"block_kernel": 2 * 16}
+          and rec["sample_split"]["golden_rmse"] < 0.05,
+          f"dist: sample split {rec['sample_split']}")
+
+    # DistributedRenderer: the hero over [cuda:0] * 4
+    dr = dmesh.DistributedRenderer(sc5, info5, hero_cfg, mesh4,
+                                   cam_pos=cam5[0], cam_rot=cam5[1], seed=5)
+    dr.step()
+    torch.cuda.synchronize()
+    c.zero_counts()
+    q0, walls, events = dr.rays_traced, [], []
+    for _ in range(2):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        dr.step()
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        events.append(e0.elapsed_time(e1))
+    launches = c.counts()
+    queries = dr.rays_traced - q0
+    path = os.path.join(tmp, "dist.npz")
+    dr.save_checkpoint(path)
+    resumed = dmesh.DistributedRenderer(sc5, info5, hero_cfg, mesh4,
+                                        cam_pos=cam5[0], cam_rot=cam5[1],
+                                        seed=5)
+    resumed.load_checkpoint(path)
+    loaded_equal = bool(torch.equal(dr.display_image(),
+                                    resumed.display_image()))
+    step_equal = bool(torch.equal(dr.step(), resumed.step()))
+    dr.move_camera(pos=(cam5[0][0], cam5[0][1] + 0.1, cam5[0][2]))
+    hero = session_rec["hero"]
+    rec["renderer"] = {
+        "shape": [1920, 1080, 8, 6], "mesh": [str(d) for d in mesh4],
+        "wall_ms": walls, "cuda_ms": events, "queries": queries,
+        "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
+        "session_hero_mrays_per_s": hero["mrays_per_s"],
+        "session_hero_frame_ms": 1e3 * hero["frame_s"],
+        "launches": launches, "loaded_equal": loaded_equal,
+        "step_equal": step_equal, "seed_draws": resumed._seed_draws,
+        "count_after_move": dr._count}
+    check(launches == {"block_kernel": 2 * 4 * 8} and loaded_equal
+          and step_equal and resumed._seed_draws == 4
+          and dr._count == 0
+          and float(dr.display_image().abs().max()) == 0.0,
+          f"dist: DistributedRenderer {rec['renderer']}")
+    # where a frame's time goes: the card's busy share, block_kernel's part
+    rec["renderer"]["profile"] = trace_busy(torch, dr.step)
+    rec["renderer"]["busy_share"] = rec["renderer"]["profile"]["busy_share"]
+    del dr, resumed
+
+    # two processes on the card, joined over gloo
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_worker,
+                             args=(f"127.0.0.1:{port}", 2, tmp), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"dist: the two processes ran past {DIST_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    assembled = torch.from_numpy(np.load(os.path.join(tmp, "assembled.npy")))
+    rec["two_processes"] = {
+        "backend": "gloo", "seconds": time.perf_counter() - t0,
+        "ranks": ranks, "elements_equal": float(
+            (assembled.to(dev) == hero_img).float().mean())}
+    check([r["rows"] for r in ranks] == [[0, 540], [540, 1080]]
+          and all(r["launches"]["block_kernel"] > 0 for r in ranks)
+          and rec["two_processes"]["elements_equal"] >= 0.999,
+          f"dist: two processes {rec['two_processes']}")
+
+    # a mesh of two cards, where there are two
+    if torch.cuda.device_count() > 1:
+        rec["multi_card"], _ = tiled_vs_untiled(
+            sc5, info5, hero_cfg, cam5,
+            dmesh.make_mesh(devices=["cuda:0", "cuda:1"]), "block_kernel")
+    else:
+        rec["multi_card"] = "not run: 1 card"
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec, c.log)
+    return rec
 
 
 def main() -> int:
@@ -3232,6 +3664,22 @@ def main() -> int:
         terrain_scene=terrain_scene, grid_scene=grid_scene,
         grid_obj=grid_obj, terrain_cam=terrain_cam, grid_cam=grid_cam,
         big=big, big_info=big_info, big_host=big_host, big_cam=big_cam))
+
+    # ---- 8, 9. obj and dist: the native OBJ parser, several devices -----
+    def counts():
+        """The launch counts that are not 0, by kernel."""
+        return {k: v for k, v in {"frame_kernel": frame.trace_frame.launches,
+                                  "block_kernel": fused.trace_block.launches,
+                                  **wavefront.launches}.items() if v}
+
+    slice_paths = SimpleNamespace(
+        torch=torch, np=np, dev=dev, card=card, log=log,
+        zero_counts=zero_counts, counts=counts, scenes=scenes, Scene=Scene,
+        RenderConfig=RenderConfig, Renderer=Renderer, camera=camera,
+        render_rays=render_rays, autofocus_distance=autofocus_distance,
+        img_util=img_util, big=big, big_info=big_info, big_cam=big_cam)
+    obj_phase(slice_paths)
+    dist_phase(slice_paths, session_rec)
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",

@@ -1,10 +1,10 @@
 """Build the sources under csrc/ and load them with ctypes.
 
 Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
-nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, and
-for the CPU tests the forest kernels' triangle test, the block
-kernel's dense triangle loop and the group-test kernels' candidate test
-and group loop) by g++, into
+nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, the
+OBJ tokenizer, and for the CPU tests the forest kernels' triangle test,
+the block kernel's dense triangle loop and the group-test kernels'
+candidate test and group loop) by g++, into
 `_build/` at first use, and cached there under a hash of their sources
 and the flags; `build_all` starts one compiler per library together, so
 a fresh checkout pays the slowest build and not their sum.
@@ -42,8 +42,10 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # forest kernels' triangle test (tri_divide.cuh), the block kernel's
 # dense triangle loop (pathtrace.cuh) and the group-test kernels' candidate
 # test and group loop (group_test.cuh, tri_free.cuh) equal the plain
-# versions'
+# versions'; the OBJ tokenizer (objparse.cpp) does no float arithmetic
+# beyond strtod
 HOST_LIBS = {"streambuild": ("streambuild.cpp",),
+             "objparse": ("objparse.cpp",),
              "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh"),
              "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh"),
              "group_test": ("group_test_host.cpp", "group_test.cuh",
@@ -65,8 +67,9 @@ def nvcc() -> str:
 def gxx() -> str:
     found = shutil.which("g++")
     if not found:
-        raise RuntimeError("g++ not found: the LBVH builder "
-                           "(csrc/streambuild.cpp) cannot be built")
+        raise RuntimeError("g++ not found: the host libraries (the LBVH "
+                           "builder csrc/streambuild.cpp, the OBJ tokenizer "
+                           "csrc/objparse.cpp) cannot be built")
     return found
 
 

@@ -9,8 +9,9 @@
                                                        set_last_mtl
     scene.addMat(Ka, Kd, Ks, ...)                   -> add_mat
 plus texture 0 as the sky (set_sky), bulk meshes (add_mesh,
-add_mesh_indexed) and the legacy shader's emissive-disk lights
-(add_disk_light, add_emissive_sphere). `build(config, device=...)`
+add_mesh_indexed; large OBJ files load as bulk meshes through the native
+parser, scene/native_obj.py) and the legacy shader's emissive-disk
+lights (add_disk_light, add_emissive_sphere). `build(config, device=...)`
 builds the SAH forest over the triangles, or the two-level LBVH past
 `config.stream_threshold` of them, and packs everything onto one device
 (scene/packing.py).
@@ -24,6 +25,7 @@ import numpy as np
 
 from ..config import RenderConfig
 from ..core.device import resolve_device
+from . import native_obj
 from .material import Material, parse_mtl
 from .objparse import TriangleSoA, parse_obj
 from .packing import pack_scene
@@ -92,12 +94,33 @@ class Scene:
             emissive_radius, solid, absorption, texture_id)))
 
     # -- geometry -----------------------------------------------------------
+    # OBJ files past this size go to the native tokenizer
+    # (scene/native_obj.py): the line-by-line parser cannot be vectorized
+    NATIVE_OBJ_THRESHOLD = 4 << 20  # bytes
+
+    def _parse_obj(self, path: str, material, scale, shift, rot,
+                   parent_dir: str):
+        """One .obj file through the native parser (past
+        NATIVE_OBJ_THRESHOLD bytes, or always with PT0_NATIVE_OBJ=1; never
+        with PT0_NATIVE_OBJ=0) or the line-by-line one. Where the native
+        parser is chosen and g++ cannot build it, this raises."""
+        force = os.environ.get("PT0_NATIVE_OBJ")
+        names = [m.name for m in self.materials]
+        if force == "1" or (force != "0" and os.path.getsize(path)
+                            > self.NATIVE_OBJ_THRESHOLD):
+            native_obj.parse_obj_bulk(path, self, material, scale, shift,
+                                      rot, names, parent_dir)
+        else:
+            parse_obj(path, self.tris, material, scale, shift, rot, names,
+                      parent_dir)
+
     def add_object(self, filepath: str, material: int = 0,
                    scale=(1.0, 1.0, 1.0), shift=(0.0, 0.0, 0.0),
                    rot=(0.0, 0.0, 0.0)):
         """A directory: every .mtl, then every .obj inside it; a file: that
         one .obj (dispatch.java:867-886). Each `o`/`g` group becomes one
-        object of the forest."""
+        object of the forest. Large files go to the native parser (see
+        _parse_obj)."""
         if os.path.isdir(filepath):
             entries = sorted(os.listdir(filepath))
             objs = [e for e in entries if e.lower().endswith(".obj")]
@@ -108,12 +131,10 @@ class Scene:
                 parse_mtl(os.path.join(filepath, m), filepath,
                           self.materials, self.textures)
             for o in objs:
-                parse_obj(os.path.join(filepath, o), self.tris, material,
-                          scale, shift, rot,
-                          [m.name for m in self.materials], filepath)
+                self._parse_obj(os.path.join(filepath, o), material, scale,
+                                shift, rot, filepath)
         elif os.path.isfile(filepath) and filepath.lower().endswith(".obj"):
-            parse_obj(filepath, self.tris, material, scale, shift, rot,
-                      [m.name for m in self.materials], "")
+            self._parse_obj(filepath, material, scale, shift, rot, "")
         else:
             raise FileNotFoundError(filepath)
 

@@ -110,10 +110,18 @@ def sample_bilinear(tex_data, tex_sizes, tex_index, uv):
 
 
 def sky_uv(dx, dy, dz):
-    """Equirect mapping of a direction (frag.glsl:235-242)."""
-    u = 0.5 + torch.atan2(dz, dx) / SKY_U_DIV
-    v = 0.5 - torch.asin(torch.clamp(dy, -1.0, 1.0)) / SKY_V_DIV
-    return u, v
+    """Equirect mapping of a direction (frag.glsl:235-242). On the CPU the
+    angles are taken in float64 and rounded once: PyTorch's float32 atan2
+    and asin there give another ulp in the vector loop than in its scalar
+    tail, so a pixel's sky would depend on its place in the batch (a tile
+    of several devices against the whole image)."""
+    if dx.device.type == "cpu" and dx.dtype == torch.float32:
+        yaw = torch.atan2(dz.double(), dx.double()).float()
+        pitch = torch.asin(torch.clamp(dy, -1.0, 1.0).double()).float()
+    else:
+        yaw = torch.atan2(dz, dx)
+        pitch = torch.asin(torch.clamp(dy, -1.0, 1.0))
+    return 0.5 + yaw / SKY_U_DIV, 0.5 - pitch / SKY_V_DIV
 
 
 def sky_color_soa(tex_data, tex_sizes, dx, dy, dz):

@@ -239,12 +239,10 @@ BUILDERS = {1: whitted_analytic, 2: metal_glass, 3: obj_bvh, 4: full_pbr,
             5: obj_bvh, 6: textured}
 
 
-def terrain(n: int = 708) -> Scene:
-    """The scale benchmark's procedural terrain: an n x n height field of
-    2 (n - 1)^2 triangles (999,698 at n = 708, 4M at n = 1416) at constant
-    triangle density, one indexed mesh of one rough material under a
-    constant sky. Past `stream_threshold` triangles it renders through the
-    streamed LBVH. Camera: `terrain_camera(n)`."""
+def terrain_mesh(n: int = 708):
+    """The scale benchmark's height field: (verts (n*n, 3) float64, faces
+    (2 (n - 1)^2, 3) int64), 999,698 triangles at n = 708, 4M at n = 1416,
+    at constant triangle density."""
     ext = 50.0 * (n / 708.0)
     xs = np.linspace(-ext, ext, n)
     X, Z = np.meshgrid(xs, xs)
@@ -256,12 +254,25 @@ def terrain(n: int = 708) -> Scene:
     gc, gd = g[:-1, 1:].reshape(-1), g[1:, 1:].reshape(-1)
     faces = np.concatenate([np.stack([ga, gb, gc], axis=1),
                             np.stack([gd, gb, gc], axis=1)])
-    sc = Scene()
+    return np.stack([X, Y, Z], axis=-1).reshape(-1, 3), faces
+
+
+def terrain_materials(sc: Scene) -> Scene:
+    """The terrain's constant sky and its one rough material (index 0)."""
     sc.set_constant_sky((0.5, 0.6, 0.9))
     sc.add_material("terrain")
     sc.set_last_mtl("Kd", (0.45, 0.52, 0.38))
     sc.set_last_mtl("Pr", 1.0)
-    sc.add_mesh_indexed(np.stack([X, Y, Z], axis=-1).reshape(-1, 3), faces, 0)
+    return sc
+
+
+def terrain(n: int = 708) -> Scene:
+    """The scale benchmark's procedural terrain (`terrain_mesh`): one
+    indexed mesh of one rough material under a constant sky. Past
+    `stream_threshold` triangles it renders through the streamed LBVH.
+    Camera: `terrain_camera(n)`."""
+    sc = terrain_materials(Scene())
+    sc.add_mesh_indexed(*terrain_mesh(n), 0)
     return sc
 
 

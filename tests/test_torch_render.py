@@ -179,6 +179,24 @@ def test_import_boundary():
         "render_rays(ls, li, uv, ix, torch.zeros(3), torch.zeros(3), 1,\n"
         "            torch.tensor(1.0), fold_spp=True,\n"
         "            config=dataclasses.replace(cfg, samples_per_frame=2))\n"
+        "from pathtracer0_tpu_torch.dist import mesh, multihost\n"
+        "from pathtracer0_tpu_torch.scene import native_obj\n"
+        "import os, tempfile\n"
+        "obj = os.path.join(tempfile.mkdtemp(), 'tri.obj')\n"
+        "open(obj, 'w').write('o t\\nv 0 0 3\\nv 1 0 3\\nv 0 1 3\\n"
+        "f 1 2 3\\n')\n"
+        "os.environ['PT0_NATIVE_OBJ'] = '1'\n"
+        "lit.add_object(obj)\n"
+        "assert len(lit.bulk_meshes) == 1\n"
+        "ls, li = lit.build(cfg, device='cpu')\n"
+        "m = mesh.make_mesh(devices=['cpu'] * 3)\n"
+        "mesh.render_frame_tiled(ls, li, cfg, (0, 0, 0), (0, 0, 0), 1, m)\n"
+        "mesh.render_frame_sample_split(ls, li, cfg, (0, 0, 0), (0, 0, 0),\n"
+        "                               1, m[:2])\n"
+        "mesh.DistributedRenderer(ls, li, cfg, m).step()\n"
+        "multihost.assemble_image(multihost.render_local_slab(\n"
+        "    ls, li, cfg, (0, 0, 0), (0, 0, 0), 1, multihost.local_mesh(\n"
+        "        ['cpu']))[0], cfg.height)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')]\n"

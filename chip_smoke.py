@@ -157,6 +157,21 @@ non-zero:
                    two processes on the card over gloo, the assembled
                    image against one process's; a mesh of two cards where
                    there are two
+ 10. tools         the port's run tools at their full defaults, each
+                   through its own entry point (`tools_phase`):
+                   tools.profile on configs 1, 2, 3, 4, 6 (its five rows:
+                   full frame, 1 bounce, 1 spp, fused=off, fused=on, with
+                   launches a frame; --trace on config 3: busy share and
+                   kernels); tools.diag_streamed on the 1M terrain (its
+                   four populations of 262,144 rays, each held against
+                   streamed_reference with the kernel's device ms and
+                   bound); tools.diag_scale_frame (six settings, queries
+                   rising with bounces); tools.diag_build4m on the
+                   4,004,450-triangle terrain with the peak allocated
+                   memory of its build and of one 800x600, 2 spp, 3-bounce
+                   frame; tools.run_hero_full to 4,096 spp (512 frames,
+                   checkpoints every 64, a second accumulation), its time
+                   beside phase `session`'s estimate
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -499,52 +514,16 @@ def sass_counts(build, lib):
     return counts
 
 
-def trace_busy(torch, step):
-    """One call of `step` (a frame) under torch.profiler, after a warm-up
-    call and an untraced one: how busy the card is (its device time over
-    the untraced call's wall time) and which kernels take its time
-    (`ours`: the share of the package's own kernels in the device
-    time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    untraced_ms = 1e3 * (time.perf_counter() - t)
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t)
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_time_total", 0) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    # csrc/*.cu: every kernel of the package takes one `...Args` struct
-    ours = [e for e in kernels if e.key.endswith("Args)")]
-    return {"wall_ms_untraced": untraced_ms, "wall_ms_traced": wall_ms,
-            "device_busy_ms": busy_ms, "busy_share": busy_ms / untraced_ms,
-            "ours": [{"name": e.key[:80], "count": int(e.count),
-                      "ms": e.device_time_total / 1e3,
-                      "share_of_busy": e.device_time_total / 1e3 / busy_ms}
-                     for e in ours],
-            "device_kernels": int(sum(e.count for e in kernels)),
-            "top": [{"name": e.key[:80], "count": int(e.count),
-                     "ms": e.device_time_total / 1e3} for e in top]}
-
-
-def profile_route(torch, Renderer, cfg, label, scene, info, cam, card, log):
+def profile_route(Renderer, cfg, label, scene, info, cam, card, log):
     """One 800x600 frame of the per-bounce route under torch.profiler
-    (trace_busy)."""
+    (tools/profile.trace_busy)."""
+    from pathtracer0_tpu_torch.tools.profile import trace_busy
+
     r = Renderer(scene, info, cfg, cam_pos=cam[0], cam_rot=cam[1], seed=2,
                  device="cuda")
     emit({"phase": "profile", "scene": label,
           "spp": cfg.samples_per_frame, "bounces": cfg.max_bounces,
-          **trace_busy(torch, r.step), "card": card}, log)
+          **trace_busy(r.step), "card": card}, log)
 
 
 def session(torch, np, dev, card, log, zero_counts, scenes, RenderConfig,
@@ -753,6 +732,7 @@ def modes(c):
     from pathtracer0_tpu_torch.kernels.intersect import MISS
     from pathtracer0_tpu_torch.render.renderer import render_debug_frame
     from pathtracer0_tpu_torch.shade import arealights
+    from pathtracer0_tpu_torch.tools.profile import trace_busy
 
     t_start = time.perf_counter()
     dev = c.dev
@@ -948,7 +928,7 @@ def modes(c):
             rec["launches_per_frame_one_per_point"] = (
                 per_frame.get(kernel, 0)
                 + shades * len(info.lights) * (grid - 1))
-        rec["profile"] = trace_busy(torch, r.step)
+        rec["profile"] = trace_busy(r.step)
         rec["busy_share"] = rec["profile"]["busy_share"]
         # the same render at 160x120 on the card and on the CPU, as the
         # goldens are made: no blur, no autofocus (libm ulps in the lens
@@ -1237,6 +1217,7 @@ def dist_phase(c, session_rec):
     import torch.multiprocessing as mp
 
     from pathtracer0_tpu_torch.dist import mesh as dmesh
+    from pathtracer0_tpu_torch.tools.profile import trace_busy
 
     t_start = time.perf_counter()
     dev = c.dev
@@ -1398,7 +1379,7 @@ def dist_phase(c, session_rec):
           and float(dr.display_image().abs().max()) == 0.0,
           f"dist: DistributedRenderer {rec['renderer']}")
     # where a frame's time goes: the card's busy share, block_kernel's part
-    rec["renderer"]["profile"] = trace_busy(torch, dr.step)
+    rec["renderer"]["profile"] = trace_busy(dr.step)
     rec["renderer"]["busy_share"] = rec["renderer"]["profile"]["busy_share"]
     del dr, resumed
 
@@ -1441,6 +1422,182 @@ def dist_phase(c, session_rec):
             dmesh.make_mesh(devices=["cuda:0", "cuda:1"]), "block_kernel")
     else:
         rec["multi_card"] = "not run: 1 card"
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec, c.log)
+    return rec
+
+
+# phase `tools`: configs the profile twin times, the terrains of the scale
+# tools, and the frame whose peak memory the 4M terrain is read after (the
+# scale frame's settings)
+TOOLS_PROFILE_CONFIGS = (1, 2, 3, 4, 6)
+TOOLS_TRACE_CONFIG = 3
+TOOLS_STREAMED_N, TOOLS_BUILD_N = 708, 1416
+
+
+def tools_phase(c, session_rec):
+    """Phase 10, `tools`: the port's run tools (pathtracer0_tpu_torch/tools)
+    at their full defaults, through their own entry points, each with the
+    launch counts set to 0 just before it and read just after. profile:
+    configs 1, 2, 3, 4, 6 at BENCH_PARAMS (spp capped at 8), its five rows
+    each; the full frame and fused=on launch frame_kernel once a frame,
+    fused=off never; --trace on config 3: the trace file, the card's busy
+    share, frame_kernel among the traced kernels. diag_streamed at n = 708:
+    the four populations of 262,144 rays, each batch as the tool hands it
+    to streamed_kernel held against streamed_reference at the
+    streamed-parity limits, with the kernel's device ms and bound as phase
+    2 computes them (`compare_streamed`). diag_scale_frame at n = 708: its
+    six settings; at each spp the live queries rise with the bounces.
+    diag_build4m at n = 1416: build s, each large table's put MB/s, the
+    total bytes; the peak allocated memory of the build and of one
+    800x600, 2 spp, 3-bounce path frame of the 4M terrain
+    (torch.cuda.max_memory_allocated after reset_peak_memory_stats, and
+    above what earlier phases hold). run_hero_full to 4,096 spp into a
+    temporary directory: no watchdog anomaly, 512 frames, the residual
+    noise finite, frame_kernel launched once a frame; its time to 4,096
+    spp beside phase `session`'s estimate."""
+    torch, np = c.torch, c.np
+    from pathtracer0_tpu_torch.kernels import frame, wavefront
+    from pathtracer0_tpu_torch.render.renderer import render_frame
+    from pathtracer0_tpu_torch.tools import (diag_build4m, diag_scale_frame,
+                                             diag_streamed, profile,
+                                             run_hero_full)
+
+    t_start = time.perf_counter()
+    rec = {"phase": "tools", "card": c.card}
+    tmp = tempfile.mkdtemp()
+
+    def quiet(*_):
+        pass
+
+    # profile: five rows a config
+    rec["profile"] = {}
+    for n in TOOLS_PROFILE_CONFIGS:
+        argv = ["--config", str(n)]
+        if n == TOOLS_TRACE_CONFIG:
+            argv += ["--trace", os.path.join(tmp, "trace")]
+        c.zero_counts()
+        t0 = time.perf_counter()
+        out = profile.main(argv, out=quiet)
+        rows = {r["row"]: r for r in out["rows"]}
+        cell = {"seconds": time.perf_counter() - t0,
+                "rows": {name: {k: r[k] for k in (
+                    "ms", "mrays_per_s_nominal", "launches_per_frame")}
+                    for name, r in rows.items()},
+                "launches": c.counts()}
+        rec["profile"][n] = cell
+        for name in ("full frame", "fused=on"):
+            check(rows[name]["launches_per_frame"].get("frame_kernel") == 1,
+                  f"tools: profile config {n} {name}: {cell}")
+        check("frame_kernel" not in rows["fused=off (per-bounce path)"][
+                  "launches_per_frame"]
+              and all(r["ms"] > 0 for r in rows.values()),
+              f"tools: profile config {n}: {cell}")
+        if out["trace"] is not None:
+            busy = out["trace"]
+            cell["trace"] = {k: busy[k] for k in (
+                "trace", "busy_share", "wall_ms_untraced", "device_busy_ms",
+                "device_kernels", "ours", "top")}
+            cell["trace"]["trace_bytes"] = os.path.getsize(busy["trace"])
+            check(cell["trace"]["trace_bytes"] > 0
+                  and busy["busy_share"] is not None
+                  and busy["busy_share"] > 0
+                  and any("frame_kernel" in k["name"] for k in busy["ours"]),
+                  f"tools: profile --trace {cell['trace']}")
+
+    # diag_streamed: the tool's populations, each checked against the plain
+    # walk on the card
+    sc, info = diag_streamed.terrain(TOOLS_STREAMED_N)
+    c.zero_counts()
+    t0 = time.perf_counter()
+    runs = diag_streamed.main(TOOLS_STREAMED_N, scene=(sc, info), out=quiet)
+    seconds = time.perf_counter() - t0
+    launches = c.counts()
+    check(launches == {"streamed_kernel": 4 * len(runs)},
+          f"tools: diag_streamed launches {launches}")
+    rec["diag_streamed"] = {"seconds": seconds, "tris": info.num_tris,
+                            "treelets": info.st_n_treelets,
+                            "launches": launches, "populations": {}}
+    for row, (o, d, t_init, _, _) in runs:
+        parity = c.compare_streamed(f"diag_streamed {row['label']}", sc, info,
+                                    o, d, t_init)
+        rec["diag_streamed"]["populations"][row["label"]] = {
+            **{k: row[k] for k in ("box_tests_per_ray", "row_visits_per_ray",
+                                   "pairs_per_ray", "ms", "mrays_per_s",
+                                   "hit_pct")},
+            **{f"kernel_{k}": parity[k] for k in (
+                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                "idx_eq", "max_abs_err", "box_eq", "rows_eq")}}
+    del sc, info, runs
+
+    # diag_scale_frame: queries rise with the bounces
+    c.zero_counts()
+    t0 = time.perf_counter()
+    rows = diag_scale_frame.main(TOOLS_STREAMED_N, out=quiet)
+    rec["diag_scale_frame"] = {"seconds": time.perf_counter() - t0,
+                               "rows": rows, "launches": c.counts()}
+    for spp in (1, 2):
+        q = [r["live_queries"] for r in rows if r["spp"] == spp]
+        check(len(q) == 3 and q[0] < q[1] < q[2]
+              and q[0] == 800 * 600 * spp,
+              f"tools: diag_scale_frame spp {spp}: {rows}")
+    check(set(rec["diag_scale_frame"]["launches"]) == {"streamed_kernel"},
+          f"tools: diag_scale_frame {rec['diag_scale_frame']['launches']}")
+
+    # diag_build4m and the 4M terrain's peak memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c.zero_counts()
+    t0 = time.perf_counter()
+    build, sc4, info4 = diag_build4m.main(TOOLS_BUILD_N, out=quiet)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem = {"held_before_bytes": held,
+           "build_peak_bytes": torch.cuda.max_memory_allocated(),
+           "scene_bytes": torch.cuda.memory_allocated() - held}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = c.RenderConfig(width=800, height=600, samples_per_frame=2,
+                         max_bounces=3, auto_focus=False, blur=0.0)
+    cam = diag_scale_frame.camera(TOOLS_BUILD_N)
+    img, q = render_frame(sc4, info4, cfg, *cam, 1234, device="cuda")
+    torch.cuda.synchronize()
+    mem["frame_peak_bytes"] = torch.cuda.max_memory_allocated()
+    for k in ("build", "frame"):
+        mem[f"{k}_peak_above_held_bytes"] = mem[f"{k}_peak_bytes"] - held
+    rec["diag_build4m"] = {
+        "seconds": seconds, **{k: build[k] for k in (
+            "tris", "streamed", "build_s", "fields", "total_bytes",
+            "total_mb")},
+        "memory": mem, "frame_queries": int(q.sum()),
+        "frame_finite": bool(torch.isfinite(img).all()),
+        "launches": c.counts()}
+    check(build["tris"] == 2 * (TOOLS_BUILD_N - 1) ** 2 and build["streamed"]
+          and all(f["mb_per_s"] > 0 for f in build["fields"])
+          and rec["diag_build4m"]["frame_finite"]
+          and rec["diag_build4m"]["launches"].get("streamed_kernel", 0) > 0,
+          f"tools: diag_build4m {rec['diag_build4m']}")
+    del sc4, info4, img, q
+
+    # run_hero_full: the hero to 4,096 spp
+    lines = []
+    c.zero_counts()
+    t0 = time.perf_counter()
+    hero = run_hero_full.run(out_dir=os.path.join(tmp, "hero"),
+                             log=lines.append)
+    rec["hero_run"] = {
+        "seconds": time.perf_counter() - t0, **hero,
+        "session_est_time_to_4096spp_s":
+            session_rec["hero"]["est_time_to_4096spp_s"],
+        "launches": c.counts(), "log": lines[:-1]}
+    check(hero["frames"] == 512 and hero["checkpoints"] == 8
+          and np.isfinite(hero["residual_noise_per_image"])
+          and rec["hero_run"]["launches"] == {
+              "frame_kernel": 16 + 2 * 512}
+          and os.path.exists(os.path.join(tmp, "hero", "hero_ckpt_torch.npz")),
+          f"tools: run_hero_full {rec['hero_run']}")
     shutil.rmtree(tmp, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t_start
     emit(rec, c.log)
@@ -3611,13 +3768,13 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         profile_route(
-            torch, Renderer,
+            Renderer,
             RenderConfig(width=800, height=600,
                          samples_per_frame=TERRAIN_SPP, max_bounces=BOUNCES,
                          auto_focus=True),
             "terrain", terrain, terrain_info, terrain_cam, card, log)
         profile_route(
-            torch, Renderer,
+            Renderer,
             RenderConfig(width=800, height=600, samples_per_frame=BIG_SPP,
                          max_bounces=BIG_BOUNCES, auto_focus=False, blur=0.0),
             "terrain_1m", big, big_info, big_cam, card, log)
@@ -3677,9 +3834,13 @@ def main() -> int:
         zero_counts=zero_counts, counts=counts, scenes=scenes, Scene=Scene,
         RenderConfig=RenderConfig, Renderer=Renderer, camera=camera,
         render_rays=render_rays, autofocus_distance=autofocus_distance,
-        img_util=img_util, big=big, big_info=big_info, big_cam=big_cam)
+        img_util=img_util, big=big, big_info=big_info, big_cam=big_cam,
+        compare_streamed=compare_streamed)
     obj_phase(slice_paths)
     dist_phase(slice_paths, session_rec)
+
+    # ---- 10. tools: the port's run tools at their full defaults ----------
+    tools_phase(slice_paths, session_rec)
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",

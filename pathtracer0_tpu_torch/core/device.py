@@ -21,3 +21,10 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(dev: torch.device):
+    """Wait for the work queued on `dev` where it is a card; the CPU runs
+    each op to its end before it returns."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

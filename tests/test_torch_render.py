@@ -133,8 +133,9 @@ def test_unported_modes_raise():
 
 
 def test_import_boundary():
-    """Importing the port (and driving it) loads neither jax nor the JAX
-    package; neither does chip_smoke.py's import section."""
+    """Importing the port (and driving it, its run tools included) loads
+    neither jax nor the JAX package, nor bench.py or the JAX package's
+    tools; neither does chip_smoke.py's import section."""
     code = (
         "import sys\n"
         "import pathtracer0_tpu_torch\n"
@@ -197,9 +198,24 @@ def test_import_boundary():
         "multihost.assemble_image(multihost.render_local_slab(\n"
         "    ls, li, cfg, (0, 0, 0), (0, 0, 0), 1, multihost.local_mesh(\n"
         "        ['cpu']))[0], cfg.height)\n"
+        "from pathtracer0_tpu_torch.tools import (diag_build4m,\n"
+        "    diag_scale_frame, diag_streamed, profile, run_hero_full)\n"
+        "q = lambda *_: None\n"
+        "diag_streamed.main(8, scene=diag_streamed.terrain(8, config=\n"
+        "    RenderConfig(stream_threshold=0), device='cpu'), rays=64,\n"
+        "    out=q)\n"
+        "diag_scale_frame.main(8, size=(8, 6), device='cpu', out=q)\n"
+        "diag_build4m.main(8, device='cpu', out=q)\n"
+        "profile.main(['--config', '3', '--frames', '1', '--device', 'cpu',\n"
+        "              '--trace', tempfile.mkdtemp()],\n"
+        "             params=(8, 6, 1, 2, True), out=q)\n"
+        "run_hero_full.run(4, 2, 2, out_dir=tempfile.mkdtemp(),\n"
+        "                  device='cpu', log=q, overrides=dict(\n"
+        "                      width=8, height=6, samples_per_frame=2))\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')]\n"
+        " or m == 'pathtracer0_tpu' or m.startswith('pathtracer0_tpu.')"
+        " or m in ('bench', 'tools') or m.startswith('tools.')]\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ)
@@ -210,8 +226,9 @@ def test_import_boundary():
 
 
 def test_sources_import_no_jax():
-    """No module of the port, and not chip_smoke.py, names jax or the JAX
-    package in an import statement."""
+    """No module of the port, and not chip_smoke.py, names jax, the JAX
+    package, bench.py or the JAX package's tools in an import
+    statement."""
     import ast
     import glob
 
@@ -230,5 +247,5 @@ def test_sources_import_no_jax():
                 names = [node.module or ""]
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "pathtracer0_tpu"), \
-                    (path, name)
+                assert top not in ("jax", "jaxlib", "pathtracer0_tpu",
+                                   "bench", "tools"), (path, name)

@@ -6,11 +6,12 @@
 Phases, one JSON line each; any failed check raises and the script exits
 non-zero:
 
-  1. environment   card name and power limit; the five CUDA sources (one
-                   nvcc each) and the four host libraries (g++: the LBVH
-                   build and, for the CPU tests, the forest kernels'
-                   triangle test, the block kernel's triangle loop, the
-                   group tests' candidate test and group loop) are built
+  1. environment   card name and power limit; the six CUDA sources (one
+                   nvcc each) and the six host libraries (g++: the LBVH
+                   build, the OBJ tokenizer and, for the CPU tests, the
+                   forest kernels' triangle test, the block kernel's
+                   triangle loop, the group tests' candidate test and
+                   group loop, the bounce kernel's per-ray body) are built
                    together; each kernel instantiation's registers and
                    spills, and its local-memory, call and load
                    instructions by width in the SASS
@@ -172,6 +173,19 @@ non-zero:
                    frame; tools.run_hero_full to 4,096 spp (512 frames,
                    checkpoints every 64, a second accumulation), its time
                    beside phase `session`'s estimate
+ 11. bounce        bounce_kernel, one launch a bounce of the per-bounce
+                   route (`bounce_phase`): against bounce_step_plain on
+                   one sample's 800x600 rays of the terrain, the OBJ grid,
+                   the 1M terrain and configs 4 and 6, bounce after bounce
+                   from the same state and walk, at the kernel-parity
+                   limits; the Whitted form on the same scenes and, with
+                   the thickness probe, the OBJ grid with a subsurface
+                   material; the kernel's ms (20 launches on as many
+                   copies of the state), the plain version's and the
+                   bound at each bounce; frames of each cell through
+                   Renderer (this checkout's and each --parent's): wall
+                   and CUDA ms, launches a frame, the card's busy share
+                   and device operations a bounce under torch.profiler
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -180,9 +194,11 @@ busy time, its kernel count and the kernels that took most of it (phase
 
 With `--parent LABEL=DIR` (repeatable) it also loads the package of another
 checkout, DIR/pathtracer0_tpu_torch (the parent commit unpacked with `git
-archive`, say), builds those of its frame, block, forest, streamed and
-group-test kernels whose sources differ from this one's (the forest and
-streamed kernels also where kernels/wavefront.py differs), and holds each
+archive`, say), builds its forest and streamed kernels (phase `bounce`
+renders the per-bounce route's frames through its Renderer too) and those
+of its frame, block and group-test kernels whose sources differ from this
+one's, and holds each whose sources differ (the forest and streamed
+kernels also where kernels/wavefront.py differs)
 against this checkout's (phase `parent_vs_change`), whatever the others
 do: frame_kernel in configs 1, 2, 3, 4, 6 at 800x600 and the main path's spp
 in both schedules, traverse_kernel on the terrain's 960,000 rays,
@@ -763,6 +779,7 @@ def modes(c):
     def counts():
         return {"frame_kernel": c.frame.trace_frame.launches,
                 "block_kernel": fused.trace_block.launches,
+                "bounce_kernel": c.bounce.bounce_step.launches,
                 **c.wavefront.launches}
 
     class Folded:
@@ -952,8 +969,13 @@ def modes(c):
                                    **agreement(got, want, tol, glossy)}
         recs[f"{mode} {label}"] = rec
         # checks: only the run's kernel, as often as the mode needs it
-        others = {k: v for k, v in per_frame.items() if k != kernel}
+        # (fold_spp's bounces also launch bounce_kernel, once each)
+        others = {k: v for k, v in per_frame.items() if k != kernel
+                  and not (mode == "fold_spp" and k == "bounce_kernel")}
         n_kernel = per_frame.get(kernel, 0)
+        check(mode != "fold_spp"
+              or per_frame.get("bounce_kernel") == n_kernel,
+              f"modes {mode} {label}: bounce launches {per_frame}")
         want_n = {"legacy_shading": 1 + len(info.lights),
                   "debug": max(info.num_objects, 1)}.get(mode)
         check(not others and n_kernel > 0
@@ -1117,7 +1139,9 @@ def obj_phase(c):
         big["frames"][mode] = {"pixels_equal": eq, "launches": launches}
         n_max = BIG_SPP * (BIG_BOUNCES if raytracing else 1)
         check(eq >= 0.999 and all(
-            set(n) == {"streamed_kernel"} and 0 < n["streamed_kernel"] <= n_max
+            set(n) == {"streamed_kernel", "bounce_kernel"}
+            and 0 < n["streamed_kernel"] <= n_max
+            and n["bounce_kernel"] == n["streamed_kernel"]
             for n in launches.values()),
             f"obj: {mode} frames {big['frames'][mode]}")
     rec["terrain_1m"] = big
@@ -1282,10 +1306,14 @@ def dist_phase(c, session_rec):
             ok = [launches_t, launches_u] == [
                 {kernel: k} for k in r["block_launches_expected"]]
         else:
+            # one bounce_kernel launch after each walk
             limit = cfg.samples_per_frame * cfg.max_bounces
-            ok = (set(launches_t) == set(launches_u) == {kernel}
+            ok = (set(launches_t) == set(launches_u)
+                  == {kernel, "bounce_kernel"}
                   and 0 < launches_t[kernel] <= len(mesh) * limit
-                  and 0 < launches_u[kernel] <= limit)
+                  and 0 < launches_u[kernel] <= limit
+                  and all(n["bounce_kernel"] == n[kernel]
+                          for n in (launches_t, launches_u)))
         check(ok and r["finite"] and r["elements_equal"] >= 0.999
               and r["queries_tiled"] == q_u + q_pad,
               f"dist: tiled against untiled {r}")
@@ -1542,7 +1570,8 @@ def tools_phase(c, session_rec):
         check(len(q) == 3 and q[0] < q[1] < q[2]
               and q[0] == 800 * 600 * spp,
               f"tools: diag_scale_frame spp {spp}: {rows}")
-    check(set(rec["diag_scale_frame"]["launches"]) == {"streamed_kernel"},
+    check(set(rec["diag_scale_frame"]["launches"])
+          == {"streamed_kernel", "bounce_kernel"},
           f"tools: diag_scale_frame {rec['diag_scale_frame']['launches']}")
 
     # diag_build4m and the 4M terrain's peak memory
@@ -1604,6 +1633,315 @@ def tools_phase(c, session_rec):
     return rec
 
 
+# phase `bounce`: the bytes of one bounce that bounce_kernel must move,
+# counted from csrc/integrate.cuh `bounce_ray`, what the function needs and
+# no more: every ray's alive flag; a live ray's origin and direction (24),
+# the walk's t, u, v and row (16), its throughput (12) and its query count
+# read and written (16); a ray that hit: the row's triangle id (4, where a
+# permutation maps it), its radiance read and written (24), the next ray
+# and throughput written (36), the stack size (8) and the RNG state (16)
+# read and written, the medium flag (1), the stack's top two entries (8)
+# and its alive flag (1); a ray that missed: its sky radiance read and
+# written (24) and its alive flag (1); each triangle row hit once, its
+# attributes and UVs (80); the material table and its map slots once. The
+# Whitted form: every ray's flag and radiance (13), a live ray's origin,
+# direction and walk (40), the rows and tables as above. Operations: the
+# nudge and the hit location of a live ray (12); the shading depends on the
+# data and is not counted, so the bound is a floor.
+BOUNCE_LIVE_BYTES, BOUNCE_HIT_BYTES, BOUNCE_MISS_BYTES = 68, 94, 25
+BOUNCE_ROW_BYTES, BOUNCE_PERM_BYTES, BOUNCE_LIVE_OPS = 80, 4, 12
+WHITTED_RAY_BYTES, WHITTED_LIVE_BYTES = 13, 40
+BOUNCE_REPS = 20
+
+
+def bounce_phase(c, trees):
+    """Phase 11, `bounce`: bounce_kernel (csrc/bounce_kernel.cu), one launch
+    a bounce of the per-bounce route.
+
+    Kernel against plain version on one sample's 800x600 rays of each
+    cell's camera: the terrain (traverse_kernel), the OBJ grid
+    (brute_kernel), the 1M terrain (streamed_kernel, 3 bounces), configs 4
+    (no tree: implicits, ellipsoids, subsurface) and 6 (maps, a normal
+    map; brute_kernel). The path form bounce after bounce as the route
+    takes them: from the same state and walk, `bounce_step` and
+    `bounce_step_plain` on two copies, at the kernel-parity limits over the
+    rays alive at the bounce (RNG state bit-equal on >= 99%, radiance
+    within 1e-4 on >= 99%, queries equal, one launch, the count read back
+    equal to the state's alive rays); the route goes on from the kernel's
+    state. At each bounce the kernel's time (BOUNCE_REPS launches on as
+    many copies of the state between CUDA events), its wrapper's with the
+    readback, the plain version's, and the bound. The Whitted form on the
+    same rays (one in seven switched off: radiance 0 there), and the
+    locate form with the thickness probe on the OBJ grid with a subsurface
+    material.
+
+    Frames: each cell through Renderer at 800x600 (the terrain path and
+    Whitted, the OBJ grid and configs 4 and 6 with fused="off" at 8 spp,
+    the 1M terrain at 2 spp and 3 bounces), this checkout's and each
+    --parent's: wall and CUDA ms of 2 timed frames after a warm-up, the
+    launches a frame by kernel, and one frame under torch.profiler
+    (tools/profile.trace_busy): the card's busy share and its device
+    operations, per bounce of the frame (this checkout's bounce_kernel
+    launches a frame)."""
+    torch, np, dev, scenes = c.torch, c.np, c.dev, c.scenes
+    from pathtracer0_tpu_torch.kernels import bounce, traverse
+    from pathtracer0_tpu_torch.render import integrator
+    from pathtracer0_tpu_torch.tools.profile import trace_busy
+
+    t_start = time.perf_counter()
+    rec = {"phase": "bounce", "card": c.card, "path": {}, "loop": {},
+           "whitted": {}, "frames": {}}
+    built = {
+        "terrain": (c.terrain, c.terrain_info, c.terrain_cam, BOUNCES),
+        "obj_grid": (c.grid, c.grid_info, c.grid_cam, BOUNCES),
+        "terrain_1m": (c.big, c.big_info, c.big_cam, BIG_BOUNCES)}
+    for n in (4, 6):
+        built[f"config{n}"] = (*scenes.BUILDERS[n]().build(device=dev),
+                               scenes.CAMERAS[n], BOUNCES)
+    # the OBJ grid's material 0 with subsurface: the Whitted form's probe
+    mats = c.grid.materials.clone()
+    mats[0, 41] = 0.7
+    mats[0, 42:45] = torch.tensor([0.9, 0.5, 0.3])
+    mats[0, 45:48] = torch.tensor([0.8, 0.4, 0.3])
+    ss_grid = (dataclasses.replace(c.grid, materials=mats),
+               c.grid_info._replace(
+                   mat_gates=(True, *c.grid_info.mat_gates[1:])))
+    check(not traverse.has_tree(built["config4"][1])
+          and traverse.has_tree(built["config6"][1])
+          and c.wavefront.use_brute(built["config6"][1]),
+          "bounce: configs 4 and 6 are not the scenes described")
+
+    def share(ok, among):
+        return float(ok[among].float().mean())
+
+    def tables(sc):
+        return sum(t.numel() * t.element_size()
+                   for t in (sc.materials, sc.mat_maps))
+
+    def hits_of(sc, info, st, walk):
+        """(rays that hit, distinct triangle rows hit) among the live."""
+        on = traverse.nudged(tuple(st.o), tuple(st.d))
+        hit = traverse._merge_analytic_batched(
+            on, tuple(st.d), sc, info, traverse.walk_hit(walk, sc))
+        got = st.alive & hit.is_hit
+        return int(got.sum()), int(torch.unique(
+            hit.tri[got & (hit.kind == 1)]).numel())
+
+    def kernel_ms(sc, info, st, walk, form, probe_t=None):
+        """Device ms of one launch: BOUNCE_REPS launches back to back on as
+        many copies of `st` (the path form writes its state in place)."""
+        copies = [st.clone() for _ in range(BOUNCE_REPS + 1)]
+        made = [bounce._args(sc, info, s, walk, form, probe_t)
+                for s in copies]
+        bounce.launch(made[0][0], dev)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for args, _ in made[1:]:
+            bounce.launch(args, dev)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / BOUNCE_REPS
+
+    def event_ms(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    # ---- the path form, bounce after bounce
+    w, h = c.size
+    for label, (sc, info, cam, n_bounces) in built.items():
+        o, d, state = c.sample_rays(*cam, w, h)
+        n = state.shape[0]
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        st = bounce.begin(o, d, alive, state, stack_size=10,
+                          max_bounces=n_bounces)
+        cells = []
+        for k in range(n_bounces):
+            live = st.alive.clone()
+            n_live = int(live.sum())
+            if not n_live:
+                break
+            walk = traverse.walk_triangles(tuple(st.o), tuple(st.d), sc,
+                                           info, active=st.alive)[0]
+            n_hit, n_rows = hits_of(sc, info, st, walk)
+            ms = kernel_ms(sc, info, st, walk, "path")
+            kern, plain = st.clone(), st.clone()
+            before = bounce.bounce_step.launches
+            wrapper_ms = event_ms(
+                lambda: bounce.bounce_step(sc, info, kern, walk))
+            launched = bounce.bounce_step.launches - before
+            plain_ms = event_ms(
+                lambda: bounce.bounce_step_plain(sc, info, plain, walk))
+            rad_k, rad_p = kern.inc + kern.skyc, plain.inc + plain.skyc
+            diff = (rad_k - rad_p).abs().amax(0)[live]
+            nbytes = (n + n_live * BOUNCE_LIVE_BYTES
+                      + n_hit * (BOUNCE_HIT_BYTES + BOUNCE_PERM_BYTES
+                                 * (walk.perm is not None))
+                      + (n_live - n_hit) * BOUNCE_MISS_BYTES
+                      + n_rows * BOUNCE_ROW_BYTES + tables(sc))
+            cell = {"bounce": k, "rays": n, "alive": n_live, "hits": n_hit,
+                    "rows_hit": n_rows,
+                    "state_eq": share(kern.state == plain.state, live),
+                    "alive_eq": share(kern.alive == plain.alive, live),
+                    "frac_within_1e-4": float((diff < 1e-4).float().mean()),
+                    "max_abs_err": float(diff.max()),
+                    "queries_equal": bool(torch.equal(kern.queries,
+                                                      plain.queries)),
+                    "left_alive": [int(kern.live[k]), int(plain.live[k]),
+                                   int(kern.alive.sum())],
+                    "launches": launched, "ms": ms, "wrapper_ms": wrapper_ms,
+                    "plain_ms": plain_ms,
+                    **c.least(nbytes, n_live * BOUNCE_LIVE_OPS)}
+            cells.append(cell)
+            check(cell["state_eq"] >= 0.99 and cell["frac_within_1e-4"] >= 0.99
+                  and cell["queries_equal"] and launched == 1
+                  and cell["ms"] >= cell["bound_ms"]
+                  and cell["left_alive"][0] == cell["left_alive"][2]
+                  and abs(cell["left_alive"][0] - cell["left_alive"][1])
+                  <= 0.01 * cell["left_alive"][1] + 16
+                  and bool(torch.isfinite(rad_k).all()),
+                  f"bounce: path form, {label} bounce {k}: {cell}")
+            st = kern
+        rec["path"][label] = cells
+        check(len(cells) >= 2 and cells[0]["hits"] > 0,
+              f"bounce: {label}: {cells}")
+        # the device operations of one bounce of the route's loop: one
+        # traced trace_bounces call on the same rays at 1 bounce and at
+        # all of them; the difference over the bounces between
+        ops = {nb: trace_busy(lambda nb=nb: integrator.trace_bounces(
+                   sc, info, o, d, alive, state, max_bounces=nb),
+                   device=dev)["device_kernels"] for nb in (1, n_bounces)}
+        loop = {"device_ops_1_bounce": ops[1],
+                f"device_ops_{n_bounces}_bounces": ops[n_bounces],
+                "bounces": len(cells)}
+        if ops[1] is not None:
+            loop["device_ops_per_bounce"] = (
+                (ops[n_bounces] - ops[1]) / (len(cells) - 1))
+            # eager shading took 757-950 a bounce; the walk, the bounce
+            # kernel and the readback ~10, the streamed sort ~50 more
+            check(0 < loop["device_ops_per_bounce"] < 100,
+                  f"bounce: {label}: device operations a bounce {loop}")
+        rec["loop"][label] = loop
+
+    # ---- the Whitted form, and the locate form with the probe
+    whitted_scenes = dict(built, obj_grid_subsurface=(*ss_grid, c.grid_cam,
+                                                      1))
+    for label, (sc, info, cam, _) in whitted_scenes.items():
+        o, d, _ = c.sample_rays(*cam, w, h)
+        n = o[0].shape[0]
+        alive = torch.arange(n, device=dev) % 7 != 0
+        n_live = int(alive.sum())
+        walk = traverse.walk_triangles(o, d, sc, info, active=alive)[0]
+        probing = bool(info.mat_gates[0]) and traverse.has_tree(info)
+        kern = bounce.begin_whitted(o, d, alive, probe=probing)
+        plain = bounce.begin_whitted(o, d, alive, probe=probing)
+        cell, probe_t = {"rays": n, "alive": n_live, "probe": probing}, None
+        if probing:
+            bounce.bounce_step(sc, info, kern, walk, form="locate")
+            bounce.bounce_step_plain(sc, info, plain, walk, form="locate")
+            cell["loc_eq"] = share((kern.loc == plain.loc).all(0), alive)
+            cell["locate_ms"] = kernel_ms(sc, info, kern, walk, "locate")
+            probe_t = traverse.probe_forest_t(tuple(kern.loc), d, sc, info)
+            check(cell["loc_eq"] >= 0.99, f"bounce: locate {label}: {cell}")
+        before = bounce.bounce_step.launches
+        bounce.bounce_step(sc, info, kern, walk, form="whitted",
+                           probe_t=probe_t)
+        launched = bounce.bounce_step.launches - before
+        plain_ms = event_ms(lambda: bounce.bounce_step_plain(
+            sc, info, plain, walk, form="whitted", probe_t=probe_t))
+        diff = (kern.inc - plain.inc).abs().amax(0)
+        st_hits = bounce.BounceState(o=kern.o, d=kern.d, alive=alive,
+                                     inc=kern.inc)
+        n_hit, n_rows = hits_of(sc, info, st_hits, walk)
+        nbytes = (n * WHITTED_RAY_BYTES + n_live * WHITTED_LIVE_BYTES
+                  + n_hit * BOUNCE_PERM_BYTES * (walk.perm is not None)
+                  + n_rows * BOUNCE_ROW_BYTES + tables(sc))
+        cell.update({
+            "hits": n_hit, "rows_hit": n_rows,
+            "frac_within_1e-4": share(diff < 1e-4, alive),
+            "max_abs_err": float(diff[alive].max()),
+            "off_rays_zero": bool((kern.inc[:, ~alive] == 0).all()),
+            "launches": launched,
+            "ms": kernel_ms(sc, info, kern, walk, "whitted", probe_t),
+            "plain_ms": plain_ms, **c.least(nbytes, n_live * BOUNCE_LIVE_OPS)})
+        rec["whitted"][label] = cell
+        check(cell["frac_within_1e-4"] >= 0.99 and cell["off_rays_zero"]
+              and launched == 1 and bool(torch.isfinite(kern.inc).all())
+              and cell["ms"] >= cell["bound_ms"],
+              f"bounce: Whitted form, {label}: {cell}")
+
+    # ---- frames, this checkout's and each other checkout's
+    frame_cells = (
+        ("terrain_path", "terrain", dict(samples_per_frame=TERRAIN_SPP,
+                                         max_bounces=BOUNCES,
+                                         auto_focus=True)),
+        ("terrain_whitted", "terrain", dict(samples_per_frame=TERRAIN_SPP,
+                                            max_bounces=BOUNCES,
+                                            raytracing=False,
+                                            auto_focus=True)),
+        ("obj_grid_off", "obj_grid", dict(fused="off",
+                                          samples_per_frame=TERRAIN_SPP,
+                                          max_bounces=BOUNCES,
+                                          auto_focus=False,
+                                          focal_distance=5.0)),
+        ("terrain_1m_path", "terrain_1m", dict(samples_per_frame=BIG_SPP,
+                                               max_bounces=BIG_BOUNCES,
+                                               auto_focus=False, blur=0.0)),
+        ("config4_off", "config4", dict(fused="off", samples_per_frame=8,
+                                        max_bounces=BOUNCES,
+                                        auto_focus=True)),
+        ("config6_off", "config6", dict(fused="off", samples_per_frame=8,
+                                        max_bounces=BOUNCES,
+                                        auto_focus=True)))
+    packages = {"change": (c.Renderer, c.RenderConfig, None)}
+    for label, tree in trees.items():
+        mod = sys.modules[f"tree_{label}"]
+        packages[label] = (mod.Renderer, mod.RenderConfig, tree["wavefront"])
+    for name, scene, kw in frame_cells:
+        sc, info, cam, _ = built[scene]
+        cell = {}
+        for who, (Renderer, RenderConfig, their_walks) in packages.items():
+            r = Renderer(sc, info, RenderConfig(width=w, height=h, **kw),
+                         cam_pos=cam[0], cam_rot=cam[1], seed=9, device=dev)
+            r.step()
+            torch.cuda.synchronize()
+            c.zero_counts()
+            walks0 = dict(their_walks.launches) if their_walks else None
+            walls, events, queries = c.timed_frames(r, 2)
+            if their_walks is None:
+                launches = {k: v / 3 for k, v in c.counts().items()}
+            else:
+                launches = {k: (v - walks0[k]) / 3
+                            for k, v in their_walks.launches.items()
+                            if v != walks0[k]}
+            busy = trace_busy(r.step)
+            cell[who] = {
+                "wall_ms": walls, "cuda_ms": events, "queries": queries,
+                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
+                "launches_per_frame": launches,
+                **{k: busy[k] for k in ("busy_share", "device_busy_ms",
+                                        "device_kernels", "wall_ms_untraced",
+                                        "ours")}}
+        bounces = cell["change"]["launches_per_frame"].get("bounce_kernel",
+                                                           0)
+        for who in cell:
+            cell[who]["bounces_per_frame"] = bounces
+            cell[who]["device_ops_per_bounce"] = (
+                cell[who]["device_kernels"] / bounces if bounces else None)
+        rec["frames"][name] = cell
+        check(bounces > 0 and all(
+            x["launches_per_frame"].get("frame_kernel", 0) == 0
+            and x["launches_per_frame"].get("block_kernel", 0) == 0
+            for x in cell.values()), f"bounce: frames {name}: {cell}")
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec, c.log)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1619,9 +1957,9 @@ def main() -> int:
     from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.core import rng as vrng
     from pathtracer0_tpu_torch.accel import lbvh
-    from pathtracer0_tpu_torch.kernels import (build, frame, fused, mm_probe,
-                                               mxu_group, mxu_tri, traverse,
-                                               wavefront)
+    from pathtracer0_tpu_torch.kernels import (bounce, build, frame, fused,
+                                               mm_probe, mxu_group, mxu_tri,
+                                               traverse, wavefront)
     from pathtracer0_tpu_torch.render import integrator
     from pathtracer0_tpu_torch.render.renderer import (autofocus_distance,
                                                        render_frame,
@@ -1658,10 +1996,13 @@ def main() -> int:
 
     with ThreadPoolExecutor() as pool:   # every compiler at once
         cap = pool.submit(build_capped) if trees else None
+        # another checkout's frames of the per-bounce route (phase
+        # `bounce`) walk through its forest and streamed kernels
         jobs = [pool.submit(build.build_all)] + [
             pool.submit(tree["build"].build_all,
-                        [lib for lib in COMPARED
-                         if differs(tree, build, lib)])
+                        sorted({lib for lib in COMPARED
+                                if differs(tree, build, lib)}
+                               | {"forest_kernel", "streamed_kernel"}))
             for tree in trees.values()]
         for job in jobs:
             job.result()
@@ -1670,7 +2011,8 @@ def main() -> int:
           "peaks": peaks, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3), "ptxas": ptxas,
-          "sass": {lib: sass_counts(build, lib) for lib in COMPARED},
+          "sass": {lib: sass_counts(build, lib)
+                   for lib in (*COMPARED, "bounce_kernel")},
           "frame_kernel_maxrregcount_128": cap.result() if cap else None,
           "parents": {label: {lib: {"ptxas": ptxas_usage(text),
                                     "sass": sass_counts(tree["build"], lib)}
@@ -3379,6 +3721,7 @@ def main() -> int:
         frame.trace_frame.launches = 0
         frame.trace_frame.refill_launches = 0
         fused.trace_block.launches = 0
+        bounce.bounce_step.launches = 0
         for counts in (wavefront.launches, mxu_group.launches,
                        mm_probe.launches):
             for k in counts:
@@ -3503,6 +3846,7 @@ def main() -> int:
         r = Renderer(terrain, terrain_info, cfg, cam_pos=terrain_cam[0],
                      cam_rot=terrain_cam[1], seed=2, device="cuda")
         before = wavefront.launches["traverse_kernel"]
+        before_b = bounce.bounce_step.launches
         walls, events, queries = timed_frames(r, 2 if raytracing else 1)
         img = r.display_image()
         sky = torch.tensor([0.5, 0.6, 0.9], device=dev)
@@ -3513,6 +3857,7 @@ def main() -> int:
                "cuda_ms": events, "queries": queries,
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "launches": wavefront.launches["traverse_kernel"] - before,
+               "bounce_launches": bounce.bounce_step.launches - before_b,
                "covered": float(((img - sky).abs().amax(-1) > 0.02)
                                 .float().mean()),
                "finite": bool(torch.isfinite(img).all()), "card": card}
@@ -3520,7 +3865,10 @@ def main() -> int:
         emit(rec, log)
         check(rec["finite"], "terrain: image not finite")
         check(0.1 < rec["covered"] < 0.98, f"terrain: picture {rec}")
-        check(rec["launches"] >= (3 if raytracing else 2) * TERRAIN_SPP,
+        # one bounce_kernel launch after each walk but the autofocus probe's
+        # (one, in the warm-up frame)
+        check(rec["launches"] >= (3 if raytracing else 2) * TERRAIN_SPP
+              and rec["bounce_launches"] == rec["launches"] - 1,
               f"terrain: launches {rec}")
     gw, gh, gspp, gseed = GOLDEN
     grid_cfg = dict(max_bounces=BOUNCES, auto_focus=False,
@@ -3564,14 +3912,17 @@ def main() -> int:
          RaysRenderer(RenderConfig(fused="on", **grid_full)),
          lambda: fused.trace_block.launches))
     for label, kernel, r, launched in grid_runs:
+        before_b = bounce.bounce_step.launches
         walls, events, queries = timed_frames(r, 2)
         img, count = r.display_image(), launched()
+        n_bounce = bounce.bounce_step.launches - before_b
         rec = {"phase": "main_path", "scene": "obj_grid", "route": label,
                "tris": grid_info.num_tris, "width": 800, "height": 600,
                "spp": TERRAIN_SPP, "bounces": BOUNCES, "wall_ms": walls,
                "cuda_ms": events, "queries": queries,
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "kernel": kernel, "launches": count,
+               "bounce_launches": n_bounce,
                "finite": bool(torch.isfinite(img).all()),
                "picture_std": float(img.clamp(0.0, 1.0).std()),
                "card": card}
@@ -3581,7 +3932,12 @@ def main() -> int:
         check(rec["picture_std"] > 0.05,
               f"obj_grid {label}: the grid is not in the picture")
         check(count >= 3 * TERRAIN_SPP, f"obj_grid {label}: launches {rec}")
+        # the per-bounce route: one bounce_kernel launch after each walk;
+        # the block path none
+        check(n_bounce == (count if label == "per_bounce" else 0),
+              f"obj_grid {label}: bounce launches {rec}")
     launches_route = {"block_kernel": fused.trace_block.launches,
+                      "bounce_kernel": bounce.bounce_step.launches,
                       **wavefront.launches}
     check(launches_route.pop("streamed_kernel") == 0,
           "the SAH scenes launched streamed_kernel")
@@ -3599,6 +3955,7 @@ def main() -> int:
         r = Renderer(big, big_info, cfg, cam_pos=big_cam[0],
                      cam_rot=big_cam[1], seed=5, device="cuda")
         before = wavefront.launches["streamed_kernel"]
+        before_b = bounce.bounce_step.launches
         n_timed = 2 if raytracing else 1
         walls, events, queries = timed_frames(r, n_timed)
         img = r.display_image()
@@ -3610,6 +3967,7 @@ def main() -> int:
                "cuda_ms": events, "queries": queries,
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "launches": wavefront.launches["streamed_kernel"] - before,
+               "bounce_launches": bounce.bounce_step.launches - before_b,
                **big_seconds,
                "covered": float(((img - sky).abs().amax(-1) > 0.02)
                                 .float().mean()),
@@ -3620,11 +3978,14 @@ def main() -> int:
         check(0.1 < rec["covered"] < 0.98, f"terrain 1M: picture {rec}")
         # one launch per frame, sample and bounce
         check(rec["launches"] == (n_timed + 1) * BIG_SPP
-              * (BIG_BOUNCES if raytracing else 1),
+              * (BIG_BOUNCES if raytracing else 1)
+              and rec["bounce_launches"] == rec["launches"],
               f"terrain 1M: launches {rec}")
     launches_streamed = wavefront.launches["streamed_kernel"]
+    launches_streamed_bounce = bounce.bounce_step.launches
     check({k: v for k, v in wavefront.launches.items() if v}
           == {"streamed_kernel": launches_streamed}
+          and launches_streamed_bounce == launches_streamed
           and frame.trace_frame.launches == 0
           and fused.trace_block.launches == 0,
           f"the streamed route launched another kernel: {wavefront.launches}")
@@ -3657,6 +4018,7 @@ def main() -> int:
     check(not any(wavefront.launches.values())
           and frame.trace_frame.launches == 0
           and fused.trace_block.launches == 0
+          and bounce.bounce_step.launches == 0
           and mm_probe.launches["mm_probe_kernel"] == 0,
           "the diagnostic launched a renderer kernel")
 
@@ -3817,7 +4179,7 @@ def main() -> int:
         RenderConfig=RenderConfig, Renderer=Renderer,
         render_frame=render_frame, render_rays=render_rays,
         autofocus_distance=autofocus_distance, camera=camera, vm=vm,
-        frame=frame, wavefront=wavefront, img_util=img_util,
+        frame=frame, wavefront=wavefront, bounce=bounce, img_util=img_util,
         terrain_scene=terrain_scene, grid_scene=grid_scene,
         grid_obj=grid_obj, terrain_cam=terrain_cam, grid_cam=grid_cam,
         big=big, big_info=big_info, big_host=big_host, big_cam=big_cam))
@@ -3827,6 +4189,7 @@ def main() -> int:
         """The launch counts that are not 0, by kernel."""
         return {k: v for k, v in {"frame_kernel": frame.trace_frame.launches,
                                   "block_kernel": fused.trace_block.launches,
+                                  "bounce_kernel": bounce.bounce_step.launches,
                                   **wavefront.launches}.items() if v}
 
     slice_paths = SimpleNamespace(
@@ -3841,6 +4204,14 @@ def main() -> int:
 
     # ---- 10. tools: the port's run tools at their full defaults ----------
     tools_phase(slice_paths, session_rec)
+
+    # ---- 11. bounce: the per-bounce route's bounce kernel ----------------
+    bounce_rec = bounce_phase(SimpleNamespace(
+        **vars(slice_paths), size=(800, 600), terrain=terrain,
+        terrain_info=terrain_info,
+        terrain_cam=terrain_cam, grid=grid, grid_info=grid_info,
+        grid_cam=grid_cam, sample_rays=sample_rays, least=least,
+        timed_frames=timed_frames, wavefront=wavefront), trees)
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",
@@ -4011,6 +4382,29 @@ def main() -> int:
                                  for v, r in recs.items()}
                              for n, (recs, _) in probe_recs.items()},
                    "rows": probe_rows}})
+    # bounce_kernel: the terrain's first bounce on the line (all its rays
+    # alive, the route's largest batch), every cell and bounce in `detail`
+    first = bounce_rec["path"]["terrain"][0]
+    kernels["kernels"].append({
+        "name": "bounce_kernel", "route": "cuda",
+        "source": "pathtracer0_tpu_torch/csrc/bounce_kernel.cu",
+        "replaces": "pathtracer0_tpu/render/integrator.py:180-287 (the "
+                    "lax.while_loop body, XLA fusions; no Pallas kernel) "
+                    "and :295 direct_diffuse",
+        "launches": launches_route["bounce_kernel"] + launches_streamed_bounce,
+        "max_abs_err": max(x["max_abs_err"] for cells in (
+            *bounce_rec["path"].values(),
+            [bounce_rec["whitted"][k] for k in bounce_rec["whitted"]])
+            for x in cells),
+        **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None,
+        "detail": {
+            "path": bounce_rec["path"], "whitted": bounce_rec["whitted"],
+            "frames": {name: {who: {k: x[k] for k in (
+                "wall_ms", "cuda_ms", "busy_share", "device_ops_per_bounce",
+                "launches_per_frame")} for who, x in cell.items()}
+                for name, cell in bounce_rec["frames"].items()}}})
     # the order of work on the kernels: slower than the library's call for
     # the same function first, then the time above the bound over the
     # launches of the run (the frame entries sum ms and bound over cells,
@@ -4019,7 +4413,7 @@ def main() -> int:
         k["slower_than_library"] = (k["library_ms"] is not None
                                     and k["ms"] > k["library_ms"])
         k.setdefault("excess_ms", k["launches"] * (k["ms"] - k["bound_ms"]))
-    check(len(kernels["kernels"]) == 12
+    check(len(kernels["kernels"]) == 13
           and all(k["launches"] > 0 for k in kernels["kernels"]),
           "a kernel of the paths was never launched")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,0 +1,61 @@
+// Bounce kernel for Hopper (sm_90a): one bounce of the per-bounce route,
+// the shading of the rays a walk has queried.
+//
+// Replaces the body of the JAX package's bounce loop, which XLA compiles
+// into a few fused programs around the Pallas walk: the `lax.while_loop`
+// of pathtracer0_tpu/render/integrator.py `trace` (:177-287: the analytic
+// merge, `surface_sample`, `_shade_setup`, the refraction stack,
+// `chooseRay`, the transport and the sky) and the Whitted `direct_diffuse`
+// (:295). It has no Pallas counterpart. A bounce of the route is then the
+// walk (traverse_kernel, brute_kernel, or streamed_kernel behind its sort),
+// one launch of this kernel, and a 4-byte readback of the rays it leaves
+// alive, which stands in for the while_loop's device-side `cond`; the
+// port ran the same body as some 900 PyTorch launches a bounce.
+//
+// Design: one thread per ray over the rays' state in place, one array per
+// component (integrate.cuh `BounceArgs`), so a warp's loads and stores are
+// contiguous; the refraction stack in device memory, one column per ray
+// (integrate.cuh `ColumnStack`), read at its top and pushed or popped in
+// place. The body is integrate.cuh `bounce_ray`: pathtrace.cuh
+// `finish_hit` (the merge of implicits and ellipsoids over the walk's
+// triangle, the hit's attributes) and the shading halves the frame and
+// block kernels run after their own triangle loop (`path_shade`,
+// `direct_shade`), so the three kernels share every per-ray function. The
+// path form adds the rays it leaves alive into one counter with one atomic
+// a block (`block_sum_add`). It takes any triangle and material count: it
+// reads the scene's tables where the hits point.
+//
+// What bounds it: device memory. A live ray reads its state (about 120
+// bytes at S = 10) and the walk's hit (16 bytes), gathers its material and
+// triangle attributes, and writes its state back; the implicit march of
+// scenes with implicit surfaces is arithmetic on top.
+//
+// Plain version: pathtracer0_tpu_torch/kernels/bounce.py
+// `bounce_step_plain`; the same body is built by g++ for the CPU tests
+// (bounce_host.cpp).
+#include "integrate.cuh"
+
+using namespace pt;
+
+template <int FORM>
+__global__ void __launch_bounds__(BLOCK) bounce_kernel(BounceArgs a) {
+  const Scene sc = make_scene(a.scene);
+  const int r = blockIdx.x * BLOCK + threadIdx.x;
+  const unsigned live = r < a.n_rays ? bounce_ray<FORM>(sc, a, r) : 0u;
+  if (FORM == FORM_PATH) block_sum_add(live, a.live);
+}
+
+template <int FORM>
+static int launch(const BounceArgs* a, void* stream) {
+  const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
+  bounce_kernel<FORM><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One bounce of a->n_rays rays in the form a->form. Returns the CUDA error
+// of the launch, 0 for none.
+extern "C" int pt_launch_bounce(const BounceArgs* a, void* stream) {
+  if (a->form == FORM_WHITTED) return launch<FORM_WHITTED>(a, stream);
+  if (a->form == FORM_LOCATE) return launch<FORM_LOCATE>(a, stream);
+  return launch<FORM_PATH>(a, stream);
+}

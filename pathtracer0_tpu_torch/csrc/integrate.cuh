@@ -1,14 +1,22 @@
 // The integrators of one ray, shared by the frame kernel
-// (frame_kernel.cu) and the block kernel (block_kernel.cu): the path
-// (frag.glsl:810-882: `PathState`, `path_begin`, `path_step` and the loop
-// over them, `trace_path`) and the Whitted `direct_diffuse`
-// (frag.glsl:655-681) over pathtrace.cuh's brute-force closest hit, the
-// scene arguments both launchers take, and the per-block sum of the
-// query count. Plain version: pathtracer0_tpu_torch/render/integrator.py
-// `trace_plain` and `direct_diffuse_plain`.
+// (frame_kernel.cu), the block kernel (block_kernel.cu) and the bounce
+// kernel (bounce_kernel.cu): the path (frag.glsl:810-882: `PathState`,
+// `path_begin`, `path_step` and the loop over them, `trace_path`) and the
+// Whitted `direct_diffuse` (frag.glsl:655-681) over pathtrace.cuh's
+// brute-force closest hit, the scene arguments the launchers take, and the
+// per-block sum of a count. Each bounce is a scene query and its shading
+// half, `path_shade` or `direct_shade`, which takes a finished Hit: the
+// bounce kernel shades the hits of a forest or streamed walk with the same
+// halves. The halves are __host__ __device__, so that a g++ build of the
+// bounce kernel's body (bounce_host.cpp) runs their arithmetic on the CPU;
+// the loops and the block sum are the card's alone. Plain versions:
+// pathtracer0_tpu_torch/render/integrator.py `trace_plain` and
+// `direct_diffuse_plain`; kernels/bounce.py `bounce_step_plain`.
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 #include "pathtrace.cuh"
 
@@ -36,15 +44,19 @@ struct SceneArgs {
 
 constexpr int BLOCK = 128;
 
-__device__ __forceinline__ Scene make_scene(const SceneArgs& a) {
+PT_HD Scene make_scene(const SceneArgs& a) {
   return Scene{a.mats, a.ell, a.imp, a.ell_flags, a.imp_info, a.tris, a.attr,
                a.uvt, a.atlas, a.slots, a.mat_maps, a.sky, a.n_mats, a.n_ell,
                a.n_imp, a.n_tris, a.sky_h, a.sky_w, a.march_steps,
                a.bisect_iters, a.march_tmax};
 }
 
-__device__ __forceinline__ float mat_col(const Scene& sc, int mat, int col) {
+PT_HD float mat_col(const Scene& sc, int mat, int col) {
+#ifdef __CUDA_ARCH__
   return __ldg(sc.mats + mat * 48 + col);
+#else
+  return sc.mats[mat * 48 + col];
+#endif
 }
 
 // The path integrator of one ray (frag.glsl:810-882), in three pieces that
@@ -53,27 +65,43 @@ __device__ __forceinline__ float mat_col(const Scene& sc, int mat, int col) {
 // is the per-sample loop over them; the refill schedule of
 // frame_kernel.cu runs one flat loop over (sample, bounce) instead.
 //
-// The refraction-index stack lives in shared memory, bottom first: entry j
-// of a thread's stack at stk[j * BLOCK] (a warp's lanes on 32 banks at any
-// depths). A bounce reads the top two entries and pushes or pops one, so
-// nothing is shifted and the stack holds no registers. Entries at and past
-// `ssize` read as 0, as those of a stack shifted in place.
-struct PathState {
+// The refraction-index stack is bottom first, behind an accessor `Stk`
+// (entry j at stk[j]): the frame and block kernels keep a thread's stack
+// in shared memory, entry j at j * BLOCK (a warp's lanes on 32 banks at any
+// depths; `SmemStack`); the bounce kernel keeps it in device memory, one
+// column per ray, entry j of ray r at j * R + r (a warp's lanes on
+// neighbouring addresses; `ColumnStack`). A bounce reads the top two
+// entries and pushes or pops one, so nothing is shifted and the stack holds
+// no registers. Entries at and past `ssize` read as 0, as those of a stack
+// shifted in place.
+struct SmemStack {
+  float* p;
+  PT_HD float& operator[](int j) const { return p[j * BLOCK]; }
+};
+struct ColumnStack {
+  float* p;
+  int stride;
+  PT_HD float& operator[](int j) const { return p[(size_t)j * stride]; }
+};
+
+template <class Stk>
+struct PathStateT {
   V3 o, d, col;          // ray, throughput
-  float* stk;            // this thread's refraction-index stack
+  Stk stk;               // this thread's refraction-index stack
   int ssize;
   bool inobj;
   V3 enter;              // where the ray entered the medium
   bool alive;
   int bounce;            // bounces taken
 };
+using PathState = PathStateT<SmemStack>;
 
 // `stk`: the thread's stack, MAX_STACK entries BLOCK floats apart.
-__device__ __forceinline__ void path_begin(PathState& p, V3 o, V3 d, float* stk) {
+PT_HD void path_begin(PathState& p, V3 o, V3 d, float* stk) {
   p.o = o;
   p.d = d;
   p.col = v3(1.0f, 1.0f, 1.0f);
-  p.stk = stk;
+  p.stk = SmemStack{stk};
   stk[0] = AIR_IOR;
   p.ssize = 1;
   p.inobj = false;
@@ -83,24 +111,21 @@ __device__ __forceinline__ void path_begin(PathState& p, V3 o, V3 d, float* stk)
 }
 
 // Whether the path takes another bounce (`ray_on` of fused.py:1207).
-__device__ __forceinline__ bool path_on(const PathState& p, int max_bounces) {
+PT_HD bool path_on(const PathState& p, int max_bounces) {
   return p.alive && p.bounce < max_bounces;
 }
 
-// One bounce of a live path: one scene query. Adds the emission into inc
-// and, on a miss, the sky into skyc; a miss or the throughput cut-off ends
-// the path (alive = false). PH: add the cycles of the closest hit, the
-// material decode with its maps, the sky and the lobe choice with the
-// refraction stack into cyc. STAGED: closest_hit's.
-template <bool PH = false, bool STAGED = false>
-__device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_t& state, int S,
-                                          bool gate_ss, V3& inc, V3& skyc,
-                                          unsigned long long* cyc = nullptr) {
-  const V3 o = p.o, d = p.d;
+// The shading half of one bounce of a live path at h, the finished hit of
+// ray (on, p.d) from the nudged origin on. Adds the emission into inc and,
+// on a miss, the sky into skyc; a miss or the throughput cut-off ends the
+// path (alive = false). PH: add the cycles of the material decode with its
+// maps, the sky and the lobe choice with the refraction stack into cyc.
+template <bool PH = false, class Stk>
+PT_HD void path_shade(const Scene& sc, PathStateT<Stk>& p, const Hit& h, V3 on,
+                      uint32_t& state, int S, bool gate_ss, V3& inc, V3& skyc,
+                      unsigned long long* cyc = nullptr) {
+  const V3 d = p.d;
   V3 col = p.col;
-  ++p.bounce;
-  V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
-  Hit h = closest_hit<PH, STAGED>(sc, on, d, cyc);
   long long t0 = PH ? tick() : 0;
   if (!h.is_hit) {
     V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
@@ -153,12 +178,12 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   // second and pops
   const bool entering = nd < 0.0f;
   const int ns = p.ssize;
-  const float s0 = ns >= 1 ? p.stk[(ns - 1) * BLOCK] : 0.0f;
-  const float s1 = ns >= 2 ? p.stk[(ns - 2) * BLOCK] : 0.0f;
+  const float s0 = ns >= 1 ? p.stk[ns - 1] : 0.0f;
+  const float s1 = ns >= 2 ? p.stk[ns - 2] : 0.0f;
   float n1 = s0, n2 = s1;
   if (entering) {
     if (ns < S) {
-      p.stk[ns * BLOCK] = Ni;
+      p.stk[ns] = Ni;
       p.ssize = ns + 1;
       n2 = Ni;
     } else {
@@ -199,6 +224,167 @@ __device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_
   p.d = lobe.dir;
   state = lobe.state;
   p.alive = !cutoff;
+}
+
+// The Whitted shade (frag.glsl:655-681) at h, the finished hit of a ray
+// along d: Ka + Kd (0.2 + N.y) + Ke on a hit with the unflipped (possibly
+// normal-mapped) normal, the sky on a miss. PH: add the cycles of the
+// decode with its maps, or of the sky, into cyc.
+template <bool PH = false>
+PT_HD V3 direct_shade(const Scene& sc, const Hit& h, V3 d, unsigned long long* cyc = nullptr) {
+  const long long t0 = PH ? tick() : 0;
+  if (!h.is_hit) {
+    const V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
+    if (PH) tock(cyc, PH_SKY, t0);
+    return s;
+  }
+  int m = h.mat;
+  V3 Ka = v3(mat_col(sc, m, 0), mat_col(sc, m, 1), mat_col(sc, m, 2));
+  V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
+  V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
+  V3 n = h.n, s;
+  if (map_sample(sc, m, MAP_KA, h.tu, h.tv, &s)) Ka = v3(Ka.x * s.x, Ka.y * s.y, Ka.z * s.z);
+  if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
+  if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
+  if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
+  if (PH) tock(cyc, PH_DECODE, t0);
+  return v3(Ka.x + Kd.x * (0.2f + n.y) + Ke.x, Ka.y + Kd.y * (0.2f + n.y) + Ke.y,
+            Ka.z + Kd.z * (0.2f + n.y) + Ke.z);
+}
+
+// ---- the bounce kernel's body (bounce_kernel.cu; bounce_host.cpp) ------
+// One bounce of the per-bounce route for the rays a walk (the forest or
+// streamed kernels) has queried: the counterpart of the body of the JAX
+// package's `lax.while_loop` (pathtracer0_tpu/render/integrator.py:180-287)
+// and of its Whitted `direct_diffuse` (:295). Plain version:
+// kernels/bounce.py `bounce_step_plain`.
+enum { FORM_PATH, FORM_WHITTED, FORM_LOCATE };
+
+// The state of R rays, one array per component ((3, R): x, then y, then z)
+// or per entry ((S, R) stack), updated in place (kernels/bounce.py
+// `BounceState`, field for field).
+struct BounceArgs {
+  SceneArgs scene;
+  // the walk: closest triangle of each ray, t, u, v and its row (-1: none),
+  // and the permutation from a row to a triangle id (null: the row is it)
+  const float* walk_t;
+  const float* walk_u;
+  const float* walk_v;
+  const int* walk_row;
+  const int* perm;
+  float* o;                   // (3, R) origins, not nudged
+  float* d;                   // (3, R)
+  float* col;                 // (3, R) throughput
+  float* inc;                 // (3, R) radiance without sky; WHITTED: out
+  float* skyc;                // (3, R) sky radiance
+  float* enter;               // (3, R) where the ray entered the medium
+  float* stack;               // (S, R) refraction indices, bottom first
+  int* ssize;                 // (R,)
+  unsigned char* inobj;       // (R,) bool
+  long long* state;           // (R,) RNG state
+  unsigned char* alive;       // (R,) bool
+  long long* queries;         // (R,) scene queries
+  const float* probe_t;       // WHITTED: the thickness probe's t, or null
+  float* loc;                 // LOCATE: out, (3, R) hit locations
+  unsigned int* live;         // PATH: the rays alive after it, added
+  int n_rays, stack_size, form;
+};
+
+PT_HD V3 load3(const float* a, int r, int n) {
+  return v3(a[r], a[n + r], a[2 * (size_t)n + r]);
+}
+PT_HD void store3(float* a, int r, int n, V3 v) {
+  a[r] = v.x;
+  a[n + r] = v.y;
+  a[2 * (size_t)n + r] = v.z;
+}
+
+// Ray r: nudge, the hit record from the walk's triangle (finish_hit), then
+// PATH: the path's shading half (path_shade) with its stack in device
+// memory, its state written back where it hit (a miss adds the sky and
+// ends it), one query counted; returns 1 where the ray takes another
+// bounce. WHITTED: writes the Whitted shade into inc (0 where not alive),
+// a subsurface material shaded by the thickness behind the hit where
+// probe_t is given (render/integrator.py `_direct`). LOCATE: writes the
+// hit location (the nudged origin where not alive), which the thickness
+// probe walks from.
+template <int FORM>
+PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
+  const int n = a.n_rays;
+  const bool alive = a.alive[r] != 0;
+  if (FORM == FORM_PATH && !alive) return 0u;
+  const V3 o = load3(a.o, r, n), d = load3(a.d, r, n);
+  const V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
+  if (!alive) {
+    if (FORM == FORM_LOCATE) store3(a.loc, r, n, on);
+    if (FORM == FORM_WHITTED) store3(a.inc, r, n, v3(0.0f, 0.0f, 0.0f));
+    return 0u;
+  }
+  const int row = a.walk_row[r];
+  const int tri = row < 0 ? -1 : (a.perm ? a.perm[row] : row);
+  const Hit h = finish_hit(sc, on, d, a.walk_t[r], tri, a.walk_u[r], a.walk_v[r]);
+  if (FORM == FORM_LOCATE) {
+    store3(a.loc, r, n, v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z));
+    return 0u;
+  }
+  if (FORM == FORM_WHITTED) {
+    V3 c = direct_shade(sc, h, d);
+    if (a.probe_t && h.is_hit && mat_col(sc, h.mat, 41) > 0.0f) {
+      // thickness: the same direction again from the hit point
+      // (frag.glsl:662-676), the distance actually travelled
+      const float si = a.probe_t[r];
+      float k[3];
+      for (int i = 0; i < 3; ++i) {
+        const float sigma_t = 1.0f / nan_max(mat_col(sc, h.mat, 45 + i), 1e-4f);
+        k[i] = expf(-sigma_t * si) * mat_col(sc, h.mat, 42 + i);
+      }
+      c = v3(k[0], k[1], k[2]);
+    }
+    store3(a.inc, r, n, c);
+    return 0u;
+  }
+  a.queries[r] += 1;
+  PathStateT<ColumnStack> p;
+  p.o = o;
+  p.d = d;
+  p.col = load3(a.col, r, n);
+  p.stk = ColumnStack{a.stack + r, n};
+  p.ssize = a.ssize[r];
+  p.inobj = a.inobj[r] != 0;
+  p.enter = load3(a.enter, r, n);
+  p.alive = true;
+  p.bounce = 0;
+  V3 inc = load3(a.inc, r, n), skyc = load3(a.skyc, r, n);
+  uint32_t state = (uint32_t)a.state[r];
+  path_shade(sc, p, h, on, state, a.stack_size, a.scene.gate_ss != 0, inc, skyc);
+  if (h.is_hit) {
+    store3(a.o, r, n, p.o);
+    store3(a.d, r, n, p.d);
+    store3(a.col, r, n, p.col);
+    store3(a.inc, r, n, inc);
+    store3(a.enter, r, n, p.enter);
+    a.ssize[r] = p.ssize;
+    a.inobj[r] = p.inobj;
+    a.state[r] = (long long)state;
+  } else {
+    store3(a.skyc, r, n, skyc);
+  }
+  a.alive[r] = p.alive;
+  return p.alive ? 1u : 0u;
+}
+
+#ifdef __CUDACC__
+// One bounce of a live path: one scene query (closest_hit; STAGED: its)
+// and its shading half. PH: add the cycles of each part into cyc.
+template <bool PH = false, bool STAGED = false>
+__device__ __forceinline__ void path_step(const Scene& sc, PathState& p, uint32_t& state, int S,
+                                          bool gate_ss, V3& inc, V3& skyc,
+                                          unsigned long long* cyc = nullptr) {
+  const V3 o = p.o, d = p.d;
+  ++p.bounce;
+  V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
+  Hit h = closest_hit<PH, STAGED>(sc, on, d, cyc);
+  path_shade<PH>(sc, p, h, on, state, S, gate_ss, inc, skyc, cyc);
 }
 
 // Check-only instantiations of the kernels that run paths (frame_kernel.cu,
@@ -248,47 +434,32 @@ __device__ int trace_path(const Scene& sc, V3 o, V3 d, uint32_t& state,
   return queries;
 }
 
-// Whitted shade (frag.glsl:655-681): Ka + Kd (0.2 + N.y) + Ke on a hit
-// with the unflipped normal, the sky on a miss. PH: as path_step.
+// Whitted shade (frag.glsl:655-681) of ray (o, d) over the closest hit.
+// PH: as path_step.
 template <bool PH = false>
 __device__ V3 direct_diffuse(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
   V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
   Hit h = closest_hit<PH>(sc, on, d, cyc);
-  const long long t0 = PH ? tick() : 0;
-  if (!h.is_hit) {
-    const V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
-    if (PH) tock(cyc, PH_SKY, t0);
-    return s;
-  }
-  int m = h.mat;
-  V3 Ka = v3(mat_col(sc, m, 0), mat_col(sc, m, 1), mat_col(sc, m, 2));
-  V3 Kd = v3(mat_col(sc, m, 3), mat_col(sc, m, 4), mat_col(sc, m, 5));
-  V3 Ke = v3(mat_col(sc, m, 16), mat_col(sc, m, 17), mat_col(sc, m, 18));
-  V3 n = h.n, s;
-  if (map_sample(sc, m, MAP_KA, h.tu, h.tv, &s)) Ka = v3(Ka.x * s.x, Ka.y * s.y, Ka.z * s.z);
-  if (map_sample(sc, m, MAP_KD, h.tu, h.tv, &s)) Kd = v3(Kd.x * s.x, Kd.y * s.y, Kd.z * s.z);
-  if (map_sample(sc, m, MAP_KE, h.tu, h.tv, &s)) Ke = s;
-  if (map_sample(sc, m, MAP_NORM, h.tu, h.tv, &s)) n = tbn_map(h, h.n, s);
-  if (PH) tock(cyc, PH_DECODE, t0);
-  return v3(Ka.x + Kd.x * (0.2f + n.y) + Ke.x, Ka.y + Kd.y * (0.2f + n.y) + Ke.y,
-            Ka.z + Kd.z * (0.2f + n.y) + Ke.z);
+  return direct_shade<PH>(sc, h, d, cyc);
 }
 
 // Add every thread's `value` of a BLOCK-wide block into *total with one
-// atomic. Every thread of the block must call it.
-__device__ __forceinline__ void block_sum_add(unsigned long long value,
-                                              unsigned long long* total) {
-  __shared__ unsigned long long warp_sum[BLOCK / 32];
+// atomic (T: unsigned long long or unsigned int). Every thread of the
+// block must call it.
+template <typename T>
+__device__ __forceinline__ void block_sum_add(T value, T* total) {
+  __shared__ T warp_sum[BLOCK / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) value += __shfl_down_sync(0xffffffffu, value, off);
   if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = value;
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long sum = 0;
+    T sum = 0;
 #pragma unroll
     for (int w = 0; w < BLOCK / 32; ++w) sum += warp_sum[w];
     if (sum) atomicAdd(total, sum);
   }
 }
+#endif  // __CUDACC__
 
 }  // namespace pt

@@ -6,7 +6,9 @@
 //   bilinear, sky      scene/texture.py
 //   implicit_f, march  shade/implicits.py
 //   choose_ray         shade/bsdf.py
-//   closest_hit        render/integrator.py closest_hit
+//   closest_hit        render/integrator.py closest_hit (triangle_loop,
+//                      then finish_hit: traverse.py's merge and
+//                      surface_sample)
 // Build without --use_fast_math and with -fmad=false: a contracted
 // multiply-add flips knife-edge comparisons against the plain version.
 #pragma once
@@ -462,26 +464,20 @@ __device__ __forceinline__ float4* staged_rows_smem() {
 }
 #endif
 
-// Closest hit from the nudged origin o: triangles, implicits, ellipsoids.
-// The triangles: every row of `tris` tested in full, or with STAGED (the
-// block kernel from STAGE_MIN triangles on) dense_closest, with its early
-// exit, over the rows the block staged in shared memory; a host build of
-// STAGED has no staged rows and reads every row from `tris`, with the same
-// results. The full test is written out here, not dense_closest without
-// its exit: that form made the frame kernel 2.5-4.1% slower in config 6
-// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
-// PH: add each part's cycles into cyc (PH_TRI, PH_IMP, PH_ELL).
-template <bool PH = false, bool STAGED = false>
-PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
-  long long t0 = PH ? tick() : 0;
-  Hit h;
-  h.n = v3(0.0f, 0.0f, 0.0f);
-  h.mat = 0;
-  h.tu = h.tv = -1.0f;
-  h.tw = v3(0.0f, 0.0f, 0.0f);
-  h.uvok = false;
-  int kind = 0;
-  float t = MISS;
+// The closest triangle along o + t d (the nudged origin o): every row of
+// `tris` tested in full, or with STAGED (the block kernel from STAGE_MIN
+// triangles on) dense_closest, with its early exit, over the rows the block
+// staged in shared memory; a host build of STAGED has no staged rows and
+// reads every row from `tris`, with the same results. The full test is
+// written out here, not dense_closest without its exit: that form made the
+// frame kernel 2.5-4.1% slower in config 6 (NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md). Returns the row hit (-1 for none) with its t, u, v
+// (t = MISS where none).
+template <bool STAGED = false>
+PT_HD int triangle_loop(const Scene& sc, V3 o, V3 d, float& t, float& u, float& v) {
+  t = MISS;
+  u = v = 0.0f;
+  int hid = -1;
   if (sc.n_tris > 0) {
     const float* staged = nullptr;
     int n_staged = 0;
@@ -492,7 +488,6 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nul
     }
 #endif
     float tn = MISS, td = 1.0f, un = 0.0f, vn = 0.0f;
-    int hid = -1;
     if (!STAGED) {
       for (int k = 0; k < sc.n_tris; ++k) {
         const float* r = sc.tris + 9 * k;
@@ -522,26 +517,53 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nul
     float invd = 1.0f / td;
     t = tn * invd;
     if (hid >= 0) {
-      float u = un * invd, v = vn * invd;
-      const float* a = sc.attr + 10 * hid;
-      float half = floorf(a[9] * 0.5f);
-      bool smooth = (a[9] - 2.0f * half) > 0.5f;
-      h.mat = (int)half;
-      float w = 1.0f - u - v;
-      V3 ni = v3(a[0] * w + a[3] * u + a[6] * v, a[1] * w + a[4] * u + a[7] * v,
-                 a[2] * w + a[5] * u + a[8] * v);
-      float mag = sqrtf(dot(ni, ni));
-      h.n = smooth ? v3(ni.x / mag, ni.y / mag, ni.z / mag) : v3(a[0], a[1], a[2]);
-      kind = 1;
-      const float* uv = sc.uvt + 10 * hid;
-      float tur = uv[0] * w + uv[2] * u + uv[4] * v;
-      float tvr = uv[1] * w + uv[3] * u + uv[5] * v;
-      h.tw = v3(uv[6], uv[7], uv[8]);
-      h.uvok = uv[9] > 0.5f;
-      if (h.uvok) {
-        h.tu = tur;
-        h.tv = 1.0f - tvr;
-      }
+      u = un * invd;
+      v = vn * invd;
+    }
+  }
+  return hid;
+}
+
+// The hit record of ray (o, d), o the nudged origin, from its closest
+// triangle `tri` (-1 for none) at t with barycentrics u, v: the analytic
+// primitives merged over it, implicits then ellipsoids, each with a strict
+// t < closest so that the first of equal distances wins (kernels/traverse.py
+// `_merge_analytic_batched`), and the attributes at the final hit
+// (`surface_sample`, `_assemble_sample`): the smooth or flat normal, GL's
+// flipped v, the raw UV tangent and the material from attr[:, 9]. The frame
+// and block kernels call it after their triangle loop (closest_hit), the
+// bounce kernel after the forest or streamed walk, with `tri` the walk's
+// row through its permutation. PH: add each part's cycles into cyc
+// (PH_TRI from t0, PH_IMP, PH_ELL).
+template <bool PH = false>
+PT_HD Hit finish_hit(const Scene& sc, V3 o, V3 d, float t, int tri, float u, float v,
+                     unsigned long long* cyc = nullptr, long long t0 = 0) {
+  Hit h;
+  h.n = v3(0.0f, 0.0f, 0.0f);
+  h.mat = 0;
+  h.tu = h.tv = -1.0f;
+  h.tw = v3(0.0f, 0.0f, 0.0f);
+  h.uvok = false;
+  int kind = 0;
+  if (tri >= 0) {
+    const float* a = sc.attr + 10 * tri;
+    float half = floorf(a[9] * 0.5f);
+    bool smooth = (a[9] - 2.0f * half) > 0.5f;
+    h.mat = (int)half;
+    float w = 1.0f - u - v;
+    V3 ni = v3(a[0] * w + a[3] * u + a[6] * v, a[1] * w + a[4] * u + a[7] * v,
+               a[2] * w + a[5] * u + a[8] * v);
+    float mag = sqrtf(dot(ni, ni));
+    h.n = smooth ? v3(ni.x / mag, ni.y / mag, ni.z / mag) : v3(a[0], a[1], a[2]);
+    kind = 1;
+    const float* uv = sc.uvt + 10 * tri;
+    float tur = uv[0] * w + uv[2] * u + uv[4] * v;
+    float tvr = uv[1] * w + uv[3] * u + uv[5] * v;
+    h.tw = v3(uv[6], uv[7], uv[8]);
+    h.uvok = uv[9] > 0.5f;
+    if (h.uvok) {
+      h.tu = tur;
+      h.tv = 1.0f - tvr;
     }
   }
   if (PH) {
@@ -608,6 +630,17 @@ PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nul
     h.tu = h.tv = -1.0f;
   }
   return h;
+}
+
+// Closest hit from the nudged origin o: triangles, implicits, ellipsoids
+// (the frame and block kernels' scene query). STAGED: triangle_loop's. PH:
+// add each part's cycles into cyc (PH_TRI, PH_IMP, PH_ELL).
+template <bool PH = false, bool STAGED = false>
+PT_HD Hit closest_hit(const Scene& sc, V3 o, V3 d, unsigned long long* cyc = nullptr) {
+  const long long t0 = PH ? tick() : 0;
+  float t, u, v;
+  const int hid = triangle_loop<STAGED>(sc, o, d, t, u, v);
+  return finish_hit<PH>(sc, o, d, t, hid, u, v, cyc, t0);
 }
 
 // Sample the atlas map bound to material `mat`'s channel `ch`; false if

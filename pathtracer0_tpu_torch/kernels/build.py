@@ -3,8 +3,9 @@
 Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
 nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, the
 OBJ tokenizer, and for the CPU tests the forest kernels' triangle test,
-the block kernel's dense triangle loop and the group-test kernels'
-candidate test and group loop) by g++, into
+the block kernel's dense triangle loop, the group-test kernels'
+candidate test and group loop and the bounce kernel's per-ray body) by
+g++, into
 `_build/` at first use, and cached there under a hash of their sources
 and the flags; `build_all` starts one compiler per library together, so
 a fresh checkout pays the slowest build and not their sum.
@@ -30,6 +31,7 @@ BUILD = PKG / "_build"
 LIBS = {
     "frame_kernel": ("frame_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
+    "bounce_kernel": ("bounce_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "forest_kernel": ("forest_kernel.cu", "tri_divide.cuh"),
     "streamed_kernel": ("streamed_kernel.cu", "tri_free.cuh"),
     "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh",
@@ -40,8 +42,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # built by g++ for the host; no contraction here either, so the LBVH
 # build's float32 boxes equal the NumPy build's bit for bit, and the
 # forest kernels' triangle test (tri_divide.cuh), the block kernel's
-# dense triangle loop (pathtrace.cuh) and the group-test kernels' candidate
-# test and group loop (group_test.cuh, tri_free.cuh) equal the plain
+# dense triangle loop (pathtrace.cuh), the group-test kernels' candidate
+# test and group loop (group_test.cuh, tri_free.cuh) and the bounce
+# kernel's per-ray body (integrate.cuh `bounce_ray`) equal the plain
 # versions'; the OBJ tokenizer (objparse.cpp) does no float arithmetic
 # beyond strtod
 HOST_LIBS = {"streambuild": ("streambuild.cpp",),
@@ -49,7 +52,8 @@ HOST_LIBS = {"streambuild": ("streambuild.cpp",),
              "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh"),
              "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh"),
              "group_test": ("group_test_host.cpp", "group_test.cuh",
-                            "tri_free.cuh")}
+                            "tri_free.cuh"),
+             "bounce": ("bounce_host.cpp", "integrate.cuh", "pathtrace.cuh")}
 HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs = {}

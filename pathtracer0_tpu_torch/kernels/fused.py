@@ -19,7 +19,6 @@ import ctypes
 
 import torch
 
-from ..render import integrator
 from ..scene.packing import MAX_MATERIALS, MAX_TRIS
 from ..shade import implicits
 from . import build
@@ -113,6 +112,8 @@ def trace_block(scene, info, o, d, alive, state, *, max_bounces: int,
         raise ValueError(f"check={check!r} measures the card: it needs CUDA "
                          "tensors")
     if dev.type == "cpu":
+        from ..render import integrator
+
         inc, skyc, state, queries = integrator.trace_plain(
             scene, info, o, d, alive, state, max_bounces=max_bounces,
             stack_size=stack_size)

@@ -5,11 +5,15 @@ scene, the two-level LBVH), the implicit surfaces and the ellipsoids
 Counterpart of the JAX package's kernels/traverse.py. Vectors are
 (x, y, z) tuples of (R,) tensors, as everywhere in the port.
 
-  ray_scene       nudge the origins by 1e-4 d (frag.glsl:549), walk the
+  walk_triangles  nudge the origins by 1e-4 d (frag.glsl:549), walk the
                   forest (kernels/wavefront.trace_forest: the CUDA kernels
                   on the card, their plain versions on the CPU) or, where
-                  `info.streamed`, the LBVH (wavefront.trace_streamed),
-                  then merge the analytic primitives
+                  `info.streamed`, the LBVH (wavefront.trace_streamed):
+                  the closest triangle alone, as a `Walk`. The per-bounce
+                  route hands it to the bounce kernel (kernels/bounce.py),
+                  which merges and shades
+  ray_scene       walk_triangles, then the hit record (`walk_hit`) with
+                  the analytic primitives merged (`_merge_analytic_batched`)
   surface_sample  normal, UV, tangent and material at the final hits, once
                   per ray; both routes of the renderer shade from it
   probe_forest_t  closest triangle distance only (the Whitted subsurface
@@ -66,6 +70,18 @@ class Hit(NamedTuple):
     def is_hit(self):
         """Also true on a switched-off ray (t = 0): mask with `alive`."""
         return self.t < HIT_T
+
+
+class Walk(NamedTuple):
+    """The closest triangle of each ray from a walk (or the brute-force
+    loop), before the analytic primitives."""
+
+    t: torch.Tensor       # float32 distance; t_init where no triangle
+    u: torch.Tensor       # barycentric u, v of that triangle
+    v: torch.Tensor
+    row: torch.Tensor     # int32 row of the walked table, -1 if none
+    perm: object          # int32 table row -> triangle id (wf_perm,
+                          # st_perm), or None where the row is the id
 
 
 class SurfaceSample(NamedTuple):
@@ -136,17 +152,10 @@ def _merge_analytic_batched(o, d, scene, info, hit: Hit) -> Hit:
     return Hit(t, tri, hit.u, hit.v, obj, kind, prim)
 
 
-def empty_hit(t_init) -> Hit:
-    """No hit yet: t = t_init, every index -1."""
-    none = torch.full(t_init.shape, -1, dtype=torch.int64,
-                      device=t_init.device)
-    zero = torch.zeros_like(t_init)
-    return Hit(t_init, none, zero, zero, none, torch.zeros_like(none), none)
-
-
 def _t_init(like, active):
-    full = torch.full_like(like, MISS)
-    return full if active is None else torch.where(active, full, 0.0)
+    if active is None:
+        return torch.full_like(like, MISS)
+    return torch.where(active, MISS, 0.0)
 
 
 def _plain(pallas: str) -> bool:
@@ -180,6 +189,39 @@ def nudged(o, d):
     return tuple(o[i] + NUDGE * d[i] for i in range(3))
 
 
+def walk_triangles(o, d, scene, info, *, pallas: str = "auto",
+                   active=None):
+    """The first half of `ray_scene`: nudge the origins, then walk the
+    forest or (streamed) `sorted_query` the LBVH, for the closest triangle
+    alone. `active` and `pallas` as in `ray_scene`; a scene with no tree
+    walks nothing (row -1, t = t_init).
+
+    Returns (Walk, nudged origins)."""
+    forest, perm = _forest_fn(pallas, info)
+    on = nudged(o, d)
+    t_init = _t_init(on[0], active)
+    if has_tree(info):
+        t, u, v, idx, _, _ = forest(on, d, t_init, scene, info)
+        return Walk(t, u, v, idx, getattr(scene, perm)), on
+    zero = torch.zeros_like(t_init)
+    none = torch.full(t_init.shape, -1, dtype=torch.int32,
+                      device=t_init.device)
+    return Walk(t_init, zero, zero, none, None), on
+
+
+def walk_hit(walk: Walk, scene) -> Hit:
+    """The hit record of a walk's triangle, before the analytic
+    primitives: the row mapped to its triangle id and object."""
+    got = walk.row >= 0
+    row = torch.clamp(walk.row, min=0).to(torch.int64)
+    tri = row if walk.perm is None else walk.perm[row].to(torch.int64)
+    tri = torch.where(got, tri, -1)
+    obj = torch.where(
+        got, scene.tri_obj[torch.clamp(tri, min=0)].to(torch.int64), -1)
+    return Hit(walk.t, tri, walk.u, walk.v, obj, got.to(torch.int64),
+               torch.full_like(tri, -1))
+
+
 def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
     """Closest hit of rays o + t d. `active` (R,) bool switches rays off:
     they cost nothing and come back t = 0, tri = -1. pallas "auto" / "on":
@@ -187,27 +229,16 @@ def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
     on CPU tensors; "off": the plain versions on any device.
 
     Returns (Hit, nudged origins)."""
-    forest, perm = _forest_fn(pallas, info)
-    on = nudged(o, d)
-    hit = empty_hit(_t_init(on[0], active))
-    if has_tree(info):
-        t, u, v, idx, _, _ = forest(on, d, hit.t, scene, info)
-        got = idx >= 0
-        row = torch.clamp(idx, min=0).to(torch.int64)
-        tri = torch.where(got, getattr(scene, perm)[row].to(torch.int64), -1)
-        obj = torch.where(
-            got, scene.tri_obj[torch.clamp(tri, min=0)].to(torch.int64), -1)
-        hit = Hit(t, tri, u, v, obj, got.to(torch.int64), hit.prim)
-    return _merge_analytic_batched(on, d, scene, info, hit), on
+    walk, on = walk_triangles(o, d, scene, info, pallas=pallas,
+                              active=active)
+    return _merge_analytic_batched(on, d, scene, info,
+                                   walk_hit(walk, scene)), on
 
 
 def probe_forest_t(o, d, scene, info, *, pallas: str = "auto"):
     """Distance to the closest triangle of the whole forest, or of the
-    streamed LBVH, from the nudged origins (1e30 if none). Scenes with
-    triangles only."""
-    on = nudged(o, d)
-    return _forest_fn(pallas, info)[0](on, d, _t_init(on[0], None), scene,
-                                       info)[0]
+    streamed LBVH, from the nudged origins (1e30 if none)."""
+    return walk_triangles(o, d, scene, info, pallas=pallas)[0].t
 
 
 def heat_counts(o, d, scene, info, *, pallas: str = "auto"):

@@ -51,7 +51,7 @@ import torch
 from ..core import rng as vrng
 from ..core.math import sqrt
 from ..kernels import traverse
-from ..render.integrator import AIR_IOR, shade_setup, sky
+from ..kernels.bounce import AIR_IOR, shade_setup, sky
 from ..scene.material import COL
 from ..scene.texture import bilinear
 from .bsdf import dot3, fresnel_soa, unit3

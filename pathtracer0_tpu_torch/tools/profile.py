@@ -8,9 +8,10 @@ per-bounce route (fused="off") and the frame kernel (fused="on"); the
 differences attribute wall time to stages. Each row is a mean over
 `--frames` frames, each with a fresh seed, after a warm-up frame that is
 not timed, ended by a synchronize; beside it, the kernel launches a frame
-(`frame_kernel`, `block_kernel`, and the forest and streamed kernels of
-kernels/wavefront.py). A scene without triangles launches no forest
-kernel: its fused="off" row is the per-bounce shading alone.
+(`frame_kernel`, `block_kernel`, the forest and streamed kernels of
+kernels/wavefront.py, and `bounce_kernel`, one a bounce of the per-bounce
+route). A scene without triangles launches no forest kernel: its
+fused="off" row is the per-bounce shading alone.
 
 `--trace DIR` also writes one frame's torch.profiler trace
 (DIR/profile_config<n>.json, Chrome's format) and prints the card's busy
@@ -40,7 +41,7 @@ import torch
 from .. import scenes
 from ..config import RenderConfig
 from ..core.device import resolve_device, synchronize
-from ..kernels import frame, fused, wavefront
+from ..kernels import bounce, frame, fused, wavefront
 from ..render.renderer import render_frame
 
 # (width, height, spp, bounces, raytracing), bench.py's table
@@ -79,6 +80,7 @@ def launch_counts():
     return {"frame_kernel": frame.trace_frame.launches,
             "frame_kernel_refill": frame.trace_frame.refill_launches,
             "block_kernel": fused.trace_block.launches,
+            "bounce_kernel": bounce.bounce_step.launches,
             **wavefront.launches}
 
 

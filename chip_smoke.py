@@ -182,10 +182,21 @@ non-zero:
                    the thickness probe, the OBJ grid with a subsurface
                    material; the kernel's ms (20 launches on as many
                    copies of the state), the plain version's and the
-                   bound at each bounce; frames of each cell through
-                   Renderer (this checkout's and each --parent's): wall
-                   and CUDA ms, launches a frame, the card's busy share
-                   and device operations a bounce under torch.profiler
+                   bound at each bounce; with --parent, each form of
+                   every tree's bounce_kernel in turns with this one on
+                   the same state and walk (tools/bounce_turns.turns),
+                   bit-equal; the camera form (one launch a sample of
+                   render_rays) against camera_step_plain on each cell's
+                   480,000 rays at blur 0 and 0.001, its ms and bound;
+                   refraction stacks of 17 and 32 on the terrain and
+                   config 2 (which then leaves the frame path): the path
+                   form against its plain version and a frame through
+                   Renderer; frames of each cell through Renderer (this
+                   checkout's with camera.dof_ray made to raise, and each
+                   --parent's): wall and CUDA ms, launches a frame (one
+                   camera form a sample), the card's busy share and
+                   device operations a frame and a bounce under
+                   torch.profiler
 
 With `--profile` it also traces one frame of the n = 181 terrain and one of
 the 999,698-triangle terrain with torch.profiler and records the card's
@@ -780,6 +791,7 @@ def modes(c):
         return {"frame_kernel": c.frame.trace_frame.launches,
                 "block_kernel": fused.trace_block.launches,
                 "bounce_kernel": c.bounce.bounce_step.launches,
+                CAMERA: c.bounce.camera_step.launches,
                 **c.wavefront.launches}
 
     class Folded:
@@ -969,13 +981,19 @@ def modes(c):
                                    **agreement(got, want, tol, glossy)}
         recs[f"{mode} {label}"] = rec
         # checks: only the run's kernel, as often as the mode needs it
-        # (fold_spp's bounces also launch bounce_kernel, once each)
+        # (fold_spp's bounces also launch bounce_kernel, once each); the
+        # camera form once a frame where the mode makes camera rays (its
+        # one sample of spp x N rays, or the legacy modes' one
+        # evaluation), never for the heatmap's undeflected rays
         others = {k: v for k, v in per_frame.items() if k != kernel
-                  and not (mode == "fold_spp" and k == "bounce_kernel")}
+                  and not (mode == "fold_spp" and k == "bounce_kernel")
+                  and k != CAMERA}
         n_kernel = per_frame.get(kernel, 0)
         check(mode != "fold_spp"
               or per_frame.get("bounce_kernel") == n_kernel,
               f"modes {mode} {label}: bounce launches {per_frame}")
+        check(per_frame.get(CAMERA, 0) == (0 if mode == "debug" else 1),
+              f"modes {mode} {label}: camera form launches {per_frame}")
         want_n = {"legacy_shading": 1 + len(info.lights),
                   "debug": max(info.num_objects, 1)}.get(mode)
         check(not others and n_kernel > 0
@@ -1139,9 +1157,10 @@ def obj_phase(c):
         big["frames"][mode] = {"pixels_equal": eq, "launches": launches}
         n_max = BIG_SPP * (BIG_BOUNCES if raytracing else 1)
         check(eq >= 0.999 and all(
-            set(n) == {"streamed_kernel", "bounce_kernel"}
+            set(n) == {"streamed_kernel", "bounce_kernel", CAMERA}
             and 0 < n["streamed_kernel"] <= n_max
             and n["bounce_kernel"] == n["streamed_kernel"]
+            and n[CAMERA] == BIG_SPP
             for n in launches.values()),
             f"obj: {mode} frames {big['frames'][mode]}")
     rec["terrain_1m"] = big
@@ -1298,18 +1317,22 @@ def dist_phase(c, session_rec):
              "wall_ms_tiled": wall, "wall_ms_untiled": wall_u,
              "launches_tiled": launches_t, "launches_untiled": launches_u,
              "finite": bool(torch.isfinite(img_t).all())}
+        # the camera form once a sample of each tile and chunk
+        tile = (n + n_pad) // len(mesh)
+        r["camera_launches_expected"] = [
+            len(mesh) * cfg.samples_per_frame * chunks(tile, cfg),
+            cfg.samples_per_frame * chunks(n, cfg)]
+        ok = [launches_t.get(CAMERA), launches_u.get(CAMERA)] == r[
+            "camera_launches_expected"]
         if kernel == "block_kernel":
-            tile = (n + n_pad) // len(mesh)
-            r["block_launches_expected"] = [
-                len(mesh) * cfg.samples_per_frame * chunks(tile, cfg),
-                cfg.samples_per_frame * chunks(n, cfg)]
-            ok = [launches_t, launches_u] == [
-                {kernel: k} for k in r["block_launches_expected"]]
+            r["block_launches_expected"] = r["camera_launches_expected"]
+            ok = ok and [launches_t, launches_u] == [
+                {kernel: k, CAMERA: k} for k in r["block_launches_expected"]]
         else:
             # one bounce_kernel launch after each walk
             limit = cfg.samples_per_frame * cfg.max_bounces
-            ok = (set(launches_t) == set(launches_u)
-                  == {kernel, "bounce_kernel"}
+            ok = (ok and set(launches_t) == set(launches_u)
+                  == {kernel, "bounce_kernel", CAMERA}
                   and 0 < launches_t[kernel] <= len(mesh) * limit
                   and 0 < launches_u[kernel] <= limit
                   and all(n["bounce_kernel"] == n[kernel]
@@ -1359,7 +1382,7 @@ def dist_phase(c, session_rec):
         "golden_shape": [gw, gh, gspp // 2, 2]}
     check(rec["sample_split"]["equal_to_mean"]
           and int(q_split) == qa + qb
-          and launches == {"block_kernel": 2 * 16}
+          and launches == {"block_kernel": 2 * 16, CAMERA: 2 * 16}
           and rec["sample_split"]["golden_rmse"] < 0.05,
           f"dist: sample split {rec['sample_split']}")
 
@@ -1401,7 +1424,8 @@ def dist_phase(c, session_rec):
         "launches": launches, "loaded_equal": loaded_equal,
         "step_equal": step_equal, "seed_draws": resumed._seed_draws,
         "count_after_move": dr._count}
-    check(launches == {"block_kernel": 2 * 4 * 8} and loaded_equal
+    check(launches == {"block_kernel": 2 * 4 * 8, CAMERA: 2 * 4 * 8}
+          and loaded_equal
           and step_equal and resumed._seed_draws == 4
           and dr._count == 0
           and float(dr.display_image().abs().max()) == 0.0,
@@ -1571,7 +1595,7 @@ def tools_phase(c, session_rec):
               and q[0] == 800 * 600 * spp,
               f"tools: diag_scale_frame spp {spp}: {rows}")
     check(set(rec["diag_scale_frame"]["launches"])
-          == {"streamed_kernel", "bounce_kernel"},
+          == {"streamed_kernel", "bounce_kernel", CAMERA},
           f"tools: diag_scale_frame {rec['diag_scale_frame']['launches']}")
 
     # diag_build4m and the 4M terrain's peak memory
@@ -1652,6 +1676,23 @@ BOUNCE_LIVE_BYTES, BOUNCE_HIT_BYTES, BOUNCE_MISS_BYTES = 68, 94, 25
 BOUNCE_ROW_BYTES, BOUNCE_PERM_BYTES, BOUNCE_LIVE_OPS = 80, 4, 12
 WHITTED_RAY_BYTES, WHITTED_LIVE_BYTES = 13, 40
 BOUNCE_REPS = 20
+# the camera form of bounce_kernel in the launch counts
+CAMERA = "bounce_kernel_camera"
+# the bytes of the camera form a ray, counted from csrc/integrate.cuh
+# `camera_ray`: the primary direction (12) and RNG state (8) read; the
+# ray (24), the state (8) and the alive flag (1) written; the path state
+# begun: throughput, radiance, sky radiance and entry point (48), the
+# stack's bottom entry (4), its size (4) and the medium flag (1) written;
+# the running total written (12): 122. The first sample also writes the
+# query count (8): 130; a later one reads its sample's radiance and sky
+# radiance (24) and the total (12) instead: 158. Operations: the focal
+# point, the aim, its length and the division (21), with blur the jitter
+# turned and added (21).
+CAMERA_FIRST_BYTES, CAMERA_LATER_BYTES = 130, 158
+CAMERA_OPS, CAMERA_BLUR_OPS = 21, 21
+# the stack depths past the frame and block kernels' 16 that phase `bounce`
+# renders through Renderer
+DEEP_STACKS = (17, 32)
 
 
 def bounce_phase(c, trees):
@@ -1683,9 +1724,12 @@ def bounce_phase(c, trees):
     (tools/profile.trace_busy): the card's busy share and its device
     operations, per bounce of the frame (this checkout's bounce_kernel
     launches a frame)."""
+    import importlib
+
     torch, np, dev, scenes = c.torch, c.np, c.dev, c.scenes
     from pathtracer0_tpu_torch.kernels import bounce, traverse
     from pathtracer0_tpu_torch.render import integrator
+    from pathtracer0_tpu_torch.tools import bounce_turns
     from pathtracer0_tpu_torch.tools.profile import trace_busy
 
     t_start = time.perf_counter()
@@ -1753,11 +1797,18 @@ def bounce_phase(c, trees):
 
     # ---- the path form, bounce after bounce
     w, h = c.size
-    for label, (sc, info, cam, n_bounces) in built.items():
+    mods = {"change": bounce, **{
+        label: importlib.import_module(f"tree_{label}.kernels.bounce")
+        for label in trees}}
+
+    def path_cells(label, sc, info, cam, n_bounces, stack_size=10):
+        """The path form against its plain version bounce after bounce on
+        one sample's rays of the cell (and in turns against each --parent
+        tree's kernel); returns the cells of the bounces."""
         o, d, state = c.sample_rays(*cam, w, h)
         n = state.shape[0]
         alive = torch.ones(n, dtype=torch.bool, device=dev)
-        st = bounce.begin(o, d, alive, state, stack_size=10,
+        st = bounce.begin(o, d, alive, state, stack_size=stack_size,
                           max_bounces=n_bounces)
         cells = []
         for k in range(n_bounces):
@@ -1796,6 +1847,12 @@ def bounce_phase(c, trees):
                     "launches": launched, "ms": ms, "wrapper_ms": wrapper_ms,
                     "plain_ms": plain_ms,
                     **c.least(nbytes, n_live * BOUNCE_LIVE_OPS)}
+            if trees:
+                cell["turns"] = bounce_turns.turns(
+                    sc, info, st, walk, "path", mods, reps=BOUNCE_REPS)
+                check(all(x["bits_equal"] for x in cell["turns"].values()),
+                      f"bounce: path form, {label} bounce {k}: the trees' "
+                      f"kernels against this one {cell['turns']}")
             cells.append(cell)
             check(cell["state_eq"] >= 0.99 and cell["frac_within_1e-4"] >= 0.99
                   and cell["queries_equal"] and launched == 1
@@ -1806,18 +1863,26 @@ def bounce_phase(c, trees):
                   and bool(torch.isfinite(rad_k).all()),
                   f"bounce: path form, {label} bounce {k}: {cell}")
             st = kern
+        return cells, (o, d, alive, state)
+
+    for label, (sc, info, cam, n_bounces) in built.items():
+        cells, (o, d, alive, state) = path_cells(label, sc, info, cam,
+                                                 n_bounces)
         rec["path"][label] = cells
         check(len(cells) >= 2 and cells[0]["hits"] > 0,
               f"bounce: {label}: {cells}")
         # the device operations of one bounce of the route's loop: one
         # traced trace_bounces call on the same rays at 1 bounce and at
         # all of them; the difference over the bounces between
-        ops = {nb: trace_busy(lambda nb=nb: integrator.trace_bounces(
-                   sc, info, o, d, alive, state, max_bounces=nb),
-                   device=dev)["device_kernels"] for nb in (1, n_bounces)}
+        traces = {nb: trace_busy(lambda nb=nb: integrator.trace_bounces(
+                      sc, info, o, d, alive, state, max_bounces=nb),
+                      device=dev) for nb in (1, n_bounces)}
+        ops = {nb: tr["device_kernels"] for nb, tr in traces.items()}
         loop = {"device_ops_1_bounce": ops[1],
                 f"device_ops_{n_bounces}_bounces": ops[n_bounces],
-                "bounces": len(cells)}
+                "bounces": len(cells),
+                "lead_kept": [tr["lead_kept"] for tr in traces.values()],
+                "trace_tries": [tr["trace_tries"] for tr in traces.values()]}
         if ops[1] is not None:
             loop["device_ops_per_bounce"] = (
                 (ops[n_bounces] - ops[1]) / (len(cells) - 1))
@@ -1868,11 +1933,118 @@ def bounce_phase(c, trees):
             "launches": launched,
             "ms": kernel_ms(sc, info, kern, walk, "whitted", probe_t),
             "plain_ms": plain_ms, **c.least(nbytes, n_live * BOUNCE_LIVE_OPS)})
+        if trees:
+            fresh = bounce.begin_whitted(o, d, alive, probe=probing)
+            cell["turns"] = {"whitted": bounce_turns.turns(
+                sc, info, fresh, walk, "whitted", mods, probe_t,
+                reps=BOUNCE_REPS)}
+            if probing:
+                cell["turns"]["locate"] = bounce_turns.turns(
+                    sc, info, fresh, walk, "locate", mods, reps=BOUNCE_REPS)
+            check(all(x["bits_equal"] for t in cell["turns"].values()
+                      for x in t.values()),
+                  f"bounce: Whitted forms, {label}: the trees' kernels "
+                  f"against this one {cell['turns']}")
         rec["whitted"][label] = cell
         check(cell["frac_within_1e-4"] >= 0.99 and cell["off_rays_zero"]
               and launched == 1 and bool(torch.isfinite(kern.inc).all())
               and cell["ms"] >= cell["bound_ms"],
               f"bounce: Whitted form, {label}: {cell}")
+
+    # ---- the camera form against its plain version, each cell's camera
+    rec["camera"] = {}
+    for label, (sc, info, cam, n_bounces) in built.items():
+        uv, index = c.camera.pixel_centers(w, h, dev)
+        pos, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in cam)
+        rotmat = c.vm.rotation_matrix(rot)
+        pd = c.camera.primary_directions(uv, rotmat, 1.5, 1.0,
+                                         h / w).T.contiguous()
+        cams = bounce.camera_scalars(pos, rotmat,
+                                     torch.tensor(20.0, device=dev))
+        n = index.shape[0]
+        for blur in (0.0, HERO["blur"]):
+            sts = {}
+            for who, step in (("kernel", bounce.camera_step),
+                              ("plain", bounce.camera_step_plain)):
+                st = bounce.state_for(c.vrng.seed(index, 77), path=True,
+                                      max_bounces=n_bounces, totals=True)
+                g = torch.Generator(device=dev).manual_seed(5)
+                step(st, pd, cams, blur)
+                # the sample's radiance, then the next sample adds it
+                st.inc.copy_(torch.rand(st.inc.shape, generator=g,
+                                        device=dev))
+                st.skyc.copy_(torch.rand(st.skyc.shape, generator=g,
+                                         device=dev))
+                step(st, pd, cams, blur, accumulate=True)
+                sts[who] = st
+            kern, plain = sts["kernel"], sts["plain"]
+            fields = ("state", "alive", "col", "inc", "skyc", "enter",
+                      "ssize", "inobj", "queries", "live", "total")
+            ray_eq = {f: float((getattr(kern, f) == getattr(plain, f))
+                               .all(0).float().mean()) for f in ("o", "d")}
+            ray_err = max(float((getattr(kern, f) - getattr(plain, f))
+                                .abs().max()) for f in ("o", "d"))
+            state_equal = {f: bool(torch.equal(getattr(kern, f),
+                                               getattr(plain, f)))
+                           for f in fields}
+            bottom_equal = bool(torch.equal(kern.stack[0], plain.stack[0]))
+            # the timed launches advance the states: compared first
+            ms = {acc: bounce_turns.camera_ms(kern, pd, cams, blur, acc,
+                                              BOUNCE_REPS)
+                  for acc in (False, True)}
+            plain_ms = event_ms(lambda: bounce.camera_step_plain(
+                plain, pd, cams, blur, accumulate=True))
+            ops = n * (CAMERA_OPS + CAMERA_BLUR_OPS * (blur != 0.0))
+            cell = {
+                "rays": n, "blur": blur, "state_equal": state_equal,
+                "stack_bottom_equal": bottom_equal,
+                "rays_equal_share": ray_eq, "max_abs_err": ray_err,
+                "ms_first": ms[False], "ms": ms[True], "plain_ms": plain_ms,
+                "first": c.least(n * CAMERA_FIRST_BYTES, ops),
+                **c.least(n * CAMERA_LATER_BYTES, ops)}
+            rec["camera"][f"{label} blur {blur}"] = cell
+            exact = blur == 0.0
+            check(all(cell["state_equal"].values())
+                  and cell["stack_bottom_equal"]
+                  and min(ray_eq.values()) >= (1.0 if exact else 0.999)
+                  and ray_err <= (0.0 if exact else 1e-6)
+                  and ms[True] >= cell["bound_ms"]
+                  and ms[False] >= cell["first"]["bound_ms"],
+                  f"bounce: camera form, {label} blur {blur}: {cell}")
+
+    # ---- stacks deeper than the frame and block kernels' 16: the path
+    # form against its plain version, and frames through Renderer
+    rec["deep_stacks"] = {}
+    config2 = (*scenes.BUILDERS[2]().build(device=dev), scenes.CAMERAS[2])
+    deep_cells = {"terrain": (c.terrain, c.terrain_info, c.terrain_cam),
+                  "config2": config2}
+    check(c.frame.eligible(config2[1], stack_size=16)
+          and not c.frame.eligible(config2[1], stack_size=17),
+          "bounce: config 2 must leave the frame path past a stack of 16")
+    for depth in DEEP_STACKS:
+        for label, (sc, info, cam) in deep_cells.items():
+            cells, _ = path_cells(f"{label} stack {depth}", sc, info, cam,
+                                  BOUNCES, stack_size=depth)
+            cfg = c.RenderConfig(width=w, height=h, samples_per_frame=2,
+                                 max_bounces=BOUNCES, auto_focus=True,
+                                 refraction_stack_depth=depth)
+            r = c.Renderer(sc, info, cfg, cam_pos=cam[0], cam_rot=cam[1],
+                           seed=9, device=dev)
+            c.zero_counts()
+            img = r.step()
+            torch.cuda.synchronize()
+            launches = c.counts()
+            cell = {"path": cells, "launches": launches,
+                    "finite": bool(torch.isfinite(img).all()),
+                    "picture_std": float(img.clamp(0.0, 1.0).std())}
+            rec["deep_stacks"][f"{label} {depth}"] = cell
+            check(cell["finite"] and cell["picture_std"] > 0.02
+                  and "frame_kernel" not in launches
+                  and "block_kernel" not in launches
+                  and launches.get(CAMERA) == 2
+                  and launches.get("bounce_kernel", 0) > 0,
+                  f"bounce: {label} at a stack of {depth}: {cell}")
 
     # ---- frames, this checkout's and each other checkout's
     frame_cells = (
@@ -1901,6 +2073,11 @@ def bounce_phase(c, trees):
     for label, tree in trees.items():
         mod = sys.modules[f"tree_{label}"]
         packages[label] = (mod.Renderer, mod.RenderConfig, tree["wavefront"])
+    real_dof_ray = c.camera.dof_ray
+
+    def no_dof_ray(*args, **kwargs):
+        raise CheckFailed("bounce: camera.dof_ray ran on the card's route")
+
     for name, scene, kw in frame_cells:
         sc, info, cam, _ = built[scene]
         cell = {}
@@ -1911,14 +2088,20 @@ def bounce_phase(c, trees):
             torch.cuda.synchronize()
             c.zero_counts()
             walks0 = dict(their_walks.launches) if their_walks else None
-            walls, events, queries = c.timed_frames(r, 2)
             if their_walks is None:
-                launches = {k: v / 3 for k, v in c.counts().items()}
-            else:
-                launches = {k: (v - walks0[k]) / 3
-                            for k, v in their_walks.launches.items()
-                            if v != walks0[k]}
-            busy = trace_busy(r.step)
+                # this checkout's route makes its rays in the camera form
+                c.camera.dof_ray = no_dof_ray
+            try:
+                walls, events, queries = c.timed_frames(r, 2)
+                if their_walks is None:
+                    launches = {k: v / 3 for k, v in c.counts().items()}
+                else:
+                    launches = {k: (v - walks0[k]) / 3
+                                for k, v in their_walks.launches.items()
+                                if v != walks0[k]}
+                busy = trace_busy(r.step)
+            finally:
+                c.camera.dof_ray = real_dof_ray
             cell[who] = {
                 "wall_ms": walls, "cuda_ms": events, "queries": queries,
                 "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
@@ -1933,10 +2116,13 @@ def bounce_phase(c, trees):
             cell[who]["device_ops_per_bounce"] = (
                 cell[who]["device_kernels"] / bounces if bounces else None)
         rec["frames"][name] = cell
+        # one camera form launch a sample of this checkout's frames
         check(bounces > 0 and all(
             x["launches_per_frame"].get("frame_kernel", 0) == 0
             and x["launches_per_frame"].get("block_kernel", 0) == 0
-            for x in cell.values()), f"bounce: frames {name}: {cell}")
+            for x in cell.values())
+            and cell["change"]["launches_per_frame"].get(CAMERA)
+            == kw["samples_per_frame"], f"bounce: frames {name}: {cell}")
     rec["seconds"] = time.perf_counter() - t_start
     emit(rec, c.log)
     return rec
@@ -3722,6 +3908,7 @@ def main() -> int:
         frame.trace_frame.refill_launches = 0
         fused.trace_block.launches = 0
         bounce.bounce_step.launches = 0
+        bounce.camera_step.launches = 0
         for counts in (wavefront.launches, mxu_group.launches,
                        mm_probe.launches):
             for k in counts:
@@ -3847,7 +4034,9 @@ def main() -> int:
                      cam_rot=terrain_cam[1], seed=2, device="cuda")
         before = wavefront.launches["traverse_kernel"]
         before_b = bounce.bounce_step.launches
-        walls, events, queries = timed_frames(r, 2 if raytracing else 1)
+        before_c = bounce.camera_step.launches
+        n_timed = 2 if raytracing else 1
+        walls, events, queries = timed_frames(r, n_timed)
         img = r.display_image()
         sky = torch.tensor([0.5, 0.6, 0.9], device=dev)
         rec = {"phase": "main_path", "scene": "terrain",
@@ -3858,6 +4047,7 @@ def main() -> int:
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "launches": wavefront.launches["traverse_kernel"] - before,
                "bounce_launches": bounce.bounce_step.launches - before_b,
+               "camera_launches": bounce.camera_step.launches - before_c,
                "covered": float(((img - sky).abs().amax(-1) > 0.02)
                                 .float().mean()),
                "finite": bool(torch.isfinite(img).all()), "card": card}
@@ -3866,9 +4056,10 @@ def main() -> int:
         check(rec["finite"], "terrain: image not finite")
         check(0.1 < rec["covered"] < 0.98, f"terrain: picture {rec}")
         # one bounce_kernel launch after each walk but the autofocus probe's
-        # (one, in the warm-up frame)
+        # (one, in the warm-up frame); the camera form once a sample
         check(rec["launches"] >= (3 if raytracing else 2) * TERRAIN_SPP
-              and rec["bounce_launches"] == rec["launches"] - 1,
+              and rec["bounce_launches"] == rec["launches"] - 1
+              and rec["camera_launches"] == (n_timed + 1) * TERRAIN_SPP,
               f"terrain: launches {rec}")
     gw, gh, gspp, gseed = GOLDEN
     grid_cfg = dict(max_bounces=BOUNCES, auto_focus=False,
@@ -3913,16 +4104,18 @@ def main() -> int:
          lambda: fused.trace_block.launches))
     for label, kernel, r, launched in grid_runs:
         before_b = bounce.bounce_step.launches
+        before_c = bounce.camera_step.launches
         walls, events, queries = timed_frames(r, 2)
         img, count = r.display_image(), launched()
         n_bounce = bounce.bounce_step.launches - before_b
+        n_camera = bounce.camera_step.launches - before_c
         rec = {"phase": "main_path", "scene": "obj_grid", "route": label,
                "tris": grid_info.num_tris, "width": 800, "height": 600,
                "spp": TERRAIN_SPP, "bounces": BOUNCES, "wall_ms": walls,
                "cuda_ms": events, "queries": queries,
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "kernel": kernel, "launches": count,
-               "bounce_launches": n_bounce,
+               "bounce_launches": n_bounce, "camera_launches": n_camera,
                "finite": bool(torch.isfinite(img).all()),
                "picture_std": float(img.clamp(0.0, 1.0).std()),
                "card": card}
@@ -3934,10 +4127,12 @@ def main() -> int:
         check(count >= 3 * TERRAIN_SPP, f"obj_grid {label}: launches {rec}")
         # the per-bounce route: one bounce_kernel launch after each walk;
         # the block path none
-        check(n_bounce == (count if label == "per_bounce" else 0),
+        check(n_bounce == (count if label == "per_bounce" else 0)
+              and n_camera == 3 * TERRAIN_SPP,
               f"obj_grid {label}: bounce launches {rec}")
     launches_route = {"block_kernel": fused.trace_block.launches,
                       "bounce_kernel": bounce.bounce_step.launches,
+                      CAMERA: bounce.camera_step.launches,
                       **wavefront.launches}
     check(launches_route.pop("streamed_kernel") == 0,
           "the SAH scenes launched streamed_kernel")
@@ -3956,6 +4151,7 @@ def main() -> int:
                      cam_rot=big_cam[1], seed=5, device="cuda")
         before = wavefront.launches["streamed_kernel"]
         before_b = bounce.bounce_step.launches
+        before_c = bounce.camera_step.launches
         n_timed = 2 if raytracing else 1
         walls, events, queries = timed_frames(r, n_timed)
         img = r.display_image()
@@ -3968,6 +4164,7 @@ def main() -> int:
                "mrays_per_s": queries / (sum(walls) / 1e3) / 1e6,
                "launches": wavefront.launches["streamed_kernel"] - before,
                "bounce_launches": bounce.bounce_step.launches - before_b,
+               "camera_launches": bounce.camera_step.launches - before_c,
                **big_seconds,
                "covered": float(((img - sky).abs().amax(-1) > 0.02)
                                 .float().mean()),
@@ -3979,10 +4176,12 @@ def main() -> int:
         # one launch per frame, sample and bounce
         check(rec["launches"] == (n_timed + 1) * BIG_SPP
               * (BIG_BOUNCES if raytracing else 1)
-              and rec["bounce_launches"] == rec["launches"],
+              and rec["bounce_launches"] == rec["launches"]
+              and rec["camera_launches"] == (n_timed + 1) * BIG_SPP,
               f"terrain 1M: launches {rec}")
     launches_streamed = wavefront.launches["streamed_kernel"]
     launches_streamed_bounce = bounce.bounce_step.launches
+    launches_streamed_camera = bounce.camera_step.launches
     check({k: v for k, v in wavefront.launches.items() if v}
           == {"streamed_kernel": launches_streamed}
           and launches_streamed_bounce == launches_streamed
@@ -4190,6 +4389,7 @@ def main() -> int:
         return {k: v for k, v in {"frame_kernel": frame.trace_frame.launches,
                                   "block_kernel": fused.trace_block.launches,
                                   "bounce_kernel": bounce.bounce_step.launches,
+                                  CAMERA: bounce.camera_step.launches,
                                   **wavefront.launches}.items() if v}
 
     slice_paths = SimpleNamespace(
@@ -4211,7 +4411,8 @@ def main() -> int:
         terrain_info=terrain_info,
         terrain_cam=terrain_cam, grid=grid, grid_info=grid_info,
         grid_cam=grid_cam, sample_rays=sample_rays, least=least,
-        timed_frames=timed_frames, wavefront=wavefront), trees)
+        timed_frames=timed_frames, wavefront=wavefront, vm=vm, vrng=vrng,
+        frame=frame), trees)
 
     keys = ("shape", "timed_spp", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "state_eq", "frac_within_1e-4",
@@ -4402,9 +4603,29 @@ def main() -> int:
         "detail": {
             "path": bounce_rec["path"], "whitted": bounce_rec["whitted"],
             "frames": {name: {who: {k: x[k] for k in (
-                "wall_ms", "cuda_ms", "busy_share", "device_ops_per_bounce",
-                "launches_per_frame")} for who, x in cell.items()}
-                for name, cell in bounce_rec["frames"].items()}}})
+                "wall_ms", "cuda_ms", "busy_share", "device_kernels",
+                "device_ops_per_bounce", "launches_per_frame")}
+                for who, x in cell.items()}
+                for name, cell in bounce_rec["frames"].items()},
+            "deep_stacks": bounce_rec["deep_stacks"]}})
+    # its camera form: the terrain's rays at the hero's blur, a later
+    # sample (the first writes the sums instead of adding to them), every
+    # cell and both blurs in `detail`
+    cam_line = bounce_rec["camera"][f"terrain blur {HERO['blur']}"]
+    kernels["kernels"].append({
+        "name": CAMERA, "route": "cuda",
+        "source": "pathtracer0_tpu_torch/csrc/bounce_kernel.cu",
+        "replaces": "pathtracer0_tpu/core/camera.py:59 dof_ray and the "
+                    "per-sample set-up of pathtracer0_tpu/render/"
+                    "renderer.py:175-194 (XLA fusions in the jitted "
+                    "fori_loop; no Pallas kernel)",
+        "launches": launches_route[CAMERA] + launches_streamed_camera,
+        "max_abs_err": max(x["max_abs_err"]
+                           for x in bounce_rec["camera"].values()),
+        **{key: cam_line[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+        "library_ms": None,
+        "detail": bounce_rec["camera"]})
     # the order of work on the kernels: slower than the library's call for
     # the same function first, then the time above the bound over the
     # launches of the run (the frame entries sum ms and bound over cells,
@@ -4413,7 +4634,7 @@ def main() -> int:
         k["slower_than_library"] = (k["library_ms"] is not None
                                     and k["ms"] > k["library_ms"])
         k.setdefault("excess_ms", k["launches"] * (k["ms"] - k["bound_ms"]))
-    check(len(kernels["kernels"]) == 13
+    check(len(kernels["kernels"]) == 14
           and all(k["launches"] > 0 for k in kernels["kernels"]),
           "a kernel of the paths was never launched")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

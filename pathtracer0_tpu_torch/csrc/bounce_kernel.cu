@@ -25,10 +25,28 @@
 // a block (`block_sum_add`). It takes any triangle and material count: it
 // reads the scene's tables where the hits point.
 //
-// What bounds it: device memory. A live ray reads its state (about 120
-// bytes at S = 10) and the walk's hit (16 bytes), gathers its material and
-// triangle attributes, and writes its state back; the implicit march of
-// scenes with implicit surfaces is arithmetic on top.
+// The camera form (FORM_CAMERA, integrate.cuh `camera_ray`) begins each
+// sample of render_rays on the same state: the camera's ray with depth of
+// field from the ray's primary direction and RNG state (PixelCamera::ray,
+// the frame kernel's), the path state begun, the sample before added into
+// the running sum. One launch a sample stands in for the ~211 PyTorch
+// launches of core/camera.py `dof_ray` and kernels/bounce.py `begin`, the
+// counterpart of the per-sample set-up XLA fuses into the JAX package's
+// jitted fori_loop (pathtracer0_tpu/render/renderer.py:175-194).
+//
+// What bounds it: the instructions a live ray issues (finish_hit's merge,
+// the lobe choice's logarithms, cosines, square roots and correctly rounded
+// divisions, divergent across a warp) more than device memory: a live ray
+// reads its state (about 120 bytes at S = 10) and the walk's hit (16
+// bytes), gathers its material and triangle attributes, and writes its
+// state back. The path form therefore moves no byte it does not need: a
+// ray that misses reads its throughput and sky radiance alone; a ray that
+// hits reads the entry point of its medium only where a transmission is
+// absorbed and writes it only where it enters one (integrate.cuh
+// `ColumnEnter`), and writes the medium flag, the stack size and the alive
+// flag only where they change; the hit triangle's attribute and UV rows
+// come in 8-byte loads through the read-only cache (pathtrace.cuh `row10`),
+// half the load instructions.
 //
 // Plain version: pathtracer0_tpu_torch/kernels/bounce.py
 // `bounce_step_plain`; the same body is built by g++ for the CPU tests
@@ -39,8 +57,12 @@ using namespace pt;
 
 template <int FORM>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(BounceArgs a) {
-  const Scene sc = make_scene(a.scene);
   const int r = blockIdx.x * BLOCK + threadIdx.x;
+  if (FORM == FORM_CAMERA) {
+    if (r < a.n_rays) camera_ray(a, r);
+    return;
+  }
+  const Scene sc = make_scene(a.scene);
   const unsigned live = r < a.n_rays ? bounce_ray<FORM>(sc, a, r) : 0u;
   if (FORM == FORM_PATH) block_sum_add(live, a.live);
 }
@@ -57,5 +79,6 @@ static int launch(const BounceArgs* a, void* stream) {
 extern "C" int pt_launch_bounce(const BounceArgs* a, void* stream) {
   if (a->form == FORM_WHITTED) return launch<FORM_WHITTED>(a, stream);
   if (a->form == FORM_LOCATE) return launch<FORM_LOCATE>(a, stream);
+  if (a->form == FORM_CAMERA) return launch<FORM_CAMERA>(a, stream);
   return launch<FORM_PATH>(a, stream);
 }

@@ -75,31 +75,6 @@ struct FrameArgs {
   int whitted, refill, check;
 };
 
-// The camera of one pixel: where its samples' rays start and aim.
-struct PixelCamera {
-  float r[9];  // rotation matrix, row-major
-  V3 c, pd;    // camera position, primary direction
-  float ifd, blur;
-
-  // The sample's ray with depth of field (frag.glsl:899-908): 6 draws,
-  // always consumed.
-  __device__ __forceinline__ void ray(uint32_t& state, V3& o, V3& d) const {
-    o = c;
-    if (blur != 0.0f) {
-      V3 j = v3(normal_from(peek<1>(state), peek<2>(state)) * blur,
-                normal_from(peek<3>(state), peek<4>(state)) * blur,
-                normal_from(peek<5>(state), peek<6>(state)) * blur);
-      o = v3(c.x + (r[0] * j.x + r[1] * j.y + r[2] * j.z),
-             c.y + (r[3] * j.x + r[4] * j.y + r[5] * j.z),
-             c.z + (r[6] * j.x + r[7] * j.y + r[8] * j.z));
-    }
-    state = advance<6>(state);
-    V3 dd = v3((c.x + pd.x * ifd) - o.x, (c.y + pd.y * ifd) - o.y, (c.z + pd.z * ifd) - o.z);
-    float mag = sqrtf(dot(dd, dd));
-    d = v3(dd.x / mag, dd.y / mag, dd.z / mag);
-  }
-};
-
 template <bool WHITTED, bool REFILL, int CHECK>
 __global__ void __launch_bounds__(BLOCK) frame_kernel(FrameArgs a) {
   constexpr bool PH = CHECK == PHASES;

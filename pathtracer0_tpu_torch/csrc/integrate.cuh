@@ -59,6 +59,44 @@ PT_HD float mat_col(const Scene& sc, int mat, int col) {
 #endif
 }
 
+// Component r of a (3, n) array, one row per component (the bounce
+// kernel's state).
+PT_HD V3 load3(const float* a, int r, int n) {
+  return v3(a[r], a[n + r], a[2 * (size_t)n + r]);
+}
+PT_HD void store3(float* a, int r, int n, V3 v) {
+  a[r] = v.x;
+  a[n + r] = v.y;
+  a[2 * (size_t)n + r] = v.z;
+}
+
+// The camera of one pixel: where its samples' rays start and aim (the frame
+// kernel's raygen and the bounce kernel's camera form; plain version:
+// core/camera.py `dof_ray`).
+struct PixelCamera {
+  float r[9];  // rotation matrix, row-major
+  V3 c, pd;    // camera position, primary direction
+  float ifd, blur;
+
+  // The sample's ray with depth of field (frag.glsl:899-908): 6 draws,
+  // always consumed.
+  PT_HD void ray(uint32_t& state, V3& o, V3& d) const {
+    o = c;
+    if (blur != 0.0f) {
+      V3 j = v3(normal_from(peek<1>(state), peek<2>(state)) * blur,
+                normal_from(peek<3>(state), peek<4>(state)) * blur,
+                normal_from(peek<5>(state), peek<6>(state)) * blur);
+      o = v3(c.x + (r[0] * j.x + r[1] * j.y + r[2] * j.z),
+             c.y + (r[3] * j.x + r[4] * j.y + r[5] * j.z),
+             c.z + (r[6] * j.x + r[7] * j.y + r[8] * j.z));
+    }
+    state = advance<6>(state);
+    V3 dd = v3((c.x + pd.x * ifd) - o.x, (c.y + pd.y * ifd) - o.y, (c.z + pd.z * ifd) - o.z);
+    float mag = sqrtf(dot(dd, dd));
+    d = v3(dd.x / mag, dd.y / mag, dd.z / mag);
+  }
+};
+
 // The path integrator of one ray (frag.glsl:810-882), in three pieces that
 // both schedules of the frame kernel share: the state a path carries from
 // bounce to bounce, `path_begin` and `path_step` (one bounce). `trace_path`
@@ -74,23 +112,46 @@ PT_HD float mat_col(const Scene& sc, int mat, int col) {
 // entries and pushes or pops one, so nothing is shifted and the stack holds
 // no registers. Entries at and past `ssize` read as 0, as those of a stack
 // shifted in place.
+// `one_deep`: whether a stack of one entry (S = 1) can reach path_shade;
+// the frame and block kernels take 2..MAX_STACK entries alone.
 struct SmemStack {
+  static constexpr bool one_deep = false;
   float* p;
   PT_HD float& operator[](int j) const { return p[j * BLOCK]; }
 };
 struct ColumnStack {
+  static constexpr bool one_deep = true;
   float* p;
   int stride;
   PT_HD float& operator[](int j) const { return p[(size_t)j * stride]; }
 };
 
-template <class Stk>
+// Where the ray entered its medium, read only where a transmission is
+// absorbed and written only where a medium is entered: in registers (the
+// frame and block kernels, `RegEnter`) or in the ray's columns of device
+// memory (the bounce kernel, `ColumnEnter`), so the bounce kernel moves it
+// only for the rays that need it.
+struct RegEnter {
+  static constexpr bool lazy = false;
+  V3 v;
+  PT_HD V3 get() const { return v; }
+  PT_HD void set(V3 x) { v = x; }
+};
+struct ColumnEnter {
+  static constexpr bool lazy = true;
+  float* p;
+  int r, n;
+  PT_HD V3 get() const { return load3(p, r, n); }
+  PT_HD void set(V3 x) const { store3(p, r, n, x); }
+};
+
+template <class Stk, class Ent = RegEnter>
 struct PathStateT {
   V3 o, d, col;          // ray, throughput
   Stk stk;               // this thread's refraction-index stack
   int ssize;
   bool inobj;
-  V3 enter;              // where the ray entered the medium
+  Ent enter;             // where the ray entered the medium
   bool alive;
   int bounce;            // bounces taken
 };
@@ -105,7 +166,7 @@ PT_HD void path_begin(PathState& p, V3 o, V3 d, float* stk) {
   stk[0] = AIR_IOR;
   p.ssize = 1;
   p.inobj = false;
-  p.enter = v3(0.0f, 0.0f, 0.0f);
+  p.enter.set(v3(0.0f, 0.0f, 0.0f));
   p.alive = true;
   p.bounce = 0;
 }
@@ -115,23 +176,29 @@ PT_HD bool path_on(const PathState& p, int max_bounces) {
   return p.alive && p.bounce < max_bounces;
 }
 
+// The miss of a live path along d with throughput col: the sky on each
+// channel whose throughput is positive, added into skyc.
+PT_HD void path_miss(const Scene& sc, V3 d, V3 col, V3& skyc) {
+  const V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
+  if (col.x > 0.0f) skyc.x += s.x * col.x;
+  if (col.y > 0.0f) skyc.y += s.y * col.y;
+  if (col.z > 0.0f) skyc.z += s.z * col.z;
+}
+
 // The shading half of one bounce of a live path at h, the finished hit of
 // ray (on, p.d) from the nudged origin on. Adds the emission into inc and,
 // on a miss, the sky into skyc; a miss or the throughput cut-off ends the
 // path (alive = false). PH: add the cycles of the material decode with its
 // maps, the sky and the lobe choice with the refraction stack into cyc.
-template <bool PH = false, class Stk>
-PT_HD void path_shade(const Scene& sc, PathStateT<Stk>& p, const Hit& h, V3 on,
+template <bool PH = false, class Stk, class Ent>
+PT_HD void path_shade(const Scene& sc, PathStateT<Stk, Ent>& p, const Hit& h, V3 on,
                       uint32_t& state, int S, bool gate_ss, V3& inc, V3& skyc,
                       unsigned long long* cyc = nullptr) {
   const V3 d = p.d;
   V3 col = p.col;
   long long t0 = PH ? tick() : 0;
   if (!h.is_hit) {
-    V3 s = sky_color(sc.sky, sc.sky_h, sc.sky_w, d);
-    if (col.x > 0.0f) skyc.x += s.x * col.x;
-    if (col.y > 0.0f) skyc.y += s.y * col.y;
-    if (col.z > 0.0f) skyc.z += s.z * col.z;
+    path_miss(sc, d, col, skyc);
     p.alive = false;
     if (PH) tock(cyc, PH_SKY, t0);
     return;
@@ -175,17 +242,21 @@ PT_HD void path_shade(const Scene& sc, PathStateT<Stk>& p, const Hit& h, V3 on,
   // refraction-index stack (frag.glsl:832-841): entering pushes Ni
   // (n1 = the old top, n2 = Ni) unless the stack holds S entries (then n1,
   // n2 = the second and the top); leaving reads n1, n2 = the top and the
-  // second and pops
+  // second and pops. A stack of one entry (S = 1) has no second: it reads
+  // as the first, as the reference's index past a one-entry stack clamps
+  // to it (pathtracer0_tpu/render/integrator.py:206-207)
   const bool entering = nd < 0.0f;
   const int ns = p.ssize;
+  const bool one = Stk::one_deep && S == 1;
   const float s0 = ns >= 1 ? p.stk[ns - 1] : 0.0f;
-  const float s1 = ns >= 2 ? p.stk[ns - 2] : 0.0f;
+  const float s1 = one ? s0 : (ns >= 2 ? p.stk[ns - 2] : 0.0f);
   float n1 = s0, n2 = s1;
   if (entering) {
     if (ns < S) {
       p.stk[ns] = Ni;
       p.ssize = ns + 1;
       n2 = Ni;
+      if (one) n1 = Ni;
     } else {
       n1 = s1;
       n2 = s0;
@@ -199,12 +270,16 @@ PT_HD void path_shade(const Scene& sc, PathStateT<Stk>& p, const Hit& h, V3 on,
 
   // medium bookkeeping (frag.glsl:847-863)
   bool transmitted = lobe.win == 3;
-  V3 dd = v3(p.enter.x - hx.x, p.enter.y - hx.y, p.enter.z - hx.z);
-  float dist = sqrtf(dot(dd, dd));
   bool apply_absorb = transmitted && (!entering || p.inobj);
+  float dist = 0.0f;  // the distance travelled in the medium
+  if (!Ent::lazy || apply_absorb) {
+    const V3 e = p.enter.get();
+    const V3 dd = v3(e.x - hx.x, e.y - hx.y, e.z - hx.z);
+    dist = sqrtf(dot(dd, dd));
+  }
   if (transmitted) {
     p.inobj = entering;
-    if (entering) p.enter = hx;
+    if (entering) p.enter.set(hx);
   }
 
   // transport (frag.glsl:865-874)
@@ -256,9 +331,10 @@ PT_HD V3 direct_shade(const Scene& sc, const Hit& h, V3 d, unsigned long long* c
 // One bounce of the per-bounce route for the rays a walk (the forest or
 // streamed kernels) has queried: the counterpart of the body of the JAX
 // package's `lax.while_loop` (pathtracer0_tpu/render/integrator.py:180-287)
-// and of its Whitted `direct_diffuse` (:295). Plain version:
-// kernels/bounce.py `bounce_step_plain`.
-enum { FORM_PATH, FORM_WHITTED, FORM_LOCATE };
+// and of its Whitted `direct_diffuse` (:295), and the camera form that
+// begins each sample's rays on the same state. Plain versions:
+// kernels/bounce.py `bounce_step_plain`, `camera_step_plain`.
+enum { FORM_PATH, FORM_WHITTED, FORM_LOCATE, FORM_CAMERA };
 
 // The state of R rays, one array per component ((3, R): x, then y, then z)
 // or per entry ((S, R) stack), updated in place (kernels/bounce.py
@@ -286,24 +362,24 @@ struct BounceArgs {
   long long* queries;         // (R,) scene queries
   const float* probe_t;       // WHITTED: the thickness probe's t, or null
   float* loc;                 // LOCATE: out, (3, R) hit locations
-  unsigned int* live;         // PATH: the rays alive after it, added
+  unsigned int* live;         // PATH: the rays alive after it, added;
+                              // CAMERA: live_len counters, cleared
+  const float* pd;            // CAMERA: (3, R) primary directions
+  const float* cam;           // CAMERA: camera position (3), rotation
+                              // matrix (9, row-major), focal distance
+  float* total;               // CAMERA: (3, R) radiance summed over the
+                              // samples, or null
   int n_rays, stack_size, form;
+  int live_len, accumulate;   // CAMERA: accumulate: add the sample before
+                              // into total (else total = 0)
+  float blur;                 // CAMERA
 };
 
-PT_HD V3 load3(const float* a, int r, int n) {
-  return v3(a[r], a[n + r], a[2 * (size_t)n + r]);
-}
-PT_HD void store3(float* a, int r, int n, V3 v) {
-  a[r] = v.x;
-  a[n + r] = v.y;
-  a[2 * (size_t)n + r] = v.z;
-}
-
 // Ray r: nudge, the hit record from the walk's triangle (finish_hit), then
-// PATH: the path's shading half (path_shade) with its stack in device
-// memory, its state written back where it hit (a miss adds the sky and
-// ends it), one query counted; returns 1 where the ray takes another
-// bounce. WHITTED: writes the Whitted shade into inc (0 where not alive),
+// PATH: the path's shading half (path_shade) with its stack and entry
+// point in device memory, its state written back where it hit, one query
+// counted; a miss reads its throughput and sky radiance alone, adds the
+// sky and ends the ray; returns 1 where the ray takes another bounce. WHITTED: writes the Whitted shade into inc (0 where not alive),
 // a subsurface material shaded by the thickness behind the hit where
 // probe_t is given (render/integrator.py `_direct`). LOCATE: writes the
 // hit location (the nudged origin where not alive), which the thickness
@@ -322,7 +398,10 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
   }
   const int row = a.walk_row[r];
   const int tri = row < 0 ? -1 : (a.perm ? a.perm[row] : row);
-  const Hit h = finish_hit(sc, on, d, a.walk_t[r], tri, a.walk_u[r], a.walk_v[r]);
+  // the path form reads the triangle's rows in 8-byte loads (it paid there;
+  // the locate form lost to it)
+  const Hit h = finish_hit<false, FORM == FORM_PATH>(sc, on, d, a.walk_t[r], tri,
+                                                     a.walk_u[r], a.walk_v[r]);
   if (FORM == FORM_LOCATE) {
     store3(a.loc, r, n, v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z));
     return 0u;
@@ -344,33 +423,93 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
     return 0u;
   }
   a.queries[r] += 1;
-  PathStateT<ColumnStack> p;
+  if (!h.is_hit) {
+    // a miss reads its throughput and sky radiance, nothing else
+    V3 skyc = load3(a.skyc, r, n);
+    path_miss(sc, d, load3(a.col, r, n), skyc);
+    store3(a.skyc, r, n, skyc);
+    a.alive[r] = 0;
+    return 0u;
+  }
+  PathStateT<ColumnStack, ColumnEnter> p;
   p.o = o;
   p.d = d;
   p.col = load3(a.col, r, n);
   p.stk = ColumnStack{a.stack + r, n};
-  p.ssize = a.ssize[r];
-  p.inobj = a.inobj[r] != 0;
-  p.enter = load3(a.enter, r, n);
+  const int ssize = a.ssize[r];
+  const bool inobj = a.inobj[r] != 0;
+  p.ssize = ssize;
+  p.inobj = inobj;
+  p.enter = ColumnEnter{a.enter, r, n};
   p.alive = true;
   p.bounce = 0;
-  V3 inc = load3(a.inc, r, n), skyc = load3(a.skyc, r, n);
+  V3 inc = load3(a.inc, r, n), skyc = v3(0.0f, 0.0f, 0.0f);
   uint32_t state = (uint32_t)a.state[r];
   path_shade(sc, p, h, on, state, a.stack_size, a.scene.gate_ss != 0, inc, skyc);
-  if (h.is_hit) {
-    store3(a.o, r, n, p.o);
-    store3(a.d, r, n, p.d);
-    store3(a.col, r, n, p.col);
-    store3(a.inc, r, n, inc);
-    store3(a.enter, r, n, p.enter);
-    a.ssize[r] = p.ssize;
-    a.inobj[r] = p.inobj;
-    a.state[r] = (long long)state;
-  } else {
-    store3(a.skyc, r, n, skyc);
-  }
-  a.alive[r] = p.alive;
+  store3(a.o, r, n, p.o);
+  store3(a.d, r, n, p.d);
+  store3(a.col, r, n, p.col);
+  store3(a.inc, r, n, inc);
+  // the stack size and the medium flag where they changed (path_shade
+  // wrote the pushed entry and the entry point itself)
+  if (p.inobj != inobj) a.inobj[r] = p.inobj;
+  if (p.ssize != ssize) a.ssize[r] = p.ssize;
+  a.state[r] = (long long)state;
+  if (!p.alive) a.alive[r] = 0;
   return p.alive ? 1u : 0u;
+}
+
+// The camera form: ray r's next sample, the camera's ray with depth of
+// field from its primary direction and RNG state (PixelCamera::ray: 6
+// draws), written into o, d and state, the ray alive. With `total`, the
+// sample before is added into it first (total + (inc + skyc), render_rays'
+// order of sums; the Whitted state has no skyc: total + inc), or total is
+// set to 0. The path state (stack non-null) is begun as kernels/bounce.py
+// `begin` begins it: throughput 1, radiance, sky radiance and entry point 0,
+// the stack holding the air's index, outside any medium, no query counted
+// (with `accumulate` the queries run on over the samples), the live
+// counters cleared.
+PT_HD void camera_ray(const BounceArgs& a, int r) {
+  const int n = a.n_rays;
+  PixelCamera cam;
+  for (int i = 0; i < 9; ++i) cam.r[i] = ld_ro(a.cam + 3 + i);
+  cam.c = v3(ld_ro(a.cam), ld_ro(a.cam + 1), ld_ro(a.cam + 2));
+  cam.ifd = ld_ro(a.cam + 12);
+  cam.blur = a.blur;
+  cam.pd = load3(a.pd, r, n);
+  uint32_t state = (uint32_t)a.state[r];
+  V3 o, d;
+  cam.ray(state, o, d);
+  store3(a.o, r, n, o);
+  store3(a.d, r, n, d);
+  a.state[r] = (long long)state;
+  a.alive[r] = 1;
+  if (a.total) {
+    V3 t = v3(0.0f, 0.0f, 0.0f);
+    if (a.accumulate) {
+      V3 c = load3(a.inc, r, n);
+      if (a.skyc) {
+        const V3 s = load3(a.skyc, r, n);
+        c = v3(c.x + s.x, c.y + s.y, c.z + s.z);
+      }
+      t = load3(a.total, r, n);
+      t = v3(t.x + c.x, t.y + c.y, t.z + c.z);
+    }
+    store3(a.total, r, n, t);
+  }
+  if (a.stack) {
+    const V3 zero = v3(0.0f, 0.0f, 0.0f);
+    store3(a.col, r, n, v3(1.0f, 1.0f, 1.0f));
+    store3(a.inc, r, n, zero);
+    store3(a.skyc, r, n, zero);
+    store3(a.enter, r, n, zero);
+    a.stack[r] = AIR_IOR;
+    a.ssize[r] = 1;
+    a.inobj[r] = 0;
+    if (!a.accumulate) a.queries[r] = 0;
+  }
+  if (r == 0)
+    for (int k = 0; k < a.live_len; ++k) a.live[k] = 0u;
 }
 
 #ifdef __CUDACC__

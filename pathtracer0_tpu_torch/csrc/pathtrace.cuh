@@ -63,6 +63,44 @@ PT_HD void tock(unsigned long long* cyc, int k, long long t0) {
 #endif
 }
 
+// A read of memory no thread of the launch writes, through the read-only
+// cache on the card.
+template <class T>
+PT_HD T ld_ro(const T* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// Row k of an (N, 10) float table (the triangles' attributes and UVs), for
+// finish_hit's ROWS8: on the card a table on an 8-byte boundary (every row
+// then is) is read in five 8-byte loads through the read-only cache, in ten
+// 4-byte ones else.
+struct Row10 {
+  float f[10];
+};
+PT_HD Row10 row10(const float* table, int k) {
+  Row10 out;
+  const float* p = table + 10 * (size_t)k;
+#ifdef __CUDA_ARCH__
+  if ((reinterpret_cast<uintptr_t>(table) & 7) == 0) {
+    const float2* q = reinterpret_cast<const float2*>(p);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float2 v = __ldg(q + i);
+      out.f[2 * i] = v.x;
+      out.f[2 * i + 1] = v.y;
+    }
+    return out;
+  }
+#endif
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out.f[i] = ld_ro(p + i);
+  return out;
+}
+
 // ---- small float helpers that propagate NaN like torch ----------------
 PT_HD float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
 PT_HD float nan_min(float a, float b) { return (a != a || a < b) ? a : b; }
@@ -534,8 +572,10 @@ PT_HD int triangle_loop(const Scene& sc, V3 o, V3 d, float& t, float& u, float& 
 // and block kernels call it after their triangle loop (closest_hit), the
 // bounce kernel after the forest or streamed walk, with `tri` the walk's
 // row through its permutation. PH: add each part's cycles into cyc
-// (PH_TRI from t0, PH_IMP, PH_ELL).
-template <bool PH = false>
+// (PH_TRI from t0, PH_IMP, PH_ELL). ROWS8: read the triangle's rows with
+// `row10` (the bounce kernel's path form, where it paid; the frame kernel
+// lost ~4% to it and keeps its loads).
+template <bool PH = false, bool ROWS8 = false>
 PT_HD Hit finish_hit(const Scene& sc, V3 o, V3 d, float t, int tri, float u, float v,
                      unsigned long long* cyc = nullptr, long long t0 = 0) {
   Hit h;
@@ -546,7 +586,12 @@ PT_HD Hit finish_hit(const Scene& sc, V3 o, V3 d, float t, int tri, float u, flo
   h.uvok = false;
   int kind = 0;
   if (tri >= 0) {
+    Row10 attr, uvt;
     const float* a = sc.attr + 10 * tri;
+    if (ROWS8) {
+      attr = row10(sc.attr, tri);
+      a = attr.f;
+    }
     float half = floorf(a[9] * 0.5f);
     bool smooth = (a[9] - 2.0f * half) > 0.5f;
     h.mat = (int)half;
@@ -557,6 +602,10 @@ PT_HD Hit finish_hit(const Scene& sc, V3 o, V3 d, float t, int tri, float u, flo
     h.n = smooth ? v3(ni.x / mag, ni.y / mag, ni.z / mag) : v3(a[0], a[1], a[2]);
     kind = 1;
     const float* uv = sc.uvt + 10 * tri;
+    if (ROWS8) {
+      uvt = row10(sc.uvt, tri);
+      uv = uvt.f;
+    }
     float tur = uv[0] * w + uv[2] * u + uv[4] * v;
     float tvr = uv[1] * w + uv[3] * u + uv[5] * v;
     h.tw = v3(uv[6], uv[7], uv[8]);

@@ -19,6 +19,14 @@ one interface, `(scene, info, st, walk, *, form, probe_t)`:
                      tests, which hold its arithmetic against the plain
                      version.
 
+The camera form begins each sample of `render_rays` on the same state:
+`camera_step` (one launch of the kernel's FORM_CAMERA), `camera_step_plain`
+(core/camera.py `dof_ray` and what `begin` / `begin_whitted` write) and
+`camera_step_host` (the g++ build), all `(st, pd, cam, blur, *,
+accumulate)`: the camera's ray with depth of field from each ray's primary
+direction and RNG state (6 draws), the path state begun, and with a running
+`total` the sample before added into it first.
+
 Forms: "path" (frag.glsl:810-882) merges the analytic primitives over the
 walk's triangle, shades, and writes the next bounce's rays where the ray
 hit; a miss adds the sky and ends the ray. "whitted" (frag.glsl:655-681)
@@ -39,6 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import camera
 from ..core.math import sqrt
 from ..scene.material import COL
 from ..scene.texture import bilinear, sky_uv
@@ -49,8 +58,8 @@ from .build import ptr
 from .fused import SceneArgs, scene_args
 
 AIR_IOR = float(np.float32(1.0029))   # frag.glsl:816
-MAX_STACK = 16                        # csrc/pathtrace.cuh MAX_STACK
 FORMS = {"path": 0, "whitted": 1, "locate": 2}   # integrate.cuh FORM_*
+FORM_CAMERA = 3
 
 
 @dataclasses.dataclass
@@ -62,7 +71,7 @@ class BounceState:
     o: torch.Tensor                  # (3, R) float32 origins, not nudged
     d: torch.Tensor                  # (3, R)
     alive: torch.Tensor              # (R,) bool
-    inc: torch.Tensor                # (3, R) radiance without sky
+    inc: torch.Tensor = None         # (3, R) radiance without sky
     col: torch.Tensor = None         # (3, R) throughput
     skyc: torch.Tensor = None        # (3, R) sky radiance
     enter: torch.Tensor = None       # (3, R) where the medium was entered
@@ -74,6 +83,8 @@ class BounceState:
     live: torch.Tensor = None        # (max_bounces,) int32: live rays
                                      # after each bounce
     loc: torch.Tensor = None         # (3, R) hit locations
+    total: torch.Tensor = None       # (3, R) radiance summed over the
+                                     # samples before (the camera form's)
     bounce: int = 0                  # bounces taken
 
     def clone(self) -> "BounceState":
@@ -83,15 +94,19 @@ class BounceState:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
+def _check_stack(stack_size):
+    if stack_size < 1:
+        raise ValueError("the refraction stack takes 1 entry or more, not "
+                         f"{stack_size}")
+
+
 def begin(o, d, alive, state, *, stack_size: int, max_bounces: int):
     """The path state of rays o, d ((x, y, z) tuples of (R,) float32) that
     are `alive`, with RNG `state` (R,) int64: throughput 1, the stack
     holding the air's index, nothing counted. The caller's tensors are
-    copied, not changed. Refuses a stack of fewer than 2 or more than
-    MAX_STACK entries."""
-    if not 2 <= stack_size <= MAX_STACK:
-        raise ValueError(f"the refraction stack takes 2 to {MAX_STACK} "
-                         f"entries, not {stack_size}")
+    copied, not changed. The stack takes any depth of 1 or more, as the
+    reference's."""
+    _check_stack(stack_size)
     o, d = torch.stack(o), torch.stack(d)
     zero = torch.zeros_like(o)
     stack = torch.zeros((stack_size,) + alive.shape, dtype=torch.float32,
@@ -113,6 +128,92 @@ def begin_whitted(o, d, alive, *, probe: bool = False):
     o, d = torch.stack(o), torch.stack(d)
     return BounceState(o=o, d=d, alive=alive, inc=torch.empty_like(o),
                        loc=torch.empty_like(o) if probe else None)
+
+
+def state_for(state, *, path: bool, stack_size: int = 10,
+              max_bounces: int = 1, probe: bool = False,
+              totals: bool = False, rays_only: bool = False):
+    """The state of R rays with RNG `state` (R,) int64 (taken, not copied)
+    for the camera form to begin, sample after sample: the path state
+    (`path`), or the Whitted forms' (`probe`: with room for the hit
+    locations); `totals`: with a running sum of the samples' radiance;
+    `rays_only`: the rays and the alive flag alone (for the legacy modes).
+    The sums (radiance, sky radiance, total, queries) and the stack start
+    at 0, so a state no sample has begun sums to nothing; the rest is
+    written by the camera form."""
+    n, dev = state.shape[0], state.device
+    if path:
+        _check_stack(stack_size)
+
+    def f3(fill=torch.empty):
+        return fill((3, n), dtype=torch.float32, device=dev)
+
+    st = BounceState(o=f3(), d=f3(),
+                     alive=torch.empty(n, dtype=torch.bool, device=dev),
+                     state=state)
+    if rays_only:
+        return st
+    st.inc = f3(torch.zeros)
+    st.total = f3(torch.zeros) if totals else None
+    if path:
+        st.col, st.skyc, st.enter = f3(), f3(torch.zeros), f3()
+        st.stack = torch.zeros((stack_size, n), dtype=torch.float32,
+                               device=dev)
+        st.ssize = torch.empty(n, dtype=torch.int32, device=dev)
+        st.inobj = torch.empty(n, dtype=torch.bool, device=dev)
+        st.queries = torch.zeros(n, dtype=torch.int64, device=dev)
+        st.live = torch.empty(max(max_bounces, 1), dtype=torch.int32,
+                              device=dev)
+    elif probe:
+        st.loc = f3()
+    return st
+
+
+def camera_scalars(cam_pos, rotmat, ifd):
+    """The camera form's (13,) float32 scalars: the camera position, the
+    rotation matrix row-major, the focal distance."""
+    return torch.cat([cam_pos.to(torch.float32).reshape(3),
+                      rotmat.to(torch.float32).reshape(9),
+                      ifd.to(torch.float32).reshape(1)]).contiguous()
+
+
+def _check_camera(st, pd, cam):
+    n = st.alive.shape[0]
+    if pd.shape != (3, n) or cam.shape != (13,):
+        raise ValueError("the camera form takes (3, R) primary directions "
+                         "and the (13,) camera_scalars")
+
+
+def camera_step_plain(st: BounceState, pd, cam, blur: float, *,
+                      accumulate: bool = False):
+    """The camera form as PyTorch ops, on `st` in place: core/camera.py
+    `dof_ray` from the primary directions pd (3, R) and the RNG state, then
+    what `begin` (path state) or `begin_whitted` writes; with `total`, the
+    sample before added into it first (accumulate) or total set to 0."""
+    _check_camera(st, pd, cam)
+    o, d, state = camera.dof_ray(cam[:3], pd.T, cam[3:12].reshape(3, 3),
+                                 blur, cam[12], st.state)
+    if st.total is not None:
+        if accumulate:
+            col = st.inc if st.skyc is None else st.inc + st.skyc
+            st.total.copy_(st.total + col)
+        else:
+            st.total.zero_()
+    st.o.copy_(o.T)
+    st.d.copy_(d.T)
+    st.state.copy_(state)
+    st.alive.fill_(True)
+    if st.stack is not None:
+        st.col.fill_(1.0)
+        for t in (st.inc, st.skyc, st.enter, st.inobj):
+            t.zero_()
+        st.stack[0] = AIR_IOR
+        st.ssize.fill_(1)
+        if not accumulate:
+            st.queries.zero_()
+    if st.live is not None:
+        st.live.zero_()
+    st.bounce = 0
 
 
 def _check(st, walk, form, probe_t):
@@ -240,6 +341,9 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
     col, inc, skyc = tuple(st.col), tuple(st.inc), tuple(st.skyc)
     enter, ssize, inobj, state = tuple(st.enter), st.ssize, st.inobj, st.state
     stack = _flip(st.stack, ssize).T                 # (R, S), top first
+    # the second entry; a one-entry stack reads its first, as the
+    # reference's index past it clamps (integrate.cuh `path_shade`)
+    second = min(1, stack_size - 1)
     f0 = torch.zeros_like(o[0])
     st.queries += alive.to(torch.int64)
     hitf = alive & hit.is_hit
@@ -261,8 +365,8 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
                          torch.cat([m["Ni"][:, None], stack[:, :-1]], 1),
                          stack)
     size_push = torch.where(do_push, ssize + 1, ssize)
-    n1 = torch.where(entering, pushed[:, 1], stack[:, 0])
-    n2 = torch.where(entering, pushed[:, 0], stack[:, 1])
+    n1 = torch.where(entering, pushed[:, second], stack[:, 0])
+    n2 = torch.where(entering, pushed[:, 0], stack[:, second])
     do_pop = (~entering) & (ssize > 0)
     popped = torch.where(do_pop[:, None],
                          torch.cat([pushed[:, 1:], f0[:, None]], 1),
@@ -328,6 +432,8 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
 
 _STATE = ("o", "d", "col", "inc", "skyc", "enter", "stack", "ssize", "inobj",
           "state", "alive", "queries")
+_TYPES = {"ssize": torch.int32, "inobj": torch.bool, "state": torch.int64,
+          "alive": torch.bool, "queries": torch.int64}
 
 
 class _BounceArgs(ctypes.Structure):
@@ -335,8 +441,15 @@ class _BounceArgs(ctypes.Structure):
 
     _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
         "walk_t", "walk_u", "walk_v", "walk_row", "perm", *_STATE, "probe_t",
-        "loc", "live")] + [(n, ctypes.c_int) for n in (
-            "n_rays", "stack_size", "form")]
+        "loc", "live", "pd", "cam", "total")] + [(n, ctypes.c_int) for n in (
+            "n_rays", "stack_size", "form", "live_len", "accumulate")] + [
+        ("blur", ctypes.c_float)]
+
+
+def _state_ptrs(st, dev):
+    return {n: None if getattr(st, n) is None
+            else ptr(getattr(st, n), _TYPES.get(n, torch.float32), dev)
+            for n in _STATE}
 
 
 def _args(scene, info, st: BounceState, walk, form, probe_t):
@@ -350,16 +463,12 @@ def _args(scene, info, st: BounceState, walk, form, probe_t):
         keep.append(walk.perm)
     if probe_t is not None:
         keep.append(probe_t.contiguous())
-    types = {"ssize": i32, "inobj": torch.bool, "state": torch.int64,
-             "alive": torch.bool, "queries": torch.int64}
-    state = {n: None if getattr(st, n) is None
-             else ptr(getattr(st, n), types.get(n, f32), dev) for n in _STATE}
     args = _BounceArgs(
         scene_args(scene, info, dev),
         walk_t=ptr(keep[0], f32, dev), walk_u=ptr(keep[1], f32, dev),
         walk_v=ptr(keep[2], f32, dev), walk_row=ptr(keep[3], i32, dev),
         perm=None if walk.perm is None else ptr(walk.perm, i32, dev),
-        **state,
+        **_state_ptrs(st, dev),
         probe_t=None if probe_t is None else ptr(keep[-1], f32, dev),
         loc=None if st.loc is None else ptr(st.loc, f32, dev),
         live=(st.live[st.bounce:].data_ptr() if form == "path" else None),
@@ -367,6 +476,22 @@ def _args(scene, info, st: BounceState, walk, form, probe_t):
         stack_size=0 if st.stack is None else st.stack.shape[0],
         form=FORMS[form])
     return args, keep
+
+
+def camera_args(st, pd, cam, blur, accumulate):
+    """BounceArgs of the camera form (the pointers into pd and cam: keep
+    them alive past the launch)."""
+    dev = st.alive.device
+    return _BounceArgs(
+        **_state_ptrs(st, dev),
+        live=None if st.live is None else st.live.data_ptr(),
+        pd=ptr(pd, torch.float32, dev), cam=ptr(cam, torch.float32, dev),
+        total=None if st.total is None else ptr(st.total, torch.float32, dev),
+        n_rays=st.alive.shape[0],
+        stack_size=0 if st.stack is None else st.stack.shape[0],
+        form=FORM_CAMERA,
+        live_len=0 if st.live is None else st.live.shape[0],
+        accumulate=int(bool(accumulate)), blur=float(blur))
 
 
 def _finish(st, form):
@@ -410,6 +535,41 @@ def bounce_step(scene, info, st: BounceState, walk, *, form: str = "path",
 bounce_step.launches = 0
 
 
+def camera_step(st: BounceState, pd, cam, blur: float, *,
+                accumulate: bool = False):
+    """The camera form through csrc/bounce_kernel.cu, one launch, on `st`
+    in place (CUDA tensors only): as `camera_step_plain`."""
+    dev = st.alive.device
+    if dev.type != "cuda":
+        raise ValueError(f"bounce_kernel runs on CUDA tensors, not {dev}: "
+                         "camera_step_plain is the plain version")
+    _check_camera(st, pd, cam)
+    launch(camera_args(st, pd, cam, blur, accumulate), dev)
+    camera_step.launches += 1
+    st.bounce = 0
+
+
+camera_step.launches = 0
+
+
+def camera_step_host(st: BounceState, pd, cam, blur: float, *,
+                     accumulate: bool = False):
+    """The camera form through the kernel's body built by g++
+    (csrc/bounce_host.cpp), on `st` in place (CPU tensors only)."""
+    if st.alive.device.type != "cpu":
+        raise ValueError("camera_step_host runs on CPU tensors")
+    _check_camera(st, pd, cam)
+    _host(camera_args(st, pd, cam, blur, accumulate))
+    st.bounce = 0
+
+
+def _host(args):
+    lib = build.load("bounce")
+    lib.pt_bounce_host.argtypes = [ctypes.POINTER(_BounceArgs)]
+    lib.pt_bounce_host.restype = None
+    lib.pt_bounce_host(ctypes.byref(args))
+
+
 def bounce_step_host(scene, info, st: BounceState, walk, *,
                      form: str = "path", probe_t=None) -> int:
     """One bounce through the kernel's per-ray body built by g++
@@ -419,8 +579,5 @@ def bounce_step_host(scene, info, st: BounceState, walk, *,
         raise ValueError("bounce_step_host runs on CPU tensors")
     _check(st, walk, form, probe_t)
     args, _keep = _args(scene, info, st, walk, form, probe_t)  # to the end
-    lib = build.load("bounce")
-    lib.pt_bounce_host.argtypes = [ctypes.POINTER(_BounceArgs)]
-    lib.pt_bounce_host.restype = None
-    lib.pt_bounce_host(ctypes.byref(args))
+    _host(args)
     return _finish(st, form)

@@ -52,11 +52,13 @@ class _FrameArgs(ctypes.Structure):
         ("check", ctypes.c_int)]
 
 
-def eligible(info, *, whitted: bool = False) -> bool:
+def eligible(info, *, whitted: bool = False, stack_size=None) -> bool:
     """Whether the frame path takes this scene: one the brute-force
-    kernels take (kernels/fused.eligible); Whitted mode also needs no
-    subsurface material (the thickness probe needs the forest)."""
-    return fused.eligible(info) and not (whitted and info.mat_gates[0])
+    kernels take (kernels/fused.eligible, with the stack depth where
+    given); Whitted mode also needs no subsurface material (the thickness
+    probe needs the forest)."""
+    return (fused.eligible(info, stack_size=stack_size)
+            and not (whitted and info.mat_gates[0]))
 
 
 def _raygen(cam_pos, rotmat, ifd, state, width, height, *, cam_size,

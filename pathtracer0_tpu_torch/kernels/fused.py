@@ -79,12 +79,15 @@ def scene_args(scene, info, dev) -> SceneArgs:
         march_tmax=implicits.MARCH_TMAX, gate_ss=int(info.mat_gates[0]))
 
 
-def eligible(info) -> bool:
+def eligible(info, *, stack_size=None) -> bool:
     """Whether the brute-force kernels (block and frame) take this scene:
-    at most MAX_TRIS triangles, 1..MAX_MATERIALS materials, and not a
-    streamed scene (one built past `stream_threshold`, however small)."""
+    at most MAX_TRIS triangles, 1..MAX_MATERIALS materials, not a streamed
+    scene (one built past `stream_threshold`, however small), and where
+    given a refraction stack of 2..MAX_STACK entries (their stacks live in
+    shared memory; any other depth takes the per-bounce route)."""
     return (not info.streamed and info.num_tris <= MAX_TRIS
-            and 1 <= info.num_materials <= MAX_MATERIALS)
+            and 1 <= info.num_materials <= MAX_MATERIALS
+            and (stack_size is None or 2 <= stack_size <= MAX_STACK))
 
 
 def trace_block(scene, info, o, d, alive, state, *, max_bounces: int,

@@ -105,21 +105,31 @@ def _step(device, pallas: str):
     return bounce.bounce_step_plain
 
 
-def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,
-                 max_bounces: int, stack_size: int):
-    """The bounce loop: per bounce `walk(o, d, alive) -> (Walk, nudged
-    origins)`, then `step` (kernels/bounce.py) on the rays' state in place.
-    Returns (radiance without sky (r, g, b), sky radiance (r, g, b),
-    state, queries (R,) int64). One host sync per bounce: the count of
-    rays left alive."""
-    st = bounce.begin(o, d, alive, state, stack_size=stack_size,
-                      max_bounces=max_bounces)
-    n_live = int(alive.sum())
+def _run_bounces(walk, step, scene, info, st, *, max_bounces: int,
+                 n_live=None):
+    """The bounce loop on a begun path state `st`: per bounce
+    `walk(o, d, alive) -> (Walk, nudged origins)`, then `step`
+    (kernels/bounce.py) on the rays' state in place. One host sync per
+    bounce: the count of rays left alive, which `step` reads back; the
+    count before the first bounce is read too unless the caller gives it
+    (`n_live`: every ray of a camera form's state is alive)."""
+    if n_live is None:
+        n_live = int(st.alive.sum())
     for _ in range(max_bounces):
         if not n_live:
             break
         w, _ = walk(tuple(st.o), tuple(st.d), st.alive)
         n_live = step(scene, info, st, w)
+
+
+def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,
+                 max_bounces: int, stack_size: int):
+    """The bounce loop from rays o, d that are `alive`: `_run_bounces` on
+    their state begun by `bounce.begin`. Returns (radiance without sky
+    (r, g, b), sky radiance (r, g, b), state, queries (R,) int64)."""
+    st = bounce.begin(o, d, alive, state, stack_size=stack_size,
+                      max_bounces=max_bounces)
+    _run_bounces(walk, step, scene, info, st, max_bounces=max_bounces)
     return tuple(st.inc), tuple(st.skyc), st.state, st.queries
 
 
@@ -144,6 +154,27 @@ def trace_bounces(scene, info, o, d, alive, state, *, max_bounces: int,
                         stack_size=stack_size)
 
 
+def trace_state(scene, info, st, *, max_bounces: int, stack_size: int,
+                pallas: str = "auto"):
+    """One sample of a state `sample_state` made and the camera form
+    (kernels/bounce.py `camera_step`) has begun, every ray alive, on `st`
+    in place: a state with no stack, the block kernel's, through
+    `fused.trace_fused`, its radiance with sky into st.inc and its queries
+    added into st.queries; a path state, the per-bounce route's bounces."""
+    if st.stack is None:
+        from ..kernels import fused as fused_mod
+
+        col, st.state, q = fused_mod.trace_fused(
+            scene, info, tuple(st.o), tuple(st.d), st.alive, st.state,
+            max_bounces=max_bounces, stack_size=stack_size)
+        st.inc.copy_(torch.stack(col))
+        st.queries = q if st.queries is None else st.queries + q
+        return
+    _run_bounces(_forest_walk(scene, info, pallas),
+                 _step(st.alive.device, pallas), scene, info, st,
+                 max_bounces=max_bounces, n_live=st.alive.shape[0])
+
+
 def check_fused(info, fused: str):
     """Refuse a value of `fused` that is none of "auto", "on", "off", and
     fused="on" on a streamed scene: the block kernel reads the dense
@@ -157,26 +188,56 @@ def check_fused(info, fused: str):
             "per-bounce route alone")
 
 
+def takes_block(info, fused: str, stack_size: int) -> bool:
+    """Whether `trace` sends a sample's rays to the block kernel: fused
+    "auto" / "on" and a scene and stack depth it takes
+    (kernels/fused.eligible); fused="on" on one it does not take warns
+    and takes the per-bounce route."""
+    from ..kernels import fused as fused_mod
+
+    check_fused(info, fused)
+    if fused == "off":
+        return False
+    if fused_mod.eligible(info, stack_size=stack_size):
+        return True
+    if fused == "on":
+        warnings.warn(
+            "fused='on' requested but the scene is outside the block "
+            f"kernel ({info.num_tris} triangles, {info.num_materials} "
+            f"materials, a stack of {stack_size}); using the per-bounce "
+            "route", stacklevel=3)
+    return False
+
+
+def sample_state(info, state, *, raytracing: bool, max_bounces: int,
+                 stack_size: int, fused: str, totals: bool = True):
+    """The state of one sample's rays with RNG `state` that the camera form
+    begins, of the route that takes them: with `raytracing`, the path state
+    of the per-bounce route or, where `takes_block`, the block kernel's
+    (the rays and the radiance out); else the Whitted forms' (with room for
+    the hit locations where the scene `probes`). `totals`: with the
+    running sum of the samples."""
+    block = raytracing and takes_block(info, fused, stack_size)
+    return bounce.state_for(
+        state, path=raytracing and not block, stack_size=stack_size,
+        max_bounces=max_bounces, probe=not raytracing and probes(info),
+        totals=totals)
+
+
 def trace(scene, info, o, d, alive, state, *, max_bounces: int,
           stack_size: int = 10, fused: str = "auto", pallas: str = "auto"):
     """Path integrator of one sample's rays. fused "auto" / "on": the
     block kernel where the scene is eligible (kernels/fused.trace_fused);
-    "off", or a scene it does not take: the per-bounce route.
+    "off", or a scene or stack depth it does not take: the per-bounce
+    route.
 
     Returns (radiance with sky (r, g, b), state, queries (1,) int64)."""
     from ..kernels import fused as fused_mod
 
-    check_fused(info, fused)
-    if fused != "off":
-        if fused_mod.eligible(info):
-            return fused_mod.trace_fused(
-                scene, info, o, d, alive, state, max_bounces=max_bounces,
-                stack_size=stack_size)
-        if fused == "on":
-            warnings.warn(
-                "fused='on' requested but the scene is outside the block "
-                f"kernel ({info.num_tris} triangles, {info.num_materials} "
-                "materials); using the per-bounce route", stacklevel=2)
+    if takes_block(info, fused, stack_size):
+        return fused_mod.trace_fused(
+            scene, info, o, d, alive, state, max_bounces=max_bounces,
+            stack_size=stack_size)
     inc, skyc, state, queries = trace_bounces(
         scene, info, o, d, alive, state, max_bounces=max_bounces,
         stack_size=stack_size, pallas=pallas)
@@ -184,20 +245,46 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
             queries.sum().reshape(1))
 
 
-def _direct(walk, step, scene, info, o, d, alive, probe):
-    """The Whitted shade of one walk through `step`; with `probe` where the
-    scene has subsurface materials and a tree, the hit locations first
-    (the locate form), then the thickness probe from them."""
-    probing = (probe is not None and info.mat_gates[0]
-               and traverse.has_tree(info))
-    st = bounce.begin_whitted(o, d, alive, probe=probing)
-    w, _ = walk(o, d, alive)
+def probes(info) -> bool:
+    """Whether the Whitted route probes the thickness behind a hit: a
+    scene with subsurface materials and a tree."""
+    return bool(info.mat_gates[0]) and traverse.has_tree(info)
+
+
+def _direct_state(walk, step, scene, info, st, probe):
+    """The Whitted shade of one walk of st's rays through `step` into
+    st.inc; with `probe` where the scene has subsurface materials and a
+    tree (st then holds `loc`), the hit locations first (the locate form),
+    then the thickness probe from them."""
+    o, d = tuple(st.o), tuple(st.d)
+    w, _ = walk(o, d, st.alive)
     probe_t = None
-    if probing:
+    if probe is not None and probes(info):
         step(scene, info, st, w, form="locate")
         probe_t = probe(tuple(st.loc), d)
     step(scene, info, st, w, form="whitted", probe_t=probe_t)
+
+
+def _direct(walk, step, scene, info, o, d, alive, probe):
+    st = bounce.begin_whitted(o, d, alive,
+                              probe=probe is not None and probes(info))
+    _direct_state(walk, step, scene, info, st, probe)
     return tuple(st.inc)
+
+
+def _probe(scene, info, pallas):
+    def probe(loc, direction):
+        return traverse.probe_forest_t(loc, direction, scene, info,
+                                       pallas=pallas)
+    return probe
+
+
+def direct_state(scene, info, st, *, pallas: str = "auto"):
+    """`direct_diffuse` of the rays of a Whitted state the camera form has
+    begun (with `loc` where the scene `probes`), into st.inc."""
+    _direct_state(_forest_walk(scene, info, pallas),
+                  _step(st.alive.device, pallas), scene, info, st,
+                  _probe(scene, info, pallas))
 
 
 def direct_diffuse(scene, info, o, d, alive, *, pallas: str = "auto"):
@@ -207,13 +294,9 @@ def direct_diffuse(scene, info, o, d, alive, *, pallas: str = "auto"):
     probed through the whole forest or the streamed LBVH (the reference
     probes the hit object alone: the two differ only where another object
     cuts the segment)."""
-    def probe(loc, direction):
-        return traverse.probe_forest_t(loc, direction, scene, info,
-                                       pallas=pallas)
-
     return _direct(_forest_walk(scene, info, pallas),
                    _step(alive.device, pallas), scene, info, o, d, alive,
-                   probe)
+                   _probe(scene, info, pallas))
 
 
 def direct_diffuse_plain(scene, info, o, d, alive):

@@ -7,11 +7,17 @@ by one of two routes:
 
   frame path        kernels/frame.py, the whole frame in one launch, where
                     the scene is eligible and `config.fused` is not "off"
-  per-bounce route  `render_rays`: the samples one after the other, each a
-                    `dof_ray` and one `integrator.trace` (or
-                    `direct_diffuse`) over the SAH forest or, for a
-                    streamed scene, the two-level LBVH; more than
-                    `config.ray_batch_size` pixels go through it in chunks
+  per-bounce route  `render_rays`: the samples one after the other on one
+                    state of the rays (kernels/bounce.py), each the camera
+                    form of bounce_kernel (`camera_step`: the rays with
+                    depth of field, the path state begun, the sample
+                    before added into the running sum), then the bounces
+                    of `integrator.trace_state` (or the Whitted
+                    `direct_state`) over the SAH forest or, for a
+                    streamed scene, the two-level LBVH, or the block
+                    kernel (`trace_fused`) where the scene is eligible;
+                    more than `config.ray_batch_size` pixels go through
+                    it in chunks
 
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
@@ -46,7 +52,7 @@ from ..core import camera
 from ..core import math as vm
 from ..core import rng as vrng
 from ..core.device import resolve_device
-from ..kernels import frame, traverse
+from ..kernels import bounce, frame, traverse
 from ..shade import arealights
 from . import integrator
 
@@ -144,14 +150,16 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
     rotmat = vm.rotation_matrix(cam_rot.to(torch.float32))
     direction = camera.primary_directions(
         uv, rotmat, config.cam_size, config.focal_length, screen_h_ratio)
+    cam = bounce.camera_scalars(cam_pos, rotmat, ifd)
     if fold_spp and spp > 1:
-        return _render_folded(scene, info, index, cam_pos, rotmat, direction,
-                              frame_seed, ifd, config)
+        return _render_folded(scene, info, index, cam, direction,
+                              frame_seed, config)
     state = vrng.seed(index, frame_seed)
+    pd = direction.T.contiguous()
     if _legacy(config, info):
-        o, d, state = camera.dof_ray(cam_pos, direction, rotmat, config.blur,
-                                     ifd, state)
-        o, d = o.unbind(-1), d.unbind(-1)
+        st = bounce.state_for(state, path=False, rays_only=True)
+        _camera_step(st)(st, pd, cam, config.blur)
+        o, d, state = tuple(st.o), tuple(st.d), st.state
         if config.raytracing:
             col, state, queries = arealights.path_trace(
                 o, d, state, scene, info, spp, config.max_bounces,
@@ -163,27 +171,54 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
             queries = torch.full((1,), n, dtype=torch.int64,
                                  device=state.device)
         return torch.stack(col, dim=-1), queries
-    alive = torch.ones(state.shape, dtype=torch.bool, device=state.device)
-    zero = torch.zeros(state.shape, dtype=torch.float32, device=state.device)
-    total = [zero, zero, zero]
-    queries = torch.zeros(1, dtype=torch.int64, device=state.device)
-    for _ in range(spp):
-        o, d, state = camera.dof_ray(cam_pos, direction, rotmat, config.blur,
-                                     ifd, state)
-        o, d = o.unbind(-1), d.unbind(-1)
-        if config.raytracing:
-            col, state, q = integrator.trace(
-                scene, info, o, d, alive, state,
-                max_bounces=config.max_bounces,
-                stack_size=config.refraction_stack_depth,
-                fused=config.fused, pallas=config.pallas)
-            queries = queries + q
-        else:
-            col = integrator.direct_diffuse(scene, info, o, d, alive,
-                                            pallas=config.pallas)
-            queries = queries + state.numel()
-        total = [total[i] + col[i] for i in range(3)]
-    return torch.stack(total, dim=-1) / float(spp), queries
+    st = _sample_state(info, state, config)
+    step = _camera_step(st)
+    for k in range(spp):
+        step(st, pd, cam, config.blur, accumulate=k > 0)
+        _trace_sample(scene, info, st, config)
+    # the last sample into the sum, as the camera form adds the others
+    total = st.total + _sample_radiance(st)
+    if config.raytracing:
+        queries = st.queries.sum().reshape(1)
+    else:
+        queries = torch.full((1,), spp * n, dtype=torch.int64,
+                             device=state.device)
+    return total.T / float(spp), queries
+
+
+def _camera_step(st):
+    """The camera form of the state's device: the kernel on CUDA tensors,
+    its plain version on CPU tensors."""
+    if st.alive.device.type == "cuda":
+        return bounce.camera_step
+    return bounce.camera_step_plain
+
+
+def _sample_state(info, state, config, totals=True):
+    """`integrator.sample_state` of the config's route."""
+    return integrator.sample_state(
+        info, state, raytracing=config.raytracing,
+        max_bounces=config.max_bounces,
+        stack_size=config.refraction_stack_depth, fused=config.fused,
+        totals=totals)
+
+
+def _trace_sample(scene, info, st, config):
+    """One begun sample through `integrator.trace_state` (path) or
+    `direct_state` (Whitted)."""
+    if config.raytracing:
+        integrator.trace_state(scene, info, st,
+                               max_bounces=config.max_bounces,
+                               stack_size=config.refraction_stack_depth,
+                               pallas=config.pallas)
+    else:
+        integrator.direct_state(scene, info, st, pallas=config.pallas)
+
+
+def _sample_radiance(st):
+    """The radiance of the state's sample: inc + sky (path), inc
+    (Whitted)."""
+    return st.inc if st.skyc is None else st.inc + st.skyc
 
 
 def fold_seeds(index, spp: int, frame_seed: int):
@@ -196,27 +231,19 @@ def fold_seeds(index, spp: int, frame_seed: int):
     return vrng.seed(folded.reshape(-1), frame_seed)
 
 
-def _render_folded(scene, info, index, cam_pos, rotmat, direction,
-                   frame_seed, ifd, config):
+def _render_folded(scene, info, index, cam, direction, frame_seed, config):
     """`render_rays` with fold_spp: one batch of spp x N rays."""
     spp, n = config.samples_per_frame, index.shape[0]
     state = fold_seeds(index, spp, frame_seed)
-    o, d, state = camera.dof_ray(cam_pos, direction.repeat(spp, 1), rotmat,
-                                 config.blur, ifd, state)
-    o, d = o.unbind(-1), d.unbind(-1)
-    if config.raytracing:
-        col, state, queries = integrator.trace(
-            scene, info, o, d, torch.ones_like(state, dtype=torch.bool),
-            state, max_bounces=config.max_bounces,
-            stack_size=config.refraction_stack_depth, fused=config.fused,
-            pallas=config.pallas)
-    else:
-        col = integrator.direct_diffuse(
-            scene, info, o, d, torch.ones_like(state, dtype=torch.bool),
-            pallas=config.pallas)
-        queries = torch.full((1,), spp * n, dtype=torch.int64,
-                             device=state.device)
-    per_sample = torch.stack(col, dim=-1).reshape(spp, n, 3)
+    st = _sample_state(info, state, config, totals=False)
+    _camera_step(st)(st, direction.repeat(spp, 1).T.contiguous(), cam,
+                     config.blur)
+    _trace_sample(scene, info, st, config)
+    col = _sample_radiance(st).T
+    queries = (st.queries.sum().reshape(1) if config.raytracing
+               else torch.full((1,), spp * n, dtype=torch.int64,
+                               device=state.device))
+    per_sample = col.reshape(spp, n, 3)
     total = per_sample[0]
     for k in range(1, spp):
         total = total + per_sample[k]
@@ -289,7 +316,8 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
     whitted = not config.raytracing
     if (config.fused != "off" and not config.legacy_shading
             and not config.legacy_pathtrace
-            and frame.eligible(info, whitted=whitted)):
+            and frame.eligible(info, whitted=whitted,
+                               stack_size=config.refraction_stack_depth)):
         col, rays = frame.render_fused_frame(
             scene, info, cam_pos, cam_rot, frame_seed, ifd,
             width=config.width, height=config.height,

@@ -291,6 +291,9 @@ def path_trace(o, d, state, scene, info, sample_res: int,
                         device=f0.device)
     stack[:, 0] = AIR_IOR
     empty = torch.zeros((n_rays, 1), dtype=torch.float32, device=f0.device)
+    # the second entry; a one-entry stack reads its first, as the
+    # reference's index past it clamps
+    j = min(1, stack_size - 1)
 
     def pushed_of(stack, ni):
         return torch.cat([ni[:, None], stack[:, :stack_size - 1]], dim=1)
@@ -324,10 +327,10 @@ def path_trace(o, d, state, scene, info, sample_res: int,
         # eta and Fresnel with the first stack mutation (:817-830)
         pushed = pushed_of(stack, m["Ni"])
         popped = torch.cat([stack[:, 1:], empty], dim=1)
-        eta = torch.where(entering, pushed[:, 1] / pushed[:, 0],
-                          stack[:, 0] / stack[:, 1])
-        n1 = torch.where(entering, pushed[:, 1], stack[:, 0])
-        n2 = torch.where(entering, pushed[:, 0], stack[:, 1])
+        eta = torch.where(entering, pushed[:, j] / pushed[:, 0],
+                          stack[:, 0] / stack[:, j])
+        n1 = torch.where(entering, pushed[:, j], stack[:, 0])
+        n2 = torch.where(entering, pushed[:, 0], stack[:, j])
         pm = m["Pm"]
         fres = torch.where((pm > 0.0) | (m["Tr"] > 0.0),
                            pm + (1.0 - pm) * fresnel_soa(n1, n2, nvec, d),
@@ -360,8 +363,8 @@ def path_trace(o, d, state, scene, info, sample_res: int,
         # the weaker branch, sampled once (:845-878): a refraction with
         # the second stack mutation's eta, or a reflection at 1e-6
         pushed2 = pushed_of(stack, m["Ni"])
-        eta2 = torch.where(entering, pushed2[:, 1] / pushed2[:, 0],
-                           stack[:, 0] / stack[:, 1])
+        eta2 = torch.where(entering, pushed2[:, j] / pushed2[:, 0],
+                           stack[:, 0] / stack[:, j])
         mut2 = upd & stronger_refl & (trans_co > 0.0)
         stack = torch.where((mut2 & entering)[:, None], pushed2,
                             torch.where((mut2 & ~entering)[:, None],

@@ -2,8 +2,8 @@
 kernel's per-ray body built by g++ (`bounce_step_host`, csrc/bounce_host.cpp
 over csrc/integrate.cuh `bounce_ray`) against the plain PyTorch version
 (`bounce_step_plain`), the route with fused="off" against the JAX
-package's, `walk_triangles` plus the merge against `ray_scene`, the stack
-depth the kernel takes, and on a card the kernel on the route.
+package's, `walk_triangles` plus the merge against `ray_scene`, and on a
+card the kernel on the route (stacks of any depth: test_torch_stack.py).
 
 Limits: the kernel-parity limits of PERF.md section 2 (those of
 tests/test_fused.py): the state bit-equal on >= 99% of the rays, the
@@ -290,27 +290,6 @@ def test_walk_and_merge_equal_ray_scene(built, name):
     # switched-off rays: t = 0, no triangle
     assert float(hit.t[~alive].abs().max()) == 0.0
     assert int(hit.tri[~alive].max()) == -1
-
-
-def test_stack_deeper_than_the_kernel_raises(built):
-    """(d) refraction_stack_depth above MAX_STACK (16) is refused on every
-    route, as below 2; 16 renders."""
-    sc, info, (cam, rot) = built("forest")
-    kw = dict(width=8, height=6, samples_per_frame=1, max_bounces=2,
-              fused="off")
-    for depth in (1, 17, 64):
-        with pytest.raises(ValueError, match="refraction stack"):
-            render_frame(sc, info, RenderConfig(refraction_stack_depth=depth,
-                                                **kw), cam, rot, 1,
-                         device="cpu")
-    o, d, alive, state = _rays(cam, rot, SEEDS[6])
-    with pytest.raises(ValueError, match="refraction stack"):
-        bounce.begin(o, d, alive, state, stack_size=bounce.MAX_STACK + 1,
-                     max_bounces=2)
-    img, q = render_frame(sc, info, RenderConfig(refraction_stack_depth=16,
-                                                 **kw), cam, rot, 1,
-                          device="cpu")
-    assert bool(torch.isfinite(img).all()) and int(q) > 0
 
 
 def test_bounce_step_refuses_what_it_does_not_take(built):

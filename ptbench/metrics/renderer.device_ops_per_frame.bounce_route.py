@@ -1,0 +1,6 @@
+"""renderer.device_ops_per_frame.frame_path's reading (device operations a frame) in the per-bounce
+route's cells: a metric of its own, so that each route's cells are held
+to the bound their own spread sets (PERF.md section 2)."""
+from ptbench.bench import metric_reader
+
+read = metric_reader("renderer.device_ops_per_frame.frame_path")

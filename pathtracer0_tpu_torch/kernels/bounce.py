@@ -53,6 +53,7 @@ from ..scene.material import COL
 from ..scene.texture import bilinear, sky_uv
 from ..shade import bsdf
 from ..shade.mtl import map_sample, tbn_map
+from ..utils.trace import span
 from . import build, traverse
 from .build import ptr
 from .fused import SceneArgs, scene_args
@@ -422,7 +423,8 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
     st.inobj.copy_(torch.where(hitf, new_inobj, inobj))
     st.state.copy_(torch.where(hitf, lobe.state, state))
     st.alive.copy_(hitf & ~cutoff)
-    n_live = int(st.alive.sum())
+    with span("pt0.bounce.readback"):
+        n_live = int(st.alive.sum())
     st.live[st.bounce] = n_live
     st.bounce += 1
     return n_live
@@ -497,7 +499,8 @@ def camera_args(st, pd, cam, blur, accumulate):
 def _finish(st, form):
     if form != "path":
         return 0
-    n_live = int(st.live[st.bounce])        # the loop's one readback
+    with span("pt0.bounce.readback"):
+        n_live = int(st.live[st.bounce])    # the loop's one readback
     st.bounce += 1
     return n_live
 

@@ -33,6 +33,7 @@ from ..core import camera
 from ..core import math as vm
 from ..core import rng as vrng
 from ..render import integrator
+from ..utils.trace import span
 from . import build, fused
 from .build import ptr
 from .fused import CHECKS, MAX_STACK, PHASES, SceneArgs, scene_args
@@ -238,13 +239,14 @@ def render_fused_frame(scene, info, cam_pos, cam_rot, frame_seed: int, ifd,
     PT0_FUSED_REFILL=1 in the environment selects the refill schedule
     (fused.py:1965; off by default). Returns ((H*W, 3) mean over spp,
     queries (1,) int64)."""
-    dev = scene.device
-    index = torch.arange(width * height, dtype=torch.int64, device=dev)
-    state = vrng.seed(index, frame_seed)
-    rad, _, rays = trace_frame(
-        scene, info, cam_pos, cam_rot, ifd, state, width=width,
-        height=height, spp=spp, max_bounces=max_bounces,
-        stack_size=stack_size, cam_size=cam_size,
-        focal_length=focal_length, blur=blur, whitted=whitted,
-        refill=os.environ.get("PT0_FUSED_REFILL", "0") == "1")
-    return rad / float(spp), rays
+    with span("pt0.frame"):
+        dev = scene.device
+        index = torch.arange(width * height, dtype=torch.int64, device=dev)
+        state = vrng.seed(index, frame_seed)
+        rad, _, rays = trace_frame(
+            scene, info, cam_pos, cam_rot, ifd, state, width=width,
+            height=height, spp=spp, max_bounces=max_bounces,
+            stack_size=stack_size, cam_size=cam_size,
+            focal_length=focal_length, blur=blur, whitted=whitted,
+            refill=os.environ.get("PT0_FUSED_REFILL", "0") == "1")
+        return rad / float(spp), rays

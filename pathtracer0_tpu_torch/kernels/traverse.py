@@ -45,6 +45,7 @@ import torch
 
 from ..core.math import sqrt
 from ..shade import bsdf, implicits
+from ..utils.trace import span
 from . import wavefront
 from .intersect import MISS, ellipsoid_soa, safe_inv_dir
 
@@ -197,16 +198,17 @@ def walk_triangles(o, d, scene, info, *, pallas: str = "auto",
     walks nothing (row -1, t = t_init).
 
     Returns (Walk, nudged origins)."""
-    forest, perm = _forest_fn(pallas, info)
-    on = nudged(o, d)
-    t_init = _t_init(on[0], active)
-    if has_tree(info):
-        t, u, v, idx, _, _ = forest(on, d, t_init, scene, info)
-        return Walk(t, u, v, idx, getattr(scene, perm)), on
-    zero = torch.zeros_like(t_init)
-    none = torch.full(t_init.shape, -1, dtype=torch.int32,
-                      device=t_init.device)
-    return Walk(t_init, zero, zero, none, None), on
+    with span("pt0.query"):
+        forest, perm = _forest_fn(pallas, info)
+        on = nudged(o, d)
+        t_init = _t_init(on[0], active)
+        if has_tree(info):
+            t, u, v, idx, _, _ = forest(on, d, t_init, scene, info)
+            return Walk(t, u, v, idx, getattr(scene, perm)), on
+        zero = torch.zeros_like(t_init)
+        none = torch.full(t_init.shape, -1, dtype=torch.int32,
+                          device=t_init.device)
+        return Walk(t_init, zero, zero, none, None), on
 
 
 def walk_hit(walk: Walk, scene) -> Hit:

@@ -45,6 +45,7 @@ import torch
 from ..kernels import bounce, traverse
 from ..kernels.intersect import MISS, tri_candidate
 from ..kernels.traverse import Hit, Walk
+from ..utils.trace import span
 
 NUDGE = traverse.NUDGE
 
@@ -119,7 +120,8 @@ def _run_bounces(walk, step, scene, info, st, *, max_bounces: int,
         if not n_live:
             break
         w, _ = walk(tuple(st.o), tuple(st.d), st.alive)
-        n_live = step(scene, info, st, w)
+        with span("pt0.bounce"):
+            n_live = step(scene, info, st, w)
 
 
 def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,

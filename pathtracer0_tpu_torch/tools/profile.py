@@ -119,7 +119,8 @@ LEAD_KERNEL = "spin_kernel"
 def trace_busy(step, device="cuda", trace_path=None):
     """One call of `step` (a frame) under torch.profiler, after a warm-up
     call and an untraced one: how busy the card is (its device time over
-    the untraced call's wall time) and which kernels take its time
+    the same traced call's wall time; the untraced call's wall time beside
+    it) and which kernels take its time
     (`ours`: the package's own kernels, whose names end in their `...Args`
     struct, csrc/*.cu). Writes the trace to `trace_path` (Chrome's format)
     where given. Off the card only the host is traced and no device time
@@ -157,9 +158,13 @@ def trace_busy(step, device="cuda", trace_path=None):
             synchronize(dev)
             wall_ms = 1e3 * (time.perf_counter() - t)
         launched = sum(launch_counts().values()) - before
+        # a record_function span (utils/trace.span) also leaves a range
+        # on the device's timeline, keyed as a CUDA event with the range's
+        # length as its device time: no operation, so left out
         ran = [e for e in prof.key_averages()
                if getattr(e, "device_time_total", 0) > 0
-               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+               and str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
         lead = sum(e.count for e in ran if LEAD_KERNEL in e.key)
         kernels = [e for e in ran if LEAD_KERNEL not in e.key]
         n_ops = int(sum(e.count for e in kernels))
@@ -182,7 +187,7 @@ def trace_busy(step, device="cuda", trace_path=None):
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     ours = [e for e in kernels if e.key.endswith("Args)")]
     return {"wall_ms_untraced": untraced_ms, "wall_ms_traced": wall_ms,
-            "device_busy_ms": busy_ms, "busy_share": busy_ms / untraced_ms,
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "ours": [{"name": e.key[:80], "count": int(e.count),
                       "ms": e.device_time_total / 1e3,
                       "share_of_busy": e.device_time_total / 1e3 / busy_ms}

@@ -3,7 +3,8 @@ block, brute, traverse, streamed with the route's ray sort, the five of
 the group-test diagnostic,
 the small-K product probe) against its plain PyTorch version, the
 diagnostic and the probe end to end, the renderer's routes through the
-kernels, and the native LBVH builder built there.
+kernels, the port's spans and tools/profile's busy share in the card's
+trace, and the native LBVH builder built there.
 
 They skip without a CUDA card. This file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -504,6 +505,106 @@ def test_streamed_route_goes_through_its_kernel():
     with pytest.raises(ValueError, match="streamed"):
         Renderer(sc, info, RenderConfig(width=W, height=H, fused="on"),
                  cam_pos=cam, cam_rot=rot).render(1)
+
+
+def _streamed_terrain_renderer():
+    """A streamed scene (2,048 triangles past a stream threshold of 1,000)
+    at 32 x 32 = SORT_MIN_RAYS pixels, 2 spp, 3 bounces: the per-bounce
+    route with its sorted query, every span of the port in a step."""
+    from pathtracer0_tpu_torch.kernels import traverse
+
+    cfg = RenderConfig(width=32, height=32, samples_per_frame=2,
+                       max_bounces=3, blur=0.0, auto_focus=False,
+                       stream_threshold=1000)
+    assert cfg.width * cfg.height >= traverse.SORT_MIN_RAYS
+    sc, info = scenes.terrain(33).build(cfg)
+    assert info.streamed
+    return Renderer(sc, info, cfg, cam_pos=(0.0, 7.0, -1.5),
+                    cam_rot=(1.0, 0.0, 0.0))
+
+
+@pytest.mark.cuda
+def test_port_spans_on_the_streamed_route_on_card(tmp_path):
+    """utils/trace.span in the card's trace: a step on a streamed scene of
+    at least SORT_MIN_RAYS pixels holds spp x bounces `pt0.query` and
+    `pt0.bounce` spans, each bounce one `pt0.bounce.readback`, beside the
+    device's streamed_kernel and bounce_kernel records."""
+    _card()
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    r = _streamed_terrain_renderer()
+    r.step(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.step(2)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("pt0."):
+            spans.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    assert {n: len(v) for n, v in spans.items()} == {
+        "pt0.query": 6, "pt0.bounce": 6, "pt0.bounce.readback": 6}
+    for s, t in spans["pt0.bounce"]:
+        assert sum(s <= a and b <= t
+                   for a, b in spans["pt0.bounce.readback"]) == 1
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("bounce_kernel" in k for k in kernels)
+    assert any("streamed_kernel" in k for k in kernels)
+
+
+@pytest.mark.cuda
+def test_trace_busy_share_is_over_the_traced_call_on_card():
+    """tools/profile.trace_busy: the busy share is the device time over
+    the wall time of the same traced call, so at most 1; the untraced
+    call's wall time stays beside it."""
+    _card()
+    from pathtracer0_tpu_torch.tools import profile
+
+    sc, info = scenes.BUILDERS[6]().build()
+    cam, rot = scenes.CAMERAS[6]
+    r = Renderer(sc, info, RenderConfig(width=W, height=H,
+                                        samples_per_frame=2),
+                 cam_pos=cam, cam_rot=rot)
+    busy = profile.trace_busy(r.step)
+    assert busy["busy_share"] == pytest.approx(
+        busy["device_busy_ms"] / busy["wall_ms_traced"])
+    assert 0.0 < busy["busy_share"] <= 1.0
+    assert busy["wall_ms_untraced"] > 0.0
+
+
+@pytest.mark.cuda
+def test_trace_busy_counts_no_span_as_device_work_on_card(monkeypatch):
+    """The port's spans leave ranges on the device's timeline that
+    torch.profiler keys as CUDA events with device time; trace_busy counts
+    none of them: a step of the streamed route (every span) has as many
+    device operations and no `pt0.` entry with its spans as with them
+    swapped for null contexts."""
+    _card()
+    import contextlib
+
+    from pathtracer0_tpu_torch.kernels import bounce, frame, traverse
+    from pathtracer0_tpu_torch.render import integrator
+    from pathtracer0_tpu_torch.tools import profile
+
+    r = _streamed_terrain_renderer()
+    spanned = profile.trace_busy(lambda: r.step(7))
+    for module in (bounce, frame, traverse, integrator):
+        monkeypatch.setattr(module, "span",
+                            lambda name: contextlib.nullcontext())
+    plain = profile.trace_busy(lambda: r.step(7))
+    assert spanned["device_kernels"] == plain["device_kernels"] > 0
+    names = [e["name"] for e in spanned["top"] + spanned["ours"]]
+    assert names and not any(n.startswith("pt0.") for n in names)
+    assert 0.0 < spanned["busy_share"] <= 1.0
 
 
 @pytest.mark.cuda

@@ -43,7 +43,10 @@ non-zero:
                    camera and 960,000 rays (primary + random, one in seven
                    switched off), each as given and in the order the
                    route sorts them (the sorted primary rays are the batch
-                   the main path gives it), with the sort's own cost; where
+                   the main path gives it), with the sort's own cost and
+                   the whole query both ways in turns (the PyTorch sort
+                   around the kernel, and the route's: sort_key_kernel,
+                   the argsort, the ordered walk); where
                    a warp's cycles go on each (`streamed_phases`: the
                    check-only PHASES instantiation, with the lanes that
                    test a group together and the distinct groups among
@@ -450,6 +453,7 @@ LAUNCHERS = {"frame_kernel": ("frame_kernel", "pt_launch_frame"),
              "brute_kernel": ("forest_kernel", "pt_launch_brute"),
              "traverse_kernel": ("forest_kernel", "pt_launch_traverse"),
              "streamed_kernel": ("streamed_kernel", "pt_launch_streamed"),
+             "sort_key_kernel": ("streamed_kernel", "pt_launch_sort_key"),
              **{k: ("mxu_group_kernel", f"pt_launch_{k[:-len('_kernel')]}")
                 for k in ("vpu_kernel", "mxu_kernel", "mxu_big_kernel",
                           "mxu_split3_kernel", "prefilter_kernel",
@@ -987,8 +991,12 @@ def modes(c):
         # evaluation), never for the heatmap's undeflected rays
         others = {k: v for k, v in per_frame.items() if k != kernel
                   and not (mode == "fold_spp" and k == "bounce_kernel")
-                  and k != CAMERA}
+                  and k != CAMERA and k != "sort_key_kernel"}
         n_kernel = per_frame.get(kernel, 0)
+        # a streamed query of the frame's rays is the sorted one
+        check(per_frame.get("sort_key_kernel", 0)
+              == (n_kernel if kernel == "streamed_kernel" else 0),
+              f"modes {mode} {label}: sort-key launches {per_frame}")
         check(mode != "fold_spp"
               or per_frame.get("bounce_kernel") == n_kernel,
               f"modes {mode} {label}: bounce launches {per_frame}")
@@ -1157,8 +1165,10 @@ def obj_phase(c):
         big["frames"][mode] = {"pixels_equal": eq, "launches": launches}
         n_max = BIG_SPP * (BIG_BOUNCES if raytracing else 1)
         check(eq >= 0.999 and all(
-            set(n) == {"streamed_kernel", "bounce_kernel", CAMERA}
+            set(n) == {"streamed_kernel", "sort_key_kernel", "bounce_kernel",
+                       CAMERA}
             and 0 < n["streamed_kernel"] <= n_max
+            and n["sort_key_kernel"] == n["streamed_kernel"]
             and n["bounce_kernel"] == n["streamed_kernel"]
             and n[CAMERA] == BIG_SPP
             for n in launches.values()),
@@ -1331,11 +1341,13 @@ def dist_phase(c, session_rec):
         else:
             # one bounce_kernel launch after each walk
             limit = cfg.samples_per_frame * cfg.max_bounces
+            # each a sorted query (sort_key_kernel once)
             ok = (ok and set(launches_t) == set(launches_u)
-                  == {kernel, "bounce_kernel", CAMERA}
+                  == {kernel, "sort_key_kernel", "bounce_kernel", CAMERA}
                   and 0 < launches_t[kernel] <= len(mesh) * limit
                   and 0 < launches_u[kernel] <= limit
                   and all(n["bounce_kernel"] == n[kernel]
+                          == n["sort_key_kernel"]
                           for n in (launches_t, launches_u)))
         check(ok and r["finite"] and r["elements_equal"] >= 0.999
               and r["queries_tiled"] == q_u + q_pad,
@@ -1595,7 +1607,7 @@ def tools_phase(c, session_rec):
               and q[0] == 800 * 600 * spp,
               f"tools: diag_scale_frame spp {spp}: {rows}")
     check(set(rec["diag_scale_frame"]["launches"])
-          == {"streamed_kernel", "bounce_kernel", CAMERA},
+          == {"streamed_kernel", "sort_key_kernel", "bounce_kernel", CAMERA},
           f"tools: diag_scale_frame {rec['diag_scale_frame']['launches']}")
 
     # diag_build4m and the 4M terrain's peak memory
@@ -2846,21 +2858,77 @@ def main() -> int:
 
     def sort_cost(sc, info, o, d, t_init):
         """ms of the route's sort of a query on the card (events around 5
-        calls): the key alone, the argsort alone, the order (key, root box
-        test, argsort), and the order with the gathers before the kernel
-        and the scatters after it (the kernel left out)."""
+        calls): the PyTorch key alone, the argsort alone, the order (key,
+        root box test, argsort), and the order with the gathers before the
+        kernel and the scatters after it (the kernel left out); then the
+        whole query both ways in turns, from the origins before the nudge:
+        `sorted_query` over streamed_kernel (the nudge, t_init, the order,
+        the gathers, the walk, the scatters; `query_torch_ms`) and
+        `wavefront.trace_sorted` (sort_key_kernel, the argsort, the ordered
+        walk; `query_ordered_ms`), and whether the two give the same bits;
+        and sort_key_kernel alone (device time of 20 launches back to back)
+        against its plain twin (`nudged`, then `streamed_keys`): its keys
+        and nudged origins, which must equal the twin's, its time and its
+        bound (the rays' bytes over the memory rate)."""
         outs = wavefront.trace_streamed(o, d, t_init, sc, info)
         o3, d3 = torch.stack(o, -1), torch.stack(d, -1)
         lo, hi = sc.st_top[0, 0:3], sc.st_top[0, 3:6]
         key = traverse.spatial_sort_key(o3, d3, lo, hi)
-        return {"key_ms": cuda_ms(
+        active = t_init > 0.0
+
+        def torch_query():
+            on = traverse.nudged(o, d)
+            return traverse.sorted_query(
+                wavefront.trace_streamed, on, d,
+                traverse._t_init(on[0], active), sc, info)
+
+        def ordered_query():
+            return wavefront.trace_sorted(o, d, active, sc, info)[1]
+
+        same = all(bool(torch.equal(a, b))
+                   for a, b in zip(torch_query(), ordered_query()))
+        root = sc.st_top[0, 0:6]
+
+        def plain_keys():
+            on = traverse.nudged(o, d)
+            return on, traverse.streamed_keys(on, d, t_init, root)
+
+        (on, want), (key_on, got) = (
+            plain_keys(), wavefront.sort_keys(o, d, active, sc, info))
+        n = int(t_init.shape[0])
+        # read o, d and the mask, write the nudged origins and the key
+        key_bytes = n * (12 + 12 + active.element_size() + 12 + 4) + 24
+        rec = {"key_ms": cuda_ms(
                     lambda: traverse.spatial_sort_key(o3, d3, lo, hi), 5),
-                "argsort_ms": cuda_ms(
+               "argsort_ms": cuda_ms(
                     lambda: torch.argsort(key, stable=True), 5),
-                "order_ms": cuda_ms(
+               "order_ms": cuda_ms(
                     lambda: traverse.streamed_order(o, d, t_init, sc), 5),
-                "sort_ms": cuda_ms(lambda: traverse.sorted_query(
-                    lambda *_: outs, o, d, t_init, sc, info), 5)}
+               "sort_ms": cuda_ms(lambda: traverse.sorted_query(
+                    lambda *_: outs, o, d, t_init, sc, info), 5),
+               "sort_key_kernel_ms": device_ms(
+                    lambda: wavefront.sort_keys(o, d, active, sc, info),
+                    "sort_key_kernel"),
+               "plain_keys_ms": cuda_ms(plain_keys, 5),
+               "sort_key_bound": least(key_bytes, 6 * n),
+               "keys_equal": bool(torch.equal(got, want)),
+               "nudged_equal": all(bool(torch.equal(a, b))
+                                   for a, b in zip(key_on, on)),
+               "key_max_abs_err": max(
+                   float((got.long() - want.long()).abs().max()),
+                   *(float((a - b).abs().max())
+                     for a, b in zip(key_on, on))),
+               "ordered_same_bits": same}
+        for name, fn in (("query_torch_ms", torch_query),
+                         ("query_ordered_ms", ordered_query),
+                         ("query_ordered_ms", ordered_query),
+                         ("query_torch_ms", torch_query)):
+            rec.setdefault(name, []).append(cuda_ms(fn, 5))
+        check(same, f"the ordered query's bits differ from sorted_query's "
+              f"{rec}")
+        check(rec["keys_equal"] and rec["nudged_equal"],
+              f"sort_key_kernel differs from its plain twin: {rec}")
+        return rec
 
     def streamed_phases(label, sc, info, o, d, t_init):
         """Where a warp's cycles go in streamed_kernel (the check-only
@@ -4134,7 +4202,8 @@ def main() -> int:
                       "bounce_kernel": bounce.bounce_step.launches,
                       CAMERA: bounce.camera_step.launches,
                       **wavefront.launches}
-    check(launches_route.pop("streamed_kernel") == 0,
+    check(launches_route.pop("streamed_kernel") == 0
+          and launches_route.pop("sort_key_kernel") == 0,
           "the SAH scenes launched streamed_kernel")
     check(all(v > 0 for v in launches_route.values()),
           f"the per-bounce route missed a kernel: {launches_route}")
@@ -4180,10 +4249,14 @@ def main() -> int:
               and rec["camera_launches"] == (n_timed + 1) * BIG_SPP,
               f"terrain 1M: launches {rec}")
     launches_streamed = wavefront.launches["streamed_kernel"]
+    launches_sort_key = wavefront.launches["sort_key_kernel"]
     launches_streamed_bounce = bounce.bounce_step.launches
     launches_streamed_camera = bounce.camera_step.launches
+    # every query of the 480,000 rays is the ordered one
     check({k: v for k, v in wavefront.launches.items() if v}
-          == {"streamed_kernel": launches_streamed}
+          == {"streamed_kernel": launches_streamed,
+              "sort_key_kernel": launches_sort_key}
+          and launches_sort_key == launches_streamed
           and launches_streamed_bounce == launches_streamed
           and frame.trace_frame.launches == 0
           and fused.trace_block.launches == 0,
@@ -4626,6 +4699,30 @@ def main() -> int:
                                           "bound_by")},
         "library_ms": None,
         "detail": bounce_rec["camera"]})
+    # sort_key_kernel: the main path's batch, the camera's 480,000 primary
+    # rays, on the line; both populations in `detail`
+    key_recs = {pop: streamed_recs[f"{pop}_sorted"]
+                for pop in ("primary", "mixed")}
+    key_line = key_recs["primary"]
+    kernels["kernels"].append({
+        "name": "sort_key_kernel", "route": "cuda",
+        "source": "pathtracer0_tpu_torch/csrc/streamed_kernel.cu",
+        "replaces": "pathtracer0_tpu/kernels/traverse.py:410 "
+                    "_spatial_sort_key and the key of :446 "
+                    "_ray_scene_streamed(sort_rays=True) (XLA ops; no "
+                    "Pallas kernel)",
+        "launches": launches_sort_key,
+        "max_abs_err": max(r["key_max_abs_err"] for r in key_recs.values()),
+        "ms": key_line["sort_key_kernel_ms"],
+        "plain_ms": key_line["plain_keys_ms"],
+        **{key: key_line["sort_key_bound"][key]
+           for key in ("bound_ms", "bound_by")},
+        "library_ms": None,
+        "detail": {pop: {k: r[k] for k in (
+            "sort_key_kernel_ms", "plain_keys_ms", "sort_key_bound",
+            "keys_equal", "nudged_equal", "key_max_abs_err",
+            "query_ordered_ms", "query_torch_ms", "ordered_same_bits")}
+            for pop, r in key_recs.items()}})
     # the order of work on the kernels: slower than the library's call for
     # the same function first, then the time above the bound over the
     # launches of the run (the frame entries sum ms and bound over cells,
@@ -4634,7 +4731,7 @@ def main() -> int:
         k["slower_than_library"] = (k["library_ms"] is not None
                                     and k["ms"] > k["library_ms"])
         k.setdefault("excess_ms", k["launches"] * (k["ms"] - k["bound_ms"]))
-    check(len(kernels["kernels"]) == 14
+    check(len(kernels["kernels"]) == 15
           and all(k["launches"] > 0 for k in kernels["kernels"]),
           "a kernel of the paths was never launched")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

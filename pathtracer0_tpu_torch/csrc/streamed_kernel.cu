@@ -62,12 +62,31 @@
 // lanes of a warp walk the same part of the tree. The box tests and the
 // walk's loads from L2 are the rest.
 //
+// The route's sorted query on the card (kernels/wavefront.py
+// `trace_sorted`) is three launches, where PyTorch ops took ~90 (the
+// nudge, the key, the root-box test, the gathers and the scatters, each
+// a few small launches whose issue kept the card idle):
+//   - `sort_key_kernel`, one thread per ray: the origin nudged and written
+//     out, and the key of csrc/sort_key.cuh (the JAX package's
+//     `_spatial_sort_key`, with root misses and switched-off rays at the
+//     back). It replaces XLA ops of that package, not a Pallas kernel.
+//     Bound by its 41 bytes a ray (40 where every ray is on);
+//   - the stable argsort of the keys (torch.argsort, as that package's
+//     jnp.argsort);
+//   - the ORDERED form of streamed_kernel: lane i walks ray order[i],
+//     which it reads from the nudged origins and the directions, from
+//     t_init MISS (active) or 0, and writes its outputs to that ray's own
+//     slot. The walk is per ray, so the outputs are those of the rays as
+//     given, bit for bit.
+//
 // The group loop and its slot test are csrc/tri_free.cuh's, which the
 // group-test diagnostic (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
 // math. Plain version:
-// pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`.
+// pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`, over
+// kernels/traverse.py `sorted_query` for the sorted query.
 #include <cuda_runtime.h>
 
+#include "sort_key.cuh"
 #include "tri_free.cuh"
 
 // kernels/wavefront.py `_StreamArgs`, field for field.
@@ -85,7 +104,14 @@ struct StreamArgs {
   int* box;
   int* rows;
   unsigned long long* check_out;  // PHASES: N_CHECK sums over the warps
-  int n_rays, n_treelets, check;
+  // the sorted query: the switched-off rays (null: none) in place of
+  // t_init, the keys, the order of the walk; sort_key_kernel's nudged
+  // origins, which the ORDERED walk reads as `o`
+  const unsigned char* active;
+  int* key;
+  const long long* order;
+  float* on[3];
+  int n_rays, n_treelets, form;
 };
 
 namespace {
@@ -108,8 +134,9 @@ struct Ray {
 // that run the part together (by the lowest of them), the warp's cycles
 // from start to end, and at each group test of a warp: the lanes that
 // test a group and how many distinct groups they test. The timed
-// instantiation (NO_CHECK) compiles none of it.
-enum { NO_CHECK, PHASES };
+// instantiation (NO_CHECK) compiles none of it, nor does ORDERED, the
+// form that walks the rays in a sorted order (top of this file).
+enum { NO_CHECK, PHASES, ORDERED };
 enum { PH_TOP, PH_SUB, PH_GROUP, PH_STACK, PH_WARP, PH_GROUP_TESTS, PH_GROUP_LANES,
        PH_GROUP_DISTINCT, N_CHECK };
 
@@ -160,11 +187,6 @@ struct Probe {
   }
 };
 
-__device__ __forceinline__ float safe_inv(float d) {
-  const float inv = 1.0f / (d == 0.0f ? 1e-30f : d);
-  return inv < -1e30f ? -1e30f : (inv > 1e30f ? 1e30f : inv);
-}
-
 // Entry distance of the ray into the box at `b` (0 from inside), MISS if
 // it passes by or the box is empty (min x > max x).
 __device__ __forceinline__ float entry(const float* __restrict__ b, const Ray& r) {
@@ -191,19 +213,25 @@ __device__ __forceinline__ int pop(const int* stack_n, const float* stack_d, int
   return -1;
 }
 
-template <int CHECK>
+template <int FORM>
 __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
-  const int r = blockIdx.x * BLOCK + threadIdx.x;
-  const bool in_range = r < a.n_rays;
-  if (CHECK == NO_CHECK && !in_range) return;
-  Probe<CHECK> probe;
-  float t = in_range ? a.t_init[r] : 0.0f, td = 1.0f, u = 0.0f, v = 0.0f;
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool in_range = i < a.n_rays;
+  if (FORM != PHASES && !in_range) return;
+  Probe<FORM> probe;
+  // the ray this lane walks: its own, or the i-th of the sorted order
+  const int r = FORM == ORDERED ? static_cast<int>(a.order[i]) : i;
+  // ORDERED: t_init MISS where the ray is on, 0 where it is not; its
+  // origin already nudged (sort_key_kernel)
+  float t = FORM == ORDERED ? (a.active == nullptr || a.active[r] ? MISS : 0.0f)
+                            : (in_range ? a.t_init[r] : 0.0f);
+  float td = 1.0f, u = 0.0f, v = 0.0f;
   int idx = -1, box = 0, rows = 0;
   if (t > 0.0f) {
     Ray ray{a.o[0][r], a.o[1][r], a.o[2][r], a.d[0][r], a.d[1][r], a.d[2][r], 0.0f, 0.0f, 0.0f};
-    ray.ix = safe_inv(ray.dx);
-    ray.iy = safe_inv(ray.dy);
-    ray.iz = safe_inv(ray.dz);
+    ray.ix = sortkey::safe_inv(ray.dx);
+    ray.iy = sortkey::safe_inv(ray.dy);
+    ray.iz = sortkey::safe_inv(ray.dz);
     const int n_top = a.n_treelets - 1;       // internal nodes of the top tree
     const int sub0 = 2 * a.n_treelets - 1;    // code of subtree node 0 of treelet 0
     float tcur = t;                           // t / td, the pruning distance
@@ -288,18 +316,41 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
   probe.finish(a.check_out);
 }
 
+// One thread a ray: the origin nudged, written to `on` for the ORDERED
+// walk, and its key (sort_key.cuh) in the root box, the first row of `top`.
+__global__ void __launch_bounds__(BLOCK) sort_key_kernel(StreamArgs a) {
+  const int r = blockIdx.x * BLOCK + threadIdx.x;
+  if (r >= a.n_rays) return;
+  const float dx = a.d[0][r], dy = a.d[1][r], dz = a.d[2][r];
+  const float ox = sortkey::nudge(a.o[0][r], dx), oy = sortkey::nudge(a.o[1][r], dy),
+              oz = sortkey::nudge(a.o[2][r], dz);
+  a.on[0][r] = ox;
+  a.on[1][r] = oy;
+  a.on[2][r] = oz;
+  a.key[r] = sortkey::key(ox, oy, oz, dx, dy, dz, a.active == nullptr || a.active[r], a.top);
+}
+
 }  // namespace
 
-// Returns the CUDA error of the launch, 0 for none. The caller has checked
-// that the tree fits the stack (kernels/wavefront.py `_check_streamed`).
-// `check` = PHASES launches the check-only instantiation.
+// Each returns the CUDA error of the launch, 0 for none. The caller has
+// checked that the tree fits the stack (kernels/wavefront.py
+// `_check_streamed`). `form` PHASES launches the check-only
+// instantiation, ORDERED the sorted query's walk (a->order).
 extern "C" int pt_launch_streamed(const StreamArgs* a, void* stream) {
   const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->check == PHASES) {
+  if (a->form == PHASES) {
     streamed_kernel<PHASES><<<grid, block, 0, s>>>(*a);
+  } else if (a->form == ORDERED) {
+    streamed_kernel<ORDERED><<<grid, block, 0, s>>>(*a);
   } else {
     streamed_kernel<NO_CHECK><<<grid, block, 0, s>>>(*a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pt_launch_sort_key(const StreamArgs* a, void* stream) {
+  const dim3 grid((a->n_rays + BLOCK - 1) / BLOCK), block(BLOCK);
+  sort_key_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,11 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
   walk_triangles  nudge the origins by 1e-4 d (frag.glsl:549), walk the
                   forest (kernels/wavefront.trace_forest: the CUDA kernels
                   on the card, their plain versions on the CPU) or, where
-                  `info.streamed`, the LBVH (wavefront.trace_streamed):
-                  the closest triangle alone, as a `Walk`. The per-bounce
-                  route hands it to the bounce kernel (kernels/bounce.py),
-                  which merges and shades
+                  `info.streamed`, the LBVH (wavefront.trace_streamed, or
+                  on the card, from SORT_MIN_RAYS rays, trace_sorted,
+                  whose kernels nudge too): the closest triangle alone,
+                  as a `Walk`. The per-bounce route hands it to the bounce
+                  kernel (kernels/bounce.py), which merges and shades
   ray_scene       walk_triangles, then the hit record (`walk_hit`) with
                   the analytic primitives merged (`_merge_analytic_batched`)
   surface_sample  normal, UV, tangent and material at the final hits, once
@@ -30,7 +31,10 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
                   sorted rays and its outputs are scattered back. The
                   walk is per ray, so the results are those of the rays
                   as given, bit for bit; the sort makes neighbouring
-                  lanes of a warp walk the same part of the tree.
+                  lanes of a warp walk the same part of the tree. On the
+                  card `wavefront.trace_sorted` does all of it in three
+                  launches (sort_key_kernel, the argsort, the walk in
+                  that order); `sorted_query` is its plain twin.
 
 Reference quirks kept: an implicit surface's hit parameter is measured in
 its local frame and compared with world distances as it is, and every hit
@@ -167,18 +171,27 @@ def _plain(pallas: str) -> bool:
     return pallas == "off"
 
 
-def _forest_fn(pallas: str, info):
-    """The triangle query of the scene, (o, d, t_init, scene, info) ->
-    (t, u, v, idx, counter, counter), and the table that maps its idx to
-    a triangle id."""
+def _query(o, d, scene, info, pallas: str, active):
+    """The triangle query of a scene with a tree from the origins o, not
+    yet nudged: (nudged origins, (t, u, v, idx, counter, counter)) from
+    `_t_init`. A streamed query of at least SORT_MIN_RAYS CUDA rays is
+    `wavefront.trace_sorted` (three launches that nudge, sort and walk);
+    another streamed query nudges here and `sorted_query`s the kernel or
+    its plain version, a forest query walks trace_forest or its plain
+    version."""
     plain = _plain(pallas)
+    if (info.streamed and not plain and o[0].is_cuda
+            and o[0].shape[0] >= SORT_MIN_RAYS):
+        return wavefront.trace_sorted(o, d, active, scene, info)
+    on = nudged(o, d)
+    t_init = _t_init(on[0], active)
     if info.streamed:
         query = (wavefront.streamed_reference if plain
                  else wavefront.trace_streamed)
-        return (lambda o, d, t_init, scene, info:
-                sorted_query(query, o, d, t_init, scene, info)), "st_perm"
-    return (wavefront.trace_forest_reference if plain
-            else wavefront.trace_forest), "wf_perm"
+        return on, sorted_query(query, on, d, t_init, scene, info)
+    query = (wavefront.trace_forest_reference if plain
+             else wavefront.trace_forest)
+    return on, query(on, d, t_init, scene, info)
 
 
 def has_tree(info) -> bool:
@@ -193,18 +206,20 @@ def nudged(o, d):
 def walk_triangles(o, d, scene, info, *, pallas: str = "auto",
                    active=None):
     """The first half of `ray_scene`: nudge the origins, then walk the
-    forest or (streamed) `sorted_query` the LBVH, for the closest triangle
-    alone. `active` and `pallas` as in `ray_scene`; a scene with no tree
-    walks nothing (row -1, t = t_init).
+    forest or the LBVH (`_query`), for the closest triangle alone.
+    `active` and `pallas` as in `ray_scene`; a scene with no tree walks
+    nothing (row -1, t = t_init).
 
     Returns (Walk, nudged origins)."""
     with span("pt0.query"):
-        forest, perm = _forest_fn(pallas, info)
+        if has_tree(info):
+            on, (t, u, v, idx, _, _) = _query(o, d, scene, info, pallas,
+                                              active)
+            perm = scene.st_perm if info.streamed else scene.wf_perm
+            return Walk(t, u, v, idx, perm), on
+        _plain(pallas)      # refuses an unknown `pallas` here too
         on = nudged(o, d)
         t_init = _t_init(on[0], active)
-        if has_tree(info):
-            t, u, v, idx, _, _ = forest(on, d, t_init, scene, info)
-            return Walk(t, u, v, idx, getattr(scene, perm)), on
         zero = torch.zeros_like(t_init)
         none = torch.full(t_init.shape, -1, dtype=torch.int32,
                           device=t_init.device)
@@ -246,9 +261,7 @@ def probe_forest_t(o, d, scene, info, *, pallas: str = "auto"):
 def heat_counts(o, d, scene, info, *, pallas: str = "auto"):
     """Per-ray (box tests, leaf visits) of the forest walk; of a streamed
     scene (box tests, row visits)."""
-    on = nudged(o, d)
-    out = _forest_fn(pallas, info)[0](on, d, _t_init(on[0], None), scene,
-                                      info)
+    out = _query(o, d, scene, info, pallas, None)[1]
     return out[4], out[5]
 
 
@@ -315,13 +328,13 @@ def spatial_sort_key(o, d, scene_lo, scene_hi, o_bits: int = 5,
                << (3 * (o_bits + d_bits))))
 
 
-def streamed_order(o, d, t_init, scene):
-    """The order in which the JAX package's `_ray_scene_streamed` hands
-    the rays o, d ((x, y, z) tuples of (R,), o nudged) to its kernel:
-    a stable argsort of `spatial_sort_key` in the LBVH's root box, the
-    rays that miss that box keyed 2^30 and the switched-off ones
-    (t_init = 0) 2^30 + 1. Returns (R,) int64."""
-    lo, hi = scene.st_top[0, 0:3], scene.st_top[0, 3:6]
+def streamed_keys(o, d, t_init, root):
+    """The keys by which the JAX package's `_ray_scene_streamed` sorts the
+    rays o, d ((x, y, z) tuples of (R,), o nudged): `spatial_sort_key` in
+    the LBVH's root box `root` (6,) (min then max), the rays that miss
+    that box keyed 2^30 and the switched-off ones (t_init = 0) 2^30 + 1.
+    The plain twin of csrc/sort_key.cuh `key`. Returns (R,) int32."""
+    lo, hi = root[0:3], root[3:6]
     o3, d3 = torch.stack(o, -1), torch.stack(d, -1)
     key = spatial_sort_key(o3, d3, lo, hi)
     inv = safe_inv_dir(d3)
@@ -329,8 +342,15 @@ def streamed_order(o, d, t_init, scene):
     near = torch.amax(torch.minimum(ta, tb), dim=-1)
     far = torch.amin(torch.maximum(ta, tb), dim=-1)
     key = torch.where((far >= near) & (far > 0.0), key, 2 ** 30)
-    key = torch.where(t_init > 0.0, key, 2 ** 30 + 1)
-    return torch.argsort(key, stable=True)
+    return torch.where(t_init > 0.0, key, 2 ** 30 + 1)
+
+
+def streamed_order(o, d, t_init, scene):
+    """The order in which the JAX package's `_ray_scene_streamed` hands
+    the rays o, d (o nudged) to its kernel: a stable argsort of
+    `streamed_keys` in the LBVH's root box. Returns (R,) int64."""
+    return torch.argsort(streamed_keys(o, d, t_init, scene.st_top[0, 0:6]),
+                         stable=True)
 
 
 def sorted_query(query, o, d, t_init, scene, info):
@@ -338,7 +358,8 @@ def sorted_query(query, o, d, t_init, scene, info):
     rays in `streamed_order` when there are at least SORT_MIN_RAYS of
     them, its outputs scattered back to the rays' own order; otherwise
     over the rays as given. The rays are gathered, and the outputs
-    scattered, as one tensor of each type."""
+    scattered, as one tensor of each type. The plain twin of
+    `wavefront.trace_sorted`, which the route takes on the card."""
     if t_init.shape[0] < SORT_MIN_RAYS:
         return query(o, d, t_init, scene, info)
     order = streamed_order(o, d, t_init, scene)

@@ -73,7 +73,9 @@ from .intersect import (MISS, ray_box, safe_inv_dir, tri_candidate,
 # forests of at most this many leaves skip the stack walk
 BRUTE_MAX_ROWS = 192
 
-launches = {"brute_kernel": 0, "traverse_kernel": 0, "streamed_kernel": 0}
+# sort_key_kernel counts the streamed queries that took `trace_sorted`
+launches = {"brute_kernel": 0, "traverse_kernel": 0, "streamed_kernel": 0,
+            "sort_key_kernel": 0}
 
 # the treelet's shape (csrc/streamed_kernel.cu has the same constants)
 _GROUPS = lbvh.TREELET_ROWS // lbvh.SUB_GROUP_ROWS
@@ -268,8 +270,13 @@ class _StreamArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "top", "sub", "tris",
-        "t", "u", "v", "idx", "box", "rows", "check_out")] + [
-        (n, ctypes.c_int) for n in ("n_rays", "n_treelets", "check")]
+        "t", "u", "v", "idx", "box", "rows", "check_out", "active", "key",
+        "order", "onx", "ony", "onz")] + [
+        (n, ctypes.c_int) for n in ("n_rays", "n_treelets", "form")]
+
+
+# csrc/streamed_kernel.cu's forms
+_NO_CHECK, _PHASES, _ORDERED = 0, 1, 2
 
 
 # the sums of csrc/streamed_kernel.cu's check-only PHASES instantiation, in
@@ -449,36 +456,130 @@ def streamed_phase_cycles(o, d, t_init, scene, info):
     return (*out, dict(zip(STREAMED_PHASES, sums.tolist())))
 
 
-def _launch_streamed(o, d, t_init, scene, info, check_out=None):
-    dev = t_init.device
+def sort_keys(o, d, active, scene, info):
+    """`sort_key_kernel` (csrc/streamed_kernel.cu): the origins o nudged
+    by 1e-4 d, bit for bit kernels/traverse.py `nudged`, and the key of
+    each ray, (R,) int32, bit for bit `streamed_keys` on the nudged rays.
+    o, d: (x, y, z) tuples of (R,) float32 CUDA tensors; `active` (R,)
+    bool, None for every ray on. Returns (nudged origins, keys)."""
+    n_rays, dev = o[0].shape[0], o[0].device
+    on = torch.empty((3, n_rays), dtype=torch.float32, device=dev)
+    key = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    args, held = _key_args(o, d, active, scene, info, on, key)
+    _launch_sort_key(args, _stream(dev))
+    return tuple(on.unbind(0)), key
+
+
+def trace_sorted(o, d, active, scene, info):
+    """The route's sorted streamed query on the card in three launches
+    (csrc/streamed_kernel.cu): `sort_keys`, a stable argsort of the keys,
+    and streamed_kernel's ORDERED form, which walks the rays in that order
+    from the nudged origins and t_init = MISS, or 0 where `active` is
+    false, and writes each ray's outputs to its own slot. o, d, active as
+    in `sort_keys`.
+
+    Returns (nudged origins, (t, u, v, idx, box tests, row visits)), bit
+    for bit `sorted_query(trace_streamed, ...)` (kernels/traverse.py) on
+    the nudged rays."""
+    dev, n_rays = o[0].device, o[0].shape[0]
+    # t, u, v, the nudged origins, idx, box, rows and the keys: one block
+    out = torch.empty((10, n_rays), dtype=torch.float32, device=dev)
+    t, u, v, *on = out[0:6].unbind(0)
+    idx, box, rows, key = out[6:10].view(torch.int32).unbind(0)
+    # `held`: the rays the kernels read, alive until both are launched
+    args, held = _key_args(o, d, active, scene, info, on, key)
+    stream = _stream(dev)
+    _launch_sort_key(args, stream)
+    order = torch.argsort(key, stable=True)
+    _set_outputs(args, (t, u, v, idx, box, rows))
+    args.ox, args.oy, args.oz = args.onx, args.ony, args.onz
+    args.order, args.form = order.data_ptr(), _ORDERED
+    _launch("pt_launch_streamed", args, stream)
+    launches["streamed_kernel"] += 1
+    return tuple(on), (t, u, v, idx, box, rows)
+
+
+def _key_args(o, d, active, scene, info, on, key):
+    """The `StreamArgs` of sort_key_kernel, writing the nudged origins to
+    `on` ((3, R), or three (R,)) and the keys to `key`, and the rays they
+    point at (as `_stream_args`)."""
+    dev = o[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no sort-key kernel for device {dev}")
+    if active is not None and (active.dtype != torch.bool
+                               or active.shape != (o[0].shape[0],)):
+        raise ValueError("active must be one bool per ray")
+    args, held = _stream_args(o, d, None, scene, info)
+    args.active = (None if active is None
+                   else build.ptr(active, torch.bool, dev))
+    args.onx, args.ony, args.onz = (build.ptr(c, torch.float32, dev)
+                                    for c in on)
+    args.key = build.ptr(key, torch.int32, dev)
+    return args, held
+
+
+def _launch_sort_key(args, stream):
+    _launch("pt_launch_sort_key", args, stream)
+    launches["sort_key_kernel"] += 1
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch(symbol, args, stream):
+    """Call csrc/streamed_kernel.cu's launch function `symbol` on `args`."""
+    fn = getattr(build.load("streamed_kernel"), symbol)
+    fn.argtypes = [ctypes.POINTER(_StreamArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.byref(args), stream)
+    if err:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+
+
+def _set_outputs(args, outs):
+    """Point t, u, v (float32) and idx, box, rows (int32) at `outs`."""
+    for name, x in zip(("t", "u", "v", "idx", "box", "rows"), outs):
+        setattr(args, name, x.data_ptr())
+
+
+def _stream_args(o, d, t_init, scene, info):
+    """The kernels' `StreamArgs` over the rays o, d (and `t_init`, unless
+    None), with no outputs yet, the tables checked; and the contiguous
+    rays they point at, which the caller holds until its launches are
+    enqueued (a copy freed before then could be handed to the next
+    allocation, whose kernels would overwrite it first)."""
+    dev = o[0].device
     _check_streamed(scene, info)
     if scene.st_tris.data_ptr() % 16:
         raise ValueError("st_tris must start on a 16-byte boundary: the "
                          "kernel reads a group's slots 16 bytes at a time")
-    n_rays = t_init.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    rays = [c.contiguous() for c in (*o, *d, t_init)]
+    n_rays = o[0].shape[0]
+    f32 = torch.float32
+    rays = [c.contiguous() for c in (*o, *d)]
+    if t_init is not None:
+        rays.append(t_init.contiguous())
     if n_rays < 1 or any(c.shape != (n_rays,) for c in rays):
         raise ValueError("o, d and t_init must hold one entry per ray, and "
                          "at least one ray")
-    t, u, v = (torch.empty(n_rays, dtype=f32, device=dev) for _ in range(3))
-    idx, box, rows = (torch.empty(n_rays, dtype=i32, device=dev)
-                      for _ in range(3))
-    args = _StreamArgs(
-        *(build.ptr(c, f32, dev) for c in rays),
+    return _StreamArgs(
+        *(build.ptr(c, f32, dev) for c in rays[:6]),
+        t_init=None if t_init is None else build.ptr(rays[6], f32, dev),
         top=build.ptr(scene.st_top, f32, dev),
         sub=build.ptr(scene.st_sub, f32, dev),
         tris=build.ptr(scene.st_tris, f32, dev),
-        t=t.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), idx=idx.data_ptr(),
-        box=box.data_ptr(), rows=rows.data_ptr(),
-        check_out=None if check_out is None else check_out.data_ptr(),
-        n_rays=n_rays, n_treelets=info.st_n_treelets,
-        check=int(check_out is not None))
-    launch = build.load("streamed_kernel").pt_launch_streamed
-    launch.argtypes = [ctypes.POINTER(_StreamArgs), ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    err = launch(ctypes.byref(args),
-                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err:
-        raise RuntimeError(f"streamed_kernel launch failed: CUDA error {err}")
-    return t, u, v, idx, box, rows
+        n_rays=n_rays, n_treelets=info.st_n_treelets, form=_NO_CHECK), rays
+
+
+def _launch_streamed(o, d, t_init, scene, info, check_out=None):
+    dev = t_init.device
+    n_rays = t_init.shape[0]
+    floats = torch.empty((3, n_rays), dtype=torch.float32, device=dev)
+    ints = torch.empty((3, n_rays), dtype=torch.int32, device=dev)
+    args, held = _stream_args(o, d, t_init, scene, info)
+    outs = (*floats.unbind(0), *ints.unbind(0))
+    _set_outputs(args, outs)
+    if check_out is not None:
+        args.check_out, args.form = check_out.data_ptr(), _PHASES
+    _launch("pt_launch_streamed", args, _stream(dev))
+    return outs

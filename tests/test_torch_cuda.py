@@ -498,6 +498,9 @@ def test_streamed_route_goes_through_its_kernel():
         after = dict(wavefront.launches)
         got = after.pop("streamed_kernel") - before.pop("streamed_kernel")
         assert 2 * 3 <= got <= 2 * 3 * (4 if raytracing else 1)
+        # W x H >= SORT_MIN_RAYS rays a query: each the sorted query's
+        keyed = after.pop("sort_key_kernel") - before.pop("sort_key_kernel")
+        assert keyed == got
         assert after == before
         assert others == (tframe.trace_frame.launches,
                           fused.trace_block.launches)
@@ -684,6 +687,166 @@ def test_streamed_query_launches_once_on_card():
         assert torch.equal(a, b)
     assert cyc["warp"] > cyc["group"] > 0 and cyc["group_tests"] > 0
     assert cyc["group_lanes"] >= cyc["group_distinct"] >= cyc["group_tests"]
+
+
+def _root_rays(sc, n, seed=9):
+    """n rays about the streamed scene's root box: from above it, mostly
+    downwards; one in eleven upwards and one in thirteen from beside the
+    box pointing away (both miss the root), a few with zero direction
+    components; and the active mask, one ray in six switched off."""
+    g = torch.Generator().manual_seed(seed)
+    top = sc.st_top[0].cpu()
+    lo, hi = top[0:3], top[3:6]
+    o = lo + (hi - lo) * torch.rand(n, 3, generator=g) \
+        + torch.tensor([0.0, 1.0, 0.0]) * (hi - lo)[1] * 0.5
+    d = torch.randn(n, 3, generator=g) * 0.6 + torch.tensor([0.0, -1.0, 0.0])
+    d[::11, 1] = d[::11, 1].abs()
+    o[3::13, 0] = hi[0] + 1.0
+    d[3::13, 0] = d[3::13, 0].abs()
+    d[5::17, 0] = 0.0
+    d[7::19, 2] = 0.0
+    d = d / d.norm(dim=1, keepdim=True)
+    o, d = (tuple(v[:, i].contiguous().cuda() for i in range(3))
+            for v in (o, d))
+    return o, d, (torch.arange(n) % 6 != 0).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["terrain_8k", "terrain_1m"])
+def test_sorted_query_matches_the_rays_as_given_on_card(scene):
+    """wavefront.trace_sorted (sort_key_kernel, the argsort, the ordered
+    streamed_kernel) against streamed_kernel on the nudged rays as given
+    and against the PyTorch sort (`sorted_query`): all six outputs bit for
+    bit, the nudged origins `nudged`'s, the keys `streamed_keys`'; with
+    switched-off rays and rays that miss the root; on an 8,978-triangle
+    terrain at 8,192 rays and on the 1M terrain at 480,000."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import traverse, wavefront
+
+    if scene == "terrain_8k":
+        sc, info = _terrain_scene(68, 4, stream_threshold=0)
+        n = 8192
+    else:
+        sc, info = scenes.terrain(708).build()
+        n = 480_000
+    assert info.streamed
+    o, d, active = _root_rays(sc, n)
+    before = dict(wavefront.launches)
+    on, out = wavefront.trace_sorted(o, d, active, sc, info)
+    torch.cuda.synchronize()
+    assert wavefront.launches["sort_key_kernel"] == \
+        before["sort_key_kernel"] + 1
+    assert wavefront.launches["streamed_kernel"] == \
+        before["streamed_kernel"] + 1
+    want_on = traverse.nudged(o, d)
+    for a, b in zip(on, want_on):
+        assert torch.equal(a, b)
+    t_init = traverse._t_init(want_on[0], active)
+    given = wavefront.trace_streamed(want_on, d, t_init, sc, info)
+    sorted_ = traverse.sorted_query(wavefront.trace_streamed, want_on, d,
+                                    t_init, sc, info)
+    for a, b, c in zip(out, given, sorted_):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    dead = ~active
+    for x, off in zip(out, (0.0, 0.0, 0.0, -1, 0, 0)):
+        assert bool((x[dead] == off).all())
+    keys = traverse.streamed_keys(want_on, d, t_init, sc.st_top[0, 0:6])
+    missed = float((keys == 2 ** 30).float().mean())
+    assert 0.05 < missed < 0.5
+    assert bool((keys[dead] == 2 ** 30 + 1).all())
+    assert 0.05 < float((out[3] >= 0).float().mean()) < 0.95
+    # the kernel's keys are the plain twin's (the sort's coherence), its
+    # nudged origins `nudged`'s
+    key_on, key = wavefront.sort_keys(o, d, active, sc, info)
+    assert torch.equal(key, keys)
+    for a, b in zip(key_on, want_on):
+        assert torch.equal(a, b)
+    # no mask: every ray on
+    on_all, out_all = wavefront.trace_sorted(o, d, None, sc, info)
+    full = wavefront.trace_streamed(want_on, d, torch.full_like(t_init, 1e30),
+                                    sc, info)
+    for a, b in zip(out_all, full):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sorted_query_takes_the_route_on_card():
+    """walk_triangles' nudged origins are `nudged`'s; heat_counts' counters
+    the as-given kernel's on the nudged rays (no ray nudged twice), also
+    from one origin expanded over every ray;
+    sort_key_kernel counts one launch for each of ray_scene,
+    probe_forest_t and heat_counts at 4,096 rays, none under
+    SORT_MIN_RAYS rays or with pallas="off"."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import traverse, wavefront
+
+    sc, info = _terrain_scene(40, 4, stream_threshold=0)
+    o, d, active = _root_rays(sc, 4096)
+    on = traverse.nudged(o, d)
+    walk, got_on = traverse.walk_triangles(o, d, sc, info, active=active)
+    for a, b in zip(got_on, on):
+        assert torch.equal(a, b)
+    given = wavefront.trace_streamed(on, d, traverse._t_init(on[0], active),
+                                     sc, info)
+    assert torch.equal(walk.t, given[0]) and torch.equal(walk.row, given[3])
+    box, rows = traverse.heat_counts(o, d, sc, info)
+    full = wavefront.trace_streamed(on, d, torch.full_like(on[0], 1e30), sc,
+                                    info)
+    assert torch.equal(box, full[4]) and torch.equal(rows, full[5])
+    # one origin for every ray, expanded (stride 0) as a camera's: the
+    # kernels read contiguous copies while the argsort allocates
+    eye = tuple(c[:1].expand(4096) for c in o)
+    walk_e, on_e = traverse.walk_triangles(eye, d, sc, info)
+    want_e = traverse.nudged(tuple(c.contiguous() for c in eye), d)
+    given_e = wavefront.trace_streamed(want_e, d,
+                                       torch.full_like(on[0], 1e30), sc, info)
+    for a, b in zip(on_e, want_e):
+        assert torch.equal(a, b)
+    assert torch.equal(walk_e.t, given_e[0])
+    assert torch.equal(walk_e.row, given_e[3])
+    box_e, rows_e = traverse.heat_counts(eye, d, sc, info)
+    assert torch.equal(box_e, given_e[4]) and torch.equal(rows_e, given_e[5])
+    for fn in (traverse.ray_scene, traverse.probe_forest_t,
+               traverse.heat_counts):
+        for n, pallas, keyed, walked in ((4096, "auto", 1, 1),
+                                         (1000, "auto", 0, 1),
+                                         (4096, "off", 0, 0)):
+            before = dict(wavefront.launches)
+            fn(tuple(c[:n] for c in o), tuple(c[:n] for c in d), sc, info,
+               pallas=pallas)
+            assert wavefront.launches["sort_key_kernel"] == \
+                before["sort_key_kernel"] + keyed, (fn, n, pallas)
+            assert wavefront.launches["streamed_kernel"] == \
+                before["streamed_kernel"] + walked, (fn, n, pallas)
+
+
+@pytest.mark.cuda
+def test_streamed_loop_bounce_device_operations_on_card():
+    """A bounce of the per-bounce route's loop on a streamed scene (4,096
+    rays) takes at most 25 device operations in a tools/profile.trace_busy
+    trace: the key, the sort, the walk, the bounce kernel, the readback."""
+    _card()
+    from pathtracer0_tpu_torch.core import math as vm
+    from pathtracer0_tpu_torch.kernels import frame
+    from pathtracer0_tpu_torch.render import integrator
+    from pathtracer0_tpu_torch.tools import profile
+
+    sc, info = scenes.terrain(33).build(RenderConfig(stream_threshold=1000))
+    assert info.streamed
+    w, h = 64, 64
+    state = trng.seed(torch.arange(w * h, device="cuda"), 4321)
+    o, d, state = frame._raygen(
+        torch.tensor([0.0, 7.0, -1.5], device="cuda"),
+        vm.rotation_matrix(torch.tensor([1.0, 0.0, 0.0], device="cuda")),
+        torch.tensor(20.0, device="cuda"), state, w, h, cam_size=1.5,
+        focal_length=1.0, blur=0.0)
+    o, d = [c.contiguous() for c in o], [c.contiguous() for c in d]
+    alive = torch.ones(w * h, dtype=torch.bool, device="cuda")
+    ops = {nb: profile.trace_busy(lambda nb=nb: integrator.trace_bounces(
+        sc, info, o, d, alive, state, max_bounces=nb))["device_kernels"]
+           for nb in (1, 3)}
+    per_bounce = (ops[3] - ops[1]) / 2
+    assert 0 < per_bounce <= 25, ops
 
 
 @pytest.mark.cuda

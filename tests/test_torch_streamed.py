@@ -514,6 +514,83 @@ def test_spatial_sort_key_matches_jax():
     assert len(np.unique(kt.numpy())) > 500
 
 
+def _key_rays(population, n=4096, seed=13):
+    """Rays about the root box [0, -1, 0] - [14, 6, 14] of one kind, one
+    in five switched off: "inside" (origins in and around the box, some
+    direction components 0), "miss" (from beside the box, half of them
+    pointing away), "faces" (origins on the box's faces, the direction
+    along the face's normal 0 where the nudge must leave them there)."""
+    rng = np.random.RandomState(seed)
+    lo = np.array([0.0, -1.0, 0.0], np.float32)
+    hi = np.array([14.0, 6.0, 14.0], np.float32)
+    o = (lo + rng.rand(n, 3) * 1.4 * (hi - lo) - 0.2 * (hi - lo))
+    d = rng.randn(n, 3)
+    if population == "inside":
+        d[::7, 0] = 0.0
+        d[3::7, 1] = 0.0
+        d[5::11] = 0.0
+    elif population == "miss":
+        o[:, 0] = hi[0] + 1.0 + rng.rand(n) * 20.0
+        d[::2, 0] = np.abs(d[::2, 0])
+        d[1::2, 0] = -np.abs(d[1::2, 0])
+    else:
+        at, axis = np.arange(n), np.arange(n) % 3
+        side = np.where((at % 2 == 0)[:, None], lo, hi)
+        o[at, axis] = side[at, axis]
+        flat = at % 4 == 0
+        d[flat, axis[flat]] = 0.0
+    d = d.astype(np.float32)
+    active = np.arange(n) % 5 != 2
+    return o.astype(np.float32), d, active, np.concatenate([lo, hi])
+
+
+@pytest.mark.parametrize("population", ["inside", "miss", "faces"])
+def test_sort_key_kernel_body_matches_jax_and_the_route(population):
+    """csrc/sort_key.cuh's per-ray body (sort_key_kernel's and the ordered
+    walk's nudge and key, built by g++) against the route's plain twin
+    `streamed_keys` on the nudged rays, bit for bit, and where a ray is on
+    and meets the root box against the JAX package's `_spatial_sort_key`;
+    switched-off rays keyed 2^30 + 1, root misses 2^30."""
+    import ctypes
+
+    from pathtracer0_tpu_torch.kernels import build
+
+    o, d, active, root = _key_rays(population)
+    n = o.shape[0]
+    lib = build.load("sort_key")
+    lib.pt_sort_keys.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 2
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)      # noqa: E731
+    oc, dc = np.ascontiguousarray(o.T), np.ascontiguousarray(d.T)
+    on = np.empty((3, n), np.float32)
+    key = np.empty(n, np.int32)
+    act = active.astype(np.uint8)
+    lib.pt_sort_keys(ptr(oc), ptr(dc), ptr(act), ptr(root), n, ptr(on),
+                     ptr(key))
+    on_t = ttraverse.nudged(_soa(o), _soa(d))
+    np.testing.assert_array_equal(on, torch.stack(on_t).numpy())
+    t_init = torch.where(torch.tensor(active), 1e30, 0.0)
+    plain = ttraverse.streamed_keys(on_t, _soa(d), t_init,
+                                    torch.tensor(root)).numpy()
+    assert plain.dtype == np.int32
+    np.testing.assert_array_equal(key, plain)
+    assert (key[~active] == 2 ** 30 + 1).all()
+    inside = key < 2 ** 30
+    kj = np.asarray(jtraverse._spatial_sort_key(
+        jnp.asarray(on.T), jnp.asarray(d), jnp.asarray(root[0:3]),
+        jnp.asarray(root[3:6])))
+    np.testing.assert_array_equal(key[inside], kj[inside])
+    missed = (key == 2 ** 30).mean()
+    if population == "miss":
+        assert 0.3 < missed < 0.8
+    else:
+        assert inside.mean() > 0.3 and len(np.unique(key)) > 300
+    # with no mask every ray is on
+    lib.pt_sort_keys(ptr(oc), ptr(dc), None, ptr(root), n, ptr(on), ptr(key))
+    np.testing.assert_array_equal(key[active], plain[active])
+    assert (key < 2 ** 30 + 1).all()
+
+
 def test_terrain_scene_streams_past_the_threshold():
     """`scenes.terrain(n)`: 2 (n - 1)^2 triangles as one indexed mesh; it
     streams once past `stream_threshold`. (Its own camera suits the

@@ -4,8 +4,9 @@ Every piece is a file found by the name `BENCHMARK.json` gives it, so a
 cell, a configuration, a traffic mix or a metric is added as files and
 entries alone:
 
-  configs/<config>.json   the scene, the RenderConfig fields, the source,
-                          what was cut (`reduced`) and assumed
+  configs/<config>.json   the scene (materials, spheres, ellipsoids,
+                          implicits, sky, mesh), the RenderConfig fields,
+                          the source, what was cut (`reduced`) and assumed
   configs/<config>.py     (optional) code that makes the scene's data
                           (`sky_image`, `mesh`, `camera`) and the
                           reference's own scene query (`reference_query`)
@@ -140,7 +141,9 @@ def mesh(config: dict, module):
 
 def build_program_scene(config: dict, module, device):
     """The scene built through the port's public API, packed on
-    `device`: (PackedScene, SceneInfo, RenderConfig)."""
+    `device`: (PackedScene, SceneInfo, RenderConfig). Spheres, then
+    ellipsoids, each in list order: the order of the port's table of
+    ellipsoids, which the reference's closest hit keeps."""
     from pathtracer0_tpu_torch import RenderConfig, Scene
 
     sc = Scene()
@@ -155,6 +158,12 @@ def build_program_scene(config: dict, module, device):
             sc.set_last_mtl(k, v)
     for s in config.get("spheres", []):
         sc.add_sphere(tuple(s["center"]), s["radius"], m=s["material"])
+    for e in config.get("ellipsoids", []):
+        sc.add_ellipsoid(tuple(e["center"]), tuple(e["stretch"]),
+                         tuple(e["rot"]), e["radius"], m=e["material"])
+    for k in config.get("implicits", []):
+        sc.add_implicit(k["fn"], tuple(k["shift"]), tuple(k["scale"]),
+                        tuple(k["rot"]), k["material"])
     got = mesh(config, module)
     if got is not None:
         verts, faces, _ = got
@@ -191,12 +200,24 @@ def build_reference_scene(config: dict, module, device):
                                         rows)
                  if hasattr(module, "reference_query")
                  else tracer.BruteQuery(*rows))
-    return tracer.RefScene(mats=mats, sph=sph, tri_n=tri_n, tri_mat=tri_mat,
-                           sky=sky, query=query)
+    ell = config.get("ellipsoids", [])
+    imp = config.get("implicits", [])
+    return tracer.RefScene(
+        mats=mats, sph=sph, tri_n=tri_n, tri_mat=tri_mat, sky=sky,
+        query=query,
+        ell=tracer.framed_table(
+            [list(e["center"]) + list(e["stretch"])
+             + [e["radius"], e["material"]] for e in ell],
+            [e["rot"] for e in ell], 8, device),
+        imp=tracer.framed_table(
+            [list(k["shift"]) + list(k["scale"]) + [k["material"]]
+             for k in imp], [k["rot"] for k in imp], 7, device,
+            fn=[k["fn"] for k in imp]))
 
 
 def check_config(config: dict):
-    """Refuse what the reference does not render."""
+    """Refuse what the reference does not render: modes other than path
+    mode, autofocus, texture maps, implicit surfaces other than 1..10."""
     r = render_fields(config)
     if not r.get("raytracing", True) or r.get("debug") or r.get(
             "legacy_pathtrace"):
@@ -208,6 +229,10 @@ def check_config(config: dict):
            if k.startswith("map_")}
     if bad:
         raise ValueError(f"the reference has no texture maps: {bad}")
+    fns = [k["fn"] for k in config.get("implicits", [])
+           if k["fn"] not in range(1, 11)]
+    if fns:
+        raise ValueError(f"implicit surfaces are functions 1..10, not {fns}")
 
 
 def tmp_dir():

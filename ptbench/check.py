@@ -28,13 +28,25 @@ from .reference import tracer
 def reference_images(ref_scene, render, images, *, dtype, sum_order):
     """The reference's values of each image, (P, 3) float32 each: its
     frames rendered at its pixels from its pose, then accumulated in
-    order."""
-    out = []
-    for im in images:
+    order. The frames of images of one pose and pixel count go through
+    the reference together, each at its image's pixels, so its blocks
+    hold many images' rays."""
+    groups = {}
+    for k, im in enumerate(images):
+        groups.setdefault((im.pos, im.rot, im.idx.numel()), []).append(k)
+    out = [None] * len(images)
+    for (pos, rot, _), ks in groups.items():
+        index = torch.cat([images[k].idx.expand(len(images[k].seeds), -1)
+                           for k in ks])
         frames, _ = tracer.render_frames(
-            ref_scene, render, im.pos, im.rot, im.idx, im.seeds, dtype=dtype,
+            ref_scene, render, pos, rot, index,
+            [s for k in ks for s in images[k].seeds], dtype=dtype,
             sum_order=sum_order)
-        out.append(tracer.display(frames.to(torch.float32)))
+        f0 = 0
+        for k in ks:
+            f1 = f0 + len(images[k].seeds)
+            out[k] = tracer.display(frames[f0:f1].to(torch.float32))
+            f0 = f1
     return out
 
 

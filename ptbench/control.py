@@ -9,9 +9,9 @@ twice over the same images: the program against the float32 reference
 (`sound`, the lower reading where no fault is planted), and the reference
 computed in bfloat16, the precision below the configuration's float32, in
 the program's place (`control`, the upper reading). `--fault` plants one of
-faults.FAULTS in the program first; its `sound` numbers are then the
-fault's readings. One JSON line a seed. The benchmark's own runs never run
-this.
+faults.FAULTS or faults.GEOMETRY_FAULTS in the program before the scene is
+built; its `sound` numbers are then the fault's readings. One JSON line a
+seed. The benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -50,12 +50,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     from .run import Bench
 
-    b = Bench(args.workload)
     undo = None
     if args.fault:
         from .faults import plant
         undo = plant(args.fault)
     try:
+        b = Bench(args.workload)
         for seed in args.seeds:
             t = time.perf_counter()
             sound, control, n, nonfinite = readings(b, seed, args.seconds)

@@ -15,5 +15,6 @@ def read(r):
     px = r["render"]["width"] * r["render"]["height"] * rec.frames
     floor = roofline.frame_kernel_s(
         pixels=px, queries=rec.queries, n_tris=r["info"]["n_tris"],
-        n_ell=r["info"]["n_ell"], n_mats=r["info"]["n_mats"])
+        n_ell=r["info"]["n_ell"], n_imp=r["info"]["n_imp"],
+        n_rot=r["info"]["n_rot"], n_mats=r["info"]["n_mats"])
     return 100.0 * floor / ms

@@ -61,8 +61,9 @@ def seed(pixel_index, frame_seed: int):
 
 
 def seed_many(pixel_index, frame_seeds):
-    """(F, P) states of P pixels under F frame seeds ((F,) int64)."""
-    return (pixel_index.to(torch.int64)[None, :]
+    """(F, P) states of pixels `pixel_index` ((P,) for every frame, or
+    (F, P)) under F frame seeds ((F,) int64)."""
+    return (pixel_index.to(torch.int64)
             + (frame_seeds.to(torch.int64)[:, None] & MASK)) & MASK
 
 

@@ -1,6 +1,6 @@
 """The plain reference path tracer (frag.glsl:810-933) over a scene of
-spheres and flat-shaded triangles, and the accumulation of frames into the
-displayed image.
+spheres, rotated ellipsoids, implicit surfaces and flat-shaded triangles,
+and the accumulation of frames into the displayed image.
 
 It follows the renderer's semantics draw for draw: each pixel's RNG stream
 is seeded pixel index + frame seed and carried across the frame's samples;
@@ -10,8 +10,16 @@ the refraction-index stack, chooseRay, the medium, emission, the
 throughput cutoff, Beer-Lambert or the lobe's colour; a miss adds the sky
 and ends the ray. The arithmetic is a frozen copy of the port's plain
 bounce (kernels/bounce.py `bounce_step_plain`, shade/bsdf.py), trimmed to
-what these scenes use: no texture maps, implicits or rotated ellipsoids.
-The stack is kept top first, one row per ray.
+what these scenes use: no texture maps. The stack is kept top first, one
+row per ray.
+
+An ellipsoid and an implicit surface are what the scene description says
+(frag.glsl:299-349, 578-631): a ray is taken into the primitive's frame
+(an ellipsoid's: the ray turned by the Euler rotation R = Rz Ry Rx; an
+implicit's: (o - shift) / scale and d / scale, then turned by R), tested
+there (the stretched quadric; the march of reference/implicits.py), and
+the normal found there is turned back by R^T. The reference makes its own
+rotations and tables from the configuration.
 
 The triangle query is the scene's own (`RefScene.query`): the reference
 builds it from the triangles, never from the program's tree.
@@ -24,7 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import core
+from . import core, implicits
 from .core import dot3, sqrt, unit3
 
 MISS = 1e30
@@ -44,6 +52,53 @@ DEFAULTS = {"Kd": (0.8, 0.8, 0.8), "Ks": (0.5, 0.5, 0.5), "Ke": (0.0,) * 3,
 
 
 @dataclasses.dataclass
+class Framed:
+    """Primitives that are tested in a frame of their own: ellipsoids
+    (rows: centre, stretch, radius, material) or implicit surfaces (rows:
+    shift, scale, material; `fn` their function ids)."""
+
+    rows: torch.Tensor          # (N, 8) ellipsoids, (N, 7) implicits
+    rot: torch.Tensor           # (N, 9) R = Rz Ry Rx, row-major
+    rotated: tuple              # per row: R is not the identity
+    fn: tuple = ()
+
+    def __len__(self):
+        return len(self.rotated)
+
+    def to(self, dtype):
+        return dataclasses.replace(self, rows=self.rows.to(dtype),
+                                   rot=self.rot.to(dtype))
+
+
+def euler_matrix(rot):
+    """R = Rz Ry Rx of the Euler angles `rot`, in float32, row-major (9,),
+    and whether any angle is not 0. Made on the host with numpy's float32
+    sines, as the renderer makes a primitive's rotation when it builds the
+    scene (`core.rotation_matrix` is the camera's, made on the device)."""
+    rx, ry, rz = (np.float32(v) for v in rot)
+    cx, sx = np.cos(rx), np.sin(rx)
+    cy, sy = np.cos(ry), np.sin(ry)
+    cz, sz = np.cos(rz), np.sin(rz)
+    m = np.array([cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx,
+                  sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx,
+                  -sy, cy * sx, cy * cx], np.float32)
+    return m, bool(rx != 0 or ry != 0 or rz != 0)
+
+
+def framed_table(rows, rots, width, device, fn=()):
+    """A Framed table of `rows` (lists of `width` floats) and their Euler
+    angles `rots`."""
+    mats = [euler_matrix(r) for r in rots]
+    return Framed(
+        rows=torch.tensor(np.asarray(rows, np.float32).reshape(-1, width),
+                          device=device),
+        rot=torch.tensor(np.asarray([m for m, _ in mats],
+                                    np.float32).reshape(-1, 9),
+                         device=device),
+        rotated=tuple(r for _, r in mats), fn=tuple(int(f) for f in fn))
+
+
+@dataclasses.dataclass
 class RefScene:
     """The reference's own tables, made from the configuration's data."""
 
@@ -53,6 +108,8 @@ class RefScene:
     tri_mat: torch.Tensor       # (T,) int64
     sky: torch.Tensor           # (h, w, 3)
     query: Optional[Callable]   # (on, d, alive) -> (t, u, v, tri)
+    ell: Framed                 # ellipsoids, after the spheres
+    imp: Framed                 # implicit surfaces
 
     def to(self, dtype):
         """The same scene with its float tables in `dtype`."""
@@ -60,7 +117,8 @@ class RefScene:
             self, mats={k: v.to(dtype) for k, v in self.mats.items()},
             sph=self.sph.to(dtype), tri_n=self.tri_n.to(dtype),
             sky=self.sky.to(dtype),
-            query=None if self.query is None else self.query.to(dtype))
+            query=None if self.query is None else self.query.to(dtype),
+            ell=self.ell.to(dtype), imp=self.imp.to(dtype))
 
 
 def material_tables(materials, device):
@@ -162,10 +220,52 @@ def triangle_rows(v1, v2, v3, device):
                  for a in (v1, v2 - v1, v3 - v1))
 
 
+def _turn(r, v):
+    """R v, R the row-major (9,) rotation `r`."""
+    return (r[0] * v[0] + r[1] * v[1] + r[2] * v[2],
+            r[3] * v[0] + r[4] * v[1] + r[5] * v[2],
+            r[6] * v[0] + r[7] * v[1] + r[8] * v[2])
+
+
+def _turn_back(r, v):
+    """R^T v."""
+    return (r[0] * v[0] + r[3] * v[1] + r[6] * v[2],
+            r[1] * v[0] + r[4] * v[1] + r[7] * v[2],
+            r[2] * v[0] + r[5] * v[1] + r[8] * v[2])
+
+
+def _framed(table):
+    """(row, rotation, rotated, fn) of each primitive of a Framed table,
+    rows and rotations as lists of scalars."""
+    return [([table.rows[k, i] for i in range(table.rows.shape[1])],
+             [table.rot[k, i] for i in range(9)], table.rotated[k],
+             table.fn[k] if table.fn else None)
+            for k in range(len(table))]
+
+
+def _implicit_frame(row, r, rotated, on, d):
+    """A ray in an implicit surface's frame: (o - shift) / scale and
+    d / scale, turned by R."""
+    lo = tuple((on[i] - row[i]) / row[3 + i] for i in range(3))
+    ld = tuple(d[i] / row[3 + i] for i in range(3))
+    if rotated:
+        return _turn(r, lo), _turn(r, ld)
+    return lo, ld
+
+
+def _ellipsoid_frame(r, rotated, on, d):
+    """A ray in an ellipsoid's frame: turned by R."""
+    if rotated:
+        return _turn(r, on), _turn(r, d)
+    return on, d
+
+
 def closest_hit(scene: RefScene, on, d, alive):
     """(t, kind, prim, u, v) of rays from the nudged origins: the
-    triangles first, then each sphere with a strict t < closest. kind 0
-    none, 1 triangle, 3 sphere; prim the triangle or sphere."""
+    triangles first, then each implicit surface, each sphere and each
+    ellipsoid, in table order, each with a strict t < closest. kind 0
+    none, 1 triangle, 2 implicit, 3 sphere, 4 ellipsoid; prim the
+    triangle, implicit, sphere or ellipsoid."""
     like = on[0]
     if scene.query is not None:
         t, u, v, tri = scene.query(on, d, alive)
@@ -176,6 +276,13 @@ def closest_hit(scene: RefScene, on, d, alive):
                          device=like.device)
     kind = torch.where(tri >= 0, 1, 0)
     prim = tri.clone()
+    for k, (row, r, rotated, fn) in enumerate(_framed(scene.imp)):
+        lo, ld = _implicit_frame(row, r, rotated, on, d)
+        tk, found = implicits.march(fn, lo, ld)
+        ok = found & (tk < t)
+        t = torch.where(ok, tk, t)
+        kind = torch.where(ok, 2, kind)
+        prim = torch.where(ok, k, prim)
     for e in range(scene.sph.shape[0]):
         c, rad = scene.sph[e, 0:3], scene.sph[e, 3]
         oc = (on[0] - c[0], on[1] - c[1], on[2] - c[2])
@@ -191,6 +298,25 @@ def closest_hit(scene: RefScene, on, d, alive):
         ok = (disc > 0.0) & (te > 0.0) & (te < t)
         t = torch.where(ok, te, t)
         kind = torch.where(ok, 3, kind)
+        prim = torch.where(ok, e, prim)
+    for e, (row, r, rotated, _) in enumerate(_framed(scene.ell)):
+        ro, rd = _ellipsoid_frame(r, rotated, on, d)
+        f, rad = row[3:6], row[6]
+        oc = (ro[0] - row[0], ro[1] - row[1], ro[2] - row[2])
+        a = f[0] * rd[0] * rd[0] + f[1] * rd[1] * rd[1] + f[2] * rd[2] * rd[2]
+        b = 2.0 * (f[0] * oc[0] * rd[0] + f[1] * oc[1] * rd[1]
+                   + f[2] * oc[2] * rd[2])
+        cc = (f[0] * oc[0] * oc[0] + f[1] * oc[1] * oc[1]
+              + f[2] * oc[2] * oc[2] - rad * rad)
+        disc = b * b - 4.0 * a * cc
+        sq = sqrt(torch.clamp(disc, min=0.0))
+        inv_2a = 1.0 / (2.0 * a)
+        t0, t1 = (-b - sq) * inv_2a, (-b + sq) * inv_2a
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        te = torch.where(lo > 0.0, lo, hi)
+        ok = (disc > 0.0) & (te > 0.0) & (te < t)
+        t = torch.where(ok, te, t)
+        kind = torch.where(ok, 4, kind)
         prim = torch.where(ok, e, prim)
     return t, kind, prim, u, v
 
@@ -310,7 +436,7 @@ def bounce(scene: RefScene, p: Paths) -> Paths:
     hit = alive & (t < HIT_T)
     is_miss = alive & ~(t < HIT_T)
     hx = tuple(on[i] + t * d[i] for i in range(3))
-    # surface: triangle flat normal or sphere normal, and material
+    # surface: the hit primitive's normal and material
     zero = torch.zeros_like(t)
     norm, mat = (zero, zero, zero), torch.zeros_like(prim)
     if scene.tri_n.shape[0]:
@@ -326,6 +452,23 @@ def bounce(scene: RefScene, p: Paths) -> Paths:
         n = unit3(tuple(on[i] + t * d[i] - c[i] for i in range(3)))
         norm = tuple(torch.where(here, n[i], norm[i]) for i in range(3))
         mat = torch.where(here, c[4].to(torch.int64), mat)
+    for k, (row, r, rotated, fn) in enumerate(_framed(scene.imp)):
+        here = (kind == 2) & (prim == k)
+        lo, ld = _implicit_frame(row, r, rotated, on, d)
+        g = unit3(implicits.gradient(fn, tuple(lo[i] + ld[i] * t
+                                               for i in range(3))))
+        if rotated:
+            g = _turn_back(r, g)
+        norm = tuple(torch.where(here, g[i], norm[i]) for i in range(3))
+        mat = torch.where(here, row[6].to(torch.int64), mat)
+    for e, (row, r, rotated, _) in enumerate(_framed(scene.ell)):
+        here = (kind == 4) & (prim == e)
+        ro, rd = _ellipsoid_frame(r, rotated, on, d)
+        n = unit3(tuple(ro[i] + t * rd[i] - row[i] for i in range(3)))
+        if rotated:
+            n = _turn_back(r, n)
+        norm = tuple(torch.where(here, n[i], norm[i]) for i in range(3))
+        mat = torch.where(here, row[7].to(torch.int64), mat)
     m = {k: (tuple(tab[mat, i] for i in range(3)) if k in RGB else tab[mat])
          for k, tab in scene.mats.items()}
 
@@ -431,11 +574,12 @@ def trace(scene: RefScene, o, d, state, *, max_bounces: int,
 
 
 def frame_rays(cam_pos, rotmat, ifd, index, state, render):
-    """The camera rays of pixels `index` (P,) in F frames: cam_pos (F, 3),
-    rotmat (F, 3, 3), state (F, P). Returns (o, d) as (x, y, z) tuples of
-    (F*P,) and the state after."""
+    """The camera rays of pixels `index` (P,), or (F, P) each frame its
+    own, in F frames: cam_pos (F, 3), rotmat (F, 3, 3), state (F, P).
+    Returns (o, d) as (x, y, z) tuples of (F*P,) and the state after."""
     uv = core.pixel_uv(index, render["width"], render["height"])
-    pd = core.primary_directions(uv[None], rotmat[:, None], render["cam_size"],
+    uv = uv if index.dim() == 2 else uv[None]
+    pd = core.primary_directions(uv, rotmat[:, None], render["cam_size"],
                                  render["focal_length"],
                                  render["height"] / float(render["width"]))
     o, d, st = core.dof_ray(cam_pos[:, None], pd.to(rotmat.dtype),
@@ -448,8 +592,9 @@ def frame_rays(cam_pos, rotmat, ifd, index, state, render):
 def render_frames(scene: RefScene, render: dict, cam_pos, cam_rot, index,
                   frame_seeds, *, dtype=torch.float32, sum_order="frame",
                   block_rays=1 << 20):
-    """The frames of `frame_seeds` (F,) at pixels `index` (P,), each from
-    its pose (cam_pos, cam_rot: (3,) for all frames or (F, 3)): returns
+    """The frames of `frame_seeds` (F,) at pixels `index` ((P,) for all
+    frames, or (F, P) each frame its own), each from its pose (cam_pos,
+    cam_rot: (3,) for all frames or (F, 3)): returns
     ((F, P, 3) each frame's mean over its samples, queries). Frames go
     through in blocks of at most `block_rays` rays. `sum_order` is the
     route's order of the samples' sum: "frame" adds up the radiance and
@@ -467,18 +612,19 @@ def render_frames(scene: RefScene, render: dict, cam_pos, cam_rot, index,
                        device=dev).to(dtype)
     spp = render["samples_per_frame"]
     seeds = torch.as_tensor(np.asarray(frame_seeds, np.int64), device=dev)
-    p = index.shape[0]
+    index = index.expand(n, -1) if index.dim() == 1 else index
+    p = index.shape[1]
     per_block = max(1, block_rays // p)
     out, queries = [], 0
     for s0 in range(0, n, per_block):
         blk = slice(s0, s0 + per_block)
-        st = core.seed_many(index, seeds[blk])
+        st = core.seed_many(index[blk], seeds[blk])
         f = st.shape[0]
         inc = torch.zeros((f * p, 3), dtype=dtype, device=dev)
         skyc = torch.zeros_like(inc)
         for _ in range(spp):
             o, d, st = frame_rays(pos[blk].to(dtype), rotmat[blk], ifd,
-                                  index, st.reshape(f, p), render)
+                                  index[blk], st.reshape(f, p), render)
             i, s, st, q = trace(scene, o, d, st,
                                 max_bounces=render["max_bounces"],
                                 stack_size=render["refraction_stack_depth"])

@@ -5,7 +5,11 @@ worked from the work a frame needs: the cell's shapes, the scene's table
 sizes and the scene queries the traced frames made (Renderer.rays_traced),
 never a kernel's launch configuration or timing, so the same work is read
 whatever implements it. Each count is a floor: work that depends on the
-data and is not known from those is left out.
+data and is not known from those is left out. So an implicit surface
+counts its transform and bounding test a query (OPS_IMP) and not its
+march: how many of the lattice's samples and bisections a ray takes
+depends on where the ray meets the surface, and the kernel skips the
+samples outside a bounded surface's sphere.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W: 67 TFLOP/s
 of float32 outside the tensor cores, 3.35 TB/s of HBM3. A card set below

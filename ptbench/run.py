@@ -141,6 +141,9 @@ def run_cell(workload, seed, seconds, trace, *, device="cuda",
               "config": c.config, "render": b.render, "mix": c.mix,
               "info": {"n_tris": b.info.num_tris,
                        "n_ell": b.info.num_ellipsoids,
+                       "n_imp": b.info.num_implicits,
+                       "n_rot": (sum(b.info.ell_rotated)
+                                 + sum(b.info.imp_rotated)),
                        "n_mats": len(c.config["materials"]),
                        "streamed": bool(b.info.streamed)}}
     sess.close()

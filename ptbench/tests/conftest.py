@@ -4,29 +4,45 @@ fixture.
 
     python -m pytest ptbench/tests            (from the checkout's root)
     python -m pytest -m cuda ptbench/tests    (on a machine with a card)
+
+The cells and configurations are those of BENCHMARK.json, each test
+parametrized over them by name. A configuration's CPU size is
+`configs/<config>.tiny.json`, a traffic mix's `traffic/<mix>.tiny.json`:
+merged into the cell as its `overrides`, so a cell added as files is
+tested here with no test file edited.
 """
+import json
+
 import pytest
 
-# each cell at a size the CPU renders in seconds: every pixel checked, the
-# terrain at n = 33 (2,048 triangles) through the streamed LBVH
-TINY = {
-    "hero": {"render": {"width": 16, "height": 12,
-                        "samples_per_frame": 2}},
-    "terrain1m": {"render": {"width": 16, "height": 12,
-                             "samples_per_frame": 2,
-                             "stream_threshold": 1000},
-                  "mesh": {"n": 33},
-                  "camera": {"pos": [0.0, 7.0, -1.5], "rot": [1.0, 0.0, 0.0]}},
-}
-TINY_MIX = {
-    "progressive": {"check_pixels": 192, "check_pixels_first": 192,
-                    "clean_spp": 8, "trace_count": 3, "warm": 1},
-}
+from ptbench import bench
+
+_BENCH = bench.benchmark()
+WORKLOADS = [w["name"] for w in _BENCH["workloads"]]
+CONFIGS = [c["name"] for c in _BENCH["configs"]]
+
+
+def _tiny_file(kind, name):
+    with open(bench.PKG / kind / f"{name}.tiny.json") as f:
+        return json.load(f)
+
+
+def workload_of(config):
+    """The first cell of BENCHMARK.json that runs `config`."""
+    return next(w["name"] for w in _BENCH["workloads"]
+                if w["config"] == config)
+
+
+def tiny_config(config):
+    """The CPU size of configuration `config`: its `.tiny.json`."""
+    return _tiny_file("configs", config)
 
 
 def tiny(workload):
-    config, mix = workload.split(".")
-    return {"config": TINY[config], "mix": TINY_MIX[mix]}
+    """The overrides that shrink cell `workload` to its CPU size."""
+    w = next(w for w in _BENCH["workloads"] if w["name"] == workload)
+    return {"config": tiny_config(w["config"]),
+            "mix": _tiny_file("traffic", w["traffic"])}
 
 
 @pytest.fixture(autouse=True, scope="session")

@@ -7,7 +7,7 @@ import torch
 
 from ptbench import check
 from ptbench.run import Bench
-from ptbench.tests.conftest import tiny
+from ptbench.tests.conftest import WORKLOADS, tiny
 
 
 def _readings(workload, device, overrides, seeds, seconds):
@@ -25,8 +25,7 @@ def _readings(workload, device, overrides, seeds, seconds):
     return out
 
 
-@pytest.mark.parametrize("workload", ["hero.progressive",
-                                      "terrain1m.progressive"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_control_fails_tiny(workload):
     for sound, correct in _readings(workload, "cpu", tiny(workload), [11],
                                     0.3):
@@ -35,8 +34,7 @@ def test_control_fails_tiny(workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["hero.progressive",
-                                      "terrain1m.progressive"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_control_fails_on_the_card(card, workload):
     for _, correct in _readings(workload, card, None, [21, 22, 23], 2.0):
         assert not correct

@@ -49,9 +49,16 @@ def mulmod(s: torch.Tensor, a: int) -> torch.Tensor:
     return (lo * a + (((hi * a) & 0xFFFF) << 16)) & MASK
 
 
-def seed(pixel_index: torch.Tensor, frame_seed: int) -> torch.Tensor:
-    """rngState = pixelIndex + u_seed (frag.glsl:896), wrapping uint32."""
-    return (pixel_index.to(torch.int64) + (int(frame_seed) & MASK)) & MASK
+def seed(pixel_index: torch.Tensor, frame_seed) -> torch.Tensor:
+    """rngState = pixelIndex + u_seed (frag.glsl:896), wrapping uint32.
+    `frame_seed` is an int or an int64 tensor of one element on the
+    pixels' device (read on the device, never on the host): the same
+    bits either way."""
+    if isinstance(frame_seed, torch.Tensor):
+        frame_seed = frame_seed.to(torch.int64) & MASK
+    else:
+        frame_seed = int(frame_seed) & MASK
+    return (pixel_index.to(torch.int64) + frame_seed) & MASK
 
 
 def advance(state: torch.Tensor, n: int = 1) -> torch.Tensor:

@@ -10,7 +10,9 @@ one interface, `(scene, info, st, walk, *, form, probe_t)`:
   bounce_step        csrc/bounce_kernel.cu, one launch, on CUDA tensors;
                      the path form reads back the count of rays it leaves
                      alive (4 bytes), which stands in for the while_loop's
-                     device-side `cond`. It raises on CPU tensors.
+                     device-side `cond`, unless told not to (`readback`:
+                     the loop a CUDA graph captures). It raises on CPU
+                     tensors.
   bounce_step_plain  the same body as PyTorch ops on (R,) tensors, one
                      tensor per vector component: the plain version, on any
                      device (the CPU route runs it).
@@ -304,9 +306,12 @@ def _flip(stack, ssize):
 
 
 def bounce_step_plain(scene, info, st: BounceState, walk, *,
-                      form: str = "path", probe_t=None) -> int:
+                      form: str = "path", probe_t=None,
+                      readback: bool = True):
     """One bounce as PyTorch ops, on `st` in place. Returns the count of
-    rays the path form leaves alive (0 for the Whitted forms)."""
+    rays the path form leaves alive (0 for the Whitted forms); with
+    `readback` false the path form reads nothing back and returns None
+    (the count stays in st.live)."""
     _check(st, walk, form, probe_t)
     o, d, alive = tuple(st.o), tuple(st.d), st.alive
     on = traverse.nudged(o, d)
@@ -423,11 +428,8 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
     st.inobj.copy_(torch.where(hitf, new_inobj, inobj))
     st.state.copy_(torch.where(hitf, lobe.state, state))
     st.alive.copy_(hitf & ~cutoff)
-    with span("pt0.bounce.readback"):
-        n_live = int(st.alive.sum())
-    st.live[st.bounce] = n_live
-    st.bounce += 1
-    return n_live
+    st.live[st.bounce] = st.alive.sum()
+    return _finish(st, form, readback)
 
 
 # ---- the kernel and its host build ---------------------------------------
@@ -496,11 +498,16 @@ def camera_args(st, pd, cam, blur, accumulate):
         accumulate=int(bool(accumulate)), blur=float(blur))
 
 
-def _finish(st, form):
+def _finish(st, form, readback):
+    """The bounce taken: the path form's count of rays left alive, read
+    back from st.live (the loop's one readback), or None without
+    `readback`; 0 for the Whitted forms."""
     if form != "path":
         return 0
-    with span("pt0.bounce.readback"):
-        n_live = int(st.live[st.bounce])    # the loop's one readback
+    n_live = None
+    if readback:
+        with span("pt0.bounce.readback"):
+            n_live = int(st.live[st.bounce])
     st.bounce += 1
     return n_live
 
@@ -520,10 +527,11 @@ def launch(args, dev):
 
 
 def bounce_step(scene, info, st: BounceState, walk, *, form: str = "path",
-                probe_t=None) -> int:
+                probe_t=None, readback: bool = True):
     """One bounce through csrc/bounce_kernel.cu, on `st` in place (CUDA
     tensors only). Returns as `bounce_step_plain`; the path form reads the
-    count back from the card."""
+    count back from the card unless `readback` is false (as while a CUDA
+    graph captures the loop)."""
     dev = st.alive.device
     if dev.type != "cuda":
         raise ValueError(f"bounce_kernel runs on CUDA tensors, not {dev}: "
@@ -532,7 +540,7 @@ def bounce_step(scene, info, st: BounceState, walk, *, form: str = "path",
     args, _keep = _args(scene, info, st, walk, form, probe_t)  # to the end
     launch(args, dev)
     bounce_step.launches += 1
-    return _finish(st, form)
+    return _finish(st, form, readback)
 
 
 bounce_step.launches = 0
@@ -574,7 +582,8 @@ def _host(args):
 
 
 def bounce_step_host(scene, info, st: BounceState, walk, *,
-                     form: str = "path", probe_t=None) -> int:
+                     form: str = "path", probe_t=None,
+                     readback: bool = True):
     """One bounce through the kernel's per-ray body built by g++
     (csrc/bounce_host.cpp), on `st` in place (CPU tensors only). Returns
     as `bounce_step_plain`."""
@@ -583,4 +592,4 @@ def bounce_step_host(scene, info, st: BounceState, walk, *,
     _check(st, walk, form, probe_t)
     args, _keep = _args(scene, info, st, walk, form, probe_t)  # to the end
     _host(args)
-    return _finish(st, form)
+    return _finish(st, form, readback)

@@ -11,9 +11,11 @@ Two triangle queries feed one bounce loop and one bounce step
                     one `bounce.bounce_step` (csrc/bounce_kernel.cu: the
                     analytic merge, the surface, the shade) and a 4-byte
                     readback of the rays left alive, which stands in for
-                    the JAX package's device-side `while_loop` test. CPU
-                    tensors, or pallas="off", take the plain versions of
-                    both. `trace_bounces`, `direct_diffuse`.
+                    the JAX package's device-side `while_loop` test (no
+                    readback while a CUDA graph captures the loop: every
+                    bounce is issued). CPU tensors, or pallas="off", take
+                    the plain versions of both. `trace_bounces`,
+                    `direct_diffuse`.
   brute force       `closest_hit`: every triangle with the division-free
                     Möller-Trumbore test, first closest in table order
                     wins, then the plain bounce step. `trace_plain` and
@@ -106,22 +108,34 @@ def _step(device, pallas: str):
     return bounce.bounce_step_plain
 
 
+def capturing(device) -> bool:
+    """Whether the current CUDA stream of `device` is capturing a graph
+    (render/graph.py): then nothing may be read back."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def _run_bounces(walk, step, scene, info, st, *, max_bounces: int,
-                 n_live=None):
+                 n_live=None, readback=None):
     """The bounce loop on a begun path state `st`: per bounce
     `walk(o, d, alive) -> (Walk, nudged origins)`, then `step`
-    (kernels/bounce.py) on the rays' state in place. One host sync per
-    bounce: the count of rays left alive, which `step` reads back; the
-    count before the first bounce is read too unless the caller gives it
-    (`n_live`: every ray of a camera form's state is alive)."""
-    if n_live is None:
+    (kernels/bounce.py) on the rays' state in place. With `readback`, one
+    host sync per bounce: the count of rays left alive, which `step` reads
+    back, and the loop ends where it is 0; the count before the first
+    bounce is read too unless the caller gives it (`n_live`: every ray of
+    a camera form's state is alive). Without, every one of `max_bounces`
+    bounces is issued and nothing is read: the kernels skip rays that are
+    not alive, so the state, the images and the queries are the same bits.
+    `readback` defaults to true unless the stream is `capturing`."""
+    if readback is None:
+        readback = not capturing(st.alive.device)
+    if readback and n_live is None:
         n_live = int(st.alive.sum())
     for _ in range(max_bounces):
-        if not n_live:
+        if readback and not n_live:
             break
         w, _ = walk(tuple(st.o), tuple(st.d), st.alive)
         with span("pt0.bounce"):
-            n_live = step(scene, info, st, w)
+            n_live = step(scene, info, st, w, readback=readback)
 
 
 def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,

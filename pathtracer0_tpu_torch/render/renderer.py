@@ -17,7 +17,10 @@ by one of two routes:
                     streamed scene, the two-level LBVH, or the block
                     kernel (`trace_fused`) where the scene is eligible;
                     more than `config.ray_batch_size` pixels go through
-                    it in chunks
+                    it in chunks. On the card a path-mode frame of it is
+                    one CUDA graph's replay (render/graph.py: captured at
+                    the first frame of a scene and config, no readback
+                    a bounce)
 
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import os
 from typing import Optional
 
@@ -54,7 +58,7 @@ from ..core import rng as vrng
 from ..core.device import resolve_device
 from ..kernels import bounce, frame, traverse
 from ..shade import arealights
-from . import integrator
+from . import graph, integrator
 
 # sample k of a folded pixel seeds its stream as pixel index + k * stride:
 # an odd constant (2^32 / golden ratio), not the local pixel count, so a
@@ -63,6 +67,8 @@ FOLD_STRIDE = 2654435769
 # the heatmap's red term of the triangle tests, which the reference never
 # counts: exp(0.02 (0 - 150)) (frag.glsl:534)
 _HEAT_TRI = float(np.float32(np.exp(0.02 * (0.0 - 150.0))))
+# the frame graph of render_frame's callers that keep none of their own
+_GRAPHS = graph.Slot()
 
 
 def _check(config: RenderConfig, dev: torch.device):
@@ -302,9 +308,15 @@ def render_debug_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
 
 
 def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
-                 frame_seed: int, device=None, ifd=None):
+                 frame_seed: int, device=None, ifd=None, graphs=None):
     """One frame: ((H, W, 3) float32 mean of the samples, scene queries
-    (1,) int64). `ifd` skips the autofocus probe when given."""
+    (1,) int64). `ifd` skips the autofocus probe when given.
+
+    Where `takes_graph`, the frame of the per-bounce route is a CUDA
+    graph's replay (render/graph.py), kept in `graphs` (a `graph.Slot`):
+    a caller that gives its own slot gets the graph's output buffers,
+    which its next frame overwrites; without one, the module's slot and a
+    copy."""
     dev = _on(scene, device)
     _check(config, dev)
     cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
@@ -325,20 +337,45 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
             stack_size=config.refraction_stack_depth,
             cam_size=config.cam_size, focal_length=config.focal_length,
             blur=config.blur, whitted=whitted)
-    else:
-        uv, index = camera.pixel_centers(config.width, config.height, dev)
-        col, rays = render_rays(scene, info, uv, index, cam_pos, cam_rot,
-                                frame_seed, ifd, config=config)
+        return col.reshape(config.height, config.width, 3), rays
+    if not takes_graph(config, info, dev):
+        return _route_frame(scene, info, config, dev, frame_seed, cam_pos,
+                            cam_rot, ifd)
+    slot = _GRAPHS if graphs is None else graphs
+    body = functools.partial(_route_frame, scene, info, config, dev)
+    out = slot.frame_for((scene, info, config, dev), body).run(
+        frame_seed, cam_pos, cam_rot, ifd)
+    return out if graphs is not None else tuple(x.clone() for x in out)
+
+
+def takes_graph(config: RenderConfig, info, dev) -> bool:
+    """Whether `render_frame` replays a CUDA graph of the per-bounce
+    route's frame (render/graph.py): CUDA tensors, path mode, no legacy
+    mode."""
+    return dev.type == "cuda" and config.raytracing and not _legacy(
+        config, info)
+
+
+def _route_frame(scene, info, config, dev, frame_seed, cam_pos, cam_rot,
+                 ifd):
+    """A frame of the per-bounce route over every pixel: ((H, W, 3),
+    queries (1,))."""
+    uv, index = camera.pixel_centers(config.width, config.height, dev)
+    col, rays = render_rays(scene, info, uv, index, cam_pos, cam_rot,
+                            frame_seed, ifd, config=config)
     return col.reshape(config.height, config.width, 3), rays
 
 
 def render_frames_accum(scene, info, config: RenderConfig, cam_pos, cam_rot,
-                        frame_seeds, sum0, rays0, device=None, ifd=None):
+                        frame_seeds, sum0, rays0, device=None, ifd=None,
+                        graphs=None):
     """Add len(frame_seeds) frames to the running sum: returns
-    (sum0 + frames, rays0 + queries)."""
+    (sum0 + frames, rays0 + queries). `graphs` as in `render_frame`: each
+    frame is added before the next replays."""
     for seed in frame_seeds:
         img, rays = render_frame(scene, info, config, cam_pos, cam_rot,
-                                 int(seed), device=device, ifd=ifd)
+                                 int(seed), device=device, ifd=ifd,
+                                 graphs=graphs)
         sum0 = sum0 + img
         rays0 = rays0 + rays
     return sum0, rays0
@@ -372,6 +409,7 @@ class Renderer:
         # explicit seeds): a resumed session fast-forwards by this count
         self._seed_draws = 0
         self._ifd = None  # autofocus distance of the current pose
+        self._graphs = graph.Slot()  # its frame graph (render_frame)
 
     @property
     def rays_traced(self) -> int:
@@ -407,7 +445,8 @@ class Renderer:
                 cfg.focal_distance, cfg.auto_focus, cfg.pallas)
         self._sum, self._rays = render_frames_accum(
             self.scene, self.info, cfg, self.cam_pos, self.cam_rot, seeds,
-            self._sum, self._rays, device=self.device, ifd=self._ifd)
+            self._sum, self._rays, device=self.device, ifd=self._ifd,
+            graphs=self._graphs)
         self._count += len(seeds)
         self._frame_index += len(seeds)
 

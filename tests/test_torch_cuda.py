@@ -528,40 +528,55 @@ def _streamed_terrain_renderer():
 
 @pytest.mark.cuda
 def test_port_spans_on_the_streamed_route_on_card(tmp_path):
-    """utils/trace.span in the card's trace: a step on a streamed scene of
-    at least SORT_MIN_RAYS pixels holds spp x bounces `pt0.query` and
-    `pt0.bounce` spans, each bounce one `pt0.bounce.readback`, beside the
-    device's streamed_kernel and bounce_kernel records."""
+    """utils/trace.span in the card's trace, on a streamed scene of at
+    least SORT_MIN_RAYS pixels: the eager route's frame (render_rays, as
+    the tiles and the graph's first frame run it) holds spp x bounces
+    `pt0.query` and `pt0.bounce` spans, each bounce one
+    `pt0.bounce.readback`; a later step replays the frame's CUDA graph in
+    one `pt0.route.replay` and no other span of the port. Both beside the
+    device's streamed_kernel and bounce_kernel records, by name."""
     _card()
     import json
 
     from torch.profiler import ProfilerActivity, profile
 
+    from pathtracer0_tpu_torch.render import renderer
+
     r = _streamed_terrain_renderer()
     r.step(1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r.step(2)
-        torch.cuda.synchronize()
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    spans = {}
-    for e in events:
-        if e.get("cat") == "user_annotation" and e["name"].startswith("pt0."):
-            spans.setdefault(e["name"], []).append(
-                (e["ts"], e["ts"] + e["dur"]))
+
+    def traced(fn, name):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = tmp_path / f"{name}.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and "dur" in e]
+        spans = {}
+        for e in events:
+            if (e.get("cat") == "user_annotation"
+                    and e["name"].startswith("pt0.")):
+                spans.setdefault(e["name"], []).append(
+                    (e["ts"], e["ts"] + e["dur"]))
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        assert any("bounce_kernel" in k for k in kernels), name
+        assert any("streamed_kernel" in k for k in kernels), name
+        return spans
+
+    spans = traced(lambda: renderer._route_frame(
+        r.scene, r.info, r.config, r.device, 2, r.cam_pos, r.cam_rot,
+        r._ifd), "eager")
     assert {n: len(v) for n, v in spans.items()} == {
         "pt0.query": 6, "pt0.bounce": 6, "pt0.bounce.readback": 6}
     for s, t in spans["pt0.bounce"]:
         assert sum(s <= a and b <= t
                    for a, b in spans["pt0.bounce.readback"]) == 1
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    assert any("bounce_kernel" in k for k in kernels)
-    assert any("streamed_kernel" in k for k in kernels)
+    spans = traced(lambda: r.step(2), "replay")
+    assert {n: len(v) for n, v in spans.items()} == {"pt0.route.replay": 1}
 
 
 @pytest.mark.cuda
@@ -588,19 +603,20 @@ def test_trace_busy_share_is_over_the_traced_call_on_card():
 def test_trace_busy_counts_no_span_as_device_work_on_card(monkeypatch):
     """The port's spans leave ranges on the device's timeline that
     torch.profiler keys as CUDA events with device time; trace_busy counts
-    none of them: a step of the streamed route (every span) has as many
-    device operations and no `pt0.` entry with its spans as with them
-    swapped for null contexts."""
+    none of them: a step of the streamed route (the replay of its frame's
+    graph, whose capture held the other spans) has as many device
+    operations and no `pt0.` entry with its spans as with them swapped
+    for null contexts."""
     _card()
     import contextlib
 
     from pathtracer0_tpu_torch.kernels import bounce, frame, traverse
-    from pathtracer0_tpu_torch.render import integrator
+    from pathtracer0_tpu_torch.render import graph, integrator
     from pathtracer0_tpu_torch.tools import profile
 
     r = _streamed_terrain_renderer()
     spanned = profile.trace_busy(lambda: r.step(7))
-    for module in (bounce, frame, traverse, integrator):
+    for module in (bounce, frame, traverse, integrator, graph):
         monkeypatch.setattr(module, "span",
                             lambda name: contextlib.nullcontext())
     plain = profile.trace_busy(lambda: r.step(7))

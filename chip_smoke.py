@@ -1719,11 +1719,11 @@ def bounce_phase(c, trees):
     takes them: from the same state and walk, `bounce_step` and
     `bounce_step_plain` on two copies, at the kernel-parity limits over the
     rays alive at the bounce (RNG state bit-equal on >= 99%, radiance
-    within 1e-4 on >= 99%, queries equal, one launch, the count read back
-    equal to the state's alive rays); the route goes on from the kernel's
+    within 1e-4 on >= 99%, queries equal, one launch, the rays left alive
+    within 1% of the plain version's); the route goes on from the kernel's
     state. At each bounce the kernel's time (BOUNCE_REPS launches on as
-    many copies of the state between CUDA events), its wrapper's with the
-    readback, the plain version's, and the bound. The Whitted form on the
+    many copies of the state between CUDA events), its wrapper's, the
+    plain version's, and the bound. The Whitted form on the
     same rays (one in seven switched off: radiance 0 there), and the
     locate form with the thickness probe on the OBJ grid with a subsurface
     material.
@@ -1820,8 +1820,7 @@ def bounce_phase(c, trees):
         o, d, state = c.sample_rays(*cam, w, h)
         n = state.shape[0]
         alive = torch.ones(n, dtype=torch.bool, device=dev)
-        st = bounce.begin(o, d, alive, state, stack_size=stack_size,
-                          max_bounces=n_bounces)
+        st = bounce.begin(o, d, alive, state, stack_size=stack_size)
         cells = []
         for k in range(n_bounces):
             live = st.alive.clone()
@@ -1854,8 +1853,8 @@ def bounce_phase(c, trees):
                     "max_abs_err": float(diff.max()),
                     "queries_equal": bool(torch.equal(kern.queries,
                                                       plain.queries)),
-                    "left_alive": [int(kern.live[k]), int(plain.live[k]),
-                                   int(kern.alive.sum())],
+                    "left_alive": [int(kern.alive.sum()),
+                                   int(plain.alive.sum())],
                     "launches": launched, "ms": ms, "wrapper_ms": wrapper_ms,
                     "plain_ms": plain_ms,
                     **c.least(nbytes, n_live * BOUNCE_LIVE_OPS)}
@@ -1869,7 +1868,6 @@ def bounce_phase(c, trees):
             check(cell["state_eq"] >= 0.99 and cell["frac_within_1e-4"] >= 0.99
                   and cell["queries_equal"] and launched == 1
                   and cell["ms"] >= cell["bound_ms"]
-                  and cell["left_alive"][0] == cell["left_alive"][2]
                   and abs(cell["left_alive"][0] - cell["left_alive"][1])
                   <= 0.01 * cell["left_alive"][1] + 16
                   and bool(torch.isfinite(rad_k).all()),
@@ -1897,9 +1895,9 @@ def bounce_phase(c, trees):
                 "trace_tries": [tr["trace_tries"] for tr in traces.values()]}
         if ops[1] is not None:
             loop["device_ops_per_bounce"] = (
-                (ops[n_bounces] - ops[1]) / (len(cells) - 1))
-            # eager shading took 757-950 a bounce; the walk, the bounce
-            # kernel and the readback ~10, the streamed sort ~50 more
+                (ops[n_bounces] - ops[1]) / (n_bounces - 1))
+            # eager shading took 757-950 a bounce; the walk and the bounce
+            # kernel ~10, the streamed sort ~50 more
             check(0 < loop["device_ops_per_bounce"] < 100,
                   f"bounce: {label}: device operations a bounce {loop}")
         rec["loop"][label] = loop
@@ -1965,7 +1963,7 @@ def bounce_phase(c, trees):
 
     # ---- the camera form against its plain version, each cell's camera
     rec["camera"] = {}
-    for label, (sc, info, cam, n_bounces) in built.items():
+    for label, (sc, info, cam, _) in built.items():
         uv, index = c.camera.pixel_centers(w, h, dev)
         pos, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
                     for v in cam)
@@ -1980,7 +1978,7 @@ def bounce_phase(c, trees):
             for who, step in (("kernel", bounce.camera_step),
                               ("plain", bounce.camera_step_plain)):
                 st = bounce.state_for(c.vrng.seed(index, 77), path=True,
-                                      max_bounces=n_bounces, totals=True)
+                                      totals=True)
                 g = torch.Generator(device=dev).manual_seed(5)
                 step(st, pd, cams, blur)
                 # the sample's radiance, then the next sample adds it
@@ -1992,7 +1990,7 @@ def bounce_phase(c, trees):
                 sts[who] = st
             kern, plain = sts["kernel"], sts["plain"]
             fields = ("state", "alive", "col", "inc", "skyc", "enter",
-                      "ssize", "inobj", "queries", "live", "total")
+                      "ssize", "inobj", "queries", "total")
             ray_eq = {f: float((getattr(kern, f) == getattr(plain, f))
                                .all(0).float().mean()) for f in ("o", "d")}
             ray_err = max(float((getattr(kern, f) - getattr(plain, f))
@@ -4320,11 +4318,12 @@ def main() -> int:
                              samples_per_frame=SPP_CMP, max_bounces=BOUNCES,
                              auto_focus=False, focal_distance=20.0)
 
-    def route_frame(pallas, sc=terrain, info=terrain_info):
+    def route_frame(trace, sc=terrain, info=terrain_info):
         """The terrain's frame as `render_rays` makes it, sample by
-        sample, the forest (or, of the streamed build, the LBVH) walked by
-        the kernels ("auto") or by their plain versions ("off", which the
-        renderer refuses on the card)."""
+        sample, through `trace`: integrator.trace_bounces (the forest, or
+        of the streamed build the LBVH, walked by the kernels) or
+        trace_bounces_reference (their plain versions and the plain
+        bounce step)."""
         cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
                     for v in terrain_cam)
         uv, index = camera.pixel_centers(W_CMP, H_CMP, dev)
@@ -4339,9 +4338,9 @@ def main() -> int:
             o, d, state = camera.dof_ray(
                 cam, direction, rotmat, route_cfg.blur,
                 torch.tensor(20.0, device=dev), state)
-            inc, skyc, state, q = integrator.trace_bounces(
+            inc, skyc, state, q = trace(
                 sc, info, o.unbind(-1), d.unbind(-1), alive, state,
-                max_bounces=BOUNCES, pallas=pallas)
+                max_bounces=BOUNCES)
             total = total + torch.stack(
                 [inc[i] + skyc[i] for i in range(3)], -1)
             queries += int(q.sum())
@@ -4351,8 +4350,9 @@ def main() -> int:
     for label, sc, info in (("terrain", terrain, terrain_info),
                             ("terrain_streamed", terrain_st,
                              terrain_st_info)):
-        img_k, st_k, q_k = route_frame("auto", sc, info)
-        img_p, st_p, q_p = route_frame("off", sc, info)
+        img_k, st_k, q_k = route_frame(integrator.trace_bounces, sc, info)
+        img_p, st_p, q_p = route_frame(integrator.trace_bounces_reference,
+                                       sc, info)
         img_r, q_r = render_frame(sc, info, route_cfg, *terrain_cam, 4321,
                                   device="cuda")
         check(float((img_r - img_k).abs().max()) < 1e-6 and int(q_r) == q_k,

@@ -2,7 +2,7 @@
 
 Same fields and defaults as the JAX package's `RenderConfig`, so a config
 can be written once and handed to either renderer. Of that package's
-execution knobs the port reads two, both "auto", "on" or "off" (there is
+execution knobs the port takes two, both "auto", "on" or "off" (there is
 no "interpret": the plain PyTorch versions of the kernels serve the CPU):
 
   fused   "auto" / "on": a scene the brute-force kernels take (at most
@@ -11,11 +11,11 @@ no "interpret": the plain PyTorch versions of the kernels serve the CPU):
           "off": every scene goes the per-bounce route over the SAH forest.
           A streamed scene always goes the per-bounce route; "on" refuses
           it
-  pallas  "auto" / "on": the forest, or the LBVH of a streamed scene, is
-          walked by the CUDA kernels on the card and by their plain
-          versions on the CPU; "off": by the plain versions, on the CPU
-          only (the renderer refuses it on the card, where nothing takes
-          the kernels' place)
+  pallas  selects nothing: the tensors' device does (the CUDA kernels
+          on the card, their plain versions on the CPU, where every
+          value renders alike). The renderer's check is its one reader:
+          it refuses "off" on the card, where nothing takes the kernels'
+          place
 
 `debug`, `legacy_shading` and `legacy_pathtrace` render as the JAX
 package's do (render/renderer.py), never through the frame path.

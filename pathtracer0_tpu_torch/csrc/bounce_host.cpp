@@ -9,11 +9,9 @@
 
 extern "C" {
 
-// One bounce of a->n_rays rays in the form a->form, ray after ray; the
-// path form adds the rays it leaves alive into *a->live.
+// One bounce of a->n_rays rays in the form a->form, ray after ray.
 void pt_bounce_host(const pt::BounceArgs* a) {
   const pt::Scene sc = pt::make_scene(a->scene);
-  unsigned live = 0;
   for (int r = 0; r < a->n_rays; ++r) {
     if (a->form == pt::FORM_CAMERA) {
       pt::camera_ray(*a, r);
@@ -22,10 +20,9 @@ void pt_bounce_host(const pt::BounceArgs* a) {
     } else if (a->form == pt::FORM_LOCATE) {
       pt::bounce_ray<pt::FORM_LOCATE>(sc, *a, r);
     } else {
-      live += pt::bounce_ray<pt::FORM_PATH>(sc, *a, r);
+      pt::bounce_ray<pt::FORM_PATH>(sc, *a, r);
     }
   }
-  if (a->form == pt::FORM_PATH) *a->live += live;
 }
 
 }  // extern "C"

@@ -7,10 +7,10 @@
 // merge, `surface_sample`, `_shade_setup`, the refraction stack,
 // `chooseRay`, the transport and the sky) and the Whitted `direct_diffuse`
 // (:295). It has no Pallas counterpart. A bounce of the route is then the
-// walk (traverse_kernel, brute_kernel, or streamed_kernel behind its sort),
-// one launch of this kernel, and a 4-byte readback of the rays it leaves
-// alive, which stands in for the while_loop's device-side `cond`; the
-// port ran the same body as some 900 PyTorch launches a bounce.
+// walk (traverse_kernel, brute_kernel, or streamed_kernel behind its sort)
+// and one launch of this kernel; every bounce is launched, and the kernel
+// skips the rays that are no longer alive, where the while_loop's `cond`
+// stops; the port ran the same body as some 900 PyTorch launches a bounce.
 //
 // Design: one thread per ray over the rays' state in place, one array per
 // component (integrate.cuh `BounceArgs`), so a warp's loads and stores are
@@ -20,10 +20,9 @@
 // `finish_hit` (the merge of implicits and ellipsoids over the walk's
 // triangle, the hit's attributes) and the shading halves the frame and
 // block kernels run after their own triangle loop (`path_shade`,
-// `direct_shade`), so the three kernels share every per-ray function. The
-// path form adds the rays it leaves alive into one counter with one atomic
-// a block (`block_sum_add`). It takes any triangle and material count: it
-// reads the scene's tables where the hits point.
+// `direct_shade`), so the three kernels share every per-ray function. It
+// takes any triangle and material count: it reads the scene's tables where
+// the hits point.
 //
 // The camera form (FORM_CAMERA, integrate.cuh `camera_ray`) begins each
 // sample of render_rays on the same state: the camera's ray with depth of
@@ -58,13 +57,13 @@ using namespace pt;
 template <int FORM>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(BounceArgs a) {
   const int r = blockIdx.x * BLOCK + threadIdx.x;
+  if (r >= a.n_rays) return;
   if (FORM == FORM_CAMERA) {
-    if (r < a.n_rays) camera_ray(a, r);
-    return;
+    camera_ray(a, r);
+  } else {
+    const Scene sc = make_scene(a.scene);
+    bounce_ray<FORM>(sc, a, r);
   }
-  const Scene sc = make_scene(a.scene);
-  const unsigned live = r < a.n_rays ? bounce_ray<FORM>(sc, a, r) : 0u;
-  if (FORM == FORM_PATH) block_sum_add(live, a.live);
 }
 
 template <int FORM>

@@ -362,16 +362,14 @@ struct BounceArgs {
   long long* queries;         // (R,) scene queries
   const float* probe_t;       // WHITTED: the thickness probe's t, or null
   float* loc;                 // LOCATE: out, (3, R) hit locations
-  unsigned int* live;         // PATH: the rays alive after it, added;
-                              // CAMERA: live_len counters, cleared
   const float* pd;            // CAMERA: (3, R) primary directions
   const float* cam;           // CAMERA: camera position (3), rotation
                               // matrix (9, row-major), focal distance
   float* total;               // CAMERA: (3, R) radiance summed over the
                               // samples, or null
   int n_rays, stack_size, form;
-  int live_len, accumulate;   // CAMERA: accumulate: add the sample before
-                              // into total (else total = 0)
+  int accumulate;             // CAMERA: add the sample before into total
+                              // (else total = 0)
   float blur;                 // CAMERA
 };
 
@@ -379,22 +377,22 @@ struct BounceArgs {
 // PATH: the path's shading half (path_shade) with its stack and entry
 // point in device memory, its state written back where it hit, one query
 // counted; a miss reads its throughput and sky radiance alone, adds the
-// sky and ends the ray; returns 1 where the ray takes another bounce. WHITTED: writes the Whitted shade into inc (0 where not alive),
+// sky and ends the ray. WHITTED: writes the Whitted shade into inc (0 where not alive),
 // a subsurface material shaded by the thickness behind the hit where
 // probe_t is given (render/integrator.py `_direct`). LOCATE: writes the
 // hit location (the nudged origin where not alive), which the thickness
 // probe walks from.
 template <int FORM>
-PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
+PT_HD void bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
   const int n = a.n_rays;
   const bool alive = a.alive[r] != 0;
-  if (FORM == FORM_PATH && !alive) return 0u;
+  if (FORM == FORM_PATH && !alive) return;
   const V3 o = load3(a.o, r, n), d = load3(a.d, r, n);
   const V3 on = v3(o.x + NUDGE * d.x, o.y + NUDGE * d.y, o.z + NUDGE * d.z);
   if (!alive) {
     if (FORM == FORM_LOCATE) store3(a.loc, r, n, on);
     if (FORM == FORM_WHITTED) store3(a.inc, r, n, v3(0.0f, 0.0f, 0.0f));
-    return 0u;
+    return;
   }
   const int row = a.walk_row[r];
   const int tri = row < 0 ? -1 : (a.perm ? a.perm[row] : row);
@@ -404,7 +402,7 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
                                                      a.walk_u[r], a.walk_v[r]);
   if (FORM == FORM_LOCATE) {
     store3(a.loc, r, n, v3(on.x + h.t * d.x, on.y + h.t * d.y, on.z + h.t * d.z));
-    return 0u;
+    return;
   }
   if (FORM == FORM_WHITTED) {
     V3 c = direct_shade(sc, h, d);
@@ -420,7 +418,7 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
       c = v3(k[0], k[1], k[2]);
     }
     store3(a.inc, r, n, c);
-    return 0u;
+    return;
   }
   a.queries[r] += 1;
   if (!h.is_hit) {
@@ -429,7 +427,7 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
     path_miss(sc, d, load3(a.col, r, n), skyc);
     store3(a.skyc, r, n, skyc);
     a.alive[r] = 0;
-    return 0u;
+    return;
   }
   PathStateT<ColumnStack, ColumnEnter> p;
   p.o = o;
@@ -456,7 +454,6 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
   if (p.ssize != ssize) a.ssize[r] = p.ssize;
   a.state[r] = (long long)state;
   if (!p.alive) a.alive[r] = 0;
-  return p.alive ? 1u : 0u;
 }
 
 // The camera form: ray r's next sample, the camera's ray with depth of
@@ -467,8 +464,7 @@ PT_HD unsigned bounce_ray(const Scene& sc, const BounceArgs& a, int r) {
 // set to 0. The path state (stack non-null) is begun as kernels/bounce.py
 // `begin` begins it: throughput 1, radiance, sky radiance and entry point 0,
 // the stack holding the air's index, outside any medium, no query counted
-// (with `accumulate` the queries run on over the samples), the live
-// counters cleared.
+// (with `accumulate` the queries run on over the samples).
 PT_HD void camera_ray(const BounceArgs& a, int r) {
   const int n = a.n_rays;
   PixelCamera cam;
@@ -508,8 +504,6 @@ PT_HD void camera_ray(const BounceArgs& a, int r) {
     a.inobj[r] = 0;
     if (!a.accumulate) a.queries[r] = 0;
   }
-  if (r == 0)
-    for (int k = 0; k < a.live_len; ++k) a.live[k] = 0u;
 }
 
 #ifdef __CUDACC__

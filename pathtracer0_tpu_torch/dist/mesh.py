@@ -118,8 +118,7 @@ def _frame_inputs(scenes, info, config, cam_pos, cam_rot):
     cam_rot = torch.as_tensor(cam_rot, dtype=torch.float32, device=first)
     with device_guard(first):
         ifd = autofocus_distance(scenes[0], info, cam_pos, cam_rot,
-                                 config.focal_distance, config.auto_focus,
-                                 config.pallas)
+                                 config.focal_distance, config.auto_focus)
     return [(cam_pos.to(s.device), cam_rot.to(s.device), ifd.to(s.device))
             for s in scenes]
 

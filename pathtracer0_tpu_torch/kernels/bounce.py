@@ -8,11 +8,8 @@ pathtracer0_tpu/render/integrator.py `trace` (:177-287) and its Whitted
 one interface, `(scene, info, st, walk, *, form, probe_t)`:
 
   bounce_step        csrc/bounce_kernel.cu, one launch, on CUDA tensors;
-                     the path form reads back the count of rays it leaves
-                     alive (4 bytes), which stands in for the while_loop's
-                     device-side `cond`, unless told not to (`readback`:
-                     the loop a CUDA graph captures). It raises on CPU
-                     tensors.
+                     it reads nothing back, so a CUDA graph captures it
+                     (render/graph.py). It raises on CPU tensors.
   bounce_step_plain  the same body as PyTorch ops on (R,) tensors, one
                      tensor per vector component: the plain version, on any
                      device (the CPU route runs it).
@@ -31,7 +28,8 @@ direction and RNG state (6 draws), the path state begun, and with a running
 
 Forms: "path" (frag.glsl:810-882) merges the analytic primitives over the
 walk's triangle, shades, and writes the next bounce's rays where the ray
-hit; a miss adds the sky and ends the ray. "whitted" (frag.glsl:655-681)
+hit; a miss adds the sky and ends the ray; a ray no longer alive is left
+as it is. "whitted" (frag.glsl:655-681)
 writes Ka + Kd (0.2 + N.y) + Ke or the sky into `inc`, a subsurface
 material shaded by the thickness behind the hit where `probe_t` is given.
 "locate" writes the hit locations into `loc`, from which the Whitted
@@ -55,7 +53,6 @@ from ..scene.material import COL
 from ..scene.texture import bilinear, sky_uv
 from ..shade import bsdf
 from ..shade.mtl import map_sample, tbn_map
-from ..utils.trace import span
 from . import build, traverse
 from .build import ptr
 from .fused import SceneArgs, scene_args
@@ -83,8 +80,6 @@ class BounceState:
     inobj: torch.Tensor = None       # (R,) bool
     state: torch.Tensor = None       # (R,) int64 RNG state
     queries: torch.Tensor = None     # (R,) int64 scene queries
-    live: torch.Tensor = None        # (max_bounces,) int32: live rays
-                                     # after each bounce
     loc: torch.Tensor = None         # (3, R) hit locations
     total: torch.Tensor = None       # (3, R) radiance summed over the
                                      # samples before (the camera form's)
@@ -103,7 +98,7 @@ def _check_stack(stack_size):
                          f"{stack_size}")
 
 
-def begin(o, d, alive, state, *, stack_size: int, max_bounces: int):
+def begin(o, d, alive, state, *, stack_size: int):
     """The path state of rays o, d ((x, y, z) tuples of (R,) float32) that
     are `alive`, with RNG `state` (R,) int64: throughput 1, the stack
     holding the air's index, nothing counted. The caller's tensors are
@@ -120,9 +115,7 @@ def begin(o, d, alive, state, *, stack_size: int, max_bounces: int):
         skyc=zero.clone(), enter=zero.clone(), stack=stack,
         ssize=torch.ones(alive.shape, dtype=torch.int32, device=o.device),
         inobj=torch.zeros_like(alive), state=state.clone(),
-        queries=torch.zeros(alive.shape, dtype=torch.int64, device=o.device),
-        live=torch.zeros(max(max_bounces, 1), dtype=torch.int32,
-                         device=o.device))
+        queries=torch.zeros(alive.shape, dtype=torch.int64, device=o.device))
 
 
 def begin_whitted(o, d, alive, *, probe: bool = False):
@@ -134,8 +127,8 @@ def begin_whitted(o, d, alive, *, probe: bool = False):
 
 
 def state_for(state, *, path: bool, stack_size: int = 10,
-              max_bounces: int = 1, probe: bool = False,
-              totals: bool = False, rays_only: bool = False):
+              probe: bool = False, totals: bool = False,
+              rays_only: bool = False):
     """The state of R rays with RNG `state` (R,) int64 (taken, not copied)
     for the camera form to begin, sample after sample: the path state
     (`path`), or the Whitted forms' (`probe`: with room for the hit
@@ -165,8 +158,6 @@ def state_for(state, *, path: bool, stack_size: int = 10,
         st.ssize = torch.empty(n, dtype=torch.int32, device=dev)
         st.inobj = torch.empty(n, dtype=torch.bool, device=dev)
         st.queries = torch.zeros(n, dtype=torch.int64, device=dev)
-        st.live = torch.empty(max(max_bounces, 1), dtype=torch.int32,
-                              device=dev)
     elif probe:
         st.loc = f3()
     return st
@@ -214,8 +205,6 @@ def camera_step_plain(st: BounceState, pd, cam, blur: float, *,
         st.ssize.fill_(1)
         if not accumulate:
             st.queries.zero_()
-    if st.live is not None:
-        st.live.zero_()
     st.bounce = 0
 
 
@@ -224,9 +213,6 @@ def _check(st, walk, form, probe_t):
         raise ValueError(f"form must be one of {tuple(FORMS)}, not {form!r}")
     if form == "path" and st.stack is None:
         raise ValueError("the path form needs the state of `begin`")
-    if form == "path" and st.bounce >= st.live.shape[0]:
-        raise ValueError(f"bounce {st.bounce} past the {st.live.shape[0]} "
-                         "the state was begun for")
     if form == "locate" and st.loc is None:
         raise ValueError("the locate form needs begin_whitted(probe=True)")
     if probe_t is not None and form != "whitted":
@@ -306,12 +292,8 @@ def _flip(stack, ssize):
 
 
 def bounce_step_plain(scene, info, st: BounceState, walk, *,
-                      form: str = "path", probe_t=None,
-                      readback: bool = True):
-    """One bounce as PyTorch ops, on `st` in place. Returns the count of
-    rays the path form leaves alive (0 for the Whitted forms); with
-    `readback` false the path form reads nothing back and returns None
-    (the count stays in st.live)."""
+                      form: str = "path", probe_t=None):
+    """One bounce as PyTorch ops, on `st` in place."""
     _check(st, walk, form, probe_t)
     o, d, alive = tuple(st.o), tuple(st.d), st.alive
     on = traverse.nudged(o, d)
@@ -320,7 +302,7 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
     surf = traverse.surface_sample(hit, on, d, scene, info)
     if form == "locate":
         st.loc.copy_(torch.stack(surf.loc))
-        return 0
+        return
     if form == "whitted":
         m, n = shade_setup(scene, info, surf, _WHITTED_FIELDS, _WHITTED_MAPS)
         col = [m["Ka"][i] + m["Kd"][i] * (0.2 + n[1]) + m["Ke"][i]
@@ -341,7 +323,7 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
             torch.where(alive & hit.is_hit, col[i], 0.0)
             + torch.where(alive & ~hit.is_hit, sr[i], 0.0)
             for i in range(3)]))
-        return 0
+        return
 
     stack_size = st.stack.shape[0]
     col, inc, skyc = tuple(st.col), tuple(st.inc), tuple(st.skyc)
@@ -428,8 +410,7 @@ def bounce_step_plain(scene, info, st: BounceState, walk, *,
     st.inobj.copy_(torch.where(hitf, new_inobj, inobj))
     st.state.copy_(torch.where(hitf, lobe.state, state))
     st.alive.copy_(hitf & ~cutoff)
-    st.live[st.bounce] = st.alive.sum()
-    return _finish(st, form, readback)
+    st.bounce += 1
 
 
 # ---- the kernel and its host build ---------------------------------------
@@ -445,8 +426,8 @@ class _BounceArgs(ctypes.Structure):
 
     _fields_ = [("scene", SceneArgs)] + [(n, ctypes.c_void_p) for n in (
         "walk_t", "walk_u", "walk_v", "walk_row", "perm", *_STATE, "probe_t",
-        "loc", "live", "pd", "cam", "total")] + [(n, ctypes.c_int) for n in (
-            "n_rays", "stack_size", "form", "live_len", "accumulate")] + [
+        "loc", "pd", "cam", "total")] + [(n, ctypes.c_int) for n in (
+            "n_rays", "stack_size", "form", "accumulate")] + [
         ("blur", ctypes.c_float)]
 
 
@@ -475,7 +456,6 @@ def _args(scene, info, st: BounceState, walk, form, probe_t):
         **_state_ptrs(st, dev),
         probe_t=None if probe_t is None else ptr(keep[-1], f32, dev),
         loc=None if st.loc is None else ptr(st.loc, f32, dev),
-        live=(st.live[st.bounce:].data_ptr() if form == "path" else None),
         n_rays=st.alive.shape[0],
         stack_size=0 if st.stack is None else st.stack.shape[0],
         form=FORMS[form])
@@ -488,28 +468,11 @@ def camera_args(st, pd, cam, blur, accumulate):
     dev = st.alive.device
     return _BounceArgs(
         **_state_ptrs(st, dev),
-        live=None if st.live is None else st.live.data_ptr(),
         pd=ptr(pd, torch.float32, dev), cam=ptr(cam, torch.float32, dev),
         total=None if st.total is None else ptr(st.total, torch.float32, dev),
         n_rays=st.alive.shape[0],
         stack_size=0 if st.stack is None else st.stack.shape[0],
-        form=FORM_CAMERA,
-        live_len=0 if st.live is None else st.live.shape[0],
-        accumulate=int(bool(accumulate)), blur=float(blur))
-
-
-def _finish(st, form, readback):
-    """The bounce taken: the path form's count of rays left alive, read
-    back from st.live (the loop's one readback), or None without
-    `readback`; 0 for the Whitted forms."""
-    if form != "path":
-        return 0
-    n_live = None
-    if readback:
-        with span("pt0.bounce.readback"):
-            n_live = int(st.live[st.bounce])
-    st.bounce += 1
-    return n_live
+        form=FORM_CAMERA, accumulate=int(bool(accumulate)), blur=float(blur))
 
 
 def launch(args, dev):
@@ -527,11 +490,9 @@ def launch(args, dev):
 
 
 def bounce_step(scene, info, st: BounceState, walk, *, form: str = "path",
-                probe_t=None, readback: bool = True):
+                probe_t=None):
     """One bounce through csrc/bounce_kernel.cu, on `st` in place (CUDA
-    tensors only). Returns as `bounce_step_plain`; the path form reads the
-    count back from the card unless `readback` is false (as while a CUDA
-    graph captures the loop)."""
+    tensors only), as `bounce_step_plain`."""
     dev = st.alive.device
     if dev.type != "cuda":
         raise ValueError(f"bounce_kernel runs on CUDA tensors, not {dev}: "
@@ -540,7 +501,8 @@ def bounce_step(scene, info, st: BounceState, walk, *, form: str = "path",
     args, _keep = _args(scene, info, st, walk, form, probe_t)  # to the end
     launch(args, dev)
     bounce_step.launches += 1
-    return _finish(st, form, readback)
+    if form == "path":
+        st.bounce += 1
 
 
 bounce_step.launches = 0
@@ -582,14 +544,14 @@ def _host(args):
 
 
 def bounce_step_host(scene, info, st: BounceState, walk, *,
-                     form: str = "path", probe_t=None,
-                     readback: bool = True):
+                     form: str = "path", probe_t=None):
     """One bounce through the kernel's per-ray body built by g++
-    (csrc/bounce_host.cpp), on `st` in place (CPU tensors only). Returns
-    as `bounce_step_plain`."""
+    (csrc/bounce_host.cpp), on `st` in place (CPU tensors only), as
+    `bounce_step_plain`."""
     if st.alive.device.type != "cpu":
         raise ValueError("bounce_step_host runs on CPU tensors")
     _check(st, walk, form, probe_t)
     args, _keep = _args(scene, info, st, walk, form, probe_t)  # to the end
     _host(args)
-    return _finish(st, form, readback)
+    if form == "path":
+        st.bounce += 1

@@ -6,13 +6,13 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
 (x, y, z) tuples of (R,) tensors, as everywhere in the port.
 
   walk_triangles  nudge the origins by 1e-4 d (frag.glsl:549), walk the
-                  forest (kernels/wavefront.trace_forest: the CUDA kernels
-                  on the card, their plain versions on the CPU) or, where
-                  `info.streamed`, the LBVH (wavefront.trace_streamed, or
-                  on the card, from SORT_MIN_RAYS rays, trace_sorted,
-                  whose kernels nudge too): the closest triangle alone,
-                  as a `Walk`. The per-bounce route hands it to the bounce
-                  kernel (kernels/bounce.py), which merges and shades
+                  forest (kernels/wavefront.trace_forest) or, where
+                  `info.streamed`, the LBVH (wavefront.trace_sorted on
+                  the card, whose kernels nudge too): the closest
+                  triangle alone, as a `Walk`; CUDA tensors take the
+                  kernels, CPU tensors their plain versions. The
+                  per-bounce route hands it to the bounce kernel
+                  (kernels/bounce.py), which merges and shades
   ray_scene       walk_triangles, then the hit record (`walk_hit`) with
                   the analytic primitives merged (`_merge_analytic_batched`)
   surface_sample  normal, UV, tangent and material at the final hits, once
@@ -23,18 +23,18 @@ Counterpart of the JAX package's kernels/traverse.py. Vectors are
   object_heat_counts  those of one object's walk alone, from no hit (the
                   debug heatmap's, frag.glsl:534, 539-547)
   spatial_sort_key  the JAX package's ray-coherence key. A streamed query
-                  of at least SORT_MIN_RAYS rays is sorted by it, as that
-                  package's `_ray_scene_streamed(sort_rays=True)` does
+                  is sorted by it, as that package's
+                  `_ray_scene_streamed(sort_rays=True)` does
                   (`streamed_order`): rays that miss the LBVH's root box,
                   then switched-off rays, go to the back, in a stable
-                  order; the kernel (or its plain version) walks the
-                  sorted rays and its outputs are scattered back. The
-                  walk is per ray, so the results are those of the rays
-                  as given, bit for bit; the sort makes neighbouring
-                  lanes of a warp walk the same part of the tree. On the
-                  card `wavefront.trace_sorted` does all of it in three
-                  launches (sort_key_kernel, the argsort, the walk in
-                  that order); `sorted_query` is its plain twin.
+                  order; the walk takes the sorted rays and its outputs
+                  are scattered back. The walk is per ray, so the results
+                  are those of the rays as given, bit for bit; the sort
+                  makes neighbouring lanes of a warp walk the same part
+                  of the tree. On the card `wavefront.trace_sorted` does
+                  all of it in three launches (sort_key_kernel, the
+                  argsort, the walk); its plain twin `sorted_query` sorts
+                  from SORT_MIN_RAYS rays, as the JAX package does.
 
 Reference quirks kept: an implicit surface's hit parameter is measured in
 its local frame and compared with world distances as it is, and every hit
@@ -163,35 +163,21 @@ def _t_init(like, active):
     return torch.where(active, MISS, 0.0)
 
 
-def _plain(pallas: str) -> bool:
-    """Whether `pallas` asks for the plain versions on any device."""
-    if pallas not in ("auto", "on", "off"):
-        raise ValueError(
-            f"pallas must be 'auto', 'on' or 'off', not {pallas!r}")
-    return pallas == "off"
-
-
-def _query(o, d, scene, info, pallas: str, active):
+def _query(o, d, scene, info, active):
     """The triangle query of a scene with a tree from the origins o, not
     yet nudged: (nudged origins, (t, u, v, idx, counter, counter)) from
-    `_t_init`. A streamed query of at least SORT_MIN_RAYS CUDA rays is
-    `wavefront.trace_sorted` (three launches that nudge, sort and walk);
-    another streamed query nudges here and `sorted_query`s the kernel or
-    its plain version, a forest query walks trace_forest or its plain
-    version."""
-    plain = _plain(pallas)
-    if (info.streamed and not plain and o[0].is_cuda
-            and o[0].shape[0] >= SORT_MIN_RAYS):
+    `_t_init`. A streamed query of CUDA rays is `wavefront.trace_sorted`
+    (three launches that nudge, sort and walk); one of CPU rays nudges
+    here and `sorted_query`s the plain walk; a forest query walks
+    `wavefront.trace_forest`."""
+    if info.streamed and o[0].is_cuda:
         return wavefront.trace_sorted(o, d, active, scene, info)
     on = nudged(o, d)
     t_init = _t_init(on[0], active)
     if info.streamed:
-        query = (wavefront.streamed_reference if plain
-                 else wavefront.trace_streamed)
-        return on, sorted_query(query, on, d, t_init, scene, info)
-    query = (wavefront.trace_forest_reference if plain
-             else wavefront.trace_forest)
-    return on, query(on, d, t_init, scene, info)
+        return on, sorted_query(wavefront.trace_streamed, on, d, t_init,
+                                scene, info)
+    return on, wavefront.trace_forest(on, d, t_init, scene, info)
 
 
 def has_tree(info) -> bool:
@@ -203,21 +189,18 @@ def nudged(o, d):
     return tuple(o[i] + NUDGE * d[i] for i in range(3))
 
 
-def walk_triangles(o, d, scene, info, *, pallas: str = "auto",
-                   active=None):
+def walk_triangles(o, d, scene, info, *, active=None):
     """The first half of `ray_scene`: nudge the origins, then walk the
     forest or the LBVH (`_query`), for the closest triangle alone.
-    `active` and `pallas` as in `ray_scene`; a scene with no tree walks
-    nothing (row -1, t = t_init).
+    `active` as in `ray_scene`; a scene with no tree walks nothing
+    (row -1, t = t_init).
 
     Returns (Walk, nudged origins)."""
     with span("pt0.query"):
         if has_tree(info):
-            on, (t, u, v, idx, _, _) = _query(o, d, scene, info, pallas,
-                                              active)
+            on, (t, u, v, idx, _, _) = _query(o, d, scene, info, active)
             perm = scene.st_perm if info.streamed else scene.wf_perm
             return Walk(t, u, v, idx, perm), on
-        _plain(pallas)      # refuses an unknown `pallas` here too
         on = nudged(o, d)
         t_init = _t_init(on[0], active)
         zero = torch.zeros_like(t_init)
@@ -239,45 +222,37 @@ def walk_hit(walk: Walk, scene) -> Hit:
                torch.full_like(tri, -1))
 
 
-def ray_scene(o, d, scene, info, *, pallas: str = "auto", active=None):
+def ray_scene(o, d, scene, info, *, active=None):
     """Closest hit of rays o + t d. `active` (R,) bool switches rays off:
-    they cost nothing and come back t = 0, tri = -1. pallas "auto" / "on":
-    the forest or streamed kernels on CUDA tensors, their plain versions
-    on CPU tensors; "off": the plain versions on any device.
+    they cost nothing and come back t = 0, tri = -1. The forest or
+    streamed kernels walk CUDA tensors, their plain versions CPU tensors.
 
     Returns (Hit, nudged origins)."""
-    walk, on = walk_triangles(o, d, scene, info, pallas=pallas,
-                              active=active)
+    walk, on = walk_triangles(o, d, scene, info, active=active)
     return _merge_analytic_batched(on, d, scene, info,
                                    walk_hit(walk, scene)), on
 
 
-def probe_forest_t(o, d, scene, info, *, pallas: str = "auto"):
+def probe_forest_t(o, d, scene, info):
     """Distance to the closest triangle of the whole forest, or of the
     streamed LBVH, from the nudged origins (1e30 if none)."""
-    return walk_triangles(o, d, scene, info, pallas=pallas)[0].t
+    return walk_triangles(o, d, scene, info)[0].t
 
 
-def heat_counts(o, d, scene, info, *, pallas: str = "auto"):
+def heat_counts(o, d, scene, info):
     """Per-ray (box tests, leaf visits) of the forest walk; of a streamed
     scene (box tests, row visits)."""
-    out = _query(o, d, scene, info, pallas, None)[1]
+    out = _query(o, d, scene, info, None)[1]
     return out[4], out[5]
 
 
-def object_heat_counts(o, d, scene, info, k: int, *, pallas: str = "auto"):
+def object_heat_counts(o, d, scene, info, k: int):
     """Per-ray (box tests, leaf visits) of object k's walk alone from the
     nudged origins, with no closer hit to prune it (t_init = MISS): on the
-    card `traverse_kernel` with that root only (wavefront.walk_object),
-    on the CPU, or with pallas="off", `traverse_reference` over that
-    root."""
+    card `traverse_kernel` with that root only, on the CPU
+    `traverse_reference` over that root (wavefront.walk_object)."""
     on = nudged(o, d)
-    t_init = _t_init(on[0], None)
-    if _plain(pallas):
-        out = wavefront.traverse_reference(on, d, t_init, scene, info,
-                                           objects=(k,))
-    else:
-        out = wavefront.walk_object(on, d, t_init, scene, info, k)
+    out = wavefront.walk_object(on, d, _t_init(on[0], None), scene, info, k)
     return out[4], out[5]
 
 

@@ -8,11 +8,10 @@ queries) by replaying a `torch.cuda.CUDAGraph` of that whole frame. A
 `Slot` holds the graph of one key (the scene, its info, the config, the
 device); another key frees it before the next is captured.
 
-The first frame of a key runs the route eagerly, readbacks and all: it
-loads every kernel, and it is that frame's answer. Then the frame is
-captured. While the stream captures, `integrator._run_bounces` issues
-every bounce and reads nothing back; the kernels skip the rays that are no
-longer alive, so the bits are those of the loop with readbacks. Each
+The first frame of a key runs the same route eagerly: it loads every
+kernel, and it is that frame's answer. Then the frame is captured as it
+is: `integrator._run_bounces` runs every bounce and reads nothing back
+on any device, so the replays give the eager frame's bits. Each
 later frame writes its inputs into the graph's static buffers (the frame
 seed as a 0-d int64 holding seed & MASK, cam_pos, cam_rot, ifd), so a
 camera move replays the same graph, and replays it in one

@@ -9,13 +9,12 @@ Two triangle queries feed one bounce loop and one bounce step
                     CUDA forest kernels on the card) or, for a streamed
                     scene, the two-level LBVH (the streamed kernel), then
                     one `bounce.bounce_step` (csrc/bounce_kernel.cu: the
-                    analytic merge, the surface, the shade) and a 4-byte
-                    readback of the rays left alive, which stands in for
-                    the JAX package's device-side `while_loop` test (no
-                    readback while a CUDA graph captures the loop: every
-                    bounce is issued). CPU tensors, or pallas="off", take
-                    the plain versions of both. `trace_bounces`,
-                    `direct_diffuse`.
+                    analytic merge, the surface, the shade), all
+                    max_bounces of them, nothing read back: the kernels
+                    skip rays no longer alive, where the JAX package's
+                    `while_loop` tests for one. CPU tensors take the plain
+                    versions of both. `trace_bounces`, `direct_diffuse`;
+                    `trace_bounces_reference`: the plain route anywhere.
   brute force       `closest_hit`: every triangle with the division-free
                     Möller-Trumbore test, first closest in table order
                     wins, then the plain bounce step. `trace_plain` and
@@ -44,7 +43,7 @@ import warnings
 
 import torch
 
-from ..kernels import bounce, traverse
+from ..kernels import bounce, traverse, wavefront
 from ..kernels.intersect import MISS, tri_candidate
 from ..kernels.traverse import Hit, Walk
 from ..utils.trace import span
@@ -93,49 +92,46 @@ def _brute_walk(scene, info):
     return walk
 
 
-def _forest_walk(scene, info, pallas):
+def _forest_walk(scene, info):
     def walk(o, d, alive):
-        return traverse.walk_triangles(o, d, scene, info, pallas=pallas,
-                                       active=alive)
+        return traverse.walk_triangles(o, d, scene, info, active=alive)
     return walk
 
 
-def _step(device, pallas: str):
+def _reference_walk(scene, info):
+    """`walk_triangles` through the plain versions of the forest and
+    streamed kernels, on any device."""
+    def walk(o, d, alive):
+        if not traverse.has_tree(info):
+            return traverse.walk_triangles(o, d, scene, info, active=alive)
+        on = traverse.nudged(o, d)
+        args = (on, d, traverse._t_init(on[0], alive), scene, info)
+        if info.streamed:
+            out = traverse.sorted_query(wavefront.streamed_reference, *args)
+            return traverse.Walk(*out[:4], scene.st_perm), on
+        out = wavefront.trace_forest_reference(*args)
+        return traverse.Walk(*out[:4], scene.wf_perm), on
+    return walk
+
+
+def _step(device):
     """The bounce step of the per-bounce route: the kernel on CUDA
-    tensors, the plain version on CPU tensors or with pallas="off"."""
-    if device.type == "cuda" and not traverse._plain(pallas):
+    tensors, the plain version on CPU tensors."""
+    if device.type == "cuda":
         return bounce.bounce_step
     return bounce.bounce_step_plain
 
 
-def capturing(device) -> bool:
-    """Whether the current CUDA stream of `device` is capturing a graph
-    (render/graph.py): then nothing may be read back."""
-    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
-
-
-def _run_bounces(walk, step, scene, info, st, *, max_bounces: int,
-                 n_live=None, readback=None):
-    """The bounce loop on a begun path state `st`: per bounce
+def _run_bounces(walk, step, scene, info, st, *, max_bounces: int):
+    """The bounce loop on a begun path state `st`: `max_bounces` times
     `walk(o, d, alive) -> (Walk, nudged origins)`, then `step`
-    (kernels/bounce.py) on the rays' state in place. With `readback`, one
-    host sync per bounce: the count of rays left alive, which `step` reads
-    back, and the loop ends where it is 0; the count before the first
-    bounce is read too unless the caller gives it (`n_live`: every ray of
-    a camera form's state is alive). Without, every one of `max_bounces`
-    bounces is issued and nothing is read: the kernels skip rays that are
-    not alive, so the state, the images and the queries are the same bits.
-    `readback` defaults to true unless the stream is `capturing`."""
-    if readback is None:
-        readback = not capturing(st.alive.device)
-    if readback and n_live is None:
-        n_live = int(st.alive.sum())
+    (kernels/bounce.py) on the rays' state in place. Nothing is read
+    back: the walk and the step skip the rays no longer alive, so the
+    bounces past the last live ray change nothing."""
     for _ in range(max_bounces):
-        if readback and not n_live:
-            break
         w, _ = walk(tuple(st.o), tuple(st.d), st.alive)
         with span("pt0.bounce"):
-            n_live = step(scene, info, st, w, readback=readback)
+            step(scene, info, st, w)
 
 
 def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,
@@ -143,8 +139,7 @@ def _bounce_loop(walk, step, scene, info, o, d, alive, state, *,
     """The bounce loop from rays o, d that are `alive`: `_run_bounces` on
     their state begun by `bounce.begin`. Returns (radiance without sky
     (r, g, b), sky radiance (r, g, b), state, queries (R,) int64)."""
-    st = bounce.begin(o, d, alive, state, stack_size=stack_size,
-                      max_bounces=max_bounces)
+    st = bounce.begin(o, d, alive, state, stack_size=stack_size)
     _run_bounces(walk, step, scene, info, st, max_bounces=max_bounces)
     return tuple(st.inc), tuple(st.skyc), st.state, st.queries
 
@@ -160,18 +155,27 @@ def trace_plain(scene, info, o, d, alive, state, *, max_bounces: int,
 
 
 def trace_bounces(scene, info, o, d, alive, state, *, max_bounces: int,
-                  stack_size: int = 10, pallas: str = "auto"):
+                  stack_size: int = 10):
     """Path integrator of the per-bounce route: every bounce one walk of
-    the forest or LBVH and one bounce step (the bounce kernel on CUDA
-    tensors). Returns as `_bounce_loop`."""
-    return _bounce_loop(_forest_walk(scene, info, pallas),
-                        _step(alive.device, pallas), scene, info, o, d, alive,
+    the forest or LBVH and one bounce step (the kernels on CUDA tensors).
+    Returns as `_bounce_loop`."""
+    return _bounce_loop(_forest_walk(scene, info), _step(alive.device),
+                        scene, info, o, d, alive, state,
+                        max_bounces=max_bounces, stack_size=stack_size)
+
+
+def trace_bounces_reference(scene, info, o, d, alive, state, *,
+                            max_bounces: int, stack_size: int = 10):
+    """`trace_bounces` through the plain versions of the walks and of the
+    bounce step on any device: the yardstick of the route's kernels on
+    the card. Returns as `_bounce_loop`."""
+    return _bounce_loop(_reference_walk(scene, info),
+                        bounce.bounce_step_plain, scene, info, o, d, alive,
                         state, max_bounces=max_bounces,
                         stack_size=stack_size)
 
 
-def trace_state(scene, info, st, *, max_bounces: int, stack_size: int,
-                pallas: str = "auto"):
+def trace_state(scene, info, st, *, max_bounces: int, stack_size: int):
     """One sample of a state `sample_state` made and the camera form
     (kernels/bounce.py `camera_step`) has begun, every ray alive, on `st`
     in place: a state with no stack, the block kernel's, through
@@ -186,9 +190,8 @@ def trace_state(scene, info, st, *, max_bounces: int, stack_size: int,
         st.inc.copy_(torch.stack(col))
         st.queries = q if st.queries is None else st.queries + q
         return
-    _run_bounces(_forest_walk(scene, info, pallas),
-                 _step(st.alive.device, pallas), scene, info, st,
-                 max_bounces=max_bounces, n_live=st.alive.shape[0])
+    _run_bounces(_forest_walk(scene, info), _step(st.alive.device), scene,
+                 info, st, max_bounces=max_bounces)
 
 
 def check_fused(info, fused: str):
@@ -225,8 +228,8 @@ def takes_block(info, fused: str, stack_size: int) -> bool:
     return False
 
 
-def sample_state(info, state, *, raytracing: bool, max_bounces: int,
-                 stack_size: int, fused: str, totals: bool = True):
+def sample_state(info, state, *, raytracing: bool, stack_size: int,
+                 fused: str, totals: bool = True):
     """The state of one sample's rays with RNG `state` that the camera form
     begins, of the route that takes them: with `raytracing`, the path state
     of the per-bounce route or, where `takes_block`, the block kernel's
@@ -236,12 +239,11 @@ def sample_state(info, state, *, raytracing: bool, max_bounces: int,
     block = raytracing and takes_block(info, fused, stack_size)
     return bounce.state_for(
         state, path=raytracing and not block, stack_size=stack_size,
-        max_bounces=max_bounces, probe=not raytracing and probes(info),
-        totals=totals)
+        probe=not raytracing and probes(info), totals=totals)
 
 
 def trace(scene, info, o, d, alive, state, *, max_bounces: int,
-          stack_size: int = 10, fused: str = "auto", pallas: str = "auto"):
+          stack_size: int = 10, fused: str = "auto"):
     """Path integrator of one sample's rays. fused "auto" / "on": the
     block kernel where the scene is eligible (kernels/fused.trace_fused);
     "off", or a scene or stack depth it does not take: the per-bounce
@@ -256,7 +258,7 @@ def trace(scene, info, o, d, alive, state, *, max_bounces: int,
             stack_size=stack_size)
     inc, skyc, state, queries = trace_bounces(
         scene, info, o, d, alive, state, max_bounces=max_bounces,
-        stack_size=stack_size, pallas=pallas)
+        stack_size=stack_size)
     return (tuple(inc[i] + skyc[i] for i in range(3)), state,
             queries.sum().reshape(1))
 
@@ -288,31 +290,28 @@ def _direct(walk, step, scene, info, o, d, alive, probe):
     return tuple(st.inc)
 
 
-def _probe(scene, info, pallas):
+def _probe(scene, info):
     def probe(loc, direction):
-        return traverse.probe_forest_t(loc, direction, scene, info,
-                                       pallas=pallas)
+        return traverse.probe_forest_t(loc, direction, scene, info)
     return probe
 
 
-def direct_state(scene, info, st, *, pallas: str = "auto"):
+def direct_state(scene, info, st):
     """`direct_diffuse` of the rays of a Whitted state the camera form has
     begun (with `loc` where the scene `probes`), into st.inc."""
-    _direct_state(_forest_walk(scene, info, pallas),
-                  _step(st.alive.device, pallas), scene, info, st,
-                  _probe(scene, info, pallas))
+    _direct_state(_forest_walk(scene, info), _step(st.alive.device), scene,
+                  info, st, _probe(scene, info))
 
 
-def direct_diffuse(scene, info, o, d, alive, *, pallas: str = "auto"):
+def direct_diffuse(scene, info, o, d, alive):
     """Whitted shade of the per-bounce route: Ka + Kd (0.2 + N.y) + Ke on
     a hit with the unflipped (possibly normal-mapped) normal, the sky on a
     miss. Subsurface materials shade by the thickness behind the hit,
     probed through the whole forest or the streamed LBVH (the reference
     probes the hit object alone: the two differ only where another object
     cuts the segment)."""
-    return _direct(_forest_walk(scene, info, pallas),
-                   _step(alive.device, pallas), scene, info, o, d, alive,
-                   _probe(scene, info, pallas))
+    return _direct(_forest_walk(scene, info), _step(alive.device), scene,
+                   info, o, d, alive, _probe(scene, info))
 
 
 def direct_diffuse_plain(scene, info, o, d, alive):

@@ -19,8 +19,7 @@ by one of two routes:
                     more than `config.ray_batch_size` pixels go through
                     it in chunks. On the card a path-mode frame of it is
                     one CUDA graph's replay (render/graph.py: captured at
-                    the first frame of a scene and config, no readback
-                    a bounce)
+                    the first frame of a scene and config)
 
 Autofocus takes the centre ray's hit distance (frag.glsl:901-906), probed
 once per frame, or once per camera pose by `Renderer`.
@@ -72,6 +71,9 @@ _GRAPHS = graph.Slot()
 
 
 def _check(config: RenderConfig, dev: torch.device):
+    """Refuse a `fused` or `pallas` none of "auto", "on", "off", and
+    pallas="off" on the card: `pallas`'s one reader (the tensors' device
+    picks the kernels or their plain versions)."""
     for name in ("fused", "pallas"):
         if getattr(config, name) not in ("auto", "on", "off"):
             raise ValueError(
@@ -80,10 +82,8 @@ def _check(config: RenderConfig, dev: torch.device):
                 "mode, its plain versions serve the CPU")
     if config.pallas == "off" and dev.type != "cpu":
         raise ValueError(
-            "pallas='off' renders through the plain versions of the forest "
-            "and streamed kernels, which serve the CPU only; on the card "
-            "the kernels are held against them through kernels/wavefront."
-            "trace_forest_reference and streamed_reference")
+            "pallas='off' renders through the plain versions, on the CPU "
+            "only (integrator.trace_bounces_reference runs them anywhere)")
 
 
 def _on(scene, device) -> torch.device:
@@ -94,7 +94,7 @@ def _on(scene, device) -> torch.device:
 
 
 def autofocus_distance(scene, info, cam_pos, cam_rot, focal_distance: float,
-                       auto_focus: bool, pallas: str = "auto"):
+                       auto_focus: bool):
     """The internal focal distance: the centre ray's hit distance when
     autofocus is on and it hits, else `focal_distance` (0-dim f32)."""
     ifd = torch.tensor(focal_distance, dtype=torch.float32,
@@ -104,7 +104,7 @@ def autofocus_distance(scene, info, cam_pos, cam_rot, focal_distance: float,
     d = camera.center_probe_direction(cam_rot)
     hit, _ = traverse.ray_scene(
         tuple(cam_pos[i].reshape(1) for i in range(3)),
-        tuple(d[i].reshape(1) for i in range(3)), scene, info, pallas=pallas)
+        tuple(d[i].reshape(1) for i in range(3)), scene, info)
     mid = torch.where(hit.is_hit, hit.t, -1.0)[0]
     return torch.where(mid > 0.0, mid, ifd)
 
@@ -169,11 +169,10 @@ def render_rays(scene, info, uv, index, cam_pos, cam_rot, frame_seed: int,
         if config.raytracing:
             col, state, queries = arealights.path_trace(
                 o, d, state, scene, info, spp, config.max_bounces,
-                stack_size=config.refraction_stack_depth,
-                pallas=config.pallas)
+                stack_size=config.refraction_stack_depth)
         else:
             col, state = arealights.shade_point(o, d, state, scene, info,
-                                                spp, pallas=config.pallas)
+                                                spp)
             queries = torch.full((1,), n, dtype=torch.int64,
                                  device=state.device)
         return torch.stack(col, dim=-1), queries
@@ -204,7 +203,6 @@ def _sample_state(info, state, config, totals=True):
     """`integrator.sample_state` of the config's route."""
     return integrator.sample_state(
         info, state, raytracing=config.raytracing,
-        max_bounces=config.max_bounces,
         stack_size=config.refraction_stack_depth, fused=config.fused,
         totals=totals)
 
@@ -215,10 +213,9 @@ def _trace_sample(scene, info, st, config):
     if config.raytracing:
         integrator.trace_state(scene, info, st,
                                max_bounces=config.max_bounces,
-                               stack_size=config.refraction_stack_depth,
-                               pallas=config.pallas)
+                               stack_size=config.refraction_stack_depth)
     else:
-        integrator.direct_state(scene, info, st, pallas=config.pallas)
+        integrator.direct_state(scene, info, st)
 
 
 def _sample_radiance(st):
@@ -295,14 +292,12 @@ def render_debug_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
                                   config.screen_h_ratio).unbind(-1)
     o = tuple(cam_pos[i].expand(w * h) for i in range(3))
     if info.streamed:
-        box, rows = traverse.heat_counts(o, d, scene, info,
-                                         pallas=config.pallas)
+        box, rows = traverse.heat_counts(o, d, scene, info)
         n_obj = max(info.num_objects, info.num_tri_objects, 1)
         return (heat_color(box, rows) / float(n_obj)).reshape(h, w, 3)
     img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
     for k in range(info.num_objects):
-        box, leaf = traverse.object_heat_counts(o, d, scene, info, k,
-                                                pallas=config.pallas)
+        box, leaf = traverse.object_heat_counts(o, d, scene, info, k)
         img = img + heat_color(box, leaf) / float(info.num_objects)
     return img.reshape(h, w, 3)
 
@@ -323,8 +318,7 @@ def render_frame(scene, info, config: RenderConfig, cam_pos, cam_rot,
     cam_rot = torch.as_tensor(cam_rot, dtype=torch.float32, device=dev)
     if ifd is None:
         ifd = autofocus_distance(scene, info, cam_pos, cam_rot,
-                                 config.focal_distance, config.auto_focus,
-                                 config.pallas)
+                                 config.focal_distance, config.auto_focus)
     whitted = not config.raytracing
     if (config.fused != "off" and not config.legacy_shading
             and not config.legacy_pathtrace
@@ -442,7 +436,7 @@ class Renderer:
         if self._ifd is None:
             self._ifd = autofocus_distance(
                 self.scene, self.info, self.cam_pos, self.cam_rot,
-                cfg.focal_distance, cfg.auto_focus, cfg.pallas)
+                cfg.focal_distance, cfg.auto_focus)
         self._sum, self._rays = render_frames_accum(
             self.scene, self.info, cfg, self.cam_pos, self.cam_rot, seeds,
             self._sum, self._rays, device=self.device, ifd=self._ifd,
@@ -519,8 +513,7 @@ class Renderer:
             uv, vm.rotation_matrix(self.cam_rot), cfg.cam_size,
             cfg.focal_length, cfg.screen_h_ratio).unbind(-1)
         o = tuple(self.cam_pos[i].reshape(1) for i in range(3))
-        hit, o_n = traverse.ray_scene(o, d, self.scene, self.info,
-                                      pallas=cfg.pallas)
+        hit, o_n = traverse.ray_scene(o, d, self.scene, self.info)
         surf = traverse.surface_sample(hit, o_n, d, self.scene, self.info)
 
         def vec(v):

@@ -125,12 +125,11 @@ def _map_ns(scene, info, mat, uv, ns):
     return torch.where(slot >= 0, s[:, 0], ns)
 
 
-def _query(o, d, scene, info, pallas, active=None):
+def _query(o, d, scene, info, active=None):
     """rayScene, the attributes at the hits and the materials with their
     maps (raySceneResult + newMtl + mapMtl): (Hit, SurfaceSample, fields).
     `active` switches rays off (ray_scene)."""
-    hit, on = traverse.ray_scene(o, d, scene, info, pallas=pallas,
-                                 active=active)
+    hit, on = traverse.ray_scene(o, d, scene, info, active=active)
     surf = traverse.surface_sample(hit, on, d, scene, info)
     m, _ = shade_setup(scene, info, surf, _FIELDS, _MAPS)
     if info.map_bindings:
@@ -167,16 +166,14 @@ def draws_per_shade(info, sample_res: int) -> int:
     return per_light * len(info.lights)
 
 
-def shade_point(o, d, state, scene, info, sample_res: int, *,
-                pallas: str = "auto"):
+def shade_point(o, d, state, scene, info, sample_res: int):
     """The legacy shadePoint of rays o + t d: ((r, g, b), new state)."""
-    hit, surf, m = _query(o, d, scene, info, pallas)
-    return shade_hit(hit, surf, m, d, state, scene, info, sample_res,
-                     pallas=pallas)
+    hit, surf, m = _query(o, d, scene, info)
+    return shade_hit(hit, surf, m, d, state, scene, info, sample_res)
 
 
 def shade_hit(hit, surf, m, d, state, scene, info, sample_res: int, *,
-              pallas: str = "auto", live=None):
+              live=None):
     """shadePoint over a closest hit already found (raytrace.glsl:676-758):
     Phong from the disk lights, the emissive return, the sky on a miss.
     `live` (R,) bool marks the rays whose colour is used (default: all);
@@ -226,7 +223,7 @@ def shade_hit(hit, surf, m, d, state, scene, info, sample_res: int, *,
             sh_hit, _ = traverse.ray_scene(
                 tuple(c.repeat(k) for c in shadow_o),
                 tuple(torch.cat([dd[i] for dd in dirs]) for i in range(3)),
-                scene, info, pallas=pallas, active=shadowed.repeat(k))
+                scene, info, active=shadowed.repeat(k))
             reached = _collection_hit(sh_hit, kind, id_start, id_end)
             reached = reached.reshape(k, -1).to(torch.float32)
             if sample_res == 1:
@@ -271,8 +268,7 @@ def _latch(result, active, cond, value):
 
 
 def path_trace(o, d, state, scene, info, sample_res: int,
-               max_bounces: int, *, stack_size: int = 10,
-               pallas: str = "auto", glossy=None):
+               max_bounces: int, *, stack_size: int = 10, glossy=None):
     """The legacy deterministic pathTrace (raytrace.glsl:781-899, module
     docstring) of rays o + t d, one evaluation: ((r, g, b), new state,
     scene queries (1,) int64 counted as the JAX module counts them: the
@@ -286,7 +282,7 @@ def path_trace(o, d, state, scene, info, sample_res: int,
     f0 = torch.zeros_like(d[0])
     one = torch.ones_like(f0)
     n_rays = f0.shape[0]
-    hit, surf, m = _query(o, d, scene, info, pallas)
+    hit, surf, m = _query(o, d, scene, info)
     stack = torch.zeros((n_rays, stack_size), dtype=torch.float32,
                         device=f0.device)
     stack[:, 0] = AIR_IOR
@@ -313,7 +309,7 @@ def path_trace(o, d, state, scene, info, sample_res: int,
                                  * (max_bounces - bounce))
             break
         flat, state = shade_hit(hit, surf, m, d, state, scene, info,
-                                sample_res, pallas=pallas, live=active)
+                                sample_res, live=active)
         # a miss ends the path: mix(col, flatShadeHit, throughput)
         result, active = _latch(result, active, ~hit.is_hit,
                                 _mix(col, flat, thr))
@@ -381,11 +377,10 @@ def path_trace(o, d, state, scene, info, sample_res: int,
         weak_dir = _where(active & ~weak_bad, weak_dir, d)
         weak_co = torch.where(stronger_refl, trans_co, refl_co)
         sampled = upd & ~weak_bad & (weak_co > 0.0)
-        w_hit, w_surf, w_m = _query(weak_o, weak_dir, scene, info, pallas,
+        w_hit, w_surf, w_m = _query(weak_o, weak_dir, scene, info,
                                     active=sampled)
         w_flat, state = shade_hit(w_hit, w_surf, w_m, weak_dir, state, scene,
-                                  info, sample_res, pallas=pallas,
-                                  live=sampled)
+                                  info, sample_res, live=sampled)
         w_flat = _where(weak_bad, sky(scene, info, (f0, f0, f0)), w_flat)
         inner = _where(weak_co > 0.0, _mix(flat, w_flat, weak_co), flat)
         col = _where(upd, _mix(col, inner, thr), col)
@@ -413,8 +408,7 @@ def path_trace(o, d, state, scene, info, sample_res: int,
         thr = _where(upd, _scale(thr, weight), thr)
         was_in = torch.where(upd, in_obj, was_in)
         d = next_d
-        hit, surf, m = _query(next_o, next_d, scene, info, pallas,
-                              active=active)
+        hit, surf, m = _query(next_o, next_d, scene, info, active=active)
         rays = rays + active.sum()
     # the loop ran out without a return: pathTrace returns col (:898)
     return _where(active, col, result), state, rays

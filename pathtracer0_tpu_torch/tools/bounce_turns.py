@@ -19,19 +19,25 @@ from ..kernels import bounce
 
 # the state fields each form writes, compared bit for bit
 OUTPUTS = {"path": ("o", "d", "col", "inc", "skyc", "enter", "stack",
-                    "ssize", "inobj", "state", "alive", "queries", "live"),
+                    "ssize", "inobj", "state", "alive", "queries"),
            "whitted": ("inc",), "locate": ("loc",)}
 
 
 def _copy(mod, st):
     """A copy of state `st` as checkout `mod`'s kernels/bounce.py holds it
-    (the fields its BounceState has)."""
+    (the fields its BounceState has). A checkout whose path state still
+    counts the rays left alive after each bounce (`live`) gets a zeroed
+    counter for each bounce up to this one."""
     names = {f.name for f in dataclasses.fields(mod.BounceState)}
-    return mod.BounceState(**{
+    fields = {
         f.name: (getattr(st, f.name).clone()
                  if isinstance(getattr(st, f.name), torch.Tensor)
                  else getattr(st, f.name))
-        for f in dataclasses.fields(st) if f.name in names})
+        for f in dataclasses.fields(st) if f.name in names}
+    if "live" in names and st.stack is not None:
+        fields["live"] = torch.zeros(st.bounce + 1, dtype=torch.int32,
+                                     device=st.alive.device)
+    return mod.BounceState(**fields)
 
 
 def _timed(mod, sc, info, st, walk, form, probe_t, reps):

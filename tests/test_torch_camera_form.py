@@ -38,7 +38,7 @@ W, H = 40, 30
 SEED = 1606
 CAM = ((0.3, 1.2, -2.0), (0.25, -0.1, 0.05))
 STATE_FIELDS = ("state", "alive", "col", "inc", "skyc", "enter", "stack",
-                "ssize", "inobj", "queries", "live", "total")
+                "ssize", "inobj", "queries", "total")
 
 
 def _camera(device="cpu"):
@@ -56,7 +56,7 @@ def _camera(device="cpu"):
 
 def _state(state, path, totals=True):
     st = bounce.state_for(state.clone(), path=path, stack_size=6,
-                          max_bounces=3, totals=totals)
+                          totals=totals)
     # what a sample before left in the state
     g = torch.Generator().manual_seed(3)
     for name in ("inc", "skyc", "col", "enter", "total"):
@@ -66,7 +66,6 @@ def _state(state, path, totals=True):
     if path:
         st.stack.copy_(torch.rand(st.stack.shape, generator=g))
         st.queries.fill_(5)
-        st.live.fill_(7)
         st.ssize.fill_(3)
         st.inobj.fill_(True)
     return st
@@ -113,7 +112,7 @@ def test_plain_is_dof_ray_and_begin(blur):
                                   blur, cam[12], state)
     o, d = o.unbind(-1), d.unbind(-1)
     alive = torch.ones(state.shape, dtype=torch.bool)
-    want = bounce.begin(o, d, alive, state1, stack_size=6, max_bounces=3)
+    want = bounce.begin(o, d, alive, state1, stack_size=6)
     st = _state(state, True)
     before = st.inc + st.skyc
     bounce.camera_step_plain(st, pd, cam, blur)

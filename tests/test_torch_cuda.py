@@ -329,9 +329,9 @@ def test_routes_go_through_their_kernels():
         torch.tensor(IFD, device="cuda"), state, W, H, cam_size=1.5,
         focal_length=1.0, blur=BLUR)
     alive = torch.ones(W * H, dtype=torch.bool, device="cuda")
-    out = {p: integrator.trace_bounces(big, big_info, o, d, alive, state,
-                                       max_bounces=4, pallas=p)
-           for p in ("auto", "off")}
+    out = {p: trace(big, big_info, o, d, alive, state, max_bounces=4)
+           for p, trace in (("auto", integrator.trace_bounces),
+                            ("off", integrator.trace_bounces_reference))}
     rad = {p: torch.stack([v[0][i] + v[1][i] for i in range(3)], -1)
            for p, v in out.items()}
     diff = (rad["auto"] - rad["off"]).abs().amax(-1)
@@ -531,9 +531,8 @@ def test_port_spans_on_the_streamed_route_on_card(tmp_path):
     """utils/trace.span in the card's trace, on a streamed scene of at
     least SORT_MIN_RAYS pixels: the eager route's frame (render_rays, as
     the tiles and the graph's first frame run it) holds spp x bounces
-    `pt0.query` and `pt0.bounce` spans, each bounce one
-    `pt0.bounce.readback`; a later step replays the frame's CUDA graph in
-    one `pt0.route.replay` and no other span of the port. Both beside the
+    `pt0.query` and `pt0.bounce` spans; a later step replays the frame's
+    CUDA graph in one `pt0.route.replay` and no other span of the port. Both beside the
     device's streamed_kernel and bounce_kernel records, by name."""
     _card()
     import json
@@ -571,10 +570,7 @@ def test_port_spans_on_the_streamed_route_on_card(tmp_path):
         r.scene, r.info, r.config, r.device, 2, r.cam_pos, r.cam_rot,
         r._ifd), "eager")
     assert {n: len(v) for n, v in spans.items()} == {
-        "pt0.query": 6, "pt0.bounce": 6, "pt0.bounce.readback": 6}
-    for s, t in spans["pt0.bounce"]:
-        assert sum(s <= a and b <= t
-                   for a, b in spans["pt0.bounce.readback"]) == 1
+        "pt0.query": 6, "pt0.bounce": 6}
     spans = traced(lambda: r.step(2), "replay")
     assert {n: len(v) for n, v in spans.items()} == {"pt0.route.replay": 1}
 
@@ -610,13 +606,13 @@ def test_trace_busy_counts_no_span_as_device_work_on_card(monkeypatch):
     _card()
     import contextlib
 
-    from pathtracer0_tpu_torch.kernels import bounce, frame, traverse
+    from pathtracer0_tpu_torch.kernels import frame, traverse
     from pathtracer0_tpu_torch.render import graph, integrator
     from pathtracer0_tpu_torch.tools import profile
 
     r = _streamed_terrain_renderer()
     spanned = profile.trace_busy(lambda: r.step(7))
-    for module in (bounce, frame, traverse, integrator, graph):
+    for module in (frame, traverse, integrator, graph):
         monkeypatch.setattr(module, "span",
                             lambda name: contextlib.nullcontext())
     plain = profile.trace_busy(lambda: r.step(7))
@@ -790,9 +786,9 @@ def test_sorted_query_takes_the_route_on_card():
     """walk_triangles' nudged origins are `nudged`'s; heat_counts' counters
     the as-given kernel's on the nudged rays (no ray nudged twice), also
     from one origin expanded over every ray;
-    sort_key_kernel counts one launch for each of ray_scene,
-    probe_forest_t and heat_counts at 4,096 rays, none under
-    SORT_MIN_RAYS rays or with pallas="off"."""
+    sort_key_kernel and streamed_kernel count one launch each for each of
+    ray_scene, probe_forest_t and heat_counts, at 4,096 rays and under
+    SORT_MIN_RAYS rays alike."""
     _card()
     from pathtracer0_tpu_torch.kernels import traverse, wavefront
 
@@ -805,6 +801,12 @@ def test_sorted_query_takes_the_route_on_card():
     given = wavefront.trace_streamed(on, d, traverse._t_init(on[0], active),
                                      sc, info)
     assert torch.equal(walk.t, given[0]) and torch.equal(walk.row, given[3])
+    # under SORT_MIN_RAYS rays the card sorts too: the walk is per ray
+    walk_f, _ = traverse.walk_triangles(
+        tuple(c[:1000] for c in o), tuple(c[:1000] for c in d), sc, info,
+        active=active[:1000])
+    assert torch.equal(walk_f.t, given[0][:1000])
+    assert torch.equal(walk_f.row, given[3][:1000])
     box, rows = traverse.heat_counts(o, d, sc, info)
     full = wavefront.trace_streamed(on, d, torch.full_like(on[0], 1e30), sc,
                                     info)
@@ -824,23 +826,20 @@ def test_sorted_query_takes_the_route_on_card():
     assert torch.equal(box_e, given_e[4]) and torch.equal(rows_e, given_e[5])
     for fn in (traverse.ray_scene, traverse.probe_forest_t,
                traverse.heat_counts):
-        for n, pallas, keyed, walked in ((4096, "auto", 1, 1),
-                                         (1000, "auto", 0, 1),
-                                         (4096, "off", 0, 0)):
+        for n in (4096, 1000):
             before = dict(wavefront.launches)
-            fn(tuple(c[:n] for c in o), tuple(c[:n] for c in d), sc, info,
-               pallas=pallas)
+            fn(tuple(c[:n] for c in o), tuple(c[:n] for c in d), sc, info)
             assert wavefront.launches["sort_key_kernel"] == \
-                before["sort_key_kernel"] + keyed, (fn, n, pallas)
+                before["sort_key_kernel"] + 1, (fn, n)
             assert wavefront.launches["streamed_kernel"] == \
-                before["streamed_kernel"] + walked, (fn, n, pallas)
+                before["streamed_kernel"] + 1, (fn, n)
 
 
 @pytest.mark.cuda
 def test_streamed_loop_bounce_device_operations_on_card():
     """A bounce of the per-bounce route's loop on a streamed scene (4,096
     rays) takes at most 25 device operations in a tools/profile.trace_busy
-    trace: the key, the sort, the walk, the bounce kernel, the readback."""
+    trace: the key, the sort, the walk, the bounce kernel."""
     _card()
     from pathtracer0_tpu_torch.core import math as vm
     from pathtracer0_tpu_torch.kernels import frame

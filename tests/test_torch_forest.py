@@ -487,14 +487,12 @@ def test_too_deep_a_forest_is_refused_at_pack_time(pairs, monkeypatch):
                        config=RenderConfig(max_tris_in_leaf=p.max_leaf))
 
 
-def test_pallas_argument():
+def test_probe_is_the_closest_triangle():
+    """probe_forest_t is ray_scene's distance where a triangle is hit
+    first."""
     dev, info, sc, pinfo = _mixed_pair()
     o, d = _rand_rays(64, seed=2, center=(0.5, 1.0, 0.0), spread=0.7)
-    a, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo, pallas="on")
-    b, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo, pallas="off")
-    assert torch.equal(a.t, b.t) and torch.equal(a.tri, b.tri)
-    with pytest.raises(ValueError, match="interpret"):
-        ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo, pallas="interpret")
+    a, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo)
     t = ttraverse.probe_forest_t(_soa(o), _soa(d), sc, pinfo)
     tri_only = torch.where(a.kind == 1, a.t, t)
     assert torch.equal(t, tri_only)

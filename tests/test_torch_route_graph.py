@@ -1,15 +1,16 @@
 """The per-bounce route's frame as one CUDA graph (render/graph.py) and the
-bounce loop it captures, which reads nothing back.
+bounce loop it captures, which reads nothing back on any device.
 
-On the CPU: `integrator._run_bounces` without readbacks against the loop
-with them, bit for bit (every tensor of the state, so the images and the
-queries), over the plain walk and the plain bounce step and over the
-kernel's body built by g++, on the tiny terrain through the forest and the
-streamed LBVH and on a view of the sky alone, where every ray dies at the
-first bounce and the loop with readbacks stops early; `render_rays` with
-the stream seen as capturing against `render_rays` as it runs; the frame
-seed as a 0-d int64 tensor against the int; which frames `render_frame`
-takes through a graph; the slot's key.
+On the CPU: `integrator._run_bounces` to the bounce that leaves no ray
+alive against the loop run to its last bounce, bit for bit (every tensor
+of the state, so the images and the queries), over the plain walk and the
+plain bounce step and over the kernel's body built by g++, on the tiny
+terrain through the forest and the streamed LBVH and on a view of the sky
+alone, where every ray dies at the first bounce; the plain route
+`trace_bounces_reference` against `trace_bounces`; `render_frame` with
+pallas "off" against "auto"; the frame seed as a 0-d int64 tensor against
+the int; which frames `render_frame` takes through a graph; the slot's
+key.
 
 On the card (marker `cuda`), a small streamed scene with its sorted
 query: the graph's frames against the eager route's, bit for bit, over
@@ -38,7 +39,7 @@ BOUNCES, SPP = 4, 2
 POSES = {"terrain": ((0.0, 4.8, -0.2), (1.4, 0.0, 0.0)),
          "sky": ((0.0, 40.0, 0.0), (-1.2, 0.0, 0.0))}
 FIELDS = ("o", "d", "alive", "inc", "col", "skyc", "enter", "stack",
-          "ssize", "inobj", "state", "queries", "live", "total")
+          "ssize", "inobj", "state", "queries", "total")
 
 
 def _terrain(streamed: bool, device="cpu"):
@@ -62,7 +63,6 @@ def _begun(sc, info, cfg, pose, camera_step):
     cam = bounce.camera_scalars(pos, rotmat, torch.tensor(4.0))
     st = integrator.sample_state(
         info, trng.seed(index, 2024), raytracing=True,
-        max_bounces=cfg.max_bounces,
         stack_size=cfg.refraction_stack_depth, fused="off")
     camera_step(st, pd.T.contiguous(), cam, cfg.blur)
     return st
@@ -75,67 +75,71 @@ STEPS = {"plain": (bounce.bounce_step_plain, bounce.camera_step_plain),
 @pytest.mark.parametrize("step", sorted(STEPS))
 @pytest.mark.parametrize("view", ("forest", "streamed", "sky"))
 def test_loop_without_readbacks_matches_the_loop_with_them(view, step):
-    """Every bounce issued and nothing read back gives the state of the
-    loop that reads the live count back after each bounce, bit for bit;
-    that loop stops after the bounce that leaves no ray alive (the
-    third on the terrain, the first on the sky alone), the other runs
-    all of them over rays that are no longer alive."""
+    """The loop runs every bounce and reads nothing back: the bounces
+    past the one that leaves no ray alive (the third on the terrain, the
+    first on the sky alone), where a loop that read the live count back
+    would stop, change nothing, bit for bit."""
     sc, info, cfg = _terrain(streamed=view == "streamed")
     bounce_step, camera_step = STEPS[step]
     pose = POSES["sky" if view == "sky" else "terrain"]
-    walk = integrator._forest_walk(sc, info, "auto")
+    walk = integrator._forest_walk(sc, info)
+    last = 1 if view == "sky" else 3
     runs = {}
-    for readback in (True, False):
+    for n in (last - 1, last, BOUNCES):
         st = _begun(sc, info, cfg, pose, camera_step)
         integrator._run_bounces(walk, bounce_step, sc, info, st,
-                                max_bounces=BOUNCES,
-                                n_live=st.alive.shape[0], readback=readback)
-        runs[readback] = st
-    with_rb, without = runs[True], runs[False]
+                                max_bounces=n)
+        runs[n] = st
+    stopped, full = runs[last], runs[BOUNCES]
+    assert bool(runs[last - 1].alive.any()) and not bool(stopped.alive.any())
     for name in FIELDS:
-        assert torch.equal(getattr(with_rb, name), getattr(without, name)), \
+        assert torch.equal(getattr(stopped, name), getattr(full, name)), \
             name
-    assert without.bounce == BOUNCES
+    assert stopped.bounce == last and full.bounce == BOUNCES
     if view == "sky":
-        assert with_rb.bounce == 1 and not bool(with_rb.alive.any())
-        assert float(with_rb.skyc.abs().sum()) > 0.0
-    else:
-        assert with_rb.bounce == 3 and int(with_rb.live[1]) > 0
-
-
-def test_step_without_readback_returns_nothing():
-    """The path form without `readback` returns None and leaves the count
-    in st.live; with it, the count; the bounce is taken either way."""
-    sc, info, cfg = _terrain(streamed=False)
-    walk = integrator._forest_walk(sc, info, "auto")
-    for readback, want in ((True, int), (False, type(None))):
-        st = _begun(sc, info, cfg, POSES["terrain"],
-                    bounce.camera_step_plain)
-        w, _ = walk(tuple(st.o), tuple(st.d), st.alive)
-        got = bounce.bounce_step_plain(sc, info, st, w, readback=readback)
-        assert isinstance(got, want) and st.bounce == 1
-        assert int(st.live[0]) == int(st.alive.sum())
+        assert float(stopped.skyc.abs().sum()) > 0.0
 
 
 @pytest.mark.parametrize("view", ("forest", "streamed", "sky"))
-def test_render_rays_while_capturing_matches(view, monkeypatch):
-    """`render_rays` with the stream seen as capturing a graph (so its
-    loop reads nothing back) gives the image and the queries it gives
-    with readbacks, bit for bit."""
+def test_reference_route_matches_the_route_on_cpu(view, monkeypatch):
+    """`trace_bounces_reference` (the plain walks and the plain bounce
+    step, the card's yardstick) gives `trace_bounces`' path state on CPU
+    tensors, bit for bit over every field."""
     sc, info, cfg = _terrain(streamed=view == "streamed")
-    pos, rot = (torch.tensor(v, dtype=torch.float32)
-                for v in POSES["sky" if view == "sky" else "terrain"])
-    uv, index = camera.pixel_centers(cfg.width, cfg.height, "cpu")
+    pose = POSES["sky" if view == "sky" else "terrain"]
+    st = _begun(sc, info, cfg, pose, bounce.camera_step_plain)
+    begun = []
+    begin = bounce.begin
 
-    def frame():
-        return renderer.render_rays(sc, info, uv, index, pos, rot, 77,
-                                    torch.tensor(4.0), config=cfg)
+    def keep(*args, **kwargs):
+        begun.append(begin(*args, **kwargs))
+        return begun[-1]
 
-    want = frame()
-    monkeypatch.setattr(integrator, "capturing", lambda device: True)
-    got = frame()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert int(want[1]) >= cfg.width * cfg.height * SPP
+    monkeypatch.setattr(bounce, "begin", keep)
+    for trace in (integrator.trace_bounces,
+                  integrator.trace_bounces_reference):
+        out = trace(sc, info, tuple(st.o), tuple(st.d), st.alive, st.state,
+                    max_bounces=BOUNCES)
+        assert out[2] is begun[-1].state and out[3] is begun[-1].queries
+    want, got = begun
+    for name in FIELDS[:-1]:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.bounce == want.bounce == BOUNCES
+    assert int(want.queries.sum()) >= cfg.width * cfg.height
+
+
+def test_pallas_renders_alike_on_cpu():
+    """`render_frame` on CPU tensors with pallas "off" and "auto": the
+    same image and queries, bit for bit (the tensors' device alone picks
+    the plain versions), on the streamed terrain."""
+    sc, info, cfg = _terrain(streamed=True)
+    pos, rot = POSES["terrain"]
+    out = [renderer.render_frame(sc, info, dataclasses.replace(cfg, pallas=p),
+                                 pos, rot, 77, device="cpu")
+           for p in ("auto", "off")]
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert int(out[0][1]) >= cfg.width * cfg.height * SPP
 
 
 @pytest.mark.parametrize("frame_seed", [0, 1, 9999, 2**31 - 1, 2**31,
@@ -205,7 +209,7 @@ def _card_scene():
 
 
 def _eager(sc, info, cfg, seed, pose):
-    """The eager route's frame (readbacks and all) at `pose`."""
+    """The eager route's frame at `pose`."""
     pos, rot = (torch.tensor(v, dtype=torch.float32, device="cuda")
                 for v in pose)
     return renderer._route_frame(

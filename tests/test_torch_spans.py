@@ -2,9 +2,9 @@
 each step inside a `step` span of the caller's, as the benchmark wraps
 Renderer.step: on the frame route `pt0.frame` once a step; on a streamed
 scene's per-bounce route, of at least SORT_MIN_RAYS pixels so the query
-sorts, a `pt0.query` and a `pt0.bounce` a sample and bounce, each bounce
-holding one `pt0.bounce.readback`; every span inside its step; and with
-no profiler recording, one shared null context.
+sorts, a `pt0.query` and a `pt0.bounce` a sample and bounce; every span
+inside its step; and with no profiler recording, one shared null
+context.
 
 This file imports neither jax nor the JAX package.
 """
@@ -20,8 +20,7 @@ from pathtracer0_tpu_torch.kernels import traverse
 from pathtracer0_tpu_torch.utils import trace
 
 SPP, BOUNCES, STEPS = 2, 3, 2
-NAMES = ("step", "pt0.frame", "pt0.query", "pt0.bounce",
-         "pt0.bounce.readback")
+NAMES = ("step", "pt0.frame", "pt0.query", "pt0.bounce")
 
 
 def _spheres():
@@ -57,16 +56,12 @@ def _terrain():
 # pt0.query); on the card frame_kernel has no bounce loop of the host's
 ROUTES = {
     "frame": (_spheres,
-              {"step": 1, "pt0.frame": 1, "pt0.bounce": SPP * BOUNCES,
-               "pt0.bounce.readback": SPP * BOUNCES},
-              {"pt0.frame": "step", "pt0.bounce": "pt0.frame",
-               "pt0.bounce.readback": "pt0.bounce"}),
+              {"step": 1, "pt0.frame": 1, "pt0.bounce": SPP * BOUNCES},
+              {"pt0.frame": "step", "pt0.bounce": "pt0.frame"}),
     "bounce": (_terrain,
                {"step": 1, "pt0.query": SPP * BOUNCES,
-                "pt0.bounce": SPP * BOUNCES,
-                "pt0.bounce.readback": SPP * BOUNCES},
-               {"pt0.query": "step", "pt0.bounce": "step",
-                "pt0.bounce.readback": "pt0.bounce"}),
+                "pt0.bounce": SPP * BOUNCES},
+               {"pt0.query": "step", "pt0.bounce": "step"}),
 }
 
 
@@ -103,8 +98,6 @@ def test_spans_nest_once_a_layer(route, tmp_path):
     for child, up in parent.items():
         for s in by[child]:
             assert sum(_inside(s, p) for p in by[up]) == 1
-    for b in by["pt0.bounce"]:
-        assert sum(_inside(rb, b) for rb in by["pt0.bounce.readback"]) == 1
 
 
 def test_span_is_a_shared_null_context_with_the_profiler_off():

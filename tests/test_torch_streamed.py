@@ -306,10 +306,6 @@ def test_ray_scene_streamed_matches_jax_and_the_sah_route(pair, n):
     hit_f, _ = ttraverse.ray_scene(_soa(o), _soa(d), forest, finfo,
                                    active=torch.tensor(active))
     _assert_hits(hit_t, hit_f, 1e-4)
-    # pallas="off" is the plain version too on the CPU
-    hit_p, _ = ttraverse.ray_scene(_soa(o), _soa(d), sc, pinfo, pallas="off",
-                                   active=torch.tensor(active))
-    assert torch.equal(hit_p.t, hit_t.t) and torch.equal(hit_p.tri, hit_t.tri)
     # probe and counters take the streamed branch
     t_probe = ttraverse.probe_forest_t(_soa(o), _soa(d), sc, pinfo)
     tri_only = kinds == 1

@@ -2,9 +2,12 @@
 // the CPU tests can hold it against the plain versions of
 // kernels/mxu_group.py (tests/test_torch_group_test.py): the product forms'
 // candidate test (csrc/group_test.cuh) and vpu_kernel's group loop
-// (csrc/tri_free.cuh `group`). Plain C interface, loaded with ctypes
+// (csrc/tri_free.cuh `group`); and streamed_kernel's row cull at a group
+// (csrc/row_cull.cuh) against kernels/wavefront.py `group_rows`
+// (tests/test_torch_row_cull.py). Plain C interface, loaded with ctypes
 // (kernels/build.py HOST_LIBS).
 #include "group_test.cuh"
+#include "row_cull.cuh"
 #include "tri_free.cuh"
 
 namespace {
@@ -67,6 +70,33 @@ void pt_vpu_groups(const float* rays, const float* tris, const float* t_init, in
     u_out[r] = u * inv;
     v_out[r] = v * inv;
     idx_out[r] = idx;
+  }
+}
+
+// streamed_kernel's row cull at one group for each ray, as its walk does
+// it: rays (6, n_rays) o then d by component; tris (n_rays, 56, 9) each
+// ray's group; rd (n_rays, 4) the entry distances of its row boxes; slot0
+// the idx of its first slot; t, td, u, v, idx and the pruning distance
+// tcur in and out; order (n_rays, 4) the rows tested in order, then -1.
+void pt_group_rows(const float* rays, const float* tris, const float* rd, const int* slot0,
+                   int n_rays, float* t, float* td, float* u, float* v, int* idx, float* tcur,
+                   long long* order) {
+  const long long n = n_rays;
+  for (long long r = 0; r < n; ++r) {
+    const float* c = rays + r;
+    const float* g = tris + r * trifree::GROUP_TRIS * 9;
+    const int s0 = slot0[r];
+    unsigned left = (1u << rowcull::ROWS) - 1;
+    int step = 0;
+    for (int k = 0; k < rowcull::ROWS; ++k) order[r * rowcull::ROWS + k] = -1;
+    for (int j; (j = rowcull::next(rd + r * rowcull::ROWS, left, tcur[r])) >= 0;) {
+      left &= ~(1u << j);
+      order[r * rowcull::ROWS + step++] = j;
+      const int first = s0 + j * rowcull::ROW_TRIS;
+      if (rowcull::row(g + (first - s0) * 9, first, s0, c[0], c[n], c[2 * n], c[3 * n], c[4 * n],
+                       c[5 * n], t[r], td[r], u[r], v[r], idx[r]))
+        tcur[r] = t[r] / td[r];
+    }
   }
 }
 

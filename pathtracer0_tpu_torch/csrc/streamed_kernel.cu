@@ -25,16 +25,22 @@
 // passes a bare slab test), far child pushed first, each only if its entry
 // distance is below the ray's closest hit so far; a popped node is dropped
 // if the closest hit has since come below its entry distance. Per group:
-// its 56 triangle slots in order. The closest hit is carried as numerators
-// t, u, v over the denominator td (start t = t_init, td = 1) and compared
-// by cross-multiplication, strictly, so the first slot in walk order wins
-// a tie; the pruning distance is refreshed by one division at each
-// accepted hit; one reciprocal and three products follow the walk.
-// Empty slots (zero edges, det = 0) and empty rows mask themselves.
+// the row cull (csrc/row_cull.cuh): the entry distances of its 4 row
+// boxes (`rows_box`, scene/packing.py `st_rows`), then only the rows whose
+// entry is below the pruning distance, nearest first, each checked again
+// as that distance falls, a row's 14 slots in order. The closest hit is
+// carried as numerators t, u, v over the denominator td (start t =
+// t_init, td = 1) and compared by cross-multiplication, strictly, except
+// that a slot before the closest hit's in the same group takes an exact
+// tie, so the hit is the one the group's 56 slots in order would give
+// wherever a row box holds its slots' hits; the
+// pruning distance is refreshed by one division after each row that took
+// a hit; one reciprocal and three products follow the walk. Empty slots
+// (zero edges, det = 0) mask themselves; empty rows have inverted boxes.
 //
 // Counters, per ray: 2 box tests for each internal node visited (top tree
 // or subtree), 4 row visits for each group entered (the TPU kernel counted
-// per block of rays).
+// per block of rays); the rows the cull tests are counted by PHASES.
 //
 // The stack holds (node, entry distance) and at most one entry per level
 // plus one: log2(treelets) + 6. Trees that need more than STACK are refused
@@ -45,22 +51,30 @@
 // PHASES instantiation on the 1M terrain, PERF.md section 6): the group tests
 // took 76-82% of a warp's cycles while only 3-5 of its lanes tested a
 // group at a time, since each lane tested a group as soon as its own walk
-// reached one. So:
+// reached one; later, with the lanes together, still 49-53%, and a live
+// ray entered ~1 group (3.8-4.4 rows) for its one hit. So:
 //   - the walk is while-while: a lane descends internal nodes (taking the
 //     near child at once, where the stack would push and pop it) until it
 //     has a group to test or is done, and the lanes that have one test
 //     their groups together. A lane's own order of visits, its pruning and
 //     its counters are those of the stack walk, so its bits are too;
-//   - a group's 56 slots, 2,016 contiguous bytes on a 16-byte boundary,
-//     are read four slots at a time as nine 16-byte loads (a load of lanes
-//     on k groups costs k passes of L1, whatever its width): tri_free.cuh
-//     `group`, which vpu_kernel shares;
+//   - inside a group the row cull tests 1.2 of its 4 rows on the terrain's
+//     rays (16-19 slot tests a live ray, where every group cost 56); a
+//     warp still takes as many row turns as its busiest lane. Rows as
+//     leaves of the while-while walk (a lane goes on to its next group
+//     while others test rows) made the row tests cheaper but the descent
+//     dearer: 3-5% slower on the primary rays, 0-2% faster on mixed ones;
+//   - a row's 504 bytes are read 8 bytes at a time, two slots (nine loads)
+//     a turn, since an odd row starts 8 bytes off a 16-byte boundary: 16-
+//     byte loads from the boundary before it, with a select per float,
+//     took 80 registers against 60 and lost on three of four populations;
 //   - the slot test rejects a slot whose |det| or u already fails before it
 //     forms q, v and t (csrc/tri_free.cuh), so a warp whose lanes all fail
 //     there skips the rest.
 // The route sorts the rays of a query (kernels/traverse.py) so that the
-// lanes of a warp walk the same part of the tree. The box tests and the
-// walk's loads from L2 are the rest.
+// lanes of a warp walk the same part of the tree. The box tests (now the
+// row boxes too), the walk's loads from L2 and the lanes idle while the
+// busiest lane of a group turn tests its rows are the rest.
 //
 // The route's sorted query on the card (kernels/wavefront.py
 // `trace_sorted`) is three launches, where PyTorch ops took ~90 (the
@@ -79,15 +93,16 @@
 //     slot. The walk is per ray, so the outputs are those of the rays as
 //     given, bit for bit.
 //
-// The group loop and its slot test are csrc/tri_free.cuh's, which the
-// group-test diagnostic (csrc/mxu_group_kernel.cu) shares. Build with -fmad=false and no fast
-// math. Plain version:
+// The slot test is csrc/tri_free.cuh's, which the group-test diagnostic
+// (csrc/mxu_group_kernel.cu) shares with its group loop; the row choice and
+// the row's slot loop are csrc/row_cull.cuh's, which g++ builds for the CPU
+// tests. Build with -fmad=false and no fast math. Plain version:
 // pathtracer0_tpu_torch/kernels/wavefront.py `streamed_reference`, over
 // kernels/traverse.py `sorted_query` for the sorted query.
 #include <cuda_runtime.h>
 
+#include "row_cull.cuh"
 #include "sort_key.cuh"
-#include "tri_free.cuh"
 
 // kernels/wavefront.py `_StreamArgs`, field for field.
 struct StreamArgs {
@@ -97,6 +112,7 @@ struct StreamArgs {
   const float* top;   // (2n-1, 8) min xyz, max xyz, pad, pad; heap order
   const float* sub;   // (64n, 8) per treelet 63 boxes in heap order + a pad
   const float* tris;  // (1792n, 9) v1, e1, e2 by slot
+  const float* rows_box;  // (128n, 8) each row's box as `top`; empty rows inverted
   float* t;
   float* u;
   float* v;
@@ -138,7 +154,7 @@ struct Ray {
 // form that walks the rays in a sorted order (top of this file).
 enum { NO_CHECK, PHASES, ORDERED };
 enum { PH_TOP, PH_SUB, PH_GROUP, PH_STACK, PH_WARP, PH_GROUP_TESTS, PH_GROUP_LANES,
-       PH_GROUP_DISTINCT, N_CHECK };
+       PH_GROUP_DISTINCT, PH_ROWS_TESTED, PH_ROW_BOXES, N_CHECK };
 
 template <int CHECK>
 struct Probe {
@@ -156,6 +172,10 @@ struct Probe {
       const long long dt = clock64() - t0;
       if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) c[k] += (unsigned long long)dt;
     }
+  }
+  // `n` more of count k for this lane (rows tested, row boxes tested)
+  __device__ __forceinline__ void count(int k, int n) {
+    if (CHECK == PHASES) c[k] += static_cast<unsigned long long>(n);
   }
   // the lanes here test groups `code` together
   __device__ __forceinline__ void group_test(int code) {
@@ -283,18 +303,30 @@ __global__ void __launch_bounds__(BLOCK) streamed_kernel(StreamArgs a) {
         k = (node - sub0) & (SUB_STRIDE - 1);
       }
       if (node < 0) break;
-      // the group's 56 slots in order (tri_free.cuh), with the other lanes
-      // that have reached a group
+      // the group, with the other lanes that have reached one: the entry
+      // distances of its 4 row boxes, then the rows whose entry is below
+      // the pruning distance, nearest first, each checked again as that
+      // distance falls (row_cull.cuh)
       probe.group_test(node);
       long long t0 = probe.tick();
       rows += GROUP_ROWS;
       const int treelet = (node - sub0) / SUB_STRIDE;
-      const int slot0 = (treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS) * TRIS_PER_ROW;
-      trifree::group(a.tris + static_cast<size_t>(slot0) * 9, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy,
-                     ray.dz, t, td, u, v, [&](int j) {
-                       idx = slot0 + j;
-                       tcur = t / td;
-                     });
+      const int row0 = treelet * TREELET_ROWS + (k - (GROUPS - 1)) * GROUP_ROWS;
+      const int slot0 = row0 * TRIS_PER_ROW;
+      float rd[GROUP_ROWS];
+#pragma unroll
+      for (int j = 0; j < GROUP_ROWS; ++j)
+        rd[j] = entry(a.rows_box + static_cast<size_t>(row0 + j) * 8, ray);
+      probe.count(PH_ROW_BOXES, GROUP_ROWS);
+      unsigned left = (1u << GROUP_ROWS) - 1;
+      for (int j; (j = rowcull::next(rd, left, tcur)) >= 0;) {
+        left &= ~(1u << j);
+        probe.count(PH_ROWS_TESTED, 1);
+        const int first = slot0 + j * TRIS_PER_ROW;
+        if (rowcull::row(a.tris + static_cast<size_t>(first) * 9, first, slot0, ray.ox, ray.oy,
+                         ray.oz, ray.dx, ray.dy, ray.dz, t, td, u, v, idx))
+          tcur = t / td;
+      }
       probe.tock(PH_GROUP, t0);
       t0 = probe.tick();
       node = pop(stack_n, stack_d, sp, tcur);

@@ -8,8 +8,9 @@
 //
 // The closest hit is carried as numerators t, u, v over the denominator td
 // (start t = t_init, td = 1) and compared by cross-multiplication,
-// strictly, so the first slot in order wins a tie. Empty slots (zero edges,
-// det = 0) fail the first compare.
+// strictly, so the first slot in order wins a tie (a caller that tests
+// slots out of order takes ties itself: csrc/row_cull.cuh). Empty slots
+// (zero edges, det = 0) fail the first compare.
 //
 // Build with -fmad=false (nvcc) or -ffp-contract=off (g++) and no fast
 // math: the plain PyTorch version (kernels/intersect.py `tri_candidate`)
@@ -35,13 +36,15 @@ struct Tri {
 };
 
 // Tests the slot `p` against the ray o + s d. If it is hit closer than
-// t / td, replaces t, td, u, v by the hit's numerators and |det| and
+// t / td (or, with `take_tie`, exactly as close: the same cross-multiplied
+// distance), replaces t, td, u, v by the hit's numerators and |det| and
 // returns true. A slot with |det| < 1e-10 or u outside [0, |det|] is
 // rejected before q and the v and t numerators are formed (a hit needs v
 // >= 0 and u + v <= |det|, so u <= |det|): no result changes, and a warp
 // whose lanes all fail there skips the rest.
 TRIFREE_HD bool accept(const Tri& p, float ox, float oy, float oz, float dx, float dy,
-                       float dz, float& t, float& td, float& u, float& v) {
+                       float dz, float& t, float& td, float& u, float& v,
+                       bool take_tie = false) {
   const float px = dy * p.e2z - dz * p.e2y;
   const float py = dz * p.e2x - dx * p.e2z;
   const float pz = dx * p.e2y - dy * p.e2x;
@@ -57,7 +60,9 @@ TRIFREE_HD bool accept(const Tri& p, float ox, float oy, float oz, float dx, flo
   const float vr = dx * qx + dy * qy + dz * qz;
   const float tr = p.e2x * qx + p.e2y * qy + p.e2z * qz;
   const float vc = vr * sg, tc = tr * sg;
-  if (vc >= 0.0f && uc + vc <= adet && tc > EPSILON * adet && tc * td < t * adet) {
+  const float mine = tc * td, best = t * adet;
+  if (vc >= 0.0f && uc + vc <= adet && tc > EPSILON * adet &&
+      (mine < best || (take_tie && mine == best))) {
     t = tc;
     td = adet;
     u = uc;

@@ -4,7 +4,8 @@ Each library has a plain C interface. The CUDA ones (LIBS) are compiled by
 nvcc for Hopper (sm_90a), the host ones (HOST_LIBS: the LBVH build, the
 OBJ tokenizer, and for the CPU tests the forest kernels' triangle test,
 the block kernel's dense triangle loop, the group-test kernels'
-candidate test and group loop, the bounce kernel's per-ray body and the
+candidate test and group loop, the streamed walk's row cull, the bounce
+kernel's per-ray body and the
 streamed route's sort key) by
 g++, into
 `_build/` at first use, and cached there under a hash of their sources
@@ -34,7 +35,8 @@ LIBS = {
     "block_kernel": ("block_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "bounce_kernel": ("bounce_kernel.cu", "integrate.cuh", "pathtrace.cuh"),
     "forest_kernel": ("forest_kernel.cu", "tri_divide.cuh"),
-    "streamed_kernel": ("streamed_kernel.cu", "tri_free.cuh", "sort_key.cuh"),
+    "streamed_kernel": ("streamed_kernel.cu", "row_cull.cuh", "tri_free.cuh",
+                        "sort_key.cuh"),
     "mxu_group_kernel": ("mxu_group_kernel.cu", "tri_free.cuh",
                          "group_test.cuh"),
 }
@@ -44,7 +46,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # build's float32 boxes equal the NumPy build's bit for bit, and the
 # forest kernels' triangle test (tri_divide.cuh), the block kernel's
 # dense triangle loop (pathtrace.cuh), the group-test kernels' candidate
-# test and group loop (group_test.cuh, tri_free.cuh), the bounce
+# test, group loop and row cull (group_test.cuh, tri_free.cuh,
+# row_cull.cuh), the bounce
 # kernel's per-ray body (integrate.cuh `bounce_ray`) and the sort key
 # (sort_key.cuh) equal the plain versions'; the OBJ tokenizer (objparse.cpp) does no float arithmetic
 # beyond strtod
@@ -53,7 +56,7 @@ HOST_LIBS = {"streambuild": ("streambuild.cpp",),
              "tri_divide": ("tri_divide_host.cpp", "tri_divide.cuh"),
              "dense_hit": ("dense_hit_host.cpp", "pathtrace.cuh"),
              "group_test": ("group_test_host.cpp", "group_test.cuh",
-                            "tri_free.cuh"),
+                            "row_cull.cuh", "tri_free.cuh"),
              "bounce": ("bounce_host.cpp", "integrate.cuh", "pathtrace.cuh"),
              "sort_key": ("sort_key_host.cpp", "sort_key.cuh")}
 HOST_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]

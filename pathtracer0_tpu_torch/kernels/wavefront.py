@@ -33,27 +33,32 @@ its `_streamed_kernel`: on the card csrc/streamed_kernel.cu, one thread
 per ray, on CPU tensors `streamed_reference`. One walk covers both levels
 of the LBVH (accel/lbvh.py): the top tree, whose leaves are the treelets,
 and on into the treelet's own 63-box subtree heap down to a group of 4
-rows, whose 56 triangle slots are tested in order (the TPU kernel loops
-over a treelet's 32 group boxes instead; the builder stores the whole
-heap, and a per-ray walk visits fewer boxes through it). A node code below
-2n - 1 is a top node, 2n - 1 + 64 * treelet + k node k of that treelet's
-subtree. The triangle test is the division-free one
-(kernels/intersect.tri_candidate): the closest hit is carried as
-numerators over the denominator td and compared by cross-multiplication,
-strictly, so the first slot in walk order wins a tie; one reciprocal
+rows (the TPU kernel loops over a treelet's 32 group boxes instead; the
+builder stores the whole heap, and a per-ray walk visits fewer boxes
+through it). At a group the row cull (`group_rows`, csrc/row_cull.cuh)
+takes the entry distances of its 4 row boxes (scene.st_rows) and tests
+only the rows whose entry is below the pruning distance, nearest first,
+each row's 14 slots in order. A node code below 2n - 1 is a top node,
+2n - 1 + 64 * treelet + k node k of that treelet's subtree. The triangle
+test is the division-free one (kernels/intersect.tri_candidate): the
+closest hit is carried as numerators over the denominator td and compared
+by cross-multiplication, strictly, so the first slot in walk order wins a
+tie, except that inside a group a slot before the closest hit's takes an
+exact tie, as the group's slots in order would decide it; one reciprocal
 follows the walk. Children are ordered by the ray's own entry distances,
 far pushed first, each pushed only if its distance is below the pruning
-distance t / td, which is refreshed by one division at every accepted
-hit; a popped node is dropped if the pruning distance has since come
+distance t / td, which is refreshed by one division after every row that
+took a hit; a popped node is dropped if the pruning distance has since come
 below its entry distance. A box whose min exceeds its max (an empty row,
 group or treelet: +inf, -inf) is refused before the slab test, which an
 infinite inverted box would pass. Counters per ray: 2 box tests for each
 internal node visited, 4 row visits for each group entered. idx is
 row * 14 + slot; scene.st_perm gives the triangle id. On the card the
 walk is while-while (a lane descends to its next group, then the lanes
-that have one test their groups together) and reads a group 16 bytes at a
-time, so st_tris must start on a 16-byte boundary; a lane's order of
-visits, and so its bits, are the stack walk's. `streamed_phase_cycles`
+that have one test their groups together), reads a row 8 bytes and a box
+16 bytes at a time, so st_tris must start on an 8-byte boundary and
+st_rows on a 16-byte one; a lane's order of visits, and so its bits, are
+the stack walk's. `streamed_phase_cycles`
 runs the kernel's check-only instantiation that says where a warp's
 cycles go. The route (kernels/traverse.py) sorts a query's rays first.
 """
@@ -270,8 +275,8 @@ class _StreamArgs(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "top", "sub", "tris",
-        "t", "u", "v", "idx", "box", "rows", "check_out", "active", "key",
-        "order", "onx", "ony", "onz")] + [
+        "rows_box", "t", "u", "v", "idx", "box", "rows", "check_out",
+        "active", "key", "order", "onx", "ony", "onz")] + [
         (n, ctypes.c_int) for n in ("n_rays", "n_treelets", "form")]
 
 
@@ -281,11 +286,13 @@ _NO_CHECK, _PHASES, _ORDERED = 0, 1, 2
 
 # the sums of csrc/streamed_kernel.cu's check-only PHASES instantiation, in
 # its order: cycles of the top-tree box tests, the subtree box tests, the
-# group tests, the stack's pushes and pops, and each warp from start to end;
-# then the group tests of a warp (lanes that test groups together), the
-# lanes in them and the distinct groups among those lanes
+# group tests (row boxes and rows), the stack's pushes and pops, and each
+# warp from start to end; then the group tests of a warp (lanes that test
+# groups together), the lanes in them and the distinct groups among those
+# lanes; then the rows tested and the row boxes tested, over the rays
 STREAMED_PHASES = ("top_box", "sub_box", "group", "stack", "warp",
-                   "group_tests", "group_lanes", "group_distinct")
+                   "group_tests", "group_lanes", "group_distinct",
+                   "rows_tested", "row_boxes")
 
 
 def _check_streamed(scene, info):
@@ -297,7 +304,8 @@ def _check_streamed(scene, info):
         raise ValueError("the streamed tables were built with other row or "
                          "treelet sizes than accel/lbvh.py's")
     want = {"st_top": (2 * n - 1, 8), "st_sub": (_SUB_STRIDE * n, 8),
-            "st_tris": (lbvh.TREELET_ROWS * lbvh.TRIS_PER_ROW * n, 9)}
+            "st_tris": (lbvh.TREELET_ROWS * lbvh.TRIS_PER_ROW * n, 9),
+            "st_rows": (lbvh.TREELET_ROWS * n, 8)}
     for name, shape in want.items():
         if tuple(getattr(scene, name).shape) != shape:
             raise ValueError(f"{name} must be {shape} for {n} treelets, "
@@ -306,6 +314,61 @@ def _check_streamed(scene, info):
     if need > STREAM_MAX_STACK:
         raise ValueError(f"{n} treelets need a stack of {need}; the kernel "
                          f"has {STREAM_MAX_STACK}")
+
+
+def box_entry(o, inv_d, b):
+    """The entry distances of rays o (reciprocal directions `inv_d`, from
+    `safe_inv_dir`) into boxes b (..., 8) of the streamed tables, as
+    csrc/streamed_kernel.cu `entry`: MISS past a box, and for an empty one
+    (min > max), which the bare slab test would pass."""
+    dist = ray_box(o, inv_d, (b[..., 0], b[..., 1], b[..., 2]),
+                   (b[..., 3], b[..., 4], b[..., 5]))
+    return torch.where(b[..., 0] <= b[..., 3], dist, MISS)
+
+
+def group_rows(o, d, tri, rd, slot0, best):
+    """The row cull of one group per ray (csrc/row_cull.cuh): the rows
+    whose entry distance `rd` is below the pruning distance, nearest first
+    (the lower row on equal entries), each checked again as that distance
+    falls; a row's 14 slots in order through the division-free slot test,
+    a slot before the closest hit's in the same group taking an exact tie.
+    o, d: (x, y, z) tuples of (L,) tensors; `tri` (L, 56, 9) the group's
+    slots; `rd` (L, 4) the entry distances of its row boxes; `slot0` (L,)
+    int32 the idx of its first slot; best = [t, td, u, v, idx, tcur] as in
+    `group_accept`. Returns (best, order): `order` (L, 4) int64 holds the
+    rows tested, in the order tested, then -1."""
+    n, per = lbvh.SUB_GROUP_ROWS, lbvh.TRIS_PER_ROW
+    ok, tc, adet, uc, vc = tri_candidate(
+        tuple(c[:, None] for c in o), tuple(c[:, None] for c in d),
+        tuple(tri[..., i] for i in (0, 1, 2)),
+        tuple(tri[..., i] for i in (3, 4, 5)),
+        tuple(tri[..., i] for i in (6, 7, 8)))
+    left = torch.ones(rd.shape, dtype=torch.bool, device=rd.device)
+    order = torch.full(rd.shape, -1, dtype=torch.int64, device=rd.device)
+    lanes = torch.arange(n, device=rd.device)
+    for step in range(n):
+        cand = left & (rd < best[5][:, None])
+        go = cand.any(1)
+        # argmin takes the first of equal minima: the lower row
+        row = torch.where(cand, rd, float("inf")).argmin(1)
+        order[:, step] = torch.where(go, row, -1)
+        left = left & ~(go[:, None] & (lanes == row[:, None]))
+        took = torch.zeros_like(go)
+        for s in range(per):
+            j = (row * per + s)[:, None]
+            tcj, adj, ucj, vcj = (x.gather(1, j)[:, 0]
+                                  for x in (tc, adet, uc, vc))
+            slot = slot0 + j[:, 0].to(torch.int32)
+            tie = ((best[4] >= slot0) & (best[4] < slot0 + _GROUP_TRIS)
+                   & (slot < best[4]))
+            mine, cur = tcj * best[1], best[0] * adj
+            okj = go & ok.gather(1, j)[:, 0] & (
+                (mine < cur) | (tie & (mine == cur)))
+            new = (tcj, adj, ucj, vcj, slot)
+            best[:5] = [torch.where(okj, a, b) for a, b in zip(new, best)]
+            took = took | okj
+        best[5] = torch.where(took, best[0] / best[1], best[5])
+    return best, order
 
 
 def group_accept(o, d, tri, slots, best):
@@ -328,7 +391,8 @@ def group_accept(o, d, tri, slots, best):
     return best
 
 
-def streamed_reference(o, d, t_init, scene, info, visited=None):
+def streamed_reference(o, d, t_init, scene, info, visited=None,
+                       rows_tested=None):
     """Plain version of `streamed_kernel` (module docstring): one (R, cap)
     stack of (node, entry distance), every ray popping one node per step
     until all stacks are empty. Returns as `trace_streamed`.
@@ -336,7 +400,9 @@ def streamed_reference(o, d, t_init, scene, info, visited=None):
     `visited`, if given, is a pair of bool tensors that the walk marks:
     (2n - 1 + 64n,) the boxes some ray tested (rows of st_top, then of
     st_sub) and (32n,) the groups some ray entered. They say what the
-    batch has to read of the tables."""
+    batch has to read of the tables. `rows_tested`, if given, is an (R,)
+    int32 tensor to which the walk adds the rows each ray tests (the row
+    cull's count; `rows` counts 4 for each group entered)."""
     _check_streamed(scene, info)
     n = info.st_n_treelets
     n_top, sub0 = n - 1, 2 * n - 1
@@ -358,12 +424,10 @@ def streamed_reference(o, d, t_init, scene, info, visited=None):
     stack_n[:, 0] = 0 if n_top > 0 else sub0
     sp = (t_init > 0.0).to(torch.int64)
     lanes = torch.arange(_GROUP_TRIS, device=dev)
+    row_lanes = torch.arange(lbvh.SUB_GROUP_ROWS, device=dev)
 
     def entry(at):
-        b = boxes[at]
-        dist = ray_box(o, inv_d, (b[:, 0], b[:, 1], b[:, 2]),
-                       (b[:, 3], b[:, 4], b[:, 5]))
-        return torch.where(b[:, 0] <= b[:, 3], dist, MISS)
+        return box_entry(o, inv_d, boxes[at])
 
     def push(sp, want, node, dist):
         at = torch.clamp(sp, max=cap - 1)
@@ -381,22 +445,28 @@ def streamed_reference(o, d, t_init, scene, info, visited=None):
         at_group = go & in_sub & (k >= _GROUPS - 1)
         inner = go & ~at_group
 
-        # a group of a treelet: its 56 slots in order, for the rays there
+        # a group of a treelet, for the rays there: the entry distances of
+        # its 4 row boxes, then its rows by the row cull (`group_rows`)
         at = at_group.nonzero()[:, 0]
         if at.numel():
             treelet = (node[at] - sub0) // _SUB_STRIDE
-            slot0 = ((treelet * lbvh.TREELET_ROWS
-                      + (k[at] - (_GROUPS - 1)) * lbvh.SUB_GROUP_ROWS)
-                     * lbvh.TRIS_PER_ROW)
-            slots = slot0[:, None] + lanes
+            row0 = (treelet * lbvh.TREELET_ROWS
+                    + (k[at] - (_GROUPS - 1)) * lbvh.SUB_GROUP_ROWS)
+            slot0 = row0 * lbvh.TRIS_PER_ROW
             if visited is not None:
                 visited[1][slot0 // _GROUP_TRIS] = True
-            best = group_accept(
-                tuple(c[at] for c in o), tuple(c[at] for c in d),
-                scene.st_tris[slots], slots.to(torch.int32),
+            oa, da = tuple(c[at] for c in o), tuple(c[at] for c in d)
+            rd = box_entry(tuple(c[:, None] for c in oa),
+                           tuple(c[at, None] for c in inv_d),
+                           scene.st_rows[row0[:, None] + row_lanes])
+            best, order = group_rows(
+                oa, da, scene.st_tris[slot0[:, None] + lanes], rd,
+                slot0.to(torch.int32),
                 [x[at] for x in (t, td, u, v, idx, tcur)])
             for x, b in zip((t, td, u, v, idx, tcur), best):
                 x[at] = b
+            if rows_tested is not None:
+                rows_tested[at] += (order >= 0).sum(1, dtype=torch.int32)
 
         # an internal node: both children by the ray's entry distances.
         # Of top node i they are top nodes 2i+1, 2i+2, a top leaf pushed as
@@ -551,9 +621,10 @@ def _stream_args(o, d, t_init, scene, info):
     allocation, whose kernels would overwrite it first)."""
     dev = o[0].device
     _check_streamed(scene, info)
-    if scene.st_tris.data_ptr() % 16:
-        raise ValueError("st_tris must start on a 16-byte boundary: the "
-                         "kernel reads a group's slots 16 bytes at a time")
+    if scene.st_tris.data_ptr() % 8 or scene.st_rows.data_ptr() % 16:
+        raise ValueError("st_tris must start on an 8-byte boundary and "
+                         "st_rows on a 16-byte one: the kernel reads a "
+                         "row's slots 8 bytes and a box 16 bytes at a time")
     n_rays = o[0].shape[0]
     f32 = torch.float32
     rays = [c.contiguous() for c in (*o, *d)]
@@ -568,6 +639,7 @@ def _stream_args(o, d, t_init, scene, info):
         top=build.ptr(scene.st_top, f32, dev),
         sub=build.ptr(scene.st_sub, f32, dev),
         tris=build.ptr(scene.st_tris, f32, dev),
+        rows_box=build.ptr(scene.st_rows, f32, dev),
         n_rays=n_rays, n_treelets=info.st_n_treelets, form=_NO_CHECK), rays
 
 

@@ -40,6 +40,9 @@ but the streamed two-level LBVH (accel/lbvh.py), `info.streamed`:
   st_tris   (1792 n, 9)  f32  v1, e1, e2 by slot: 128 rows of 14 to a
                               treelet, empty slots zero
   st_perm   (1792 n,)    i32  slot -> triangle id, -1 where empty
+  st_rows   (128 n, 8)   f32  each row's box as st_top's (`row_boxes`), the
+                              walk's cull inside a group; empty rows
+                              inverted (+inf, -inf)
 
 One box or triangle per row, as above: the JAX package's 128-lane rows and
 its ways of rebuilding these tables on the device spare its narrow host
@@ -146,6 +149,7 @@ class PackedScene:
     st_sub: torch.Tensor
     st_tris: torch.Tensor
     st_perm: torch.Tensor
+    st_rows: torch.Tensor
     legacy_mats: torch.Tensor
 
     @property
@@ -236,6 +240,30 @@ def stream_stack_need(n_treelets: int) -> int:
     return (n_treelets.bit_length() - 1) + (n_groups.bit_length() - 1) + 1
 
 
+def row_boxes(tris: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """(R, 8) float32: the box of each row of 14 slots of `tris` (R * 14,
+    9), min xyz, max xyz, two zero pads, over the vertices of its slots as
+    the slot test sees them, v1, v1 + e1 and v1 + e2, widened by one ulp
+    outward (the test's vertex v1 + e1 lies within half an ulp of the
+    rounded sum). A slot whose `perm` is -1 is empty and left out; a row
+    with no slot has the inverted box (+inf, -inf), which the walk
+    refuses."""
+    per = lbvh.TRIS_PER_ROW
+    t = np.asarray(tris, np.float32).reshape(-1, per, 9)
+    live = (np.asarray(perm).reshape(-1, per) >= 0)[..., None]
+    v1 = t[..., 0:3]
+    lo = np.full((t.shape[0], 3), np.inf, np.float32)
+    hi = np.full((t.shape[0], 3), -np.inf, np.float32)
+    for v in (v1, v1 + t[..., 3:6], v1 + t[..., 6:9]):
+        lo = np.minimum(lo, np.where(live, v, np.inf).min(1))
+        hi = np.maximum(hi, np.where(live, v, -np.inf).max(1))
+    full = live.any(1)
+    out = np.zeros((t.shape[0], 8), np.float32)
+    out[:, 0:3] = np.where(full, np.nextafter(lo, np.float32(-np.inf)), lo)
+    out[:, 3:6] = np.where(full, np.nextafter(hi, np.float32(np.inf)), hi)
+    return out
+
+
 def _streamed_tables(sf, n_tri, object_ranges):
     """The streamed LBVH's device tables from a StreamedForest, or their
     one-row placeholders from None; `tri_obj` then is not theirs."""
@@ -243,7 +271,8 @@ def _streamed_tables(sf, n_tri, object_ranges):
         return dict(st_top=np.zeros((1, 8), np.float32),
                     st_sub=np.zeros((1, 8), np.float32),
                     st_tris=np.zeros((1, 9), np.float32),
-                    st_perm=np.full(1, -1, np.int32))
+                    st_perm=np.full(1, -1, np.int32),
+                    st_rows=np.zeros((1, 8), np.float32))
     need = stream_stack_need(sf.n_treelets)
     if need > STREAM_MAX_STACK:
         raise ValueError(
@@ -253,7 +282,8 @@ def _streamed_tables(sf, n_tri, object_ranges):
     for k, (start, end) in enumerate(object_ranges):
         tri_obj[start:end] = k
     return dict(st_top=sf.ctree_f, st_sub=sf.sub_f, st_tris=sf.tris,
-                st_perm=sf.row_perm, tri_obj=tri_obj)
+                st_perm=sf.row_perm, st_rows=row_boxes(sf.tris, sf.row_perm),
+                tri_obj=tri_obj)
 
 
 def _forest_tables(forest, tris, object_ranges):

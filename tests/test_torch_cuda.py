@@ -701,6 +701,34 @@ def test_streamed_query_launches_once_on_card():
     assert cyc["group_lanes"] >= cyc["group_distinct"] >= cyc["group_tests"]
 
 
+@pytest.mark.cuda
+def test_streamed_row_cull_on_card():
+    """The row cull inside a group: the plain and the ORDERED form of
+    streamed_kernel against the plain twin on a small terrain, and the
+    check-only PHASES sums: 4 row boxes a group entered, at most 4 rows
+    tested a group and fewer on average, as many as the twin tests."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import traverse, wavefront
+
+    sc, info = _terrain_scene(68, 4, stream_threshold=0)
+    o, d, t_init = _forest_rays(8192)
+    tested = torch.zeros(8192, dtype=torch.int32, device="cuda")
+    out_p = wavefront.streamed_reference(o, d, t_init, sc, info,
+                                         rows_tested=tested)
+    _assert_streamed(wavefront.trace_streamed(o, d, t_init, sc, info),
+                     out_p, t_init)
+    active = t_init > 0.0
+    on, out_o = wavefront.trace_sorted(o, d, active, sc, info)
+    want = traverse.sorted_query(wavefront.streamed_reference, on, d,
+                                 t_init, sc, info)
+    _assert_streamed(out_o, want, t_init)
+    *out, cyc = wavefront.streamed_phase_cycles(o, d, t_init, sc, info)
+    groups = int(out[5].sum()) // 4
+    assert groups > 0 and cyc["row_boxes"] == 4 * groups
+    assert 0 < cyc["rows_tested"] < 4 * groups
+    assert abs(cyc["rows_tested"] - int(tested.sum())) <= 0.001 * groups
+
+
 def _root_rays(sc, n, seed=9):
     """n rays about the streamed scene's root box: from above it, mostly
     downwards; one in eleven upwards and one in thirteen from beside the

@@ -39,6 +39,7 @@ from pathtracer0_tpu_torch.core import camera as tcamera
 from pathtracer0_tpu_torch.kernels import traverse as ttraverse
 from pathtracer0_tpu_torch.kernels import wavefront as twavefront
 from pathtracer0_tpu_torch.render.renderer import render_rays
+from pathtracer0_tpu_torch.scene import packing
 from pathtracer0_tpu_torch.scene.packing import scene_from_numpy
 
 torch.set_num_threads(1)
@@ -161,6 +162,24 @@ def test_scene_from_numpy_carries_the_lbvh(pair):
                                         "row_perm")):
             assert torch.equal(torch.from_numpy(getattr(median, field)),
                                getattr(own, name)), name
+
+
+@pytest.mark.parametrize("n", [12, 45])
+def test_scene_from_numpy_makes_the_row_boxes(pair, n):
+    """A scene carried across from the JAX package gets the walk's row
+    boxes too, made from the carried slots as the port's own build makes
+    them; its own build of the same mesh has the same boxes where it has
+    the same slots."""
+    _, _, sc, pinfo = pair(n)
+    rows = packing.row_boxes(sc.st_tris.numpy(), sc.st_perm.numpy())
+    assert sc.st_rows.shape == (128 * pinfo.st_n_treelets, 8)
+    np.testing.assert_array_equal(sc.st_rows.numpy(), rows)
+    full = (sc.st_perm.numpy().reshape(-1, 14) >= 0).any(1)
+    assert full.sum() == -(-pinfo.num_tris // 14)
+    own, _ = _fill(Scene(), n, False).build(
+        RenderConfig(stream_threshold=0), device="cpu")
+    if torch.equal(own.st_tris, sc.st_tris):
+        assert torch.equal(own.st_rows, sc.st_rows)
 
 
 # 12 x 12 = 144 triangles: one treelet; 45 x 45 = 2,025: two (a treelet

@@ -29,7 +29,10 @@ non-zero:
                    rays of the scene's camera and as many random rays, one
                    in seven switched off; brute_kernel also on the grid's
                    480,000 primary rays alone, the batch the main path
-                   gives it;
+                   gives it; traverse_kernel also on the walks of one
+                   sample of the cell terrain181.progressive (the terrain
+                   at one triangle a leaf, its camera rays and its third
+                   bounce), all six outputs bit-equal;
                    block_kernel on one sample's rays at 800x600 of config 6
                    and of the OBJ grid, with the share of a warp's lanes a
                    bounce step keeps busy and of its cycles each part of a
@@ -215,7 +218,11 @@ one's, and holds each whose sources differ (the forest and streamed
 kernels also where kernels/wavefront.py differs)
 against this checkout's (phase `parent_vs_change`), whatever the others
 do: frame_kernel in configs 1, 2, 3, 4, 6 at 800x600 and the main path's spp
-in both schedules, traverse_kernel on the terrain's 960,000 rays,
+in both schedules, traverse_kernel on the terrain's 960,000 rays and on
+the walks of one sample of the cell terrain181.progressive (its camera
+rays' and its third bounce's; bits equal on every ray, and the dependent
+fetch rounds a live ray of both node layouts, worked out from the
+counters),
 brute_kernel on the OBJ grid's 480,000 primary and 960,000 mixed rays,
 block_kernel on the OBJ grid's rays, streamed_kernel on the 1M terrain's
 four populations, the group-test kernels (rows A-E, both precisions,
@@ -334,9 +341,12 @@ TIMED_STATE_EQ, TIMED_FRAC_OFF, TIMED_MEAN_ABS = 0.95, 0.05, 5e-3
 
 
 # the tables the frame and block kernels read, and the forest kernels
+# (traverse_kernel walks nodes_w; it reads nodes_f at the roots alone)
 BRUTE_TABLES = ("tris", "attr", "uvt", "materials", "ell_tab", "imp_tab",
                 "ell_flags", "imp_info", "atlas", "slots", "mat_maps", "sky")
-FOREST_TABLES = ("nodes_f", "nodes_i", "wf_tris", "roots")
+FOREST_TABLES = {"brute_kernel": ("nodes_f", "nodes_i", "wf_tris", "roots"),
+                 "traverse_kernel": ("nodes_w", "root_links", "wf_tris",
+                                     "roots")}
 
 
 class CheckFailed(RuntimeError):
@@ -2439,12 +2449,13 @@ def main() -> int:
 
     # the slice's scenes: the terrain and the OBJ grid
     def terrain_scene(stream_threshold=1 << 16, light=False, obj=None,
-                      device="cuda"):
+                      device="cuda", leaf=TERRAIN_LEAF):
         """bench.py's height function at n = TERRAIN_N as one mesh, a metal
         and a glass sphere on it; `stream_threshold=0` builds the streamed
-        LBVH over it instead of the SAH forest. `light` adds an emissive
-        sphere above it with its disk light (the legacy modes' light),
-        `obj` an OBJ file as another object, built on `device`."""
+        LBVH over it instead of the SAH forest, of at most `leaf` triangles
+        a leaf. `light` adds an emissive sphere above it with its disk
+        light (the legacy modes' light), `obj` an OBJ file as another
+        object, built on `device`."""
         n = TERRAIN_N
         ext = 50.0 * (n / 708.0)
         xs = np.linspace(-ext, ext, n)
@@ -2482,7 +2493,7 @@ def main() -> int:
         if obj:
             sc.add_object(obj, material=0)
         t0 = time.perf_counter()
-        out = sc.build(RenderConfig(max_tris_in_leaf=TERRAIN_LEAF,
+        out = sc.build(RenderConfig(max_tris_in_leaf=leaf,
                                     stream_threshold=stream_threshold),
                        device=device)
         return (*out, time.perf_counter() - t0)
@@ -2552,14 +2563,15 @@ def main() -> int:
     check(wavefront.use_brute(grid_info) and fused.eligible(grid_info),
           "the OBJ grid must go to brute_kernel and block_kernel")
 
-    def sample_rays(cam, rot, width, height, seed=4321):
+    def sample_rays(cam, rot, width, height, seed=4321, focus=20.0,
+                    blur=0.001):
         """One sample's rays of a camera, as the renderer makes them."""
         cam, rot = (torch.tensor(v, dtype=torch.float32, device=dev)
                     for v in (cam, rot))
         state = vrng.seed(torch.arange(width * height, device=dev), seed)
         o, d, state = frame._raygen(
-            cam, vm.rotation_matrix(rot), torch.tensor(20.0, device=dev),
-            state, width, height, cam_size=1.5, focal_length=1.0, blur=0.001)
+            cam, vm.rotation_matrix(rot), torch.tensor(focus, device=dev),
+            state, width, height, cam_size=1.5, focal_length=1.0, blur=blur)
         return [c.contiguous() for c in o], [c.contiguous() for c in d], state
 
     def query_rays(cam, rot, lo, hi, random_rays):
@@ -2596,9 +2608,68 @@ def main() -> int:
                                                      & (tp < 1e29)]
         return uv, float(t_rel.max()) if t_rel.numel() else 0.0
 
-    def compare_forest(kernel, sc, info, cam, rot, random_rays=True):
-        """A forest kernel against its plain version on `query_rays`."""
-        o, d, t_init = query_rays(cam, rot, *forest_box(sc), random_rays)
+    def fetch_rounds(box, leaf, live, info):
+        """The walk's dependent fetches a live ray, worked out from its
+        counters and not measured (2 box tests an inner node, 1 a leaf):
+        nodes_f and nodes_i made a node wait on its ids, then its
+        children's boxes, and a leaf on its ids, then its rows (box + 2
+        leaf); nodes_w makes a node wait on its one record and a leaf on
+        its rows (box / 2 + leaf). Both pop the local stack alike: at
+        least once after each leaf but an object's last."""
+        n = max(int(live.sum()), 1)
+        box, leaf = int(box[live].sum()), leaf[live]
+        return {"fetch_rounds_per_live_ray": {
+            "nodes_f_nodes_i": (box + 2 * int(leaf.sum())) / n,
+            "nodes_w": (box / 2 + int(leaf.sum())) / n,
+            "pops_at_least": int((leaf - info.num_objects).clamp(min=0)
+                                 .sum()) / n}}
+
+    cell_rays = {}
+
+    def cell_walks():
+        """{label: (scene, info, o, d, t_init)}: the first and the third
+        walk of one sample of the cell terrain181.progressive, as
+        traverse._query hands them to trace_forest. The cell's scene is
+        the terrain at one triangle a leaf under terrain_cam, its camera
+        rays 800x600 with the cell's focal distance 1.0 and no blur."""
+        if cell_rays:
+            return cell_rays
+        sc, info, build_s = terrain_scene(leaf=1)
+        o, d, state = sample_rays(*terrain_cam, 800, 600, focus=1.0,
+                                  blur=0.0)
+        alive = torch.ones(state.shape, dtype=torch.bool, device=dev)
+        queries = []
+
+        def walk(o, d, alive):
+            on = traverse.nudged(o, d)
+            queries.append(tuple(c.clone() for c in (
+                *on, *d, traverse._t_init(on[0], alive))))
+            return traverse.walk_triangles(o, d, sc, info, active=alive)
+
+        st = bounce.begin(o, d, alive, state, stack_size=10)
+        integrator._run_bounces(walk, bounce.bounce_step, sc, info, st,
+                                max_bounces=3)
+        leaf_sizes = sc.nodes_i[sc.nodes_i[:, 0] < 0, 3]
+        emit({"phase": "scenes", "terrain181_tris": info.num_tris,
+              "terrain181_leaves": info.num_leaves,
+              "terrain181_depth": info.forest_depth,
+              "terrain181_build_s": build_s}, log)
+        check(info.num_tris == 2 * (TERRAIN_N - 1) ** 2
+              and int(leaf_sizes.max()) == 1
+              and not wavefront.use_brute(info),
+              f"terrain181: leaves of {int(leaf_sizes.max())} triangles")
+        for label, k in (("terrain181_camera", 0), ("terrain181_bounce3", 2)):
+            q = queries[k]
+            cell_rays[label] = (sc, info, q[0:3], q[3:6], q[6])
+        return cell_rays
+
+    def compare_forest(kernel, sc, info, cam=None, rot=None,
+                       random_rays=True, rays=None, label=None):
+        """A forest kernel against its plain version on `query_rays`, or
+        on `rays` (o, d, t_init), then named `label` and required equal in
+        all six outputs."""
+        o, d, t_init = rays or query_rays(cam, rot, *forest_box(sc),
+                                          random_rays)
         n = t_init.shape[0]
         live = t_init > 0.0
         before = wavefront.launches[kernel]
@@ -2628,6 +2699,7 @@ def main() -> int:
         tri_tests = (int(live.sum()) * info.num_tris if kernel
                      == "brute_kernel" else leaf * int(leaf_sizes.min()))
         rec = {"phase": "kernel_vs_plain", "kernel": kernel,
+               **({"rays_of": label} if label else {}),
                "rays": n, "live_rays": int(live.sum()),
                "tris": info.num_tris, "leaves": info.num_leaves,
                "hit_share": float((ik >= 0).float().mean()),
@@ -2640,13 +2712,22 @@ def main() -> int:
                "box_tests": box, "leaf_visits": leaf,
                "tri_tests_at_least": tri_tests, "ms": ms,
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-               **least(n * (28 + 24) + table_bytes(sc, FOREST_TABLES),
+               **least(n * (28 + 24) + table_bytes(sc, FOREST_TABLES[kernel]),
                        box * OPS_BOX + tri_tests * OPS_TRI_DIV),
                "card": card}
+        if kernel == "traverse_kernel":
+            rec.update(fetch_rounds(bk, lk, live, info))
+        if label:
+            rec["equal"] = {k: bool(torch.equal(a, b)) for k, a, b in zip(
+                ("t", "u", "v", "idx", "box", "leaf"), out_k, out_p)}
         emit(rec, log)
         check(rec["idx_eq"] >= 0.999, f"{kernel}: rows equal on {rec}")
         check(err <= 1e-5, f"{kernel}: t, u, v differ by {err}")
         check(rec["t_miss_eq"] and rec["dead_exact"], f"{kernel}: {rec}")
+        if label:
+            check(all(rec["equal"].values()) and rec["hit_share"] > 0.0,
+                  f"{kernel} on {label}: {rec}")
+            return rec
         check(0.02 < rec["hit_share"] < 0.95, f"{kernel}: hits {rec}")
         if kernel == "traverse_kernel":
             check(rec["box_eq"] >= 0.999 and rec["leaf_eq"] >= 0.999,
@@ -2738,6 +2819,10 @@ def main() -> int:
                                random_rays=False)
     walk_rec = compare_forest("traverse_kernel", terrain, terrain_info,
                               *terrain_cam)
+    # and on the inputs of the cell terrain181.progressive
+    for label, (sc, info, o, d, t_init) in cell_walks().items():
+        compare_forest("traverse_kernel", sc, info, rays=(o, d, t_init),
+                       label=label)
     compare_block("config6", *scenes.BUILDERS[6]().build(device="cuda"),
                   *scenes.CAMERAS[6])
     block_rec = compare_block("obj_grid", grid, grid_info, *grid_cam)
@@ -3153,6 +3238,15 @@ def main() -> int:
                 "ms_change": sorted(times["change"])[1],
                 "ms_turns": times}
 
+    def walk_populations():
+        """{label: (scene, info, o, d, t_init)} of traverse_kernel's
+        comparisons with another checkout: the terrain's 960,000 mixed rays
+        (`query_rays`), and the cell terrain181.progressive's camera and
+        third-bounce walks (`cell_walks`)."""
+        return {"terrain_mixed": (terrain, terrain_info, *query_rays(
+                    *terrain_cam, *forest_box(terrain), True)),
+                **cell_walks()}
+
     def vs_tree(label, tree):
         """This checkout's kernels against another checkout's on the same
         inputs: outputs compared, device times in turns. Each library is
@@ -3184,22 +3278,27 @@ def main() -> int:
         # roots a launch walks)
         walks_differ = module_differs(tree, wavefront, "wavefront")
         if differs(tree, build, "forest_kernel") or walks_differ:
-            o, d, t_init = query_rays(*terrain_cam, *forest_box(terrain),
-                                      True)
-            out_p = tw.trace_forest(o, d, t_init, terrain, terrain_info)
-            out_c = wavefront.trace_forest(o, d, t_init, terrain,
-                                           terrain_info)
-            rec["traverse"] = {
-                "rays": int(t_init.shape[0]),
-                "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
-                                                   "box", "leaf")),
-                **turns(tree, lambda: tw.trace_forest(o, d, t_init, terrain,
-                                                terrain_info),
-                        lambda: wavefront.trace_forest(o, d, t_init, terrain,
-                                                       terrain_info),
-                        "traverse_kernel")}
-            check(min(rec["traverse"]["equal"].values()) >= 0.999,
-                  f"{label} against the change, traverse: {rec['traverse']}")
+            # traverse_kernel on every walk population, bits equal on
+            # every ray
+            rec["traverse"] = {}
+            for pop, (sc, info, o, d, t_init) in walk_populations().items():
+                out_p = tw.trace_forest(o, d, t_init, sc, info)
+                out_c = wavefront.trace_forest(o, d, t_init, sc, info)
+                cell = {
+                    "rays": int(t_init.shape[0]),
+                    "live_rays": int((t_init > 0.0).sum()),
+                    "equal": same_share(out_p, out_c, ("t", "u", "v", "idx",
+                                                       "box", "leaf")),
+                    **fetch_rounds(out_c[4], out_c[5], t_init > 0.0, info),
+                    **turns(tree,
+                            lambda o=o, d=d, t=t_init, sc=sc, info=info:
+                            tw.trace_forest(o, d, t, sc, info),
+                            lambda o=o, d=d, t=t_init, sc=sc, info=info:
+                            wavefront.trace_forest(o, d, t, sc, info),
+                            "traverse_kernel")}
+                rec["traverse"][pop] = cell
+                check(min(cell["equal"].values()) == 1.0,
+                      f"{label} against the change, traverse {pop}: {cell}")
             # brute_kernel: the OBJ grid's 480,000 primary rays (the main
             # path's batch) and 960,000 mixed ones
             rec["brute"] = {}

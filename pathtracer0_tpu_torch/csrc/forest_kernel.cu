@@ -40,14 +40,30 @@
 //                    a warp's lanes that are all between inner nodes step
 //                    together. The order of visits, the pruning and the
 //                    counters are those of a stack that pushes far, then
-//                    near, and pops. Persistent warps that take rays from
-//                    an atomic counter, the stack's top in shared memory
-//                    and 16-byte loads of a padded triangle table were
-//                    measured and not kept: none was faster on the
-//                    terrain's rays.
+//                    near, and pops.
+//                    The walk reads the table nodes_w (scene/packing.py
+//                    `walk_records`), not nodes_f and nodes_i: one 64-byte
+//                    record per inner node holds both children's boxes and
+//                    links, so a step waits on one fetch of four 16-byte
+//                    loads issued together, where the node's child ids and
+//                    then the children's boxes were two fetches one after
+//                    the other (Aila and Laine, HPG 2009). A link (record
+//                    or first wf_tris row, triangle count) names a leaf
+//                    too, so a leaf's rows are the next fetch after the
+//                    step or pop that reached it. The stack holds links.
+//                    The boxes are nodes_f's floats bit for bit and the
+//                    slab test is the same, so every visit, t, u, v, idx
+//                    and counter is the two-table walk's. Only the root's
+//                    own box test, once an object, reads nodes_f.
+//                    Persistent warps that take rays from an atomic
+//                    counter, the stack's top in shared memory and 16-byte
+//                    loads of a padded triangle table were measured and not
+//                    kept: none was faster on the terrain's rays.
 // The triangle test is the dividing Möller-Trumbore of the TPU kernels
 // (inv_det = 1/det, then multiply; strict t < closest, so the first row
-// wins a tie), not the division-free test of pathtrace.cuh:
+// tested wins a tie: brute_kernel's first in wf_tris order, the walk's
+// first in its order of visits), not the division-free test of
+// pathtrace.cuh:
 // csrc/tri_divide.cuh `test`. The slab test uses a reciprocal direction
 // clamped to +-1e30 so 0 * inf never happens.
 //
@@ -56,9 +72,13 @@
 // products, the edge vector, the reciprocal, three products by it and u +
 // v; the part before the pre-reject is 22 of them); the staged rows and
 // the pre-reject cut the loads and the operations a pair executes.
-// traverse_kernel the latency of dependent node and triangle loads from
-// L2 and divergence between the rays of a warp. Wider nodes are left for
-// later work.
+// traverse_kernel the latency of its chain of dependent loads from L2 (a
+// record a level, a leaf's rows, a pop from the local stack) and
+// divergence between the rays of a warp; its slab and triangle arithmetic
+// is ~1% of the card. Wider nodes would shorten the chain further but
+// change the order of visits, and with it which of two rows at an exact
+// tie in t is kept (the first visited), so they wait on a tie rule that
+// does not depend on the order.
 //
 // Build with -fmad=false and no fast math. Plain versions:
 // pathtracer0_tpu_torch/kernels/wavefront.py `brute_reference` and
@@ -72,10 +92,11 @@ struct ForestArgs {
   const float* o[3];
   const float* d[3];
   const float* t_init;
-  const float* nodes_f;  // (N, 8) min xyz, max xyz, pad, pad
-  const int* nodes_i;    // (N, 4) left, right, first wf_tris row, count
-  const float* tris;     // (T, 9) v1, e1, e2 in leaf order
-  const int* roots;      // (O,)
+  const float* nodes_f;     // (N, 8) min xyz, max xyz, pad, pad
+  const float4* nodes_w;    // (I, 4) records: 64 bytes, 64-byte aligned
+  const int2* root_links;   // (O,) the root of each of `roots` as a link
+  const float* tris;        // (T, 9) v1, e1, e2 in leaf order
+  const int* roots;         // (O,)
   float* t;
   float* u;
   float* v;
@@ -148,19 +169,25 @@ __device__ __forceinline__ float safe_inv(float d) {
   return inv < -1e30f ? -1e30f : (inv > 1e30f ? 1e30f : inv);
 }
 
-// Entry distance of the ray into node's box (0 from inside), MISS if it
-// passes by (frag.glsl:408-419).
+// Entry distance of the ray into the box lo, hi (0 from inside), MISS if
+// it passes by (frag.glsl:408-419).
+__device__ __forceinline__ float slab(float lx, float ly, float lz, float hx, float hy,
+                                      float hz, const Ray& r, float ix, float iy, float iz) {
+  const float tx1 = (lx - r.ox) * ix, tx2 = (hx - r.ox) * ix;
+  const float ty1 = (ly - r.oy) * iy, ty2 = (hy - r.oy) * iy;
+  const float tz1 = (lz - r.oz) * iz, tz2 = (hz - r.oz) * iz;
+  const float t_near = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  const float t_far = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return (t_far >= t_near && t_far > 0.0f) ? fmaxf(t_near, 0.0f) : MISS;
+}
+
+// The slab test of node's box in nodes_f.
 __device__ __forceinline__ float entry(const float* __restrict__ nodes_f, int node,
                                        const Ray& r, float ix, float iy, float iz) {
   const float4 lo = __ldg(reinterpret_cast<const float4*>(nodes_f) + 2 * node);
   const float4 hi = __ldg(reinterpret_cast<const float4*>(nodes_f) + 2 * node + 1);
   // lo = min x, min y, min z, max x; hi = max y, max z, pad, pad
-  const float tx1 = (lo.x - r.ox) * ix, tx2 = (lo.w - r.ox) * ix;
-  const float ty1 = (lo.y - r.oy) * iy, ty2 = (hi.x - r.oy) * iy;
-  const float tz1 = (lo.z - r.oz) * iz, tz2 = (hi.y - r.oz) * iz;
-  const float t_near = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
-  const float t_far = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-  return (t_far >= t_near && t_far > 0.0f) ? fmaxf(t_near, 0.0f) : MISS;
+  return slab(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, ix, iy, iz);
 }
 
 __global__ void __launch_bounds__(BLOCK) brute_kernel(ForestArgs a) {
@@ -197,36 +224,41 @@ __global__ void __launch_bounds__(BLOCK) traverse_kernel(ForestArgs a) {
   if (best.t > 0.0f) {
     const Ray ray = load_ray(a, r);
     const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy), iz = safe_inv(ray.dz);
-    int stack[STACK];
+    int2 stack[STACK];  // links: (record, 0) or (-1 - first row, count)
     for (int k = 0; k < a.n_roots; ++k) {
-      const int root = __ldg(a.roots + k);
-      if (entry(a.nodes_f, root, ray, ix, iy, iz) > best.t) continue;
-      int sp = 0, node = root;
-      for (;;) {
-        int4 n = __ldg(reinterpret_cast<const int4*>(a.nodes_i) + node);
-        while (n.x >= 0) {  // an inner node: on to the near child
+      if (entry(a.nodes_f, __ldg(a.roots + k), ray, ix, iy, iz) > best.t) continue;
+      int sp = 0;
+      int2 link = __ldg(a.root_links + k);
+      bool more = true;
+      while (more) {
+        while (link.x >= 0) {  // an inner node: on to the near child
           box += 2;
-          const float dl = entry(a.nodes_f, n.x, ray, ix, iy, iz);
-          const float dr = entry(a.nodes_f, n.y, ray, ix, iy, iz);
+          const float4* w = a.nodes_w + 4 * link.x;
+          const float4 q0 = __ldg(w), q1 = __ldg(w + 1), q2 = __ldg(w + 2);
+          const int4 q3 = __ldg(reinterpret_cast<const int4*>(w + 3));
+          // q0, q1.xy: the left child's box; q1.zw, q2: the right one's
+          const float dl = slab(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ray, ix, iy, iz);
+          const float dr = slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ray, ix, iy, iz);
+          const int2 left = make_int2(q3.x, q3.y), right = make_int2(q3.z, q3.w);
           const bool swap = dl > dr;
-          const int far_id = swap ? n.x : n.y, near_id = swap ? n.y : n.x;
+          const int2 far_l = swap ? left : right, near_l = swap ? right : left;
           const float far_d = swap ? dl : dr, near_d = swap ? dr : dl;
-          if (far_d < best.t && sp < STACK) stack[sp++] = far_id;
+          if (far_d < best.t && sp < STACK) stack[sp++] = far_l;
           if (near_d < best.t && sp < STACK) {
-            node = near_id;
+            link = near_l;
           } else if (sp > 0) {
-            node = stack[--sp];
+            link = stack[--sp];
           } else {
-            node = -1;
+            more = false;
             break;
           }
-          n = __ldg(reinterpret_cast<const int4*>(a.nodes_i) + node);
         }
-        if (node < 0) break;
+        if (!more) break;
         ++leaf;
-        for (int j = 0; j < n.w; ++j) tri_test(a.tris, n.z + j, ray, best);
-        if (sp == 0) break;
-        node = stack[--sp];
+        const int first = -1 - link.x;
+        for (int j = 0; j < link.y; ++j) tri_test(a.tris, first + j, ray, best);
+        more = sp > 0;
+        if (more) link = stack[--sp];
       }
     }
   }

@@ -15,15 +15,21 @@ operation.
 Both kernels start from a per-ray `t_init` (0 switches a lane off: it
 comes back t = 0, idx = -1, both counters 0) and use the dividing
 Möller-Trumbore test (kernels/intersect.tri_divide) with a strict
-t < closest, so the first triangle in leaf order wins a tie.
+t < closest, so the first row tested wins a tie: the first in wf_tris
+order for brute_kernel, the first in the walk's order of visits for the
+stack walk.
 
 The stack walk visits the objects in order, each pruned by the closest
 hit so far (frag.glsl:563-577), and inside an object pushes the far child
 first (frag.glsl:523-531). Its counters are per ray: 2 box tests for each
 internal node visited, 1 leaf visit for each leaf (the TPU kernel counted
-per block of rays). `walk_object` walks one object alone, as the debug
-heatmap counts it (traverse_kernel with that object's root as its only
-one). A walk never holds more than forest depth + 1 nodes:
+per block of rays). The plain version walks nodes_f and nodes_i; the
+kernel walks scene.nodes_w, one 64-byte record per inner node with both
+children's boxes and links (scene/packing.walk_records), which it must
+find on a 64-byte boundary: the same boxes and the same visits.
+`walk_object` walks one object alone, as the debug heatmap counts it
+(traverse_kernel with that object's root as its only one). A walk never
+holds more than forest depth + 1 nodes:
 the plain version sizes its stack tensor from `info.forest_depth`, the
 kernel has scene/packing.TRAVERSE_MAX_STACK entries per ray, and a deeper
 forest is refused when the scene is packed.
@@ -92,8 +98,9 @@ class _ForestArgs(ctypes.Structure):
     """csrc/forest_kernel.cu `ForestArgs`, field for field."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "nodes_f", "nodes_i",
-        "tris", "roots", "t", "u", "v", "idx", "box", "leaf")] + [
+        "ox", "oy", "oz", "dx", "dy", "dz", "t_init", "nodes_f", "nodes_w",
+        "root_links", "tris", "roots", "t", "u", "v", "idx", "box",
+        "leaf")] + [
         (n, ctypes.c_int) for n in ("n_rays", "n_roots", "n_tris",
                                     "n_leaves")]
 
@@ -211,7 +218,7 @@ def trace_forest(o, d, t_init, scene, info):
     if dev.type == "cpu":
         return trace_forest_reference(o, d, t_init, scene, info)
     return _launch_forest(o, d, t_init, scene, info, use_brute(info),
-                          scene.roots, info.num_objects)
+                          slice(0, info.num_objects))
 
 
 def walk_object(o, d, t_init, scene, info, k: int):
@@ -225,12 +232,12 @@ def walk_object(o, d, t_init, scene, info, k: int):
     if t_init.device.type == "cpu":
         return traverse_reference(o, d, t_init, scene, info, objects=(k,))
     return _launch_forest(o, d, t_init, scene, info, False,
-                          scene.roots[k:k + 1], 1)
+                          slice(k, k + 1))
 
 
-def _launch_forest(o, d, t_init, scene, info, brute, roots, n_roots):
+def _launch_forest(o, d, t_init, scene, info, brute, objects):
     """Launch brute_kernel (`brute`) or traverse_kernel over the objects
-    whose roots are the `n_roots` entries of `roots`."""
+    of the slice `objects` of the scene's roots."""
     dev = t_init.device
     if dev.type != "cuda":
         raise ValueError(f"no forest kernel for device {dev}")
@@ -244,20 +251,26 @@ def _launch_forest(o, d, t_init, scene, info, brute, roots, n_roots):
     t, u, v = (torch.empty(n_rays, dtype=f32, device=dev) for _ in range(3))
     idx, box, leaf = (torch.empty(n_rays, dtype=i32, device=dev)
                       for _ in range(3))
+    roots, root_links = scene.roots[objects], scene.root_links[objects]
     args = _ForestArgs(
         *(build.ptr(c, f32, dev) for c in rays),
         nodes_f=build.ptr(scene.nodes_f, f32, dev),
-        nodes_i=build.ptr(scene.nodes_i, i32, dev),
+        nodes_w=build.ptr(scene.nodes_w, i32, dev),
+        root_links=build.ptr(root_links, i32, dev),
         tris=build.ptr(scene.wf_tris, f32, dev),
         roots=build.ptr(roots, i32, dev),
         t=t.data_ptr(), u=u.data_ptr(), v=v.data_ptr(), idx=idx.data_ptr(),
         box=box.data_ptr(), leaf=leaf.data_ptr(), n_rays=n_rays,
-        n_roots=n_roots, n_tris=info.num_tris, n_leaves=info.num_leaves)
+        n_roots=roots.shape[0], n_tris=info.num_tris,
+        n_leaves=info.num_leaves)
     name = "brute_kernel" if brute else "traverse_kernel"
     if not brute and info.forest_depth + 1 > TRAVERSE_MAX_STACK:
         raise ValueError(f"forest depth {info.forest_depth} needs a stack "
                          f"of {info.forest_depth + 1}; the kernel has "
                          f"{TRAVERSE_MAX_STACK}")
+    if scene.nodes_w.data_ptr() % 64:
+        raise ValueError("nodes_w must start on a 64-byte boundary: the "
+                         "kernel reads a record as one 64-byte fetch")
     lib = build.load("forest_kernel")
     launch = lib.pt_launch_brute if brute else lib.pt_launch_traverse
     launch.argtypes = [ctypes.POINTER(_ForestArgs), ctypes.c_void_p]

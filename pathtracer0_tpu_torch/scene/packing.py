@@ -29,6 +29,14 @@ and the SAH forest (accel/bvh.py), one BVH per object:
   wf_perm   (T,)    i32  wf_tris row -> triangle id
   tri_obj   (T,)    i32  triangle id -> root node of its object
   roots     (O,)    i32  root node of each object
+  nodes_w   (I, 16) i32  the walk's table (`walk_records`): one 64-byte
+                         record per inner node, in node order, holding
+                         both children's boxes (float bits, as nodes_f
+                         has them) and their links
+  root_links (O, 2) i32  each object's root as a link
+
+A link is (record, 0) for an inner node and (-1 - first wf_tris row,
+triangles) for a leaf, so a leaf needs no record of its own.
 
 or, for a scene of more than `config.stream_threshold` triangles, no SAH
 forest (`info.num_objects` is 0 and `tri_obj` holds the object's ordinal)
@@ -145,6 +153,8 @@ class PackedScene:
     wf_perm: torch.Tensor
     tri_obj: torch.Tensor
     roots: torch.Tensor
+    nodes_w: torch.Tensor
+    root_links: torch.Tensor
     st_top: torch.Tensor
     st_sub: torch.Tensor
     st_tris: torch.Tensor
@@ -301,9 +311,34 @@ def _forest_tables(forest, tris, object_ranges):
     tri_obj = np.full(max(tris.shape[0], 1), -1, np.int32)
     for (start, end), root in zip(object_ranges, forest.roots):
         tri_obj[start:end] = root
+    nodes_w, root_links = walk_records(nodes_f, nodes_i, forest.roots)
     return dict(nodes_f=nodes_f, nodes_i=nodes_i, wf_tris=_pad1(tris[perm]),
                 wf_perm=_pad1(perm), tri_obj=tri_obj,
-                roots=_pad1(np.asarray(forest.roots, np.int32)))
+                roots=_pad1(np.asarray(forest.roots, np.int32)),
+                nodes_w=nodes_w, root_links=root_links)
+
+
+def walk_records(nodes_f, nodes_i, roots):
+    """(nodes_w, root_links) from the forest's nodes_f and nodes_i (module
+    docstring): record k is the k-th inner node in node order; its words
+    0-5 are the left child's nodes_f row 0-5 and 6-11 the right child's,
+    bit for bit, 12-13 the left child's link and 14-15 the right child's.
+    One zero record and one zero link where there is no forest."""
+    left, right, start, count = (nodes_i[:, k] for k in range(4))
+    inner = np.flatnonzero(left >= 0)
+    record = np.zeros(nodes_i.shape[0], np.int64)
+    record[inner] = np.arange(inner.size)
+
+    def links(node):
+        leaf = left[node] < 0
+        return np.stack([np.where(leaf, -1 - start[node], record[node]),
+                         np.where(leaf, count[node], 0)], 1).astype(np.int32)
+
+    boxes = nodes_f[:, 0:6].view(np.int32)
+    kids = (left[inner], right[inner])
+    nodes_w = np.concatenate([boxes[kids[0]], boxes[kids[1]],
+                              links(kids[0]), links(kids[1])], 1)
+    return _pad1(nodes_w), _pad1(links(np.asarray(roots, np.int64)))
 
 
 def _finish(*, tris, attr, uvt, mats, ell_tab, ell_rotated, imp_tab,

@@ -397,6 +397,63 @@ def test_deep_forest_takes_a_larger_stack_on_card():
     assert int(out_k[3].unique().numel()) > 80
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,leaf", [(40, 4), (40, 1), (24, 2)])
+def test_traverse_kernel_equals_the_plain_walk_on_card(n, leaf):
+    """traverse_kernel, which walks nodes_w, against traverse_reference,
+    which walks nodes_f and nodes_i: t, u, v, the row and both counters
+    equal on every ray, switched-off rays included."""
+    _card()
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    sc, info = _terrain_scene(n, leaf)
+    assert not wavefront.use_brute(info)
+    o, d, t_init = _forest_rays(8192)
+    out_k = wavefront.trace_forest(o, d, t_init, sc, info)
+    out_p = wavefront.traverse_reference(o, d, t_init, sc, info)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    assert 0.1 < float((out_k[3] >= 0).float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+def test_walk_object_equals_the_plain_walk_per_root_on_card():
+    """The heatmap's walks: walk_object of each root of a forest of a
+    terrain, a second mesh and a one-triangle object (a root that is a
+    leaf) equals traverse_reference of that object alone in all six
+    outputs."""
+    _card()
+    import numpy as np
+
+    from pathtracer0_tpu_torch.kernels import wavefront
+
+    xs = np.linspace(-6.0, 6.0, 30)
+    X, Z = np.meshgrid(xs, xs)
+    P = np.stack([X, np.sin(X) * np.cos(Z) * 0.5, Z + 8.0], axis=-1)
+    a, b, c, d_ = P[:-1, :-1], P[1:, :-1], P[:-1, 1:], P[1:, 1:]
+    v1 = np.concatenate([a.reshape(-1, 3), d_.reshape(-1, 3)])
+    v2 = np.concatenate([b.reshape(-1, 3)] * 2)
+    v3 = np.concatenate([c.reshape(-1, 3)] * 2)
+    sc = Scene()
+    sc.set_constant_sky((0.5, 0.6, 0.9))
+    sc.add_material("m")
+    sc.add_tri((-1.0, 1.5, 6.0), (1.0, 1.5, 6.0), (0.0, 2.5, 6.0), 0)
+    sc.add_mesh(v1, v2, v3, 0)
+    sc.add_mesh(v1 + (0.0, 1.0, 0.0), v2 + (0.0, 1.0, 0.0),
+                v3 + (0.0, 1.0, 0.0), 0)
+    scene, info = sc.build(config=RenderConfig(max_tris_in_leaf=2))
+    assert info.num_objects == 3
+    assert int(scene.root_links[0, 0]) < 0   # the triangle's root is a leaf
+    o, d, t_init = _forest_rays(8192)
+    for k in range(info.num_objects):
+        out_k = wavefront.walk_object(o, d, t_init, scene, info, k)
+        out_p = wavefront.traverse_reference(o, d, t_init, scene, info,
+                                             objects=(k,))
+        for x, y in zip(out_k, out_p):
+            assert torch.equal(x, y)
+        assert int((out_k[5] > 0).sum()) > 0
+
 # ---- the streamed route: the LBVH kernel -----------------------------------
 
 def _assert_streamed(out_k, out_p, t_init):

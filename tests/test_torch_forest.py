@@ -10,6 +10,7 @@ counters equal to `traverse._traverse_object`'s summed over the objects,
 surface_sample fields within 1e-5.
 """
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -449,7 +450,7 @@ def test_scene_from_numpy_carries_the_forest(pairs, name):
     p = pairs(name)
     sc2, info2 = _carried(p.dev, p.info)
     for field in ("nodes_f", "nodes_i", "wf_perm", "tri_obj", "roots",
-                  "attr", "uvt"):
+                  "nodes_w", "root_links", "attr", "uvt"):
         np.testing.assert_array_equal(getattr(sc2, field).numpy(),
                                       getattr(p.sc, field).numpy(), field)
     # edges: float32 differences of float32 vertices there, float64
@@ -468,7 +469,7 @@ def test_scene_from_numpy_mixed_scene_round_trip():
     dev, info, sc, pinfo = _mixed_pair()
     sc2, info2 = _carried(dev, info)
     for field in ("nodes_f", "nodes_i", "wf_perm", "tri_obj", "roots",
-                  "attr", "ell_tab", "materials"):
+                  "nodes_w", "root_links", "attr", "ell_tab", "materials"):
         np.testing.assert_array_equal(getattr(sc2, field).numpy(),
                                       getattr(sc, field).numpy(), field)
     np.testing.assert_allclose(sc2.uvt.numpy(), sc.uvt.numpy(), atol=1e-6)
@@ -546,3 +547,114 @@ def test_deep_forest_walk():
     tb, _, _, ib, _, _ = twavefront.brute_reference(*args)
     tw, _, _, iw, _, _ = twavefront.traverse_reference(*args)
     assert torch.equal(tb, tw) and torch.equal(ib, iw)
+
+
+# ---- the walk's record table (scene/packing.walk_records) -----------------
+
+def _multi_forest(tmp):
+    """Three objects at leaf 4: a 12x12 grid, 14 triangles SAH cannot split
+    (one leaf of 14 as the root) and one triangle (a one-leaf object)."""
+    grid, clump = str(tmp / "grid.obj"), str(tmp / "clump.obj")
+    _tri_grid_obj(grid, 12, 12)
+    _clump_obj(clump)
+    sc = Scene()
+    sc.set_constant_sky((0.3, 0.3, 0.3))
+    sc.add_material("m")
+    sc.add_object(grid, material=0)
+    sc.add_object(clump, material=0)
+    sc.add_tri((0.0, 0.0, 2.0), (1.0, 0.0, 2.0), (0.0, 1.0, 2.0), 0)
+    return sc.build(device="cpu", config=RenderConfig(max_tris_in_leaf=4))
+
+
+def _terrain181_tiny():
+    """configs/terrain181.tiny.json's scene: 2,178 triangles at leaf 1."""
+    from ptbench import bench
+
+    with open(bench.PKG / "configs" / "terrain181.tiny.json") as f:
+        tiny = json.load(f)
+    c = bench.cell("terrain181.progressive", {"config": tiny})
+    scene, info, _ = bench.build_program_scene(c.config, c.config_module,
+                                               torch.device("cpu"))
+    return scene, info
+
+
+@pytest.fixture(scope="module")
+def walk_scenes(pairs, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("walk")
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            if name == "terrain181":
+                cache[name] = _terrain181_tiny()
+            elif name == "multi":
+                cache[name] = _multi_forest(tmp)
+            else:
+                cache[name] = (pairs(name).sc, pairs(name).pinfo)
+        return cache[name]
+    return get
+
+
+def _decode(link, inner):
+    """(node id, first row, count) of the links (k, 2): an inner link's
+    node from `inner` (record -> node), rows -1 and count 0."""
+    link = link.to(torch.int64)
+    is_leaf = link[:, 0] < 0
+    inner = torch.cat([inner, inner.new_zeros(1)])   # for a forest of leaves
+    node = torch.where(is_leaf, -1, inner[link[:, 0].clamp(min=0)])
+    return (node, torch.where(is_leaf, -1 - link[:, 0], -1),
+            torch.where(is_leaf, link[:, 1], 0))
+
+
+def _expect(child, nodes_i):
+    """What a link of each node of `child` must decode to."""
+    n = nodes_i[child].to(torch.int64)
+    is_leaf = n[:, 0] < 0
+    return (torch.where(is_leaf, -1, child), torch.where(is_leaf, n[:, 2], -1),
+            torch.where(is_leaf, n[:, 3], 0))
+
+
+@pytest.mark.parametrize("name", ["terrain181", "multi", "many", "grid40"])
+def test_walk_records_relay_the_forest(walk_scenes, name):
+    """nodes_w holds one 64-byte record per inner node, 64-byte aligned:
+    both children's nodes_f boxes bit for bit, and links that decode to
+    the same children, or to the same leaf's first row and count; the
+    root links to each object's root."""
+    sc, info = walk_scenes(name)
+    nodes_i = sc.nodes_i.to(torch.int64)
+    inner = torch.nonzero(nodes_i[:, 0] >= 0).flatten()
+    w = sc.nodes_w
+    assert w.dtype == torch.int32 and w.is_contiguous()
+    assert w.shape == (max(inner.numel(), 1), 16)
+    assert w.shape[1] * w.element_size() == 64 and w.data_ptr() % 64 == 0
+    assert sc.root_links.shape == (info.num_objects, 2)
+    boxes = sc.nodes_f[:, 0:6].contiguous().view(torch.int32)
+    for side in (0, 1):
+        child = nodes_i[inner, side]
+        assert torch.equal(w[:inner.numel(), 6 * side:6 * side + 6],
+                           boxes[child])
+        got = _decode(w[:inner.numel(), 12 + 2 * side:14 + 2 * side], inner)
+        for a, b in zip(got, _expect(child, nodes_i)):
+            assert torch.equal(a, b)
+    roots = sc.roots.to(torch.int64)
+    for a, b in zip(_decode(sc.root_links, inner), _expect(roots, nodes_i)):
+        assert torch.equal(a, b)
+    if name in ("multi", "many"):   # objects whose root is a leaf
+        assert bool((sc.root_links[:, 0] < 0).any())
+    if name == "multi":
+        assert int(sc.root_links[1, 1]) == 14 and info.num_objects == 3
+
+
+def test_walk_records_of_a_scene_without_a_forest():
+    """A scene with no triangles keeps one zero record and one zero link,
+    so the kernel's pointers stay valid."""
+    sc = Scene()
+    sc.set_constant_sky((0.3, 0.3, 0.3))
+    sc.add_material("m")
+    sc.add_sphere((0.0, 0.0, 3.0), 1.0, m=0)
+    scene, info = sc.build(device="cpu")
+    assert info.num_objects == 0
+    assert tuple(scene.nodes_w.shape) == (1, 16)
+    assert tuple(scene.root_links.shape) == (1, 2)
+    assert not bool(scene.nodes_w.any()) and not bool(scene.root_links.any())
+
